@@ -17,6 +17,21 @@ from a seed):
   phase 4  save → load → predict (requests of 64, 1,000, 4,096 rows and a
            100,000-row batch); predict agrees with the fit labels ≥ 0.99
   phase 5  two fits of a 65,536-row slice give identical labels
+  phase 6  the flash-attention kernel against its plain version, at the LM
+           prefill's shape (B 4, S = T = 4,096, H 16, Hkv 8, hd 128, bf16,
+           causal) and at small shapes (f32 and bf16; causal, windowed,
+           non-causal; ragged S; S != T; grouped K/V), with times and
+           bounds; planted faults (causal mask off by one, the diagonal key
+           tile dropped, K/V heads mapped h % Hkv) must fail the check
+  phase 7  LM serving of internlm2-1.8b at full width and depth (24 layers,
+           d 2,048, bf16, weights drawn on the card from --seed): 4
+           requests of 4,096 prompt tokens, 32 new tokens each, greedy then
+           at temperature 0.8; one flash launch per layer per generate;
+           every layer's kernel output within the bf16 row limit of the
+           plain version on the same inputs (the planted faults fail it);
+           prefill logits through the kernel no further from a float32
+           truth than twice the plain bf16 attention's; two greedy runs
+           give the same tokens
 
 Any failed check raises, and the script exits non-zero. It exits non-zero
 before printing any result when no CUDA device is available or when the
@@ -25,11 +40,14 @@ package is not beside it. The last line is
 and power limit, and the one before that the kernels' JSON record.
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
-output written once) / 3.35 TB/s and (float32 operations) / 67 TFLOP/s,
-the published H100 SXM peaks (dense, without sparsity, at 700 W).
+output written once) / 3.35 TB/s and operations / the peak rate of their
+type: 67 TFLOP/s for float32 (the SC_RB kernels), 989 TFLOP/s for bf16 on
+the tensor cores (flash attention, counting the visible (q, k) pairs
+only), the published H100 SXM peaks (dense, without sparsity, at 700 W).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -42,6 +60,7 @@ SRC = ROOT / "src"
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 COVTYPE = ("covtype-mult", 7, 54, 581_012, "aniso")   # paper Table 1
 N_GRIDS = 256
@@ -49,6 +68,41 @@ EIG_BLOCK = 11            # LOBPCG block width at K = 7 (K + buffer 4)
 SERVE_REQUESTS = (64, 1_000, 4_096)
 SERVE_BATCH_ROWS = 100_000
 DETERMINISM_ROWS = 65_536
+FIT_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "kmeans_assign")
+
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH = 4               # requests served together (prefill_32k: 32)
+LM_PROMPT = 4_096          # prompt tokens each (prefill_32k: 32,768)
+LM_NEW = 32                # tokens generated each
+LM_CACHE = LM_PROMPT + LM_NEW
+LM_TEMPERATURE = 0.8
+# The bf16 prefill's logits are held against a float32 truth (the same
+# weights in float32, plain float32 attention): the kernel path's relative
+# L2 error may be at most LM_ERR_RATIO times the plain bf16 attention's.
+# Both round P to bf16 once, at different places (unnormalised in the
+# kernel, as the TPU kernel does; normalised in the plain version). This
+# end check is coarse (a causal mask off by one can pass it); each layer's
+# row check against the plain version is the one that tells a fault.
+LM_ERR_RATIO = 2.0
+FLASH_PATH = (LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 128)  # B S T H Hkv hd
+FLASH_SMALL = [  # b, s, t, h, hkv, hd, causal, window
+    (2, 128, 128, 3, 3, 32, True, None),
+    (2, 256, 256, 3, 3, 64, True, 40),         # sliding window
+    (2, 128, 128, 3, 3, 16, False, None),      # non-causal
+    (1, 1000, 1000, 2, 2, 128, True, None),    # ragged S and T
+    (1, 200, 333, 4, 2, 128, True, None),      # S < T, grouped K/V
+    (1, 333, 200, 4, 2, 160, True, None),      # S > T, head dim 160
+    (2, 300, 300, 4, 1, 160, False, 64),       # non-causal window
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 also holds each (b, s, h) row of hd outputs to a relative L2 error:
+# the kernel and its plain version round P and the output to bf16 at other
+# places, which costs a row ~3e-3 (at most 4.7e-3 for the TPU kernel in
+# interpret mode, tests/test_torch_kernels.py); a key too many or too few
+# moves a row over n keys by about 1/sqrt(n) (1.6e-2 at n = 4,096), a
+# dropped tile by more.
+FLASH_ROW_REL = 1e-2
+FLASH_TILE = 64            # keys per tile of the bf16 kernel
 
 
 def log(msg: str) -> None:
@@ -79,9 +133,10 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = f32_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -229,10 +284,13 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
         fail(f"gram_matmul differs from its plain version (max abs {err:.3g})")
     gram_ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
                                               csc=csc))
+    gram_plain_ms = time_ms(lambda: ref.z_matmul_ref(
+        idx, ref.zt_matmul_ref(idx, u, s, big_d), s), iters=3, warmup=1)
     gram_bound, gram_by = bound(idx_bytes + n * kb * 4 + n * 4 + n * kb * 4,
                                 4.0 * n * r * kb)
     log(f"[phase 2] gram_matmul (zt kernel + z kernel): ms={gram_ms:.4f} "
-        f"bound_ms={gram_bound:.4f} ({gram_by}) max_abs_err={err:.3g} ok")
+        f"plain_ms={gram_plain_ms:.4f} bound_ms={gram_bound:.4f} "
+        f"({gram_by}) max_abs_err={err:.3g} ok")
     # the dense LOBPCG algebra around each Gram product, at the same shape
     x_blk = torch.linalg.qr(u)[0]
     w_blk = torch.randn((n, kb), generator=g, device=dev)
@@ -311,7 +369,7 @@ def phase3_fit(x_np, y_np, cfg):
     log(f"[phase 3] max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"[phase 3] kernel launches during the fit: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in FIT_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"the fit launched no {missing} kernel")
     if res.labels.shape != (x_np.shape[0],):
@@ -371,7 +429,274 @@ def phase5_determinism(x_np, cfg):
         fail(f"two fits differ in {int((a != b).sum())} labels")
 
 
+def row_error(got, want) -> float:
+    """Largest relative L2 error over the rows (last axis) of ``got``."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    return float((err / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def planted_faults() -> dict:
+    """Causal attention with a planted fault, each computed by the plain
+    version: what a kernel with that bug returns. ``ops.flash_attention``'s
+    signature, for the prefill's case (causal, no window)."""
+    import torch
+
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
+
+    def off_by_one(q, k, v, *, causal=True, window=None):
+        # the causal mask lets key qpos + 1 through
+        q1 = torch.cat([torch.zeros_like(q[:, :1]), q], dim=1)
+        return plain(q1, k, v)[:, 1:]
+
+    def diagonal_tile_dropped(q, k, v, *, causal=True, window=None):
+        # each block of rows skips its last live key tile
+        out = torch.zeros_like(q)
+        for r0 in range(FLASH_TILE, q.shape[1], FLASH_TILE):
+            rows = slice(r0, r0 + FLASH_TILE)
+            out[:, rows] = plain(q[:, rows], k[:, :r0], v[:, :r0],
+                                 causal=False)
+        return out
+
+    def heads_mixed(q, k, v, *, causal=True, window=None):
+        # head h reads kv head h % Hkv, not h // (H / Hkv)
+        rep = q.shape[2] // k.shape[2]
+        return plain(q, k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1))
+
+    return {"causal mask off by one": off_by_one,
+            "diagonal key tile dropped": diagonal_tile_dropped,
+            "kv heads mapped h % Hkv": heads_mixed}
+
+
+def visible_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask lets through, per (batch, head)."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def phase6_flash(seed: int) -> dict:
+    """The flash kernel against its plain version: every small case, then
+    the LM prefill's shape with times, bound and SDPA as the yardstick, and
+    the planted faults against the same check."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs(b, s, t, h, hkv, hd, dtype):
+        dt = getattr(torch, dtype)
+        return (torch.randn((b, s, h, hd), generator=g, device=dev).to(dt),
+                torch.randn((b, t, hkv, hd), generator=g, device=dev).to(dt),
+                torch.randn((b, t, hkv, hd), generator=g, device=dev).to(dt))
+
+    def check(what, got, want, dtype) -> tuple[float, float]:
+        tol = FLASH_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        row = row_error(got, want)
+        if bool((err > tol * (1 + want.float().abs())).any()) \
+                or (dtype == "bfloat16" and row > FLASH_ROW_REL):
+            fail(f"flash_attention {what} differs from its plain version: "
+                 f"max abs {float(err.max()):.3g} (limit {tol} (1 + |want|))"
+                 f", row error {row:.3g} (bf16 limit {FLASH_ROW_REL})")
+        return float(err.max()), row
+
+    for case in FLASH_SMALL:
+        b, s, t, h, hkv, hd, causal, window = case
+        for dtype in FLASH_TOL:
+            q, k, v = inputs(b, s, t, h, hkv, hd, dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = plain(q, k, v, causal=causal, window=window)
+            err, row_err = check(f"{case} {dtype}", got, want, dtype)
+            log(f"[phase 6] flash_attention {case} {dtype}: max_abs_err="
+                f"{err:.3g} row error {row_err:.3g} ok")
+
+    b, s, t, h, hkv, hd = FLASH_PATH
+    q, k, v = inputs(b, s, t, h, hkv, hd, "bfloat16")
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = plain(q, k, v, causal=True)
+    err, row_err = check(f"at the prefill's shape {FLASH_PATH}", got, want,
+                     "bfloat16")
+    del got
+    for name, fault in planted_faults().items():
+        row_f = row_error(fault(q, k, v), want)
+        log(f"[phase 6] planted fault at the prefill's shape, {name}: row "
+            f"error {row_f:.3g} (limit {FLASH_ROW_REL}) -> fails the check")
+        if row_f <= FLASH_ROW_REL:
+            fail(f"the flash check passes a planted fault ({name})")
+    del want
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=20)
+    plain_ms = time_ms(lambda: plain(q, k, v, causal=True), iters=3,
+                       warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    pairs = visible_pairs(s, t, True, None)
+    b_ms, b_by = bound(2 * (2 * b * s * h * hd + 2 * b * t * hkv * hd),
+                       4.0 * hd * pairs * b * h, PEAK_BF16_OPS_PER_S)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:98",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
+    log(f"[phase 6] flash_attention B={b} S={s} T={t} H={h} Hkv={hkv} "
+        f"hd={hd} bf16 causal: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f} (SDPA) "
+        f"max_abs_err={err:.3g} row error {row_err:.3g} ok; "
+        f"{4.0 * hd * pairs * b * h / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
+def phase7_lm(seed: int) -> int:
+    """LM serving at full width; returns the flash launches of one
+    generate."""
+    import copy
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    log(f"[phase 7] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, {cfg.dtype}: {n_params} "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+
+    def prefill_logits(attn, cfg_, params_):
+        """Last-position prefill logits with ``attn`` as the flash op."""
+        with mock.patch.object(ops, "flash_attention", attn):
+            return T.prefill(cfg_, params_, batch,
+                             T.init_cache(cfg_, LM_BATCH, LM_CACHE))[0]
+
+    def checked(attn, rows: list):
+        """``attn``, with each layer's row error against the plain version
+        on the same inputs appended to ``rows``."""
+        def run(q, k, v, *, causal=True, window=None):
+            out = attn(q, k, v, causal=causal, window=window)
+            rows.append(row_error(out, plain(q, k, v, causal=causal,
+                                              window=window)))
+            return out
+        return run
+
+    # every layer's kernel output against the plain version on its inputs;
+    # the prefill logits through the kernel and through the plain
+    # attention, both against the float32 truth
+    rows: list = []
+    logits = prefill_logits(checked(ops.flash_attention, rows), cfg, params)
+    plain_logits = prefill_logits(plain, cfg, params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    truth = prefill_logits(plain, cfg32, params32)
+    del params32
+    torch.cuda.empty_cache()
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    err_k, err_p = rel(logits, truth), rel(plain_logits, truth)
+    top1 = float((logits.argmax(-1) == truth.argmax(-1)).float().mean())
+    log(f"[phase 7] kernel vs plain attention on each layer's prefill "
+        f"inputs (B={LM_BATCH} S={LM_PROMPT} H={cfg.n_heads} "
+        f"Hkv={cfg.n_kv_heads}): row error max {max(rows):.3g} over "
+        f"{len(rows)} layers (limit {FLASH_ROW_REL}), layer 0 {rows[0]:.3g}")
+    if len(rows) != cfg.n_layers or max(rows) > FLASH_ROW_REL:
+        fail(f"the kernel's attention in prefill differs from the plain "
+             f"version: row errors {rows}")
+    log(f"[phase 7] prefill logits vs the float32 truth (rel L2): kernel "
+        f"{err_k:.4g}, plain bf16 attention {err_p:.4g} (kernel vs plain "
+        f"{rel(logits, plain_logits):.4g}); max abs kernel "
+        f"{float((logits - truth).abs().max()):.3g}, |logits| max "
+        f"{float(truth.abs().max()):.3g}; top-1 agreement with the truth "
+        f"{top1:.2f}")
+    if not bool(torch.isfinite(logits).all()) \
+            or err_k > LM_ERR_RATIO * err_p:
+        fail(f"prefill logits through the kernel are {err_k:.4g} off the "
+             f"float32 truth, more than {LM_ERR_RATIO} x the plain "
+             f"attention's {err_p:.4g}")
+    for name, fault in planted_faults().items():
+        rows_f: list = []
+        err_f = rel(prefill_logits(checked(fault, rows_f), cfg, params),
+                    truth)
+        log(f"[phase 7] planted fault, {name}: layer row error max "
+            f"{max(rows_f):.3g}, layer 0 {rows_f[0]:.3g} (limit "
+            f"{FLASH_ROW_REL}); logits {err_f:.4g} off the truth, "
+            f"{err_f / err_p:.3g} x the plain attention's (the logit gate "
+            f"{'fails' if err_f > LM_ERR_RATIO * err_p else 'passes'} it)")
+        if rows_f[0] <= FLASH_ROW_REL:
+            fail(f"the per-layer check passes a planted fault ({name})")
+    del logits, plain_logits, truth
+
+    engine = Engine(cfg, params, ServeConfig(cache_len=LM_CACHE,
+                                             batch_size=LM_BATCH))
+    engine.generate(prompts[:, :256], 2)                    # warm up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    greedy = engine.generate(prompts, LM_NEW, seed=seed)
+    launches = ops.launch_counts()["flash_attention"]
+    st = engine.last_stats
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_tok = LM_BATCH * st["decode_steps"]
+    log(f"[phase 7] generate greedy: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each: prefill {st['prefill_s']:.4f}s "
+        f"({st['prompt_tokens'] / st['prefill_s']:.0f} prompt tokens/s), "
+        f"time to first token {st['ttft_s']:.4f}s, decode "
+        f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step over "
+        f"{st['decode_steps']} steps ({decode_tok / st['decode_s']:.1f} "
+        f"tokens/s), peak device memory {peak:.3f} GiB")
+    log(f"[phase 7] flash_attention launches in one generate: {launches} "
+        f"(layers: {cfg.n_layers}); all launches {ops.launch_counts()}")
+    if launches != cfg.n_layers:
+        fail(f"one generate launched the flash kernel {launches} times, "
+             f"not once per layer ({cfg.n_layers})")
+    if greedy.shape != (LM_BATCH, LM_NEW) or greedy.min() < 0 \
+            or greedy.max() >= cfg.vocab_size:
+        fail(f"greedy tokens of shape {greedy.shape} out of the vocabulary")
+    again = engine.generate(prompts, LM_NEW, seed=seed)
+    if not np.array_equal(greedy, again):
+        fail(f"two greedy generates differ in {int((greedy != again).sum())}"
+             " tokens")
+    log(f"[phase 7] two greedy generates: identical tokens "
+        f"(first request: {greedy[0, :8].tolist()} ...)")
+
+    sampler = Engine(cfg, params, ServeConfig(
+        cache_len=LM_CACHE, batch_size=LM_BATCH, temperature=LM_TEMPERATURE))
+    hot = sampler.generate(prompts, LM_NEW, seed=seed)
+    st = sampler.last_stats
+    same = np.array_equal(hot, sampler.generate(prompts, LM_NEW, seed=seed))
+    log(f"[phase 7] generate at temperature {LM_TEMPERATURE}: ttft "
+        f"{st['ttft_s']:.4f}s, decode "
+        f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step; tokens "
+        f"differ from greedy in {int((hot != greedy).sum())} of {hot.size}; "
+        f"same seed, same tokens = {same}")
+    if not same or hot.min() < 0 or hot.max() >= cfg.vocab_size:
+        fail("sampling at a temperature is not reproducible from its seed")
+    return launches
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the LM weights, prompts and samples")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the repro_torch package is not beside {Path(__file__).name}")
@@ -418,6 +743,18 @@ def main() -> None:
     t0 = time.perf_counter()
     phase5_determinism(x_np, cfg)
     log(f"[phase 5] {time.perf_counter() - t0:.1f}s")
+    del model, x_np, y_np
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flash = phase6_flash(args.seed)
+    torch.cuda.empty_cache()
+    log(f"[phase 6] {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    flash["launches"] = phase7_lm(args.seed)
+    kernels.append(flash)
+    log(f"[phase 7] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -41,6 +41,8 @@ LIBRARIES: Dict[str, tuple] = {
         + [_P]}),
     "kmeans_assign": ("kmeans_assign.cu", {
         "kmeans_assign_launch": [_P] * 4 + [_I] * 3 + [_P]}),
+    "flash_attention": ("flash_attention.cu", {
+        "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_P]}),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

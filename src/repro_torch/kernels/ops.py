@@ -27,7 +27,7 @@ IMPLS = ("auto", "pallas", "xla")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0, "zt_matmul": 0,
-                            "kmeans_assign": 0}
+                            "kmeans_assign": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -297,3 +297,66 @@ def kmeans_assign(
             dist.data_ptr(), n, d, k)
     LAUNCHES["kmeans_assign"] += 1
     return labels, dist
+
+
+# --------------------------------------------------------------------------
+# flash attention (forward): the LM stack's prefill
+# --------------------------------------------------------------------------
+
+#: Head dims the kernel is instantiated for: those of the dense configs
+#: (128, 160) and of the tests.
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)
+_MAX_GRID_Y = 65535
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, Hkv, hd), Hkv divides H
+    v: torch.Tensor,          # (B, T, Hkv, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Online-softmax attention; the scores never reach device memory.
+
+    The JAX package's signature and layout. K and V may also hold fewer
+    heads than Q (grouped-query attention: head ``h`` reads kv head
+    ``h // (H // Hkv)``), which saves the prefill a repeated copy."""
+    _check_impl(impl)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, S, H, hd) and k, v (B, T, Hkv, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or hkv == 0 or h % hkv:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                            window=window)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _require(x, name, (torch.float32, torch.bfloat16), 4)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} has no kernel; options "
+                         f"{FLASH_HEAD_DIMS}")
+    if t == 0:
+        raise ValueError("attention over no keys")
+    if -(-s // 32) > _MAX_GRID_Y or b * h > _I32_MAX:
+        raise ValueError(f"S = {s} or B·H = {b * h} is too large")
+    out = torch.empty_like(q)
+    if b * s * h == 0:
+        return out
+    _launch("flash_attention", "flash_attention_launch", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, h, hkv, hd, int(causal), window or 0,
+            int(q.dtype == torch.bfloat16))
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -14,6 +14,8 @@ bit patterns; ``_u32`` recovers the unsigned value.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Knuth multiplicative-hash constant (2^32 / golden ratio, odd).
@@ -126,3 +128,63 @@ def kmeans_assign_ref(
     d2 = x2 - 2.0 * (x @ centroids.T) + c2[None, :]
     best, labels = torch.min(d2, dim=-1)
     return labels.to(torch.int32), torch.clamp_min(best, 0.0)
+
+
+#: Elements of float32 scores one step of the plain attention holds (1 GiB).
+_SCORE_ELEMS = 1 << 28
+
+
+def flash_attention_ref(
+    q: torch.Tensor,          # (BH, S, hd)
+    k: torch.Tensor,          # (BH, T, hd)
+    v: torch.Tensor,          # (BH, T, hd)
+    *,
+    causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """Dense softmax attention, the flash kernel's plain version.
+
+    Scores in float32 (bf16 inputs are exact in float32), masked to -1e30
+    (causal: ``kpos <= qpos``; window: ``kpos > qpos - window``, positions
+    from 0 for both), softmax in float32, probabilities cast to ``v``'s
+    dtype and multiplied in float32, output in ``q``'s dtype. Runs over
+    (batch·head) in steps of at most 2^28 score elements."""
+    bh, s_len, hd = q.shape
+    t_len = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(s_len, device=q.device)[:, None]
+    kpos = torch.arange(t_len, device=q.device)[None, :]
+    allow = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= kpos <= qpos
+    if window is not None:
+        allow &= kpos > qpos - window
+    out = torch.empty_like(q)
+    step = max(1, _SCORE_ELEMS // max(s_len * t_len, 1))
+    for i in range(0, bh, step):
+        scores = torch.matmul(q[i:i + step].float(),
+                              k[i:i + step].float().transpose(1, 2)) * scale
+        scores = scores.masked_fill_(~allow, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+        del scores
+        out[i:i + step] = torch.matmul(probs, v[i:i + step].float()).to(q.dtype)
+    return out
+
+
+def flash_attention_bshd_ref(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, Hkv, hd), Hkv divides H
+    v: torch.Tensor,          # (B, T, Hkv, hd)
+    *,
+    causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """``flash_attention_ref`` in ``ops.flash_attention``'s layout: head
+    ``h`` reads kv head ``h // (H // Hkv)``. Returns (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    fold = lambda x: x.transpose(1, 2).reshape(b * h, x.shape[1], hd)
+    k, v = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+    out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                              window=window)
+    return out.reshape(b, h, s, hd).transpose(1, 2).contiguous()

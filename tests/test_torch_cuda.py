@@ -10,13 +10,22 @@ assignment labels exact; float32 products within 1e-6 + 1e-5·Σ|terms| (the
 summation order differs, and a sum that cancels is only as exact as its
 terms are large); bfloat16 V within one bfloat16 rounding of the output
 (2^-8 relative) on top of that. The ``zt`` kernel must give the same bits
-on every run (no atomics).
+on every run (no atomics). Flash attention: float32 within 2e-5, bfloat16
+within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
+before normalising, the plain version after). The LM serving path on the
+card: one flash launch per layer in a generate, and float32 logits within
+1e-4 of the same model on the CPU.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.kernels import ops, ref
+from repro_torch.models import transformer as T
+from repro_torch.serve import engine as E
 
 BF16_RTOL = 2.0 ** -8
 RB_SHAPES = [(64, 2, 8, 64), (100, 3, 16, 128), (256, 7, 4, 256),
@@ -124,3 +133,82 @@ def test_cuda_counts_launches(cuda):
     ops.kmeans_assign(x, x[:2].contiguous())
     ref.kmeans_assign_ref(x, x[:2])
     assert ops.launch_counts()["kmeans_assign"] == 1
+
+
+# --------------------------------------------------------------------------
+# flash attention and the LM serving path
+# --------------------------------------------------------------------------
+
+FLASH_CASES = [  # b, s, t, h, hkv, hd, causal, window
+    (2, 64, 64, 3, 3, 16, True, None),
+    (2, 128, 128, 3, 3, 32, True, None),
+    (2, 64, 64, 3, 3, 16, True, 24),           # sliding window
+    (2, 128, 128, 3, 3, 16, False, None),      # non-causal
+    (1, 1000, 1000, 2, 2, 64, True, None),     # ragged S and T
+    (1, 1000, 1000, 2, 2, 128, True, 100),     # ragged, window across tiles
+    (1, 200, 333, 4, 2, 128, True, None),      # S < T, grouped kv
+    (1, 333, 200, 4, 2, 160, True, None),      # S > T, head dim 160
+    (2, 300, 300, 4, 1, 160, False, 64),       # non-causal window
+    (1, 4096, 4096, 2, 1, 128, True, None),    # the prefill's length
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention(cuda, case, dtype):
+    b, s, t, h, hkv, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(s * hd + t)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, hd), generator=g, device=cuda).to(dt)
+    k = torch.randn((b, t, hkv, hd), generator=g, device=cuda).to(dt)
+    v = torch.randn((b, t, hkv, hd), generator=g, device=cuda).to(dt)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                        window=window).float()
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        # P and the output round to bf16 at other places than in the plain
+        # version: ~3e-3 relative per row; a key too many or too few per
+        # row moves a row by far more than 1e-2
+        row_err = (got.float() - want).norm(dim=-1) \
+            / want.norm(dim=-1).clamp_min(1e-30)
+        assert float(row_err.max()) <= 1e-2
+
+
+def test_cuda_flash_attention_rejects_unbuilt_head_dim(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_generate_launches_flash_once_per_layer(cuda, dtype):
+    cfg = dataclasses.replace(configs.smoke_config("internlm2-1.8b"),
+                              dtype=dtype)
+    model = T.init_params(cfg, 0)
+    engine = E.Engine(cfg, model, E.ServeConfig(cache_len=40, batch_size=2))
+    prompts = np.arange(64).reshape(2, 32) % cfg.vocab_size
+    ops.reset_launch_counts()
+    out = engine.generate(prompts, 6)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert out.shape == (2, 6)
+    assert np.array_equal(out, engine.generate(prompts, 6))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "stablelm-12b"])
+def test_cuda_prefill_and_decode_match_cpu(cuda, arch):
+    cfg = configs.smoke_config(arch)
+    cpu = T.init_params(cfg, 0, device="cpu")
+    gpu = T.init_params(cfg, 0, device="cpu").to(cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    logits = []
+    for model in (cpu, gpu):
+        caches = T.init_cache(cfg, 2, 40, device=model.device)
+        first, caches = T.prefill(cfg, model, {"tokens": toks[:, :32]},
+                                  caches)
+        nxt, _ = T.decode_step(cfg, model, toks[:, 32], caches, 32)
+        logits.append((first.cpu(), nxt.cpu()))
+    for want, got in zip(*logits):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

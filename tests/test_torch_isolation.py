@@ -33,12 +33,38 @@ print("LOADED", loaded)
 sys.exit(1 if loaded else 0)
 """
 
+GENERATE_SCRIPT = """
+import sys
+import numpy as np
+from repro_torch import configs
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import Engine, ServeConfig
+cfg = configs.smoke_config("internlm2-1.8b")
+model = T.init_params(cfg, 0, device="cpu")
+engine = Engine(cfg, model, ServeConfig(cache_len=16, batch_size=2),
+                device="cpu")
+out = engine.generate(np.arange(16).reshape(2, 8) % cfg.vocab_size, 4)
+assert out.shape == (2, 4)
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
 
-def test_cpu_fit_in_a_fresh_process_loads_no_jax():
+
+def _run_alone(script: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", FIT_SCRIPT], env=env,
+    out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cpu_fit_in_a_fresh_process_loads_no_jax():
+    _run_alone(FIT_SCRIPT)
+
+
+def test_cpu_generate_in_a_fresh_process_loads_no_jax():
+    _run_alone(GENERATE_SCRIPT)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -60,3 +86,15 @@ def test_entry_points_raise_without_a_card():
         sc_rb(x, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SCRBModel.load(str(ROOT / "tests" / "data" / "tiny_model_v1.npz"))
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, ServeConfig
+    lm = configs.smoke_config("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(lm, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(lm, 1, 8)
+    model = T.init_params(lm, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(lm, model, ServeConfig(cache_len=8, batch_size=1))

@@ -177,3 +177,113 @@ def test_wrappers_reject_bad_input():
                      impl="cuda")
     with pytest.raises(ValueError, match="power of two"):
         ops.rb_binning(*_torch_rb(*_rb_inputs(0, 4, 2, 2)), d_g=3)
+
+
+# --------------------------------------------------------------------------
+# flash attention: the plain version (what the CPU path runs) against the
+# JAX package's XLA oracle and its Pallas kernel in interpret mode, over
+# tests/test_kernels.py's grid; f32 within 2e-5, bf16 within 3e-2 (the JAX
+# test's tolerances: bf16 rounds P at another place than the oracle)
+# --------------------------------------------------------------------------
+
+FLASH_GRID = [(64, 64, 16, True, None), (128, 128, 32, True, None),
+              (64, 64, 16, True, 24), (128, 128, 16, False, None)]
+
+
+def _flash_inputs(seed, b, s, t, h, hkv, hd, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(b, s, h, hd)), rng.normal(size=(b, t, hkv, hd)),
+            rng.normal(size=(b, t, hkv, hd)))
+    # round to the working dtype once, so both packages see the same values
+    ts = [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+          for a in arrs]
+    js = [jnp.asarray(x.float().numpy()).astype(getattr(jnp, dtype))
+          for x in ts]
+    return ts, js
+
+
+def _flash_close(got, want, dtype):
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("s,t,hd,causal,window", FLASH_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("jimpl", ["xla", "pallas"])
+def test_flash_attention_plain_matches_reference(s, t, hd, causal, window,
+                                                 dtype, jimpl):
+    (q, k, v), (jq, jk, jv) = _flash_inputs(s + hd, 2, s, t, 3, 3, hd, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                impl=jimpl)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (1000, 1000, True, None),    # ragged: no divisor rule on S or T
+    (1000, 1000, True, 100),
+    (48, 80, True, None),        # S < T, top-left aligned causal mask
+    (80, 48, True, None),        # S > T
+    (40, 72, False, 16),         # non-causal with a window
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_and_rectangular(s, t, causal, window, dtype):
+    b, h, hd = 1, 2, 32
+    (q, k, v), (jq, jk, jv) = _flash_inputs(s * t, b, s, t, h, h, hd, dtype)
+    fold = lambda x: x.transpose(0, 2, 1, 3).reshape(b * h, x.shape[1], hd)
+    want = jref.flash_attention_ref(fold(jq), fold(jk), fold(jv),
+                                    causal=causal, window=window)
+    want = np.asarray(want, np.float32).reshape(b, h, s, hd)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    _flash_close(got, want.transpose(0, 2, 1, 3), dtype)
+
+
+def test_flash_attention_grouped_kv_matches_repeated():
+    """K/V at fewer heads (grouped-query) equal K/V repeated to H heads, the
+    JAX package's public layout."""
+    (q, k, v), (jq, jk, jv) = _flash_inputs(5, 2, 64, 64, 4, 2, 16,
+                                            "float32")
+    want = jops.flash_attention(jq, jnp.repeat(jk, 2, axis=2),
+                                jnp.repeat(jv, 2, axis=2), impl="xla")
+    _flash_close(ops.flash_attention(q, k, v), want, "float32")
+
+
+def _row_error(got, want):
+    """Largest relative L2 error over the rows (last axis)."""
+    f32 = lambda x: x.float() if torch.is_tensor(x) \
+        else torch.from_numpy(np.asarray(x, np.float32))
+    got, want = f32(got), f32(want)
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    return float(err.max())
+
+
+def test_flash_bf16_row_limit_passes_the_tpu_kernel_and_fails_a_fault():
+    """The card's bf16 check holds each (b, s, h) row to relative L2 1e-2.
+    The TPU kernel (64×64 blocks, P rounded unnormalised) stays well inside
+    it against the plain version; one key too many per row does not."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+    (q, k, v), (jq, jk, jv) = _flash_inputs(11, 1, 1024, 1024, 2, 2, 128,
+                                            "bfloat16")
+    fold = lambda x: jnp.transpose(x, (0, 2, 1, 3)).reshape(2, 1024, 128)
+    tpu = flash_attention_pallas(fold(jq), fold(jk), fold(jv), block_q=64,
+                                 block_kv=64, interpret=True)
+    tpu = np.asarray(tpu, np.float32).reshape(1, 2, 1024, 128)
+    want = ops.flash_attention(q, k, v)
+    assert _row_error(tpu.transpose(0, 2, 1, 3), want) <= 1e-2
+    # the causal mask off by one: query i also sees key i + 1
+    q1 = torch.cat([torch.zeros_like(q[:, :1]), q], dim=1)
+    assert _row_error(ops.flash_attention(q1, k, v)[:, 1:], want) > 1e-2
+
+
+def test_flash_attention_rejects_bad_input():
+    q = torch.zeros((1, 8, 4, 16))
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                            torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_attention(q, q, q, impl="cuda")
