@@ -12,7 +12,8 @@ from a seed):
 
   phase 0  card and library versions
   phase 1  kernel build
-  phase 2  every kernel against its plain version, with times and bounds
+  phase 2  every kernel against its plain version, with times and bounds,
+           and zt's L2 gather volume
   phase 3  SCRBModel.fit on the card; every kernel's launch count > 0
   phase 4  save → load → predict (requests of 64, 1,000, 4,096 rows and a
            100,000-row batch); predict agrees with the fit labels ≥ 0.99
@@ -21,8 +22,10 @@ from a seed):
            prefill's shape (B 4, S = T = 4,096, H 16, Hkv 8, hd 128, bf16,
            causal) and at small shapes (f32 and bf16; causal, windowed,
            non-causal; ragged S; S != T; grouped K/V), with times and
-           bounds; planted faults (causal mask off by one, the diagonal key
-           tile dropped, K/V heads mapped h % Hkv) must fail the check
+           bounds, and at stablelm-12b's head dim 160 (B 1, S = T = 4,096,
+           H 32, Hkv 8) beside SDPA; planted faults (causal mask off by
+           one, the diagonal 64-key tile dropped, K/V heads mapped h % Hkv)
+           must fail the check
   phase 7  LM serving of internlm2-1.8b at full width and depth (24 layers,
            d 2,048, bf16, weights drawn on the card from --seed): 4
            requests of 4,096 prompt tokens, 32 new tokens each, greedy then
@@ -68,7 +71,8 @@ EIG_BLOCK = 11            # LOBPCG block width at K = 7 (K + buffer 4)
 SERVE_REQUESTS = (64, 1_000, 4_096)
 SERVE_BATCH_ROWS = 100_000
 DETERMINISM_ROWS = 65_536
-FIT_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "kmeans_assign")
+FIT_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "gram_matmul",
+               "kmeans_assign")
 
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
@@ -103,6 +107,9 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # dropped tile by more.
 FLASH_ROW_REL = 1e-2
 FLASH_TILE = 64            # keys per tile of the bf16 kernel
+# stablelm-12b's attention (configs/stablelm_12b.py: 32 heads, 8 KV heads,
+# head dim 160) at one request of 4,096 tokens: timed beside SDPA
+FLASH_HD160 = (1, 4_096, 4_096, 32, 8, 160)       # B S T H Hkv hd
 
 
 def log(msg: str) -> None:
@@ -252,8 +259,8 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
 
     got = ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
     want = ref.zt_matmul_ref(idx, u, s, big_d)
-    ok, err = within_sum_tolerance(
-        got, want, ref.zt_matmul_ref(idx, u.abs(), s.abs(), big_d))
+    zt_abs = ref.zt_matmul_ref(idx, u.abs(), s.abs(), big_d)
+    ok, err = within_sum_tolerance(got, want, zt_abs)
     if not ok:
         fail(f"zt_matmul differs from its plain version (max abs {err:.3g})")
     src_rows = (u * s[:, None]).repeat_interleave(r, dim=0)
@@ -263,16 +270,26 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
     del src_rows
     b_ms, b_by = bound(idx_bytes + (big_d + 1) * 8 + n * kb * 4 + n * 4
                        + big_d * kb * 4, 2.0 * n * r * kb)
+    zt_ms = time_ms(lambda: ops.zt_matmul(idx, u, s, big_d, d_g=d_g,
+                                          csc=csc))
     rows.append(dict(name="zt_matmul", route="cuda",
                      source="src/repro_torch/kernels/csrc/ell_spmm.cu",
                      replaces="src/repro/kernels/ell_spmm.py:222",
-                     max_abs_err=err,
-                     ms=time_ms(lambda: ops.zt_matmul(idx, u, s, big_d,
-                                                      d_g=d_g, csc=csc)),
+                     max_abs_err=err, ms=zt_ms,
                      plain_ms=time_ms(lambda: ref.zt_matmul_ref(
                          idx, u, s, big_d), iters=3, warmup=1),
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      check="|err| <= 1e-6 + 1e-5 * sum|terms|"))
+    # what the gathers need: one padded su row (Kp floats, 16-byte aligned)
+    # per nonzero, in 32-byte L2 sectors
+    row_b = -(-kb // 4) * 16
+    offsets = sorted({i * row_b % 32 for i in range(32)})
+    sectors = sum((o + row_b - 1) // 32 + 1 for o in offsets) / len(offsets)
+    gather = n * r * sectors * 32
+    log(f"[phase 2] zt_matmul gather volume: {n * r} nonzeros x "
+        f"{sectors:g} L2 sectors per {row_b}-byte row = {gather / 1e9:.3f} "
+        f"GB, {gather / zt_ms / 1e9:.3f} TB/s at {zt_ms:.4f} ms (the bytes "
+        f"bound, {b_ms:.4f} ms, counts idx and u once)")
 
     # -- the Gram operator: zt kernel then z kernel (no kernel of its own) --
     got = ops.gram_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
@@ -282,15 +299,20 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
     ok, err = within_sum_tolerance(got, want, terms)
     if not ok:
         fail(f"gram_matmul differs from its plain version (max abs {err:.3g})")
-    gram_ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
-                                              csc=csc))
-    gram_plain_ms = time_ms(lambda: ref.z_matmul_ref(
-        idx, ref.zt_matmul_ref(idx, u, s, big_d), s), iters=3, warmup=1)
     gram_bound, gram_by = bound(idx_bytes + n * kb * 4 + n * 4 + n * kb * 4,
                                 4.0 * n * r * kb)
-    log(f"[phase 2] gram_matmul (zt kernel + z kernel): ms={gram_ms:.4f} "
-        f"plain_ms={gram_plain_ms:.4f} bound_ms={gram_bound:.4f} "
-        f"({gram_by}) max_abs_err={err:.3g} ok")
+    rows.append(dict(name="gram_matmul", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ell_spmm.cu",
+                     replaces="src/repro/kernels/ell_spmm.py:180",
+                     max_abs_err=err,
+                     ms=time_ms(lambda: ops.gram_matmul(idx, u, s, big_d,
+                                                        d_g=d_g, csc=csc)),
+                     plain_ms=time_ms(lambda: ref.z_matmul_ref(
+                         idx, ref.zt_matmul_ref(idx, u, s, big_d), s),
+                         iters=3, warmup=1),
+                     bound_ms=gram_bound, bound_by=gram_by, library_ms=None,
+                     check="|err| <= 1e-6 + 1e-5 * sum|terms| "
+                           "(zt kernel then z kernel)"))
     # the dense LOBPCG algebra around each Gram product, at the same shape
     x_blk = torch.linalg.qr(u)[0]
     w_blk = torch.randn((n, kb), generator=g, device=dev)
@@ -549,7 +571,27 @@ def phase6_flash(seed: int) -> dict:
         f"hd={hd} bf16 causal: ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f} (SDPA) "
         f"max_abs_err={err:.3g} row error {row_err:.3g} ok; "
-        f"{4.0 * hd * pairs * b * h / ms / 1e9:.1f} TFLOP/s")
+        f"{4.0 * hd * pairs * b * h / ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / ms:.1%} of the bound")
+    del q, k, v
+
+    # stablelm-12b's head dim 160, checked and timed
+    b, s, t, h, hkv, hd = FLASH_HD160
+    q, k, v = inputs(b, s, t, h, hkv, hd, "bfloat16")
+    err, row_err = check(f"at {FLASH_HD160}", ops.flash_attention(q, k, v),
+                         plain(q, k, v), "bfloat16")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    ops_160 = 4.0 * hd * visible_pairs(s, t, True, None) * b * h
+    b160, by160 = bound(2 * (2 * b * s * h * hd + 2 * b * t * hkv * hd),
+                        ops_160, PEAK_BF16_OPS_PER_S)
+    log(f"[phase 6] flash_attention B={b} S={s} T={t} H={h} Hkv={hkv} "
+        f"hd={hd} bf16 causal: ms={ms:.4f} bound_ms={b160:.4f} ({by160}) "
+        f"SDPA ms={sdpa_ms:.4f} max_abs_err={err:.3g} row error "
+        f"{row_err:.3g} ok; {ops_160 / ms / 1e9:.1f} TFLOP/s, "
+        f"{b160 / ms:.1%} of the bound")
     return row
 
 

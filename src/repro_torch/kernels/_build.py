@@ -37,8 +37,8 @@ LIBRARIES: Dict[str, tuple] = {
         "rb_binning_launch": [_P] * 6 + [_I] * 4 + [_P]}),
     "ell_spmm": ("ell_spmm.cu", {
         "z_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
-        "zt_matmul_launch": [_P] * 8 + [ctypes.c_longlong] + [_I] * 3
-        + [_P]}),
+        "zt_matmul_launch": [_P] * 10 + [_I] * 5 + [ctypes.c_longlong, _I,
+                                                   _P]}),
     "kmeans_assign": ("kmeans_assign.cu", {
         "kmeans_assign_launch": [_P] * 4 + [_I] * 3 + [_P]}),
     "flash_attention": ("flash_attention.cu", {

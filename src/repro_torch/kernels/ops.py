@@ -27,7 +27,8 @@ IMPLS = ("auto", "pallas", "xla")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0, "zt_matmul": 0,
-                            "kmeans_assign": 0, "flash_attention": 0}
+                            "gram_matmul": 0, "kmeans_assign": 0,
+                            "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -131,7 +132,8 @@ def rb_binning(
 
 
 #: Nonzeros one warp of the ``zt`` kernel reduces: columns longer than this
-#: are cut into chunks, whose sums a second pass adds in order.
+#: are cut into chunks, whose sums a second pass adds in order. Chosen on
+#: the card among 1,024, 2,048 and 4,096 (PERF.md).
 ZT_CHUNK = 2048
 
 
@@ -141,24 +143,27 @@ class EllCSC:
 
     ``rows[colptr[c]:colptr[c+1]]`` are the rows with a nonzero in column
     ``c``, ascending (the sort is stable), so the kernel's summation order
-    is fixed. Each column's segment is cut into chunks of at most
-    ``ZT_CHUNK`` nonzeros: column ``c`` owns chunks
-    ``chunk_ptr[c]:chunk_ptr[c+1]`` and ``chunk_col`` maps a chunk back to
-    its column. Built once per fit (``graph.build_normalized_adjacency``)."""
+    is fixed. Columns of more than ``ZT_CHUNK`` nonzeros are the
+    ``long_cols``; each is cut into chunks of at most ``ZT_CHUNK``
+    nonzeros: long column ``long_cols[j]`` owns chunks
+    ``long_chunk_ptr[j]:long_chunk_ptr[j+1]`` and ``chunk_long`` maps a
+    chunk back to ``j``. Built once per fit
+    (``graph.build_normalized_adjacency``)."""
 
-    rows: torch.Tensor        # (N·R,) int32
-    colptr: torch.Tensor      # (D+1,) int64
-    chunk_ptr: torch.Tensor   # (D+1,) int64
-    chunk_col: torch.Tensor   # (n_chunks,) int32
+    rows: torch.Tensor            # (N·R,) int32
+    colptr: torch.Tensor          # (D+1,) int64
+    long_cols: torch.Tensor       # (n_long,) int32
+    long_chunk_ptr: torch.Tensor  # (n_long+1,) int64
+    chunk_long: torch.Tensor      # (n_chunks,) int32
     n: int
     d: int
 
 
 def ell_csc(idx: torch.Tensor, d: int) -> EllCSC:
-    """Build the CSC permutation of ``idx`` (N, R) and its chunk table: a
-    stable sort by column, a search for the column bounds, a cumulative
-    sum. This is index preparation, done once per fit; the products
-    themselves run in the hand-written kernel."""
+    """Build the CSC permutation of ``idx`` (N, R) and its tables: a stable
+    sort by column, a search for the column bounds, the list of long
+    columns and their chunks. This is index preparation, done once per
+    fit; the products themselves run in the hand-written kernel."""
     n, r = idx.shape
     flat = idx.reshape(-1)
     cols, perm = torch.sort(flat, stable=True)
@@ -166,13 +171,19 @@ def ell_csc(idx: torch.Tensor, d: int) -> EllCSC:
     del perm
     bounds = torch.arange(d + 1, dtype=cols.dtype, device=idx.device)
     colptr = torch.searchsorted(cols, bounds).to(torch.int64)
-    per_col = (colptr[1:] - colptr[:-1] + ZT_CHUNK - 1) // ZT_CHUNK
-    chunk_ptr = torch.zeros(d + 1, dtype=torch.int64, device=idx.device)
-    chunk_ptr[1:] = torch.cumsum(per_col, 0)
-    chunk_col = torch.repeat_interleave(
-        torch.arange(d, dtype=torch.int32, device=idx.device), per_col)
-    return EllCSC(rows=rows, colptr=colptr, chunk_ptr=chunk_ptr,
-                  chunk_col=chunk_col, n=n, d=d)
+    nnz = colptr[1:] - colptr[:-1]
+    long_cols = torch.nonzero(nnz > ZT_CHUNK).reshape(-1)
+    per_col = (nnz[long_cols] + ZT_CHUNK - 1) // ZT_CHUNK
+    long_chunk_ptr = torch.zeros(long_cols.shape[0] + 1, dtype=torch.int64,
+                                 device=idx.device)
+    long_chunk_ptr[1:] = torch.cumsum(per_col, 0)
+    chunk_long = torch.repeat_interleave(
+        torch.arange(long_cols.shape[0], dtype=torch.int32,
+                     device=idx.device), per_col)
+    return EllCSC(rows=rows, colptr=colptr,
+                  long_cols=long_cols.to(torch.int32),
+                  long_chunk_ptr=long_chunk_ptr, chunk_long=chunk_long,
+                  n=n, d=d)
 
 
 def z_matmul(
@@ -217,9 +228,9 @@ def zt_matmul(
 ) -> torch.Tensor:
     """q = Z_patternᵀ · diag(rowscale) · u.  (D, K) float32.
 
-    On CUDA the kernel reduces the column-sorted copy ``csc`` of ``idx``
-    (chunk sums, then their sum per column, in a fixed order); without one
-    it builds it first (the one-shot form)."""
+    On CUDA the kernel reduces the column-sorted copy ``csc`` of ``idx`` in
+    a fixed order (one warp per column, chunk sums for the long columns);
+    without one it builds it first (the one-shot form)."""
     _check_impl(impl)
     if not _on_cuda(idx, u, rowscale):
         return ref.zt_matmul_ref(idx, u, rowscale, d)
@@ -236,13 +247,16 @@ def zt_matmul(
     q = torch.empty((d, k), dtype=torch.float32, device=u.device)
     if d == 0 or k == 0:
         return q
-    n_chunks = csc.chunk_col.shape[0]
+    kp = -(-k // 4) * 4
+    su = torch.empty((n, kp), dtype=torch.float32, device=u.device)
+    n_chunks = csc.chunk_long.shape[0]
     partial = torch.empty((n_chunks, k), dtype=torch.float32, device=u.device)
     _launch("ell_spmm", "zt_matmul_launch", u,
             csc.rows.data_ptr(), csc.colptr.data_ptr(),
-            csc.chunk_ptr.data_ptr(), csc.chunk_col.data_ptr(), u.data_ptr(),
-            rowscale.data_ptr(), partial.data_ptr(), q.data_ptr(), n_chunks,
-            d, k, ZT_CHUNK)
+            csc.long_cols.data_ptr(), csc.long_chunk_ptr.data_ptr(),
+            csc.chunk_long.data_ptr(), u.data_ptr(), rowscale.data_ptr(),
+            su.data_ptr(), partial.data_ptr(), q.data_ptr(), n, d, k, kp,
+            csc.long_cols.shape[0], n_chunks, ZT_CHUNK)
     LAUNCHES["zt_matmul"] += 1
     return q
 
@@ -259,9 +273,13 @@ def gram_matmul(
 ) -> torch.Tensor:
     """y = Ẑ Ẑᵀ u, the eigensolver's Gram mat-vec: the ``zt`` kernel into a
     (D, K) float32 buffer, then the ``z`` kernel on it. (A fused kernel
-    waits for a measured gain.)"""
+    waits for a measured gain.) On CUDA it counts one ``gram_matmul``
+    launch besides the two kernels' own."""
     q = zt_matmul(idx, u, rowscale, d, d_g=d_g, impl=impl, csc=csc)
-    return z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
+    y = z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
+    if _on_cuda(idx, u, rowscale):
+        LAUNCHES["gram_matmul"] += 1
+    return y
 
 
 # --------------------------------------------------------------------------

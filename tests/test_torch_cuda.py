@@ -95,6 +95,8 @@ def test_cuda_z_matmul(cuda, n, r, d_g, k, dtype):
     (3, 2, 1024, 1),       # almost every column empty
     (5000, 2, 2, 3),       # columns longer than one chunk
     (5000, 3, 1, 40),      # every row in one column per grid
+    (20000, 16, 64, 11),   # the main path's width, ~300 nonzeros a column
+    (9000, 4, 2, 11),      # K = 11 with columns longer than one chunk
 ])
 def test_cuda_zt_matmul(cuda, n, r, d_g, k):
     rng = np.random.default_rng(n * k)
@@ -150,6 +152,10 @@ FLASH_CASES = [  # b, s, t, h, hkv, hd, causal, window
     (1, 333, 200, 4, 2, 160, True, None),      # S > T, head dim 160
     (2, 300, 300, 4, 1, 160, False, 64),       # non-causal window
     (1, 4096, 4096, 2, 1, 128, True, None),    # the prefill's length
+    (1, 129, 129, 4, 2, 128, True, None),      # just above a 128-row tile
+    (1, 255, 255, 4, 2, 64, True, None),       # just below two tiles
+    (1, 150, 250, 4, 2, 128, True, None),      # S < T across two key tiles
+    (1, 250, 150, 4, 2, 128, True, 120),       # S > T, window across tiles
 ]
 
 
@@ -175,6 +181,23 @@ def test_cuda_flash_attention(cuda, case, dtype):
         row_err = (got.float() - want).norm(dim=-1) \
             / want.norm(dim=-1).clamp_min(1e-30)
         assert float(row_err.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("hd", ops.FLASH_HEAD_DIMS)
+def test_cuda_flash_bf16_every_head_dim_grouped(cuda, hd):
+    # every instantiation of the TMA/wgmma kernel (each slab width and
+    # swizzle), with K/V at fewer heads than Q and a ragged edge
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((2, 300, 4, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 300, 2, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 300, 2, hd), generator=g, device=cuda).bfloat16()
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bshd_ref(q, k, v, causal=True).float()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    row_err = (got.float() - want).norm(dim=-1) \
+        / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= 1e-2
 
 
 def test_cuda_flash_attention_rejects_unbuilt_head_dim(cuda):

@@ -119,6 +119,55 @@ def test_zt_matmul_plain_matches_reference(n, r, d_g, k):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,r,d_g", [
+    (300, 4, 16),      # no long column
+    (5000, 2, 2),      # long columns, a ragged last chunk each
+    (4097, 1, 1),      # one column of two whole chunks and one nonzero
+    (2048, 2, 1),      # columns of exactly ZT_CHUNK nonzeros: not long
+    (3, 2, 1024),      # almost every column empty
+])
+def test_ell_csc_tables_match_a_plain_recomputation(n, r, d_g):
+    """ops.ell_csc's tables against numpy, and the zt kernel's reduction
+    over those tables against the JAX reference."""
+    chunk = ops.ZT_CHUNK
+    idx = _ell(n * r + d_g, n, r, d_g)
+    d = r * d_g
+    csc = ops.ell_csc(torch.from_numpy(idx), d)
+    nnz = np.bincount(idx.reshape(-1), minlength=d)
+    np.testing.assert_array_equal(csc.colptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(nnz)]))
+    for c in range(d):
+        seg = csc.rows.numpy()[csc.colptr[c]:csc.colptr[c + 1]]
+        np.testing.assert_array_equal(seg, np.nonzero((idx == c).any(1))[0])
+    long_cols = np.nonzero(nnz > chunk)[0]
+    per = -(-nnz[long_cols] // chunk)
+    np.testing.assert_array_equal(csc.long_cols.numpy(), long_cols)
+    np.testing.assert_array_equal(csc.long_chunk_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(per)]))
+    np.testing.assert_array_equal(csc.chunk_long.numpy(),
+                                  np.repeat(np.arange(len(long_cols)), per))
+    assert csc.long_cols.dtype == csc.chunk_long.dtype == csc.rows.dtype \
+        == torch.int32
+    assert (csc.n, csc.d) == (n, d)
+
+    # the kernel's three steps, in numpy: pre-scale, one sum per short
+    # column, chunk sums then their sum per long column
+    rng = np.random.default_rng(n)
+    u = rng.normal(size=(n, 3)).astype(np.float32)
+    s = (rng.uniform(size=n) + 0.5).astype(np.float32)
+    su = s[:, None] * u
+    rows, ptr = csc.rows.numpy(), csc.colptr.numpy()
+    q = np.stack([su[rows[ptr[c]:ptr[c + 1]]].sum(0) for c in range(d)])
+    for j, c in enumerate(long_cols):
+        parts = [su[rows[ptr[c] + i * chunk:min(ptr[c] + (i + 1) * chunk,
+                                                ptr[c + 1])]].sum(0)
+                 for i in range(per[j])]
+        q[c] = np.sum(parts, axis=0)
+    want = np.asarray(jref.zt_matmul_ref(jnp.asarray(idx), jnp.asarray(u),
+                                         jnp.asarray(s), d))
+    np.testing.assert_allclose(q, want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("n,r,d_g,k", [(64, 4, 64, 8), (100, 8, 128, 3)])
 def test_gram_matmul_plain_matches_pallas(n, r, d_g, k):
     rng = np.random.default_rng(3 * n + k)
