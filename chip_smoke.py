@@ -11,10 +11,15 @@ the paper's covtype dataset (N = 581,012, d = 54, K = 7; synthetic content
 from a seed):
 
   phase 0  card and library versions
-  phase 1  kernel build
-  phase 2  every kernel against its plain version, with times and bounds,
-           and zt's L2 gather volume
-  phase 3  SCRBModel.fit on the card; every kernel's launch count > 0
+  phase 1  kernel build; rb_binning's hot loop in SASS (cuobjdump) must hold
+           no MUFU, FRND or F2I instruction
+  phase 2  every kernel against its plain version, with times and bounds:
+           rb_binning bit for bit on all rows and on planted rows whose
+           quotient sits on or one ulp off an integer; z_matmul's strip
+           kernel bit-equal to its gather kernel, with its strip, idx and
+           shared-memory traffic; zt's L2 gather volume
+  phase 3  SCRBModel.fit on the card; every kernel's launch count > 0, and
+           every z product of the fit through the strip kernel
   phase 4  save → load → predict (requests of 64, 1,000, 4,096 rows and a
            100,000-row batch); predict agrees with the fit labels ≥ 0.99
   phase 5  two fits of a 65,536-row slice give identical labels
@@ -147,6 +152,26 @@ def bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def strip_traffic(n: int, r: int, d_g: int, k: int, kc: int) -> dict:
+    """Bytes the z strip kernel moves, from its launch geometry
+    (csrc/ell_spmm.cu, launch_strip: tiles of at most 4,096 rows, cut so
+    that the blocks fill whole waves of one block an SM): each block streams
+    every strip of its column group, each group reads idx once, and every
+    (row, grid, group) gathers kc float32 from shared memory."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = -(-k // kc)
+    min_tiles = -(-n // 4096)
+    waves = -(-min_tiles * groups // sms)
+    tiles = max(min_tiles, waves * sms // groups)
+    rows = -(-n // tiles)
+    tile_rows = -(-rows // 32) * 32
+    blocks = -(-n // tile_rows) * groups
+    return {"blocks": blocks, "tile_rows": tile_rows,
+            "strip": blocks * r * d_g * kc * 4, "idx": groups * n * r * 4,
+            "smem": groups * n * r * kc * 4}
+
+
 def within_sum_tolerance(got, want, abs_terms, rtol=1e-5, atol=1e-6):
     """Sums taken in another order agree to ``atol + rtol · Σ|terms|``:
     the float32 rounding of a sum is bounded by its absolute terms, not by
@@ -178,7 +203,28 @@ def phase0_card() -> dict:
     return {"smi": smi, "device": device}
 
 
+def sass_hot_loop(sass: str, kernel: str) -> list:
+    """The instructions of ``kernel``'s hot loop in ``cuobjdump -sass``
+    text: from the target of the first backward branch after the kernel's
+    first FFMA.RM (the fast step's rounded-down add) to that branch."""
+    import re
+    for text in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in text.split("\n", 1)[0]:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
+        first = next(a for a, op in ins if "FFMA.RM" in op)
+        for a, op in ins:
+            target = re.search(r"BRA\s+(?:`?\(?)0x([0-9a-f]+)", op)
+            if a > first and target and int(target.group(1), 16) <= first:
+                lo = int(target.group(1), 16)
+                return [op for b, op in ins if lo <= b <= a]
+    fail(f"no hot loop of {kernel} found in the SASS")
+
+
 def phase1_build() -> None:
+    import shutil
+
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -190,10 +236,28 @@ def phase1_build() -> None:
     for name in _build.LIBRARIES:
         _build.library(name)
     log(f"[phase 1] build + load {time.perf_counter() - t0:.1f}s")
+    # rb_binning's fast step: no divide (MUFU), floor (FRND) or float -> int
+    # conversion (F2I) left in its loop
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("rb_binning"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    hot = sass_hot_loop(sass, "rb_binning_kernel")
+    hist: dict = {}
+    for op in hot:
+        word = op.split()[1] if op.startswith("@") else op.split()[0]
+        hist[word.split(".")[0]] = hist.get(word.split(".")[0], 0) + 1
+    log(f"[phase 1] rb_binning hot loop in SASS: {len(hot)} instructions "
+        f"{dict(sorted(hist.items(), key=lambda kv: -kv[1]))}")
+    slow = {k: hist[k] for k in ("MUFU", "FRND", "F2I") if k in hist}
+    if slow:
+        fail(f"rb_binning's hot loop still holds {slow}")
 
 
 def phase2_kernels(x, fm, seed: int = 0) -> list:
     """Every kernel against its plain version at the main path's shapes."""
+    import numpy as np
     import torch
 
     from repro_torch.core import eigensolver, graph
@@ -225,8 +289,27 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
                      replaces="src/repro/kernels/rb_binning.py:74",
                      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                      bound_by=b_by, library_ms=None,
-                     check="bit-exact on all rows"))
+                     check="bit-exact on all rows and the planted rows"))
     del want
+    # planted rows: quotients on an integer, one ulp off it, or rounded
+    # onto it (row i and grid i hold triple i, d = 1), which the fast step
+    # must hand to the exact one
+    px, pb, pw, kinds = ref.rb_hard_cases(seed)
+    prng = np.random.default_rng(seed)
+    m = px.shape[0]
+    pa = (prng.integers(0, 2**31 - 1, size=(m, 1)) * 2 + 1).astype(np.uint32)
+    pc = prng.integers(0, 2**31 - 1, size=(m,)).astype(np.uint32)
+    planted = [torch.from_numpy(a).to(dev) for a in
+               (px[:, None], pw[:, None], pb[:, None], pa.view(np.int32),
+                pc.view(np.int32))]
+    mism = int((ops.rb_binning(*planted, d_g=d_g)
+                != ref.rb_binning_ref(*planted, d_g)).sum())
+    if mism:
+        fail(f"rb_binning differs from its plain version in {mism} entries "
+             "of the planted rows")
+    log(f"[phase 2] rb_binning planted rows: {m} triples "
+        f"{ {str(k): int((kinds == k).sum()) for k in sorted(set(kinds))} }, "
+        f"{m * m} entries bit-exact")
 
     # -- the ELL products, on the fit's own pattern and row scales ----------
     adj = graph.build_normalized_adjacency(idx, d=big_d, d_g=d_g)
@@ -235,27 +318,57 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
     v = torch.randn((big_d, kb), generator=g, device=dev)
     idx_bytes = n * r * 4
 
+    plan = ops.z_strip_plan(n, r, d_g, kb, v.dtype)
+    if plan is None:
+        fail(f"the main path's shape {(n, r, d_g, kb)} has no strip route")
     got = ops.z_matmul(idx, v, s, d_g=d_g)
     want = ref.z_matmul_ref(idx, v, s)
     ok, err = within_sum_tolerance(got, want,
                                    ref.z_matmul_ref(idx, v.abs(), s.abs()))
     if not ok:
         fail(f"z_matmul differs from its plain version (max abs {err:.3g})")
+    gather = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+    if not torch.equal(got, gather):
+        fail(f"the strip kernel differs from the gather kernel in "
+             f"{int((got != gather).sum())} entries")
+    del gather
     w_bag = s[:, None].expand(n, r).contiguous()
     lib_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
         idx, v, mode="sum", per_sample_weights=w_bag))
     del w_bag
     b_ms, b_by = bound(idx_bytes + big_d * kb * 4 + n * 4 + n * kb * 4,
                        n * r * kb + n * kb)
+    z_ms = time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g))
     rows.append(dict(name="z_matmul", route="cuda",
                      source="src/repro_torch/kernels/csrc/ell_spmm.cu",
                      replaces="src/repro/kernels/ell_spmm.py:85",
-                     max_abs_err=err,
-                     ms=time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g)),
+                     max_abs_err=err, ms=z_ms,
                      plain_ms=time_ms(lambda: ref.z_matmul_ref(idx, v, s),
                                       iters=3, warmup=1),
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     check="|err| <= 1e-6 + 1e-5 * sum|terms|"))
+                     check="|err| <= 1e-6 + 1e-5 * sum|terms|; the same "
+                           "bits as the gather kernel"))
+    gather_ms = time_ms(lambda: ops.z_matmul_gather(idx, v, s, d_g=d_g))
+    t = strip_traffic(n, r, d_g, kb, plan[0])
+    log(f"[phase 2] z_matmul strip kernel (kc {plan[0]}, {plan[1]} stages, "
+        f"{t['blocks']} blocks of {t['tile_rows']} rows) {z_ms:.4f} ms, the "
+        f"gather kernel {gather_ms:.4f} ms: strips {t['strip'] / 1e9:.3f} GB "
+        f"({t['strip'] / z_ms / 1e9:.3f} TB/s), idx {t['idx'] / 1e9:.3f} GB "
+        f"through L2 ({idx_bytes / 1e9:.3f} GB once from memory), shared-"
+        f"memory gathers {t['smem'] / 1e9:.3f} GB ({t['smem'] / z_ms / 1e9:.3f}"
+        f" TB/s)")
+    # the route's row threshold (ops.Z_STRIP_MIN_ROWS): both kernels on the
+    # first rows of the pattern, the strip kernel forced below it
+    keep = ops.Z_STRIP_MIN_ROWS
+    ops.Z_STRIP_MIN_ROWS = 0
+    for part in (keep // 2, keep):
+        ip, sp = idx[:part], s[:part].contiguous()
+        log(f"[phase 2] z_matmul on {part} rows: strip kernel "
+            f"{time_ms(lambda: ops.z_matmul(ip, v, sp, d_g=d_g)):.4f} ms, "
+            f"gather kernel "
+            f"{time_ms(lambda: ops.z_matmul_gather(ip, v, sp, d_g=d_g)):.4f}"
+            f" ms (the strip route starts at {keep} rows)")
+    ops.Z_STRIP_MIN_ROWS = keep
 
     got = ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
     want = ref.zt_matmul_ref(idx, u, s, big_d)
@@ -394,6 +507,9 @@ def phase3_fit(x_np, y_np, cfg):
     missing = [k for k in FIT_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"the fit launched no {missing} kernel")
+    if counts["z_matmul_gather"]:
+        fail(f"{counts['z_matmul_gather']} z products of the fit took the "
+             "gather kernel, not the strip kernel")
     if res.labels.shape != (x_np.shape[0],):
         fail(f"labels have shape {res.labels.shape}")
     return model, counts

@@ -34,9 +34,10 @@ _I = ctypes.c_int
 #: library name → (source file, {entry point: argtypes})
 LIBRARIES: Dict[str, tuple] = {
     "rb_binning": ("rb_binning.cu", {
-        "rb_binning_launch": [_P] * 6 + [_I] * 4 + [_P]}),
+        "rb_binning_launch": [_P] * 7 + [_I] * 4 + [_P]}),
     "ell_spmm": ("ell_spmm.cu", {
         "z_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+        "z_strip_launch": [_P] * 5 + [_I] * 7 + [_P],
         "zt_matmul_launch": [_P] * 10 + [_I] * 5 + [ctypes.c_longlong, _I,
                                                    _P]}),
     "kmeans_assign": ("kmeans_assign.cu", {

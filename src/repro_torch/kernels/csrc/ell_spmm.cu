@@ -17,10 +17,32 @@
 // there (u: 25.6 MB at K = 11), so in practice the rate of L2 sector
 // gathers sets the pace: N*R gathers of a K-wide row.
 //
-// z_matmul design: one thread per (row, k); the K threads of a row read the
-// same idx entries (served as one broadcast) and neighbouring k of one
-// gathered V row, so a warp's gathers coalesce into whole V rows. Each
-// thread sums its R terms in order, in float32, and scales once.
+// z_matmul has two routes, chosen by shape alone (ops.z_strip_plan):
+//
+// Strip route (z_strip_kernel), the main path's. It leans on the strip
+// contract of the RB pattern: idx[i, r] lies in [r*d_g, (r+1)*d_g), so grid
+// r reads only the strip V[r*d_g:(r+1)*d_g] (90 KB at d_g = 2,048, K = 11).
+// A block owns a tile of rows and walks r = 0 ... R-1: bulk copies stream
+// each strip into a ring in shared memory (mbarrier-guarded), TMA boxes
+// bring the tile's idx 8 grids (one 32-byte L2 sector a row) at a time, and
+// 16 warps gather from the strip in shared memory, not from L2. A thread
+// holds up to 8 rows x KC columns of float32 sums in registers. KC (4, 2
+// or 1) splits K into column groups (V repacked per call into (groups, D,
+// KC), zero-padded) so that a tile can hold 4,096 rows: strip traffic is
+// (blocks) * D*KC*4 bytes, idx is read once per group (the groups of a tile
+// are neighbouring blocks, so the repeats hit L2). Tiles are cut so that
+// the blocks fill whole waves of one block an SM. Each y[i, k] is summed
+// over r = 0 ... R-1 in order and scaled once: the same bits as the gather
+// route. It needs R a multiple of 8, d_g a power of two, and a strip of
+// d_g*KC elements (16-byte multiple) that fits at least twice beside the
+// 128 KB idx buffer (the fit's shape gets 3 stages). What bounds it:
+// shared-memory gathers of 16 bytes at random addresses (about 2.6-way
+// bank conflicts), then the L2 traffic of strips and idx.
+//
+// Gather route (z_matmul_kernel), for every other shape: one thread per
+// (row, k); the K threads of a row read the same idx entries (served as one
+// broadcast) and neighbouring k of one gathered V row from L2. Each thread
+// sums its R terms in order, in float32, and scales once.
 //
 // zt_matmul design: a scatter-add with float atomics would sum in a
 // different order on every run, and the fit's labels would follow. So the
@@ -43,6 +65,7 @@
 //      column, k) adds its chunk sums in order.
 // K > 4*32 loops over groups of 128 columns. No atomic anywhere. The rate
 // of L2 sector gathers bounds it: two 32-byte sectors per nonzero at K = 11.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,6 +220,366 @@ void launch_zt_main(const void* rows, const void* colptr,
       (float*)partial, d, n_chunks, k, kp, chunk);
 }
 
+// --------------------------------------------------------------------------
+// z_matmul, strip route: grid strips of V in shared memory
+// --------------------------------------------------------------------------
+
+constexpr int kStripConsumers = 512;            // 16 warps
+constexpr int kStripRows = 8;                   // rows per consumer thread
+constexpr int kIdxGrids = 8;                    // grids per idx chunk
+constexpr int kMaxStages = 6;
+constexpr int kHeaderBytes = 1024;  // barriers, then idx at 1 KB alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` has completed. No wait of this
+// kernel lasts more than microseconds; one that lasts 10 s traps. The
+// clock is read only once a wait has spun for a while.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 1023u) == 0) {
+      const uint64_t t = global_ns();
+      if (t0 == 0)
+        t0 = t;
+      else if (t - t0 > 10000000000ull)
+        __trap();
+    }
+  }
+}
+
+// One contiguous run of bytes, global -> shared, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using type = uint16_t; };
+template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// repack: vp[cg][row][j] = v[row][cg*KC + j], 0 past k; T stays T.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kThreads)
+z_strip_repack_kernel(const T* __restrict__ v, T* __restrict__ vp,
+                      long long d, int k, int groups) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (long long)groups * d * KC) return;
+  const int j = (int)(gid % KC);
+  const long long row = (gid / KC) % d;
+  const int col = (int)(gid / (KC * d)) * KC + j;
+  vp[gid] = col < k ? v[row * k + col] : zero<T>();
+}
+
+// One box of the 2-D idx map (grid c0.., row c1..), completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tm,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Block (tile, cg): rows [tile*tile_rows, (tile+1)*tile_rows) of y
+// (tile_rows <= 512*M, a multiple of 32), columns cg*KC.. of its column
+// group. Warp w owns the rows from w*32*M on, in groups of 32 (those past
+// tile_rows are left idle); its lane l holds rows w*32*M + 32*m + l and KC
+// columns of each.
+//   Strips: thread 0 keeps the strip ring full. Strip r is
+//     vp[cg][r*d_g:(r+1)*d_g], one bulk copy of d_g*KC elements into one of
+//     `stages` stages, guarded by a full and an empty mbarrier (one arrival
+//     a warp). It refills a stage once every warp is done with it.
+//   idx: chunks of 8 grids (32 bytes, one L2 sector, of each row). Each
+//     warp fetches its own rows' chunk with one TMA box (8 grids x 32*M
+//     rows, 32-byte swizzle, so that its lanes' 16-byte reads of 32
+//     neighbouring rows meet no bank conflict) on a barrier of its own; it
+//     reads 4 grids a row into registers at a time, and once it has read
+//     the second 4 it asks for the next chunk.
+//   Sums: V[idx[i, r], cols] for r = 0, 1, ..., R-1, in order, in float32
+//     registers, scaled by s[i] once, as z_matmul_kernel does.
+template <typename T, int KC, int M>
+__global__ void __launch_bounds__(kStripConsumers, 1)
+z_strip_kernel(const __grid_constant__ CUtensorMap tm_idx,
+               const T* __restrict__ vp, const float* __restrict__ s,
+               T* __restrict__ out, int n, int r, int d_g, int k, int groups,
+               int tile_rows, int stages, int stage_stride) {
+  constexpr int kWarpRows = 32 * M;
+  constexpr int kRows = kStripConsumers * M;
+  constexpr uint32_t kBoxBytes = kWarpRows * kIdxGrids * 4;
+  static_assert(kWarpRows <= 256, "a TMA box has at most 256 rows");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the launch adds 1 KB so that the idx boxes start 1024-byte aligned
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full_s = base, empty_s = base + 8 * kMaxStages;
+  const uint32_t full_i = base + 16 * kMaxStages;  // one per warp
+  const unsigned char* idx_s = smem + kHeaderBytes;
+  const uint32_t idx_u32 = base + kHeaderBytes;
+  const unsigned char* strip_ring = idx_s + kRows * kIdxGrids * 4;
+  const uint32_t strip_u32 = idx_u32 + kRows * kIdxGrids * 4;
+
+  const int tile = blockIdx.x / groups;
+  const int cg = blockIdx.x - tile * groups;
+  const uint32_t strip_bytes = (uint32_t)(d_g * KC * sizeof(T));
+  const T* src = vp + (size_t)cg * r * d_g * KC;
+  const int chunks = r / kIdxGrids;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool producer = t == 0;
+  const uint32_t my_full_i = full_i + 8 * warp;
+  const uint32_t my_box = idx_u32 + warp * kBoxBytes;
+  // the warp's first row in the tile, and its groups of 32 rows in it
+  const int my_first = warp * kWarpRows;
+  const int my_groups = min(M, max(0, (tile_rows - my_first + 31) / 32));
+  const int my_row0 = tile * tile_rows + my_first;
+
+  auto load_strip = [&](int g, int st) {
+    mbar_expect_tx(full_s + 8 * st, strip_bytes);
+    bulk_load(strip_u32 + st * stage_stride, src + (size_t)g * d_g * KC,
+              strip_bytes, full_s + 8 * st);
+  };
+  auto load_idx = [&](int c) {  // lane 0: this warp's box of chunk c
+    mbar_expect_tx(my_full_i, kBoxBytes);
+    tma_load_2d(my_box, &tm_idx, c * kIdxGrids, my_row0, my_full_i);
+  };
+
+  if (producer) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full_s + 8 * i, 1);
+      mbar_init(empty_s + 8 * i, kStripConsumers / 32);
+    }
+    for (int i = 0; i < kStripConsumers / 32; ++i) mbar_init(full_i + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < stages && i < r; ++i) load_strip(i, i);
+  }
+  __syncthreads();
+  if (lane == 0 && my_groups > 0) load_idx(0);
+
+  using V = typename Raw<KC * sizeof(T)>::type;
+  const uint32_t mask = (uint32_t)d_g - 1u;
+  float acc[M][KC];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < KC; ++j) acc[m][j] = 0.f;
+  int st = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < chunks; ++c) {
+    if (my_groups > 0) mbar_wait(my_full_i, c & 1);
+    uint4 id[M];  // grids 8c..8c+3, then 8c+4..8c+7, of each row
+#pragma unroll
+    for (int j = 0; j < kIdxGrids; ++j) {
+      if ((j & 3) == 0) {
+        // row q of the box, half h: 16 bytes at 32q + 16 (h ^ bit 2 of q)
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          if (m >= my_groups) break;
+          const int q = 32 * m + lane;
+          id[m] = *reinterpret_cast<const uint4*>(
+              idx_s + warp * kBoxBytes +
+              32 * q + 16 * ((j >> 2) ^ ((q >> 2) & 1)));
+        }
+      }
+      const int g = c * kIdxGrids + j;
+      mbar_wait(full_s + 8 * st, phase);
+      const V* strip =
+          reinterpret_cast<const V*>(strip_ring + st * stage_stride);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (m >= my_groups) break;  // rows of the next tile
+        const uint32_t gi = (j & 3) == 0 ? id[m].x : (j & 3) == 1 ? id[m].y
+                          : (j & 3) == 2 ? id[m].z : id[m].w;
+        V raw = strip[gi & mask];
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int q = 0; q < KC; ++q) acc[m][q] += to_float(e[q]);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(empty_s + 8 * st);
+        // the warp has read the chunk's second halves: fetch the next one
+        if (j == 4 && c + 1 < chunks && my_groups > 0) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          load_idx(c + 1);
+        }
+      }
+      if (producer && g + stages < r) {  // refill this stage: strip g+stages
+        mbar_wait(empty_s + 8 * st, phase);
+        load_strip(g + stages, st);
+      }
+      if (++st == stages) {
+        st = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+  const int cols = min(KC, k - cg * KC);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int row = my_row0 + 32 * m + lane;
+    if (m < my_groups && my_first + 32 * m + lane < tile_rows && row < n) {
+      const float sc = s[row];
+      T* o = out + (size_t)row * k + cg * KC;
+#pragma unroll
+      for (int q = 0; q < KC; ++q)
+        if (q < cols) store(o + q, acc[m][q] * sc);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+
+template <typename T, int KC, int M>
+cudaError_t launch_strip(const void* idx, const void* v, const void* s,
+                         void* vp, void* out, int n, int r, int d_g, int k,
+                         int stages, cudaStream_t stream) {
+  constexpr int kRows = kStripConsumers * M;
+  const int stage_stride = (int)((d_g * KC * sizeof(T) + 127) / 128 * 128);
+  const int smem = 1024 + kHeaderBytes + kRows * kIdxGrids * 4 +
+                   stages * stage_stride;
+  if (stages < 2 || stages > kMaxStages || smem > kSmemMax || r % kIdxGrids)
+    return cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // idx (n, r) int32 as a 2-D map cut into boxes of 8 grids x 32*M rows;
+  // rows past n read as 0
+  const cuuint64_t dims[2] = {(cuuint64_t)r, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)r * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kIdxGrids, (cuuint32_t)(32 * M)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(idx),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const int groups = (k + KC - 1) / KC;
+  const long long d = (long long)r * d_g;
+  const long long total = (long long)groups * d * KC;
+  z_strip_repack_kernel<T, KC>
+      <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          (const T*)v, (T*)vp, d, k, groups);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        z_strip_kernel<T, KC, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  // as many tiles as fill the waves that tiles of kRows rows need, so that
+  // the last wave is as full as the others (one block an SM)
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long min_tiles = (n + kRows - 1) / kRows;
+  const long long waves = (min_tiles * groups + sms - 1) / sms;
+  const long long tiles = max(min_tiles, waves * sms / groups);
+  const int tile_rows = (int)(((n + tiles - 1) / tiles + 31) / 32 * 32);
+  const unsigned blocks = (unsigned)((n + tile_rows - 1) / tile_rows) * groups;
+  z_strip_kernel<T, KC, M><<<blocks, kStripConsumers, smem, stream>>>(
+      map, (const T*)vp, (const float*)s, (T*)out, n, r, d_g, k, groups,
+      tile_rows, stages, stage_stride);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_strip_t(const void* idx, const void* v, const void* s,
+                           void* vp, void* out, int n, int r, int d_g, int k,
+                           int kc, int stages, cudaStream_t st) {
+  switch (kc) {
+    case 1:
+      return launch_strip<T, 1, kStripRows>(idx, v, s, vp, out, n, r, d_g, k,
+                                            stages, st);
+    case 2:
+      return launch_strip<T, 2, kStripRows>(idx, v, s, vp, out, n, r, d_g, k,
+                                            stages, st);
+    case 4:
+      return launch_strip<T, 4, kStripRows>(idx, v, s, vp, out, n, r, d_g, k,
+                                            stages, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int z_matmul_launch(const void* idx, const void* v, const void* s,
@@ -263,4 +646,21 @@ extern "C" int zt_matmul_launch(const void* rows, const void* colptr,
         (const float*)partial, (float*)q, n_long, k);
   }
   return (int)cudaGetLastError();
+}
+
+// y (n, k) = diag(s) Z v through the strip kernel (ops.z_strip_plan picks
+// kc and stages): v (r*d_g, k), vp scratch of groups*r*d_g*kc elements
+// of v's type, groups = ceil(k / kc). idx (n, r) int32, 16-byte aligned,
+// r a multiple of 4, d_g a power of two. Returns cudaErrorInvalidValue for
+// a plan without an instantiation.
+extern "C" int z_strip_launch(const void* idx, const void* v, const void* s,
+                              void* vp, void* out, int n, int r, int d_g,
+                              int k, int kc, int stages, int v_is_bf16,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (v_is_bf16)
+    return (int)launch_strip_t<__nv_bfloat16>(idx, v, s, vp, out, n, r, d_g,
+                                              k, kc, stages, st);
+  return (int)launch_strip_t<float>(idx, v, s, vp, out, n, r, d_g, k, kc,
+                                    stages, st);
 }

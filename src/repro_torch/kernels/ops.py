@@ -26,7 +26,10 @@ from repro_torch.kernels import _build, ref
 IMPLS = ("auto", "pallas", "xla")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0, "zt_matmul": 0,
+#: ``z_matmul`` counts the strip kernel, ``z_matmul_gather`` the gather
+#: kernel (the other shapes' route, see :func:`z_strip_plan`).
+LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0,
+                            "z_matmul_gather": 0, "zt_matmul": 0,
                             "gram_matmul": 0, "kmeans_assign": 0,
                             "flash_attention": 0}
 
@@ -118,10 +121,13 @@ def rb_binning(
     out = torch.empty((n, r), dtype=torch.int32, device=x.device)
     if n == 0 or r == 0:
         return out
+    # per (grid, dim): the two reciprocals that bracket 1/w in the kernel's
+    # fast step (csrc/rb_binning.cu)
+    consts = torch.empty((r, d, 2), dtype=torch.float32, device=x.device)
     _launch("rb_binning", "rb_binning_launch", x,
             x.data_ptr(), widths.data_ptr(), biases.data_ptr(),
-            hash_a.data_ptr(), hash_c.data_ptr(), out.data_ptr(),
-            n, d, r, d_g)
+            hash_a.data_ptr(), hash_c.data_ptr(), consts.data_ptr(),
+            out.data_ptr(), n, d, r, d_g)
     LAUNCHES["rb_binning"] += 1
     return out
 
@@ -186,6 +192,65 @@ def ell_csc(idx: torch.Tensor, d: int) -> EllCSC:
                   n=n, d=d)
 
 
+#: Shared memory one block may use on the H100 (227 KB).
+_SMEM_MAX = 232_448
+#: The strip kernel's idx buffer: 4,096 rows of 8 int32 (csrc/ell_spmm.cu).
+_STRIP_IDX_BYTES = 4096 * 32
+#: Fewest rows the strip route takes: every block streams all R strips
+#: whatever its rows, so a small batch is faster through the gather kernel
+#: (on the H100 at R 256, d_g 2,048, K 11: gather faster at 65,536 rows,
+#: strip faster at 131,072; PERF.md).
+Z_STRIP_MIN_ROWS = 131_072
+
+
+def z_strip_plan(n: int, r: int, d_g: int, k: int,
+                 dtype: torch.dtype) -> Optional[tuple[int, int]]:
+    """The strip route's ``(kc, stages)`` for this shape, or None for the
+    gather route.
+
+    The strip kernel keeps each grid's strip ``v[g·d_g:(g+1)·d_g, cols]``
+    in shared memory and gathers from there, for tiles of 4,096 rows. It
+    takes a shape when N ≥ ``Z_STRIP_MIN_ROWS``, R is a multiple of 8 (idx
+    is read 8 grids at a time), d_g is a power of two, and two strips of
+    ``d_g·kc`` elements (a 16-byte multiple) fit beside the 128 KB idx
+    buffer. ``kc``, the column group (4 for K ≥ 3, else K), is halved until
+    they fit; up to 6 strip stages are used. So float32 strips of d_g ≥
+    16,384 (bfloat16 ≥ 32,768) take the gather route, as does any other
+    shape."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if n < max(Z_STRIP_MIN_ROWS, 1) or r % 8 or k < 1 or d_g < 1 \
+            or d_g & (d_g - 1):
+        return None
+    kc = min(4, 1 << (k - 1).bit_length())
+    while kc >= 1:
+        strip = d_g * kc * esize
+        stride = -(-strip // 128) * 128
+        # 2 KB: the launch's alignment slack and the barriers
+        stages = min(6, (_SMEM_MAX - 2048 - _STRIP_IDX_BYTES) // stride)
+        if strip % 16 == 0 and stages >= 2:
+            return kc, stages
+        kc //= 2
+    return None
+
+
+def _z_args(idx: torch.Tensor, v: torch.Tensor, rowscale: torch.Tensor,
+            d_g: int) -> bool:
+    """Check a z product's operands; True if they lie on the card."""
+    if idx.dim() != 2 or v.dim() != 2 or v.shape[0] != idx.shape[1] * d_g:
+        raise ValueError(
+            f"v must have R·d_g = {idx.shape[-1]}·{d_g} rows for idx (N, R) "
+            f"= {tuple(idx.shape)}; got v {tuple(v.shape)}")
+    if not _on_cuda(idx, v, rowscale):
+        return False
+    _require(idx, "idx", (torch.int32,), 2)
+    _require(v, "v", (torch.float32, torch.bfloat16), 2)
+    _require(rowscale, "rowscale", (torch.float32,), 1)
+    if rowscale.shape != (idx.shape[0],):
+        raise ValueError(f"rowscale must be ({idx.shape[0]},), got "
+                         f"{tuple(rowscale.shape)}")
+    return True
+
+
 def z_matmul(
     idx: torch.Tensor,
     v: torch.Tensor,
@@ -195,24 +260,56 @@ def z_matmul(
     impl: str = "auto",
 ) -> torch.Tensor:
     """y = diag(rowscale) · Z_pattern · v.  (N, K), dtype of ``v``
-    (float32 or bfloat16), accumulated in float32."""
+    (float32 or bfloat16), accumulated in float32.
+
+    ``v`` has R·d_g rows and ``idx`` keeps the strip contract
+    ``idx[i, g] ∈ [g·d_g, (g+1)·d_g)``, as the JAX entry point asserts. On
+    CUDA the shape picks the kernel (:func:`z_strip_plan`): the strip
+    kernel, or else :func:`z_matmul_gather`'s. Both sum each output over
+    the grids in order and scale it once, so they give the same bits."""
     _check_impl(impl)
-    if not _on_cuda(idx, v, rowscale):
+    if not _z_args(idx, v, rowscale, d_g):
         return ref.z_matmul_ref(idx, v, rowscale)
-    _require(idx, "idx", (torch.int32,), 2)
-    _require(v, "v", (torch.float32, torch.bfloat16), 2)
-    _require(rowscale, "rowscale", (torch.float32,), 1)
     n, r = idx.shape
     k = v.shape[1]
-    if rowscale.shape != (n,):
-        raise ValueError(f"rowscale must be ({n},), got {tuple(rowscale.shape)}")
+    plan = z_strip_plan(n, r, d_g, k, v.dtype)
+    if plan is None:
+        return z_matmul_gather(idx, v, rowscale, d_g=d_g)
+    kc, stages = plan
+    if idx.data_ptr() % 16:
+        raise ValueError("idx must be 16-byte aligned for the strip kernel")
+    out = torch.empty((n, k), dtype=v.dtype, device=v.device)
+    vp = torch.empty((-(-k // kc) * r * d_g * kc,), dtype=v.dtype,
+                     device=v.device)            # V in column groups
+    _launch("ell_spmm", "z_strip_launch", v,
+            idx.data_ptr(), v.data_ptr(), rowscale.data_ptr(), vp.data_ptr(),
+            out.data_ptr(), n, r, d_g, k, kc, stages,
+            int(v.dtype == torch.bfloat16))
+    LAUNCHES["z_matmul"] += 1
+    return out
+
+
+def z_matmul_gather(
+    idx: torch.Tensor,
+    v: torch.Tensor,
+    rowscale: torch.Tensor,
+    *,
+    d_g: int,
+) -> torch.Tensor:
+    """:func:`z_matmul` through the gather kernel (one thread per (row, k),
+    V rows gathered from L2), whatever the shape: the route of the shapes
+    the strip kernel does not take."""
+    if not _z_args(idx, v, rowscale, d_g):
+        return ref.z_matmul_ref(idx, v, rowscale)
+    n, r = idx.shape
+    k = v.shape[1]
     out = torch.empty((n, k), dtype=v.dtype, device=v.device)
     if n == 0 or k == 0:
         return out
     _launch("ell_spmm", "z_matmul_launch", v,
             idx.data_ptr(), v.data_ptr(), rowscale.data_ptr(), out.data_ptr(),
             n, r, k, int(v.dtype == torch.bfloat16))
-    LAUNCHES["z_matmul"] += 1
+    LAUNCHES["z_matmul_gather"] += 1
     return out
 
 

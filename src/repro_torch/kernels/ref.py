@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Knuth multiplicative-hash constant (2^32 / golden ratio, odd).
@@ -77,6 +78,52 @@ def rb_binning_ref(
             else torch.zeros_like(h, dtype=torch.int32)
         out[s:s + step] = local + offsets
     return out
+
+
+def rb_hard_cases(seed: int = 0, per_kind: int = 64):
+    """Planted (x, b, w) float32 triples whose quotient ``(x − b)/w`` the
+    RB kernel's fast step cannot decide: for each, one of
+
+      - ``on``: the exact quotient is an integer n;
+      - ``above`` / ``below``: its float32 rounding lies one ulp above or
+        below n;
+      - ``cross``: the exact quotient is below n but rounds up to n, so
+        ``floor`` of the float32 quotient (what the plain version takes) is
+        n while that of the exact one is n − 1.
+
+    Returns ``(x (M,), b (M,), w (M,), kinds (M,) str)`` as numpy arrays,
+    ``per_kind`` triples of each kind (fewer if the seeded search finds
+    fewer), found from ``seed`` by stepping x by ulps around ``b + n·w``.
+    """
+    rng = np.random.default_rng(seed)
+    m = 1 << 16
+    w = rng.uniform(0.01, 8.0, size=m).astype(np.float32)
+    n = rng.integers(-5000, 5000, size=m)
+    b = (rng.uniform(size=m) * w).astype(np.float32)
+    base = (b.astype(np.float64) + n * w.astype(np.float64)).astype(np.float32)
+    n32 = n.astype(np.float32)
+    picked = {"on": [], "above": [], "below": [], "cross": []}
+    for step in range(-4, 5):
+        x = base.copy()
+        for _ in range(abs(step)):
+            x = np.nextafter(x, np.float32(np.sign(step) * np.inf))
+        t = x - b                                   # float32, as the kernel
+        q = t / w                                   # IEEE float32 quotient
+        exact = t.astype(np.float64) - n * w.astype(np.float64)  # exact sign
+        kinds = {"on": (exact == 0) & (q == n32),
+                 "above": q == np.nextafter(n32, np.float32(np.inf)),
+                 "below": q == np.nextafter(n32, np.float32(-np.inf)),
+                 "cross": (exact < 0) & (q == n32)}
+        for kind, hit in kinds.items():
+            for i in np.nonzero(hit)[0]:
+                picked[kind].append((x[i], b[i], w[i]))
+    out = []
+    for kind, rows in picked.items():
+        for xi, bi, wi in rows[:per_kind]:
+            out.append((xi, bi, wi, kind))
+    x, b, w, kinds = zip(*out)
+    return (np.array(x, np.float32), np.array(b, np.float32),
+            np.array(w, np.float32), np.array(kinds))
 
 
 def z_matmul_ref(

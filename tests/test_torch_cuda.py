@@ -10,7 +10,11 @@ assignment labels exact; float32 products within 1e-6 + 1e-5·Σ|terms| (the
 summation order differs, and a sum that cancels is only as exact as its
 terms are large); bfloat16 V within one bfloat16 rounding of the output
 (2^-8 relative) on top of that. The ``zt`` kernel must give the same bits
-on every run (no atomics). Flash attention: float32 within 2e-5, bfloat16
+on every run (no atomics), and ``z_matmul``'s strip kernel the same bits
+as its gather kernel (both add the grids in order); the strip route needs
+at least ``ops.Z_STRIP_MIN_ROWS`` rows, so its cases are that large.
+``rb_binning`` is also held bit for bit on ``ref.rb_hard_cases``' planted
+quotients. Flash attention: float32 within 2e-5, bfloat16
 within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
 before normalising, the plain version after). The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
@@ -73,6 +77,107 @@ def test_cuda_rb_binning_bit_exact(cuda, n, d, r, d_g):
     got = ops.rb_binning(*t, d_g=d_g)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.rb_binning_ref(*t, d_g))
+
+
+def test_cuda_rb_binning_hash_edge_values(cuda):
+    """tests/test_torch_kernels.py's edge values: bins of large magnitude
+    and both signs, multipliers near 2^32."""
+    x = torch.tensor([[-1e5, 3e4], [7.5, -0.25], [0.0, 1e6]])
+    widths = torch.tensor([[0.5, 2.0], [1e-3, 3.0]])
+    biases = torch.tensor([[0.1, 1.9], [0.0, 0.5]])
+    bits = lambda a: torch.from_numpy(np.array(a, np.uint32).view(np.int32))
+    hash_a = bits([[0xFFFFFFFF, 0x80000001], [1, 0xDEADBEEF]])
+    hash_c = bits([0xFFFFFFF0, 0x12345678])
+    t = [a.to(cuda) for a in (x, widths, biases, hash_a, hash_c)]
+    for d_g in (1, 2, 1024):
+        got = ops.rb_binning(*t, d_g=d_g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.rb_binning_ref(*t, d_g))
+
+
+def test_cuda_rb_binning_planted_rows(cuda):
+    """ref.rb_hard_cases: quotients on an integer, one ulp off it, or
+    rounded onto it; row i and grid i hold triple i (d = 1)."""
+    x, b, w, _ = ref.rb_hard_cases(0)
+    rng = np.random.default_rng(0)
+    m = x.shape[0]
+    a = (rng.integers(0, 2**31 - 1, size=(m, 1)) * 2 + 1).astype(np.uint32)
+    c = rng.integers(0, 2**31 - 1, size=(m,)).astype(np.uint32)
+    bits = lambda v: torch.from_numpy(v.view(np.int32).copy())
+    t = [torch.from_numpy(x[:, None]), torch.from_numpy(w[:, None]),
+         torch.from_numpy(b[:, None]), bits(a), bits(c)]
+    t = [v.to(cuda) for v in t]
+    got = ops.rb_binning(*t, d_g=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rb_binning_ref(*t, 1024))
+
+
+def _strip_case(cuda, n, r, d_g, k, dtype, seed=0):
+    """idx with bins at both ends of every strip (rows 0-999 alternate
+    g·d_g and g·d_g + d_g − 1), V and row scales from ``seed``."""
+    rng = np.random.default_rng(seed)
+    idx = _ell(seed, n, r, d_g)
+    ends = np.where(np.arange(1000)[:, None] % 2 == 0, 0, d_g - 1)
+    idx[:1000] = ends + np.arange(r)[None, :] * d_g
+    v = torch.from_numpy(rng.normal(size=(r * d_g, k)).astype(np.float32)
+                         ).to(cuda, getattr(torch, dtype))
+    s = torch.from_numpy((rng.uniform(size=n) + 0.5).astype(np.float32)
+                         ).to(cuda)
+    return torch.from_numpy(idx).to(cuda), v, s
+
+
+@pytest.mark.parametrize("n,r,d_g,k,dtype", [
+    (140_001, 8, 64, 1, "float32"),
+    (140_001, 8, 64, 4, "float32"),
+    (140_001, 8, 64, 11, "float32"),
+    (140_001, 8, 64, 12, "float32"),
+    (140_001, 8, 64, 40, "float32"),
+    (131_072, 16, 2048, 11, "float32"),   # the fit's strip
+    (140_001, 8, 4096, 11, "float32"),    # column groups of 2
+    (140_001, 8, 8192, 11, "float32"),    # one column a group
+    (140_001, 8, 64, 1, "bfloat16"),
+    (140_001, 8, 64, 11, "bfloat16"),
+    (140_001, 8, 128, 2, "bfloat16"),
+])
+def test_cuda_z_matmul_strip(cuda, n, r, d_g, k, dtype):
+    """The strip kernel: the plain version's sums, and the gather kernel's
+    bits (the same order of addition) in float32 and bfloat16."""
+    assert ops.z_strip_plan(n, r, d_g, k, getattr(torch, dtype)) is not None
+    idx, v, s = _strip_case(cuda, n, r, d_g, k, dtype, seed=n + k)
+    ops.reset_launch_counts()
+    got = ops.z_matmul(idx, v, s, d_g=d_g)
+    gather = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["z_matmul"] == 1
+    assert ops.launch_counts()["z_matmul_gather"] == 1
+    assert got.dtype == v.dtype and got.shape == (n, k)
+    assert torch.equal(got, gather)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL + 1e-5
+    _assert_sum_close(got, ref.z_matmul_ref(idx, v, s),
+                      ref.z_matmul_ref(idx, v.abs(), s).float(), rtol)
+
+
+@pytest.mark.parametrize("n,r,d_g", [(140_001, 12, 64),    # R % 8
+                                     (1_000, 8, 64),       # few rows
+                                     (131_072, 8, 16384)])  # strip too big
+def test_cuda_z_matmul_gather_route(cuda, n, r, d_g):
+    assert ops.z_strip_plan(n, r, d_g, 11, torch.float32) is None
+    idx, v, s = _strip_case(cuda, n, r, d_g, 11, "float32", seed=n)
+    ops.reset_launch_counts()
+    got = ops.z_matmul(idx, v, s, d_g=d_g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["z_matmul"] == 0
+    assert ops.launch_counts()["z_matmul_gather"] == 1
+    _assert_sum_close(got, ref.z_matmul_ref(idx, v, s),
+                      ref.z_matmul_ref(idx, v.abs(), s))
+
+
+def test_cuda_z_matmul_rejects_v_off_the_strips(cuda):
+    idx, v, s = _strip_case(cuda, 140_001, 8, 64, 3, "float32")
+    with pytest.raises(ValueError, match="R·d_g"):
+        ops.z_matmul(idx, v[:-1].contiguous(), s, d_g=64)
+    with pytest.raises(ValueError, match="R·d_g"):
+        ops.z_matmul(idx, v, s, d_g=32)
 
 
 @pytest.mark.parametrize("n,r,d_g,k", Z_SHAPES + [(1000, 5, 16, 40)])

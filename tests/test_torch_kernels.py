@@ -17,7 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 BF16_RTOL = 2.0 ** -8
 
@@ -79,6 +79,56 @@ def test_rb_binning_hash_edge_values():
         want = np.asarray(jref.rb_binning_ref(*map(jnp.asarray, inputs), d_g))
         got = ops.rb_binning(*_torch_rb(*inputs), d_g=d_g)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _rb_planted(seed=0):
+    """``ref.rb_hard_cases`` as RB inputs: row i and grid i hold planted
+    triple i (d = 1), so the diagonal of the output hashes its bin."""
+    x, b, w, kinds = ref.rb_hard_cases(seed)
+    rng = np.random.default_rng(seed)
+    m = x.shape[0]
+    hash_a = (rng.integers(0, 2**31 - 1, size=(m, 1)) * 2 + 1).astype(np.uint32)
+    hash_c = rng.integers(0, 2**31 - 1, size=(m,)).astype(np.uint32)
+    return (x[:, None], w[:, None], b[:, None], hash_a, hash_c), kinds
+
+
+def test_rb_hard_cases_are_what_they_claim():
+    """The planted triples: every kind present, each as its name says (in
+    exact arithmetic), and the naive floor(t * (1/w)) wrong on some."""
+    from fractions import Fraction
+    x, b, w, kinds = ref.rb_hard_cases(0)
+    assert {str(k) for k in kinds} == {"on", "above", "below", "cross"}
+    t = x - b
+    q = t / w                                        # IEEE float32
+    for ti, wi, qi, kind in zip(t, w, q, kinds):
+        exact = Fraction(float(ti)) / Fraction(float(wi))
+        n = round(exact) if kind != "cross" else int(qi)
+        if kind == "on":
+            assert exact == n and qi == n
+        elif kind == "above":
+            assert qi == np.nextafter(np.float32(n), np.float32(np.inf))
+        elif kind == "below":
+            assert qi == np.nextafter(np.float32(n), np.float32(-np.inf))
+        else:                       # the rounding reaches n, the exact not
+            assert qi == n and exact < n
+    naive = np.floor(t * (np.float32(1.0) / w))
+    assert (naive != np.floor(q)).any()
+
+
+def test_rb_binning_planted_rows_match_reference_and_pallas():
+    inputs, _ = _rb_planted(0)
+    d_g = 1024
+    want = np.asarray(jref.rb_binning_ref(*map(jnp.asarray, inputs), d_g))
+    got = ops.rb_binning(*_torch_rb(*inputs), d_g=d_g).numpy()
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(jops.rb_binning(*map(jnp.asarray, inputs), d_g=d_g,
+                                        impl="pallas"))
+    np.testing.assert_array_equal(got, pallas)
+    # the planted bins reach the hash: a bin one lower changes the diagonal
+    x, w, b, a, c = inputs
+    lower = (x - w, w, b, a, c)
+    moved = np.asarray(jref.rb_binning_ref(*map(jnp.asarray, lower), d_g))
+    assert (np.diag(moved) != np.diag(want)).mean() > 0.9
 
 
 Z_SHAPES = [(64, 4, 64, 8), (100, 8, 128, 3), (256, 16, 64, 32),
@@ -217,6 +267,32 @@ def test_zt_z_adjoint():
     lhs = float(torch.sum(ops.z_matmul(idx, v, s, d_g=d_g) * u))
     rhs = float(torch.sum(ops.zt_matmul(idx, u, s, r * d_g, d_g=d_g) * v))
     assert abs(lhs - rhs) < 1e-4 * max(abs(lhs), 1.0)
+
+
+def test_z_matmul_rejects_v_off_the_strips():
+    """v must have R·d_g rows (the strip contract), on every device."""
+    idx = torch.from_numpy(_ell(0, 8, 4, 16))
+    s = torch.ones(8)
+    for rows in (4 * 16 - 1, 4 * 16 + 16, 16):
+        with pytest.raises(ValueError, match="R·d_g"):
+            ops.z_matmul(idx, torch.zeros((rows, 3)), s, d_g=16)
+        with pytest.raises(ValueError, match="R·d_g"):
+            ops.z_matmul_gather(idx, torch.zeros((rows, 3)), s, d_g=16)
+    assert ops.z_matmul(idx, torch.zeros((64, 3)), s, d_g=16).shape == (8, 3)
+
+
+@pytest.mark.parametrize("n,r,d_g,k,dtype,plan", [
+    (581_012, 256, 2048, 11, torch.float32, (4, 3)),   # the fit's
+    (581_012, 256, 2048, 1, torch.float32, (1, 6)),    # degrees
+    (140_000, 8, 4096, 11, torch.float32, (2, 3)),     # narrower groups
+    (140_000, 8, 8192, 11, torch.float32, (1, 3)),     # one column a group
+    (140_000, 8, 16384, 11, torch.bfloat16, (1, 3)),
+    (140_000, 8, 16384, 11, torch.float32, None),      # no strip fits
+    (140_000, 12, 2048, 11, torch.float32, None),      # R % 8
+    (100_000, 256, 2048, 11, torch.float32, None),     # a smaller batch
+])
+def test_z_strip_plan_routes_by_shape(n, r, d_g, k, dtype, plan):
+    assert ops.z_strip_plan(n, r, d_g, k, dtype) == plan
 
 
 def test_wrappers_reject_bad_input():
