@@ -17,9 +17,18 @@ from a seed):
            rb_binning bit for bit on all rows and on planted rows whose
            quotient sits on or one ulp off an integer; z_matmul's strip
            kernel bit-equal to its gather kernel, with its strip, idx and
-           shared-memory traffic; zt's L2 gather volume
-  phase 3  SCRBModel.fit on the card; every kernel's launch count > 0, and
-           every z product of the fit through the strip kernel
+           shared-memory traffic; zt's L2 gather volume; the fused Gram
+           kernel bit-equal to zt_matmul then z_matmul, timed beside that
+           composition; kmeans_assign and its statistics form (counts
+           equal to bincount's, the same bits twice) timed on the device
+           alone (launches queued behind a spin kernel), with the host's
+           dispatch per call beside them
+  phase 3  SCRBModel.fit on the card; every kernel's launch count > 0,
+           every z product of the fit through the strip kernel and every
+           Gram product through the fused kernel; LOBPCG's iterations
+           equal to zt then z's (FIT_ITERATIONS); the kmeans stage split
+           into k-means++ seeding and Lloyd steps, by the same calls on the
+           fitted embedding (which must give the fit's labels)
   phase 4  save → load → predict (requests of 64, 1,000, 4,096 rows and a
            100,000-row batch); predict agrees with the fit labels ≥ 0.99
   phase 5  two fits of a 65,536-row slice give identical labels
@@ -41,6 +50,11 @@ from a seed):
            truth than twice the plain bf16 attention's; two greedy runs
            give the same tokens
 
+With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
+``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
+entry point, holds its labels and distances against this tree's kernel and
+times the two on the device alone, alternating (this, that, this, that).
+
 Any failed check raises, and the script exits non-zero. It exits non-zero
 before printing any result when no CUDA device is available or when the
 package is not beside it. The last line is
@@ -52,11 +66,15 @@ output written once) / 3.35 TB/s and operations / the peak rate of their
 type: 67 TFLOP/s for float32 (the SC_RB kernels), 989 TFLOP/s for bf16 on
 the tensor cores (flash attention, counting the visible (q, k) pairs
 only), the published H100 SXM peaks (dense, without sparsity, at 700 W).
+The Gram product's bytes count the pattern twice (the CSC row ids and
+idx): q = Zᵀu needs every row before any row of Z q can be formed, and
+the pattern does not fit L2.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -77,7 +95,11 @@ SERVE_REQUESTS = (64, 1_000, 4_096)
 SERVE_BATCH_ROWS = 100_000
 DETERMINISM_ROWS = 65_536
 FIT_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "gram_matmul",
-               "kmeans_assign")
+               "kmeans_assign", "kmeans_assign_stats")
+# LOBPCG's iterations on this data with the Gram product as zt_matmul then
+# z_matmul: the fused product gives the same bits, so the fit must stop
+# where that composition's did
+FIT_ITERATIONS = 31
 
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
@@ -143,6 +165,45 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_device(fn, iters: int = 50, warmup: int = 3,
+                strict: bool = True) -> tuple[float, float]:
+    """(device ms, host dispatch µs) per call of ``fn``, by CUDA events.
+
+    For a kernel of microseconds ``time_ms`` times the host's dispatch: the
+    device waits for each launch. Here the launches queue behind a spin
+    kernel (``torch.cuda._sleep``) that outlasts their dispatch, so the
+    events around them time the device alone. With ``strict`` the spin is
+    lengthened until it outlasts the dispatch, or the call fails (a call
+    that syncs with the host cannot be timed so; ``strict=False`` times it
+    anyway)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(max(time.perf_counter() - t0, 1e-3) * 8e9)   # ~4x at 2 GHz
+    for _ in range(4):
+        spun, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if not strict or host * 1e3 < spun.elapsed_time(start):
+            return start.elapsed_time(end) / iters, host / iters * 1e6
+        cycles *= 4
+    fail(f"the spin ({spun.elapsed_time(start):.3f} ms) ended before the "
+         f"host had queued {iters} calls ({host * 1e3:.3f} ms)")
 
 
 def bound(bytes_moved: float, ops: float,
@@ -223,7 +284,6 @@ def sass_hot_loop(sass: str, kernel: str) -> list:
 
 
 def phase1_build() -> None:
-    import shutil
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -255,7 +315,57 @@ def phase1_build() -> None:
         fail(f"rb_binning's hot loop still holds {slow}")
 
 
-def phase2_kernels(x, fm, seed: int = 0) -> list:
+def kmeans_baseline(src: Path, emb, cents, lab, dist) -> None:
+    """Build ``src`` (a kmeans_assign.cu of another tree), check it against
+    this tree's kernel on (emb, cents) and time both on the device alone,
+    alternating."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(_build.NVCC_FLAGS).encode())
+    out = _build.BUILD_DIR / f"baseline-kmeans_assign-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                       capture_output=True, text=True, timeout=600,
+                       check=True)
+    fn = ctypes.CDLL(str(out)).kmeans_assign_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n, k_d = emb.shape
+    lab_b = torch.empty_like(lab)
+    dist_b = torch.empty_like(dist)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def baseline():
+        _build.check(fn(emb.data_ptr(), cents.data_ptr(), lab_b.data_ptr(),
+                        dist_b.data_ptr(), n, k_d, cents.shape[0], stream),
+                     "baseline kmeans_assign_launch")
+
+    baseline()
+    torch.cuda.synchronize()
+    moved = int((lab_b != lab).sum())
+    err = float((dist_b - dist).abs().max())
+    log(f"[phase 2] baseline kmeans_assign ({src}): {moved} labels differ "
+        f"from this tree's kernel, max distance difference {err:.3g}")
+    if err > 1e-5:
+        fail("the baseline kmeans_assign disagrees with this tree's kernel")
+    times: dict = {"this tree": [], "baseline": []}
+    for _ in range(2):
+        for name, call in (("this tree", lambda: ops.kmeans_assign(emb, cents)),
+                           ("baseline", baseline)):
+            times[name].append(time_device(call)[0])
+    for name, ms in times.items():
+        log(f"[phase 2] kmeans_assign {name}: device ms "
+            f"{', '.join(f'{t:.4f}' for t in ms)} (alternating)")
+
+
+def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
     """Every kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
@@ -404,28 +514,41 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
         f"GB, {gather / zt_ms / 1e9:.3f} TB/s at {zt_ms:.4f} ms (the bytes "
         f"bound, {b_ms:.4f} ms, counts idx and u once)")
 
-    # -- the Gram operator: zt kernel then z kernel (no kernel of its own) --
+    # -- the Gram operator: the fused kernel, against zt then z ------------
     got = ops.gram_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
+    composed = lambda: ops.z_matmul(
+        idx, ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc), s, d_g=d_g)
+    if not torch.equal(got, composed()):
+        fail(f"the fused Gram kernel differs from zt_matmul then z_matmul in "
+             f"{int((got != composed()).sum())} entries")
     want = ref.z_matmul_ref(idx, ref.zt_matmul_ref(idx, u, s, big_d), s)
     terms = ref.z_matmul_ref(
         idx, ref.zt_matmul_ref(idx, u.abs(), s.abs(), big_d), s.abs())
     ok, err = within_sum_tolerance(got, want, terms)
     if not ok:
         fail(f"gram_matmul differs from its plain version (max abs {err:.3g})")
-    gram_bound, gram_by = bound(idx_bytes + n * kb * 4 + n * 4 + n * kb * 4,
-                                4.0 * n * r * kb)
+    del want, terms
+    # the pattern twice (CSC row ids and idx), the column pointer, u, s, y
+    gram_bytes = 2 * idx_bytes + (big_d + 1) * 8 + n * kb * 4 + n * 4 \
+        + n * kb * 4
+    gram_bound, gram_by = bound(gram_bytes, 4.0 * n * r * kb)
+    gram_ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
+                                              csc=csc))
+    composed_ms = time_ms(composed)
     rows.append(dict(name="gram_matmul", route="cuda",
                      source="src/repro_torch/kernels/csrc/ell_spmm.cu",
                      replaces="src/repro/kernels/ell_spmm.py:180",
-                     max_abs_err=err,
-                     ms=time_ms(lambda: ops.gram_matmul(idx, u, s, big_d,
-                                                        d_g=d_g, csc=csc)),
+                     max_abs_err=err, ms=gram_ms,
                      plain_ms=time_ms(lambda: ref.z_matmul_ref(
                          idx, ref.zt_matmul_ref(idx, u, s, big_d), s),
                          iters=3, warmup=1),
                      bound_ms=gram_bound, bound_by=gram_by, library_ms=None,
-                     check="|err| <= 1e-6 + 1e-5 * sum|terms| "
-                           "(zt kernel then z kernel)"))
+                     check="the bits of zt_matmul then z_matmul; |err| <= "
+                           "1e-6 + 1e-5 * sum|terms|"))
+    log(f"[phase 2] gram_matmul fused kernel {gram_ms:.4f} ms, zt_matmul "
+        f"then z_matmul {composed_ms:.4f} ms (the same bits); bound "
+        f"{gram_bound:.4f} ms: {gram_bytes / 1e9:.3f} GB at "
+        f"{gram_bytes / gram_ms / 1e9:.3f} TB/s")
     # the dense LOBPCG algebra around each Gram product, at the same shape
     x_blk = torch.linalg.qr(u)[0]
     w_blk = torch.randn((n, kb), generator=g, device=dev)
@@ -436,7 +559,8 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
     log(f"[phase 2] lobpcg dense algebra per iteration (N={n}, b={kb}): "
         f"residual_block ms={res_ms:.4f} rr_update ms={rr_ms:.4f}")
 
-    # -- kmeans_assign, on a row-normalized 7-wide embedding ---------------
+    # -- kmeans_assign and its statistics form, on a row-normalized 7-wide
+    # embedding; timed on the device alone (time_device)
     k_cl = COVTYPE[1]
     emb = row_normalize(torch.randn((n, k_cl), generator=g, device=dev))
     cents = emb[torch.randperm(n, generator=g, device=dev)[:k_cl]].contiguous()
@@ -454,25 +578,147 @@ def phase2_kernels(x, fm, seed: int = 0) -> list:
              f"error {err:.3g}")
     b_ms, b_by = bound(n * k_cl * 4 + k_cl * k_cl * 4 + n * 8,
                        3.0 * n * k_cl * k_cl)
+    small = {  # name: (call, strict)
+        "kmeans_assign": (lambda: ops.kmeans_assign(emb, cents), True),
+        "plain kmeans_assign_ref": (
+            lambda: ref.kmeans_assign_ref(emb, cents), True),
+        "cdist + argmin": (lambda: torch.cdist(emb, cents).argmin(1), True),
+        "kmeans_assign_stats": (
+            lambda: ops.kmeans_assign_stats(emb, cents), True),
+        "plain kmeans_assign_stats_ref": (
+            lambda: ref.kmeans_assign_stats_ref(emb, cents), False),
+        "the old Lloyd step (kmeans_assign, bincount, one-hot product)": (
+            lambda: old_lloyd_step(emb, cents), False),
+        "the Lloyd step (kmeans_assign_stats, centroid update)": (
+            lambda: lloyd_step(emb, cents), True)}
+    dev_ms = {}
+    for name, (call, strict) in small.items():
+        dev_ms[name], host_us = time_device(call, strict=strict)
+        log(f"[phase 2] {name}: device {dev_ms[name]:.4f} ms, host "
+            f"dispatch {host_us:.1f} us per call"
+            + ("" if strict else " (syncs with the host: not device alone)"))
+    if baseline_src is not None:
+        kmeans_baseline(baseline_src, emb, cents, lab, dist)
     rows.append(dict(name="kmeans_assign", route="cuda",
                      source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
                      replaces="src/repro/kernels/kmeans_assign.py:41",
-                     max_abs_err=err,
-                     ms=time_ms(lambda: ops.kmeans_assign(emb, cents),
-                                iters=50),
-                     plain_ms=time_ms(lambda: ref.kmeans_assign_ref(
-                         emb, cents), iters=50),
+                     max_abs_err=err, ms=dev_ms["kmeans_assign"],
+                     plain_ms=dev_ms["plain kmeans_assign_ref"],
                      bound_ms=b_ms, bound_by=b_by,
-                     library_ms=time_ms(lambda: torch.cdist(emb, cents)
-                                        .argmin(1), iters=50),
+                     library_ms=dev_ms["cdist + argmin"],
                      check="labels equal where top-2 gap > 1e-6; "
                            "|dist err| <= 1e-5"))
+    # the statistics form: the kernel's labels, bincount's counts exactly,
+    # the plain one-hot product's sums on those labels within the sum
+    # tolerance, the same bits twice
+    stats = ops.kmeans_assign_stats(emb, cents)
+    lab_s, counts, sums, inertia = stats
+    onehot = torch.nn.functional.one_hot(lab.long(), k_cl).float()
+    if not torch.equal(lab_s, lab):
+        fail("kmeans_assign_stats' labels differ from kmeans_assign's")
+    if not torch.equal(counts, torch.bincount(lab, minlength=k_cl).float()):
+        fail(f"kmeans_assign_stats' counts {counts.tolist()} differ from "
+             "bincount's")
+    ok_s, err_s = within_sum_tolerance(sums, onehot.T @ emb,
+                                       onehot.T @ emb.abs())
+    ok_i, err_i = within_sum_tolerance(inertia, dist.sum(), dist.sum())
+    if not (ok_s and ok_i):
+        fail(f"kmeans_assign_stats' sums (max abs {err_s:.3g}) or inertia "
+             f"({err_i:.3g}) differ from the plain version's")
+    if not all(torch.equal(a, b) for a, b in
+               zip(stats, ops.kmeans_assign_stats(emb, cents))):
+        fail("two runs of kmeans_assign_stats differ")
+    e_len = k_cl * (k_cl + 1) + 1
+    b_ms, b_by = bound(n * k_cl * 4 + k_cl * k_cl * 4 + n * 4 + e_len * 4,
+                       3.0 * n * k_cl * k_cl + n * (k_cl + 1))
+    rows.append(dict(name="kmeans_assign_stats", route="cuda",
+                     source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                     replaces="src/repro/kernels/ops.py:395",
+                     max_abs_err=max(err_s, err_i),
+                     ms=dev_ms["kmeans_assign_stats"],
+                     plain_ms=dev_ms["plain kmeans_assign_stats_ref"],
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     check="labels of kmeans_assign; counts equal to "
+                           "bincount's; sums and inertia |err| <= 1e-6 + "
+                           "1e-5 * sum|terms|; the same bits twice"))
     for row in rows:
         log(f"[phase 2] {row['name']}: ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}) library_ms={row['library_ms']} "
             f"max_abs_err={row['max_abs_err']:.3g} ok ({row['check']})")
     return rows
+
+
+def old_lloyd_step(x, cents):
+    """The port's Lloyd step before the statistics form: the assignment,
+    ``bincount`` (which reads the labels' range back to the host) and a
+    one-hot product, then the centroid update."""
+    import torch
+
+    from repro_torch.kernels import ops
+    k = cents.shape[0]
+    labels, _ = ops.kmeans_assign(x, cents)
+    counts = torch.bincount(labels, minlength=k).to(x.dtype)
+    onehot = torch.nn.functional.one_hot(labels.long(), k).to(x.dtype)
+    new = (onehot.T @ x) / torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where((counts > 0)[:, None], new, cents)
+
+
+def lloyd_step(x, cents):
+    """One step of ``core.kmeans._lloyd``'s loop."""
+    import torch
+
+    from repro_torch.kernels import ops
+    _, counts, sums, _ = ops.kmeans_assign_stats(x, cents)
+    new = sums / torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where((counts > 0)[:, None], new, cents)
+
+
+def kmeans_split(model, cfg) -> None:
+    """The fit's kmeans stage split into k-means++ seeding and Lloyd steps:
+    ``core.kmeans.kmeans``'s calls, from the same generator, on the fitted
+    embedding, timed by the host clock after a device synchronise. They
+    must give the fit's labels."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.utils import fold_seed, make_generator
+    km = importlib.import_module("repro_torch.core.kmeans")
+    emb = torch.as_tensor(model.fit_result.embedding, device="cuda",
+                          dtype=torch.float32).contiguous()
+    gen = make_generator(fold_seed(cfg.seed, "kmeans"), "cuda")
+    seeding = lloyd = 0.0
+    best = None
+    for _ in range(cfg.kmeans_replicates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cents = km._plusplus_init(gen, emb, cfg.n_clusters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = km._lloyd(emb, cents, cfg.kmeans_iters, cfg.impl)
+        torch.cuda.synchronize()
+        seeding += t1 - t0
+        lloyd += time.perf_counter() - t1
+        if best is None or float(res.inertia) < float(best.inertia):
+            best = res
+    same = np.array_equal(best.labels.cpu().numpy(), model.fit_result.labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km.kmeans(make_generator(fold_seed(cfg.seed, "kmeans"), "cuda"), emb,
+              cfg.n_clusters, n_iters=cfg.kmeans_iters,
+              n_replicates=cfg.kmeans_replicates, impl=cfg.impl)
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    log(f"[phase 3] kmeans stage by the same calls: k-means++ seeding "
+        f"{seeding:.4f}s, Lloyd steps {lloyd:.4f}s ({cfg.kmeans_replicates} "
+        f"replicates x {cfg.kmeans_iters} steps + a last assignment); labels "
+        f"identical to the fit's = {same}; core.kmeans.kmeans once more as "
+        f"one call {whole:.4f}s")
+    if not same:
+        fail("the kmeans stage's calls on the fitted embedding do not give "
+             "the fit's labels")
 
 
 def phase3_fit(x_np, y_np, cfg):
@@ -496,6 +742,7 @@ def phase3_fit(x_np, y_np, cfg):
     log("[phase 3] stages (s): " + ", ".join(
         f"{k}={v:.3f}" for k, v in res.timer.times.items()))
     log(f"[phase 3] solver_iterations={diag['solver_iterations']} "
+        f"(zt then z: {FIT_ITERATIONS}) "
         f"resnorms={[float(f'{r:.3g}') for r in diag['solver_resnorms']]} "
         f"singular_values={[float(f'{s:.5f}') for s in res.singular_values]}")
     log(f"[phase 3] ACC={metrics.accuracy(res.labels, y_np):.4f} "
@@ -510,6 +757,14 @@ def phase3_fit(x_np, y_np, cfg):
     if counts["z_matmul_gather"]:
         fail(f"{counts['z_matmul_gather']} z products of the fit took the "
              "gather kernel, not the strip kernel")
+    if counts["gram_matmul_composed"]:
+        fail(f"{counts['gram_matmul_composed']} Gram products of the fit "
+             f"took zt then z, not the fused kernel "
+             f"({counts['gram_matmul']} did)")
+    if diag["solver_iterations"] != FIT_ITERATIONS:
+        fail(f"LOBPCG stopped after {diag['solver_iterations']} iterations, "
+             f"not {FIT_ITERATIONS} as with zt then z")
+    kmeans_split(model, cfg)
     if res.labels.shape != (x_np.shape[0],):
         fail(f"labels have shape {res.labels.shape}")
     return model, counts
@@ -854,6 +1109,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the LM weights, prompts and samples")
+    parser.add_argument("--kmeans-baseline", type=Path, default=None,
+                        help="a kmeans_assign.cu of another tree, timed "
+                             "beside this tree's kernel in phase 2")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -883,7 +1141,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     x_dev = torch.as_tensor(x_np, device="cuda")
     fm = RBMap(n_grids=N_GRIDS, sigma=sigma).fit(cfg.seed, x_dev)
-    kernels = phase2_kernels(x_dev, fm)
+    kernels = phase2_kernels(x_dev, fm, baseline_src=args.kmeans_baseline)
     del x_dev
     torch.cuda.empty_cache()
     log(f"[phase 2] {time.perf_counter() - t0:.1f}s")

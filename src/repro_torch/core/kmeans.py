@@ -1,20 +1,22 @@
 """Lloyd k-means with k-means++ seeding and replicates (Alg. 2 step 5).
 
 Matches the paper's protocol (Matlab kmeans, 10 replicates): best-of-r
-restarts by inertia. The assignment step is the hand-written
-``kmeans_assign`` kernel on the card.
+restarts by inertia. A Lloyd step takes its cluster counts and sums from
+``ops.kmeans_assign_stats``, as the JAX step takes them from its
+``segment_sum``s: on the card one launch of the hand-written
+``kmeans_assign`` kernel with its statistics epilogue, with no host sync.
+The last assignment of a replicate is ``ops.kmeans_assign``.
 
-The centroid update is deterministic: integer counts come from
-``bincount`` and the float sums from a one-hot (N, K)ᵀ·x product, never
-from float atomics (``index_add_``/``scatter_add_`` on CUDA are), so two
-fits on the same data give the same labels.
+The centroid update is deterministic: the kernel adds the sums in a fixed
+order with no float atomics (``index_add_``/``scatter_add_`` on CUDA use
+them), and on the CPU the plain version takes ``bincount`` and a one-hot
+(N, K)ᵀ·x product; so two fits on the same data give the same labels.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -47,13 +49,10 @@ def _plusplus_init(generator: torch.Generator, x: torch.Tensor,
 
 def _lloyd(x: torch.Tensor, cents: torch.Tensor, n_iters: int,
            impl: str = "auto") -> KMeansResult:
-    k = cents.shape[0]
     cents = cents.to(x.dtype).contiguous()
     for _ in range(n_iters):
-        labels, _ = ops.kmeans_assign(x, cents, impl=impl)
-        counts = torch.bincount(labels, minlength=k).to(x.dtype)
-        onehot = F.one_hot(labels.long(), k).to(x.dtype)      # (N, k)
-        new = (onehot.T @ x) / torch.clamp_min(counts, 1.0)[:, None]
+        _, counts, sums, _ = ops.kmeans_assign_stats(x, cents, impl=impl)
+        new = sums / torch.clamp_min(counts, 1.0)[:, None]
         # keep the previous centroid for empty clusters
         cents = torch.where((counts > 0)[:, None], new, cents).contiguous()
     labels, dists = ops.kmeans_assign(x, cents, impl=impl)

@@ -39,9 +39,15 @@ LIBRARIES: Dict[str, tuple] = {
         "z_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
         "z_strip_launch": [_P] * 5 + [_I] * 7 + [_P],
         "zt_matmul_launch": [_P] * 10 + [_I] * 5 + [ctypes.c_longlong, _I,
-                                                   _P]}),
+                                                   _P],
+        "gram_matmul_launch": [_P] * 12 + [_I] * 8 + [ctypes.c_longlong, _I,
+                                                      _P]}),
     "kmeans_assign": ("kmeans_assign.cu", {
-        "kmeans_assign_launch": [_P] * 4 + [_I] * 3 + [_P]}),
+        "kmeans_assign_launch": [_P] * 4 + [_I] * 3 + [_P],
+        "kmeans_assign_stats_scratch": [_I, _I,
+                                        ctypes.POINTER(ctypes.c_longlong)],
+        "kmeans_assign_stats_launch": [_P] * 7 + [ctypes.c_longlong] +
+                                      [_I] * 3 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "flash_attention_launch": [_P] * 4 + [_I] * 9 + [_P]}),
 }

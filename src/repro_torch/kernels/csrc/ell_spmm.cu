@@ -1,14 +1,15 @@
 // ELL sparse products of the SC_RB eigensolver for Hopper:
-//   z_matmul   y = diag(s) * Z * V    (gather,  (N, K))
-//   zt_matmul  q = Z^T * diag(s) * u  (scatter, (D, K))
+//   z_matmul     y = diag(s) * Z * V    (gather,  (N, K))
+//   zt_matmul    q = Z^T * diag(s) * u  (scatter, (D, K))
+//   gram_matmul  y = diag(s) * Z * Z^T * diag(s) * u  (both, one call)
 // where Z is the RB feature matrix in ELL form, idx int32 (N, R), one
 // structural 1 per (row, grid).
 //
 // Replaces: src/repro/kernels/ell_spmm.py, z_matmul_pallas
-// (_z_matmul_kernel) and zt_matmul_pallas (_zt_matmul_kernel). The TPU
-// kernels turn the gather and the scatter into one-hot products on the
-// MXU; the fused gram_matmul_pallas (_gram_matmul_kernel) is replaced by
-// the zt kernel followed by the z kernel (ops.gram_matmul).
+// (_z_matmul_kernel), zt_matmul_pallas (_zt_matmul_kernel) and
+// gram_matmul_pallas (_gram_matmul_kernel). The TPU kernels turn the
+// gather and the scatter into one-hot products on the MXU; the TPU's Gram
+// kernel keeps q in VMEM between its scatter and gather phases.
 //
 // What bounds them on the card: bytes, in two places. Each product reads
 // idx (or its column-sorted copy) once: N*R*4 = 595 MB at the main path's
@@ -65,10 +66,29 @@
 //      column, k) adds its chunk sums in order.
 // K > 4*32 loops over groups of 128 columns. No atomic anywhere. The rate
 // of L2 sector gathers bounds it: two 32-byte sectors per nonzero at K = 11.
+//
+// gram_matmul design, for the shapes of the strip route: zt's steps, then
+// the strip kernel, in one entry point, each kernel a programmatic
+// dependent of the one before (it starts while that one finishes, and
+// waits for it with griddepcontrol.wait), so the launch gaps overlap the
+// tails. The scatter (gram_scatter_kernel, at zt_main's block shape)
+// writes q straight into the strip kernel's column-group layout, so no
+// repack pass runs, and q (23 MB at the fit's shape) stays in L2 for the
+// gather (the H100's L2 plays the part of the TPU's VMEM). It keeps both
+// kernels' sums (zt_sums, z_strip_kernel), so y has the bits of zt_matmul
+// then z_matmul and LOBPCG's iterations do not move. Any Z(Z^T u) reads
+// the pattern twice (q needs every row before any y row can be formed,
+// and the 595 MB pattern does not fit L2): its bytes bound is the CSC row
+// ids, the column pointer, idx, u, s and y, 1.248 GB or 0.372 ms at the
+// fit's shape. (A single cooperative launch of one 16-warp block an SM,
+// grid-wide barriers between the phases, was 1.2 ms slower on the H100:
+// its scatter had a quarter of zt_main's warps in flight; PERF.md.)
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -99,6 +119,18 @@ z_matmul_kernel(const int32_t* __restrict__ idx, const T* __restrict__ v,
   store(out + gid, acc * s[i]);
 }
 
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it on the stream finishes; grid_dependency_wait blocks
+// until that kernel has completed and its writes are visible (a no-op in an
+// ordinary launch), and grid_dependency_trigger lets the next one start.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void add4(float4& a, const float4& v) {
   a.x += v.x;
   a.y += v.y;
@@ -115,6 +147,94 @@ zt_prescale_kernel(const float* __restrict__ u, const float* __restrict__ s,
   const long long i = gid / kp;
   const int j = (int)(gid - i * kp);
   su[gid] = j < k ? __fmul_rn(s[i], u[i * k + j]) : 0.f;
+  grid_dependency_trigger();  // the Gram product's scatter may start
+}
+
+// The bounds [p0, p1) in the CSC tables of zt's work item w: column w for
+// w < d, else chunk w - d of a long column.
+__device__ __forceinline__ void zt_item(const int64_t* colptr,
+                                        const int32_t* long_cols,
+                                        const int64_t* long_chunk_ptr,
+                                        const int32_t* chunk_long,
+                                        long long w, long long d, int chunk,
+                                        long long& p0, long long& p1) {
+  if (w < d) {
+    p0 = colptr[w];
+    p1 = colptr[w + 1];
+  } else {
+    const long long c = w - d;
+    const int li = chunk_long[c];
+    const int col = long_cols[li];
+    p0 = colptr[col] + (c - long_chunk_ptr[li]) * chunk;
+    p1 = min(p0 + chunk, (long long)colptr[col + 1]);
+  }
+}
+
+// One warp's sums over the nonzeros [p0, p1) of the CSC tables: 1 << log2l
+// lanes share a nonzero (one float4 group of its padded su row each) and
+// slot = lane >> log2l takes nonzeros p0 + slot, p0 + slot + slots, ... in
+// order, kInFlight gathers in flight at a time; then a fixed shuffle tree
+// adds the slots. emit(g, sum) runs on slot 0's lanes, once per float4
+// group g of the row. Each lane adds in order, so the unroll does not
+// change the bits. kL2 reads su through L2 only (su written by the kernel
+// this one depends on).
+constexpr int kInFlight = 4;
+
+template <bool kL2, typename Emit>
+__device__ __forceinline__ void zt_sums(const int32_t* __restrict__ rows,
+                                        const float4* su, long long p0,
+                                        long long p1, int groups, int log2l,
+                                        Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int l = 1 << log2l, slots = 32 >> log2l;
+  const int slot = lane >> log2l, sub = lane & (l - 1);
+  auto ld = [&](int32_t row, int g) {
+    const float4* p = su + (long long)row * groups + g;
+    return kL2 ? __ldcg(p) : __ldg(p);
+  };
+  for (int g0 = 0; g0 < groups; g0 += l) {
+    const int g = g0 + sub;
+    const bool active = g < groups;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    long long p = p0 + slot;
+    for (; p + (kInFlight - 1) * slots < p1; p += kInFlight * slots) {
+      int32_t rr[kInFlight];
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q) rr[q] = rows[p + q * slots];
+      if (active) {
+        float4 v[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) v[q] = ld(rr[q], g);
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) add4(acc, v[q]);
+      }
+    }
+    for (; p < p1; p += slots)
+      if (active) add4(acc, ld(rows[p], g));
+#pragma unroll
+    for (int off = 16; off >= l; off >>= 1) {
+      acc.x += __shfl_down_sync(0xffffffffu, acc.x, off);
+      acc.y += __shfl_down_sync(0xffffffffu, acc.y, off);
+      acc.z += __shfl_down_sync(0xffffffffu, acc.z, off);
+      acc.w += __shfl_down_sync(0xffffffffu, acc.w, off);
+    }
+    if (slot == 0 && active) emit(g, acc);
+  }
+}
+
+// The k columns of a float4 group's sums into a k-wide row (the pad
+// columns k..kp-1 are not stored).
+__device__ __forceinline__ void store_k(float* row, int g, int k,
+                                        const float4& acc) {
+  float* o = row + 4 * g;
+  o[0] = acc.x;
+  if (4 * g + 1 < k) o[1] = acc.y;
+  if (4 * g + 2 < k) o[2] = acc.z;
+  if (4 * g + 3 < k) o[3] = acc.w;
+}
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v >> 1);
 }
 
 // zt, step 2: warps [0, d) take one column each and write q, skipping the
@@ -130,63 +250,14 @@ zt_main_kernel(const int32_t* __restrict__ rows,
                const float4* __restrict__ su, float* __restrict__ q,
                float* __restrict__ partial, int d, long long n_chunks, int k,
                int kp, int chunk) {
-  constexpr int kSlots = 32 / L;
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
   if (w >= d + n_chunks) return;  // whole warps leave together
   long long p0, p1;
-  float* out;
-  if (w < d) {
-    p0 = colptr[w];
-    p1 = colptr[w + 1];
-    if (p1 - p0 > chunk) return;  // a long column: its chunks' warps
-    out = q + w * k;
-  } else {
-    const long long c = w - d;
-    const int li = chunk_long[c];
-    const int col = long_cols[li];
-    p0 = colptr[col] + (c - long_chunk_ptr[li]) * chunk;
-    p1 = min(p0 + chunk, (long long)colptr[col + 1]);
-    out = partial + c * k;
-  }
-  const int slot = lane / L, sub = lane % L;
-  const int groups = kp / 4;  // float4 groups of a padded row
-  for (int g0 = 0; g0 < groups; g0 += L) {
-    const int g = g0 + sub;
-    const bool active = g < groups;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    long long p = p0 + slot;
-    for (; p + 3 * kSlots < p1; p += 4 * kSlots) {
-      const int32_t r0 = rows[p], r1 = rows[p + kSlots];
-      const int32_t r2 = rows[p + 2 * kSlots], r3 = rows[p + 3 * kSlots];
-      if (active) {
-        const float4 v0 = su[(long long)r0 * groups + g];
-        const float4 v1 = su[(long long)r1 * groups + g];
-        const float4 v2 = su[(long long)r2 * groups + g];
-        const float4 v3 = su[(long long)r3 * groups + g];
-        add4(acc, v0);
-        add4(acc, v1);
-        add4(acc, v2);
-        add4(acc, v3);
-      }
-    }
-    for (; p < p1; p += kSlots)
-      if (active) add4(acc, su[(long long)rows[p] * groups + g]);
-#pragma unroll
-    for (int off = 16; off >= L; off >>= 1) {
-      acc.x += __shfl_down_sync(0xffffffffu, acc.x, off);
-      acc.y += __shfl_down_sync(0xffffffffu, acc.y, off);
-      acc.z += __shfl_down_sync(0xffffffffu, acc.z, off);
-      acc.w += __shfl_down_sync(0xffffffffu, acc.w, off);
-    }
-    if (slot == 0 && active) {  // the pad columns k..kp-1 are not stored
-      float* o = out + 4 * g;
-      o[0] = acc.x;
-      if (4 * g + 1 < k) o[1] = acc.y;
-      if (4 * g + 2 < k) o[2] = acc.z;
-      if (4 * g + 3 < k) o[3] = acc.w;
-    }
-  }
+  zt_item(colptr, long_cols, long_chunk_ptr, chunk_long, w, d, chunk, p0, p1);
+  if (w < d && p1 - p0 > chunk) return;  // a long column: its chunks' warps
+  float* out = w < d ? q + w * k : partial + (w - d) * k;
+  zt_sums<false>(rows, su, p0, p1, kp / 4, ilog2(L),
+                    [&](int g, const float4& acc) { store_k(out, g, k, acc); });
 }
 
 // zt, step 3: one thread per (long column, k) adds its chunk sums in order.
@@ -345,6 +416,8 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tm,
 //     the second 4 it asks for the next chunk.
 //   Sums: V[idx[i, r], cols] for r = 0, 1, ..., R-1, in order, in float32
 //     registers, scaled by s[i] once, as z_matmul_kernel does.
+// Thread 0 reads vp only after grid_dependency_wait: the Gram product
+// launches this kernel as a programmatic dependent of its scatter.
 template <typename T, int KC, int M>
 __global__ void __launch_bounds__(kStripConsumers, 1)
 z_strip_kernel(const __grid_constant__ CUtensorMap tm_idx,
@@ -398,6 +471,11 @@ z_strip_kernel(const __grid_constant__ CUtensorMap tm_idx,
     }
     for (int i = 0; i < kStripConsumers / 32; ++i) mbar_init(full_i + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // launched as a dependent of the kernel that writes vp (the Gram
+    // product's scatter): wait for it to finish before reading vp; a no-op
+    // in an ordinary launch
+    grid_dependency_wait();
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
     for (int i = 0; i < stages && i < r; ++i) load_strip(i, i);
   }
   __syncthreads();
@@ -503,16 +581,41 @@ EncodeTiledFn encode_tiled() {
 
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// A strip launch's geometry and its idx tensor map; plan_strip also lifts
+// the strip kernel's shared-memory limit, once per instantiation.
+struct StripPlan {
+  CUtensorMap map;
+  int stage_stride, smem, groups, tile_rows, n_items;
+};
+
 template <typename T, int KC, int M>
-cudaError_t launch_strip(const void* idx, const void* v, const void* s,
-                         void* vp, void* out, int n, int r, int d_g, int k,
-                         int stages, cudaStream_t stream) {
+cudaError_t plan_strip(const void* idx, int n, int r, int d_g, int k,
+                       int stages, StripPlan& p) {
   constexpr int kRows = kStripConsumers * M;
-  const int stage_stride = (int)((d_g * KC * sizeof(T) + 127) / 128 * 128);
-  const int smem = 1024 + kHeaderBytes + kRows * kIdxGrids * 4 +
-                   stages * stage_stride;
-  if (stages < 2 || stages > kMaxStages || smem > kSmemMax || r % kIdxGrids)
+  p.stage_stride = (int)((d_g * KC * sizeof(T) + 127) / 128 * 128);
+  p.smem = 1024 + kHeaderBytes + kRows * kIdxGrids * 4 +
+           stages * p.stage_stride;
+  if (stages < 2 || stages > kMaxStages || p.smem > kSmemMax ||
+      r % kIdxGrids)
     return cudaErrorInvalidValue;
+  static bool smem_set = false;  // once per instantiation of the kernel
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        z_strip_kernel<T, KC, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemMax);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   // idx (n, r) int32 as a 2-D map cut into boxes of 8 grids x 32*M rows;
@@ -521,43 +624,39 @@ cudaError_t launch_strip(const void* idx, const void* v, const void* s,
   const cuuint64_t strides[1] = {(cuuint64_t)r * 4};
   const cuuint32_t box[2] = {(cuuint32_t)kIdxGrids, (cuuint32_t)(32 * M)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(idx),
+  if (encode(&p.map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(idx),
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const int groups = (k + KC - 1) / KC;
-  const long long d = (long long)r * d_g;
-  const long long total = (long long)groups * d * KC;
-  z_strip_repack_kernel<T, KC>
-      <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-          (const T*)v, (T*)vp, d, k, groups);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        z_strip_kernel<T, KC, M>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  p.groups = (k + KC - 1) / KC;
   // as many tiles as fill the waves that tiles of kRows rows need, so that
   // the last wave is as full as the others (one block an SM)
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   const long long min_tiles = (n + kRows - 1) / kRows;
-  const long long waves = (min_tiles * groups + sms - 1) / sms;
-  const long long tiles = max(min_tiles, waves * sms / groups);
-  const int tile_rows = (int)(((n + tiles - 1) / tiles + 31) / 32 * 32);
-  const unsigned blocks = (unsigned)((n + tile_rows - 1) / tile_rows) * groups;
-  z_strip_kernel<T, KC, M><<<blocks, kStripConsumers, smem, stream>>>(
-      map, (const T*)vp, (const float*)s, (T*)out, n, r, d_g, k, groups,
-      tile_rows, stages, stage_stride);
+  const long long waves = (min_tiles * p.groups + sms - 1) / sms;
+  const long long tiles = max(min_tiles, waves * sms / p.groups);
+  p.tile_rows = (int)(((n + tiles - 1) / tiles + 31) / 32 * 32);
+  p.n_items = (int)((n + p.tile_rows - 1) / p.tile_rows) * p.groups;
+  return cudaSuccess;
+}
+
+template <typename T, int KC, int M>
+cudaError_t launch_strip(const void* idx, const void* v, const void* s,
+                         void* vp, void* out, int n, int r, int d_g, int k,
+                         int stages, cudaStream_t stream) {
+  StripPlan p;
+  cudaError_t e = plan_strip<T, KC, M>(idx, n, r, d_g, k, stages, p);
+  if (e != cudaSuccess) return e;
+  const long long d = (long long)r * d_g;
+  const long long total = (long long)p.groups * d * KC;
+  z_strip_repack_kernel<T, KC>
+      <<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          (const T*)v, (T*)vp, d, k, p.groups);
+  z_strip_kernel<T, KC, M><<<p.n_items, kStripConsumers, p.smem, stream>>>(
+      p.map, (const T*)vp, (const float*)s, (T*)out, n, r, d_g, k, p.groups,
+      p.tile_rows, stages, p.stage_stride);
   return cudaGetLastError();
 }
 
@@ -578,6 +677,179 @@ cudaError_t launch_strip_t(const void* idx, const void* v, const void* s,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// --------------------------------------------------------------------------
+// gram_matmul: y = diag(s) Z Z^T diag(s) u, three kernels chained by
+// programmatic dependent launch
+// --------------------------------------------------------------------------
+
+// A float4 group g of q's column `col` into the strip layout qp[cg][col][j]
+// (cg = column / KC, j = column % KC), the layout z_strip_repack_kernel
+// makes; the columns k.. up to width = groups*KC hold the zero sums of
+// su's pad.
+template <int KC>
+__device__ __forceinline__ void store_grouped(float* qp, long long d,
+                                              long long col, int g,
+                                              int width, const float4& acc) {
+  if constexpr (KC == 4) {
+    reinterpret_cast<float4*>(qp)[g * d + col] = acc;
+  } else {
+    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * g + c;
+      if (j < width) qp[((j / KC) * d + col) * KC + j % KC] = v[c];
+    }
+  }
+}
+
+// The Gram product's scatter: zt_main_kernel's work items and sums, with
+// short columns written straight into the strip layout qp (width = groups
+// * KC columns, pad included) and chunks of long columns into partial. A
+// programmatic dependent of zt_prescale_kernel.
+template <int L, int KC>
+__global__ void __launch_bounds__(kThreads)
+gram_scatter_kernel(const int32_t* __restrict__ rows,
+                    const int64_t* __restrict__ colptr,
+                    const int32_t* __restrict__ long_cols,
+                    const int64_t* __restrict__ long_chunk_ptr,
+                    const int32_t* __restrict__ chunk_long,
+                    const float4* su, float* __restrict__ qp,
+                    float* __restrict__ partial, int d, long long n_chunks,
+                    int k, int kp, int width, int chunk) {
+  grid_dependency_wait();  // su is complete
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w < d + n_chunks) {
+    long long p0, p1;
+    zt_item(colptr, long_cols, long_chunk_ptr, chunk_long, w, d, chunk, p0,
+            p1);
+    if (w >= d) {
+      float* out = partial + (w - d) * k;
+      zt_sums<true>(rows, su, p0, p1, kp / 4, ilog2(L),
+                       [&](int g, const float4& acc) {
+                         store_k(out, g, k, acc);
+                       });
+    } else if (p1 - p0 <= chunk) {  // a long column is its chunks' items
+      zt_sums<true>(rows, su, p0, p1, kp / 4, ilog2(L),
+                       [&](int g, const float4& acc) {
+                         store_grouped<KC>(qp, d, w, g, width, acc);
+                       });
+    }
+  }
+  grid_dependency_trigger();
+}
+
+// The long columns' chunk sums in order (zt_combine_kernel's), into qp; a
+// programmatic dependent of gram_scatter_kernel.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+gram_combine_kernel(const int32_t* __restrict__ long_cols,
+                    const int64_t* __restrict__ long_chunk_ptr,
+                    const float* partial, float* __restrict__ qp,
+                    long long d, int n_long, int k, int width) {
+  grid_dependency_wait();  // the chunk sums are complete
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid < (long long)n_long * width) {
+    const int li = (int)(gid / width);
+    const int j = (int)(gid - (long long)li * width);
+    float acc = 0.f;
+    if (j < k)
+      for (long long c = long_chunk_ptr[li]; c < long_chunk_ptr[li + 1]; ++c)
+        acc += __ldcg(partial + c * k + j);
+    qp[((j / KC) * d + long_cols[li]) * KC + j % KC] = acc;
+  }
+  grid_dependency_trigger();
+}
+
+// Launch `kernel` so that it may start while the previous kernel on the
+// stream finishes; it waits for it with grid_dependency_wait.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
+                             unsigned threads, size_t smem,
+                             cudaStream_t stream, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+template <int L, int KC>
+cudaError_t launch_gram_chain(const void* rows, const void* colptr,
+                              const void* long_cols,
+                              const void* long_chunk_ptr,
+                              const void* chunk_long, const void* idx,
+                              const void* u, const void* s, void* su,
+                              void* partial, void* qp, void* y, int n, int r,
+                              int d_g, int k, int kp, int stages, int n_long,
+                              long long n_chunks, int chunk,
+                              cudaStream_t stream) {
+  StripPlan p;
+  cudaError_t e = plan_strip<float, KC, kStripRows>(idx, n, r, d_g, k,
+                                                    stages, p);
+  if (e != cudaSuccess) return e;
+  const int d = r * d_g;
+  const int width = p.groups * KC;
+  const long long pre = (long long)n * kp;
+  zt_prescale_kernel<<<(unsigned)((pre + kThreads - 1) / kThreads), kThreads,
+                       0, stream>>>((const float*)u, (const float*)s,
+                                    (float*)su, n, k, kp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long warps = (long long)d + n_chunks;
+  e = launch_dependent(
+      gram_scatter_kernel<L, KC>,
+      (unsigned)((warps * 32 + kThreads - 1) / kThreads), kThreads, 0, stream,
+      (const int32_t*)rows, (const int64_t*)colptr,
+      (const int32_t*)long_cols, (const int64_t*)long_chunk_ptr,
+      (const int32_t*)chunk_long, (const float4*)su, (float*)qp,
+      (float*)partial, d, n_chunks, k, kp, width, chunk);
+  if (e != cudaSuccess) return e;
+  if (n_long > 0) {
+    const long long t = (long long)n_long * width;
+    e = launch_dependent(gram_combine_kernel<KC>,
+                         (unsigned)((t + kThreads - 1) / kThreads), kThreads,
+                         0, stream, (const int32_t*)long_cols,
+                         (const int64_t*)long_chunk_ptr,
+                         (const float*)partial, (float*)qp, (long long)d,
+                         n_long, k, width);
+    if (e != cudaSuccess) return e;
+  }
+  return launch_dependent(z_strip_kernel<float, KC, kStripRows>,
+                          (unsigned)p.n_items, kStripConsumers, p.smem,
+                          stream, p.map, (const float*)qp, (const float*)s,
+                          (float*)y, n, r, d_g, k, p.groups, p.tile_rows,
+                          stages, p.stage_stride);
+}
+
+template <int KC>
+cudaError_t launch_gram_kc(int l, const void* rows, const void* colptr,
+                           const void* long_cols, const void* long_chunk_ptr,
+                           const void* chunk_long, const void* idx,
+                           const void* u, const void* s, void* su,
+                           void* partial, void* qp, void* y, int n, int r,
+                           int d_g, int k, int kp, int stages, int n_long,
+                           long long n_chunks, int chunk, cudaStream_t st) {
+#define GRAM_CHAIN(LL)                                                        \
+  launch_gram_chain<LL, KC>(rows, colptr, long_cols, long_chunk_ptr,         \
+                            chunk_long, idx, u, s, su, partial, qp, y, n, r, \
+                            d_g, k, kp, stages, n_long, n_chunks, chunk, st)
+  switch (l) {
+    case 1: return GRAM_CHAIN(1);
+    case 2: return GRAM_CHAIN(2);
+    case 4: return GRAM_CHAIN(4);
+    case 8: return GRAM_CHAIN(8);
+    case 16: return GRAM_CHAIN(16);
+    default: return GRAM_CHAIN(32);
+  }
+#undef GRAM_CHAIN
 }
 
 }  // namespace
@@ -663,4 +935,38 @@ extern "C" int z_strip_launch(const void* idx, const void* v, const void* s,
                                               k, kc, stages, st);
   return (int)launch_strip_t<float>(idx, v, s, vp, out, n, r, d_g, k, kc,
                                     stages, st);
+}
+
+// y (n, k) = diag(s) Z Z^T diag(s) u for a shape the strip route takes
+// (ops.z_strip_plan picks kc and stages; float32): zt_prescale_kernel, then
+// gram_scatter_kernel, gram_combine_kernel if long columns exist, and
+// z_strip_kernel on q, each a programmatic dependent of the one before.
+// The CSC tables as for zt_matmul_launch, idx (n, r) int32 16-byte
+// aligned; su (n, kp), partial (n_chunks, k) and qp (ceil(k/kc) * r*d_g *
+// kc) are scratch.
+extern "C" int gram_matmul_launch(const void* rows, const void* colptr,
+                                  const void* long_cols,
+                                  const void* long_chunk_ptr,
+                                  const void* chunk_long, const void* idx,
+                                  const void* u, const void* s, void* su,
+                                  void* partial, void* qp, void* y, int n,
+                                  int r, int d_g, int k, int kp, int kc,
+                                  int stages, int n_long, long long n_chunks,
+                                  int chunk, void* stream) {
+  // lanes per nonzero as zt_matmul_launch picks them: the float4 groups of
+  // a padded row, rounded up to a power of two, at most 32
+  int l = 1;
+  while (l < kp / 4 && l < 32) l <<= 1;
+  cudaStream_t st = (cudaStream_t)stream;
+#define GRAM_KC(KC)                                                          \
+  launch_gram_kc<KC>(l, rows, colptr, long_cols, long_chunk_ptr, chunk_long, \
+                     idx, u, s, su, partial, qp, y, n, r, d_g, k, kp,       \
+                     stages, n_long, n_chunks, chunk, st)
+  switch (kc) {
+    case 1: return (int)GRAM_KC(1);
+    case 2: return (int)GRAM_KC(2);
+    case 4: return (int)GRAM_KC(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GRAM_KC
 }

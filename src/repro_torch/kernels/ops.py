@@ -16,6 +16,7 @@ the count a run reads to show that it went through the kernel.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, Optional
 
@@ -27,10 +28,15 @@ IMPLS = ("auto", "pallas", "xla")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 #: ``z_matmul`` counts the strip kernel, ``z_matmul_gather`` the gather
-#: kernel (the other shapes' route, see :func:`z_strip_plan`).
+#: kernel (the other shapes' route, see :func:`z_strip_plan`);
+#: ``gram_matmul`` the fused Gram product (one per launch of its chained
+#: pre-scale, scatter and strip kernels), and ``gram_matmul_composed`` the
+#: Gram products of the other shapes, each a ``zt_matmul`` then a
+#: ``z_matmul`` launch (counted under those).
 LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0,
                             "z_matmul_gather": 0, "zt_matmul": 0,
-                            "gram_matmul": 0, "kmeans_assign": 0,
+                            "gram_matmul": 0, "gram_matmul_composed": 0,
+                            "kmeans_assign": 0, "kmeans_assign_stats": 0,
                             "flash_attention": 0}
 
 
@@ -68,14 +74,21 @@ def _require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+#: Entry points resolved once: (library, function) → ctypes function.
+_FNS: Dict[tuple, object] = {}
 
 
 def _launch(lib: str, fn: str, tensor: torch.Tensor, *args) -> None:
-    with torch.cuda.device(tensor.device):
-        code = getattr(_build.library(lib), fn)(*args, _stream(tensor))
-    _build.check(code, fn)
+    """Call entry point ``fn`` of library ``lib`` on ``tensor``'s device and
+    current stream; raise if it reports a CUDA error."""
+    dev = tensor.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(lib, fn, tensor, *args)
+    f = _FNS.get((lib, fn))
+    if f is None:
+        f = _FNS[(lib, fn)] = getattr(_build.library(lib), fn)
+    _build.check(f(*args, torch.cuda.current_stream(dev).cuda_stream), fn)
 
 
 _I32_MAX = 2**31 - 1
@@ -368,14 +381,55 @@ def gram_matmul(
     impl: str = "auto",
     csc: Optional[EllCSC] = None,
 ) -> torch.Tensor:
-    """y = Ẑ Ẑᵀ u, the eigensolver's Gram mat-vec: the ``zt`` kernel into a
-    (D, K) float32 buffer, then the ``z`` kernel on it. (A fused kernel
-    waits for a measured gain.) On CUDA it counts one ``gram_matmul``
-    launch besides the two kernels' own."""
-    q = zt_matmul(idx, u, rowscale, d, d_g=d_g, impl=impl, csc=csc)
-    y = z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
-    if _on_cuda(idx, u, rowscale):
-        LAUNCHES["gram_matmul"] += 1
+    """y = Ẑ Ẑᵀ u, the eigensolver's Gram mat-vec.  (N, K) float32.
+
+    On CUDA, a shape that the strip route takes (:func:`z_strip_plan`)
+    goes through the fused Gram product: one entry point whose kernels (the
+    pre-scale, a scatter that writes q straight into the strip kernel's
+    layout, the strip kernel) start as programmatic dependents of each
+    other, with the bits of :func:`zt_matmul` then :func:`z_matmul` and no
+    repack pass. Any other shape takes that composition. ``csc`` as for
+    :func:`zt_matmul`."""
+    _check_impl(impl)
+    n, r = idx.shape
+    if not _on_cuda(idx, u, rowscale) or d != r * d_g:
+        # the plain versions; z_matmul raises on d ≠ R·d_g
+        q = zt_matmul(idx, u, rowscale, d, d_g=d_g, impl=impl, csc=csc)
+        return z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
+    _require(idx, "idx", (torch.int32,), 2)
+    _require(u, "u", (torch.float32,), 2)
+    _require(rowscale, "rowscale", (torch.float32,), 1)
+    k = u.shape[1]
+    if u.shape[0] != n or rowscale.shape != (n,):
+        raise ValueError("idx, u and rowscale must have the same rows")
+    plan = z_strip_plan(n, r, d_g, k, torch.float32)
+    if plan is None:
+        q = zt_matmul(idx, u, rowscale, d, d_g=d_g, impl=impl, csc=csc)
+        LAUNCHES["gram_matmul_composed"] += 1
+        return z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
+    if csc is None:
+        csc = ell_csc(idx, d)
+    if csc.n != n or csc.d != d or csc.rows.device != u.device:
+        raise ValueError("csc does not describe this idx")
+    if idx.data_ptr() % 16:
+        raise ValueError("idx must be 16-byte aligned for the strip kernel")
+    kc, stages = plan
+    kp = -(-k // 4) * 4
+    dev = u.device
+    y = torch.empty((n, k), dtype=torch.float32, device=dev)
+    su = torch.empty((n, kp), dtype=torch.float32, device=dev)
+    n_chunks = csc.chunk_long.shape[0]
+    partial = torch.empty((n_chunks, k), dtype=torch.float32, device=dev)
+    qp = torch.empty((-(-k // kc) * d * kc,), dtype=torch.float32,
+                     device=dev)                      # q in column groups
+    _launch("ell_spmm", "gram_matmul_launch", u,
+            csc.rows.data_ptr(), csc.colptr.data_ptr(),
+            csc.long_cols.data_ptr(), csc.long_chunk_ptr.data_ptr(),
+            csc.chunk_long.data_ptr(), idx.data_ptr(), u.data_ptr(),
+            rowscale.data_ptr(), su.data_ptr(), partial.data_ptr(),
+            qp.data_ptr(), y.data_ptr(), n, r, d_g, k, kp, kc, stages,
+            csc.long_cols.shape[0], n_chunks, ZT_CHUNK)
+    LAUNCHES["gram_matmul"] += 1
     return y
 
 
@@ -384,15 +438,12 @@ def gram_matmul(
 # --------------------------------------------------------------------------
 
 _SMEM_LIMIT = 48 * 1024
+#: The statistics form's scratch bytes per (device, d, k): the kernel's own
+#: query (csrc/kmeans_assign.cu owns its grid and scratch layout).
+_STATS_SCRATCH: Dict[tuple, int] = {}
 
 
-def kmeans_assign(
-    x: torch.Tensor, centroids: torch.Tensor, *, impl: str = "auto",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(labels int32 (N,), squared distance to nearest centroid (N,))."""
-    _check_impl(impl)
-    if not _on_cuda(x, centroids):
-        return ref.kmeans_assign_ref(x, centroids)
+def _kmeans_args(x: torch.Tensor, centroids: torch.Tensor) -> tuple:
     _require(x, "x", (torch.float32,), 2)
     _require(centroids, "centroids", (torch.float32,), 2)
     n, d = x.shape
@@ -403,6 +454,19 @@ def kmeans_assign(
     if (k * d + k) * 4 > _SMEM_LIMIT:
         raise ValueError(f"{k} centroids of width {d} exceed the kernel's "
                          "48 KB of shared memory")
+    if n > _I32_MAX:
+        raise ValueError(f"N = {n} does not fit int32")
+    return n, d, k
+
+
+def kmeans_assign(
+    x: torch.Tensor, centroids: torch.Tensor, *, impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels int32 (N,), squared distance to nearest centroid (N,))."""
+    _check_impl(impl)
+    if not _on_cuda(x, centroids):
+        return ref.kmeans_assign_ref(x, centroids)
+    n, d, k = _kmeans_args(x, centroids)
     labels = torch.empty((n,), dtype=torch.int32, device=x.device)
     dist = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
@@ -412,6 +476,54 @@ def kmeans_assign(
             dist.data_ptr(), n, d, k)
     LAUNCHES["kmeans_assign"] += 1
     return labels, dist
+
+
+def kmeans_assign_stats(
+    x: torch.Tensor, centroids: torch.Tensor, *, impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One assignment pass plus the Lloyd step's statistics: (labels int32
+    (N,), counts float32 (k,), sums float32 (k, d), inertia float32 ()).
+
+    The JAX package's ``ops.kmeans_assign_stats``. On CUDA it is the
+    ``kmeans_assign`` kernel with a second epilogue: per-warp sums in a
+    fixed order and one partial per block, which a two-level tree of
+    ticket counters adds in a fixed order (the last block of each group of
+    32, then the last of those) — no float atomics, so the bits are the
+    same on every run (the grid depends on the shape and the card
+    alone)."""
+    _check_impl(impl)
+    if not _on_cuda(x, centroids):
+        return ref.kmeans_assign_stats_ref(x, centroids)
+    n, d, k = _kmeans_args(x, centroids)
+    dev = x.device
+    key = (dev.index, d, k)
+    nbytes = _STATS_SCRATCH.get(key)
+    if nbytes is None:
+        out = ctypes.c_longlong()
+        with torch.cuda.device(dev):
+            code = _build.library("kmeans_assign").kmeans_assign_stats_scratch(
+                d, k, ctypes.byref(out))
+        if code:
+            raise ValueError(f"{k} centroids of width {d}: the statistics "
+                             "form does not fit a block's shared memory "
+                             f"(cudaError {code})")
+        nbytes = _STATS_SCRATCH[key] = out.value
+    labels = torch.empty((n,), dtype=torch.int32, device=dev)
+    stats = torch.empty((k * (d + 1) + 1,), dtype=torch.float32, device=dev)
+    counts, sums, inertia = stats[:k], stats[k:k + k * d].view(k, d), stats[-1]
+    if n == 0:
+        stats.zero_()
+        return labels, counts, sums, inertia
+    # the launch's own scratch, from the stream's pool: its ticket counters
+    # are zeroed by the launch, so launches on other streams never share
+    # them and a failed launch leaves nothing behind
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    _launch("kmeans_assign", "kmeans_assign_stats_launch", x,
+            x.data_ptr(), centroids.data_ptr(), labels.data_ptr(),
+            counts.data_ptr(), sums.data_ptr(), inertia.data_ptr(),
+            scratch.data_ptr(), nbytes, n, d, k)
+    LAUNCHES["kmeans_assign_stats"] += 1
+    return labels, counts, sums, inertia
 
 
 # --------------------------------------------------------------------------

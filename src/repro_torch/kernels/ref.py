@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Knuth multiplicative-hash constant (2^32 / golden ratio, odd).
 HASH_MIX = 2654435769
@@ -175,6 +176,23 @@ def kmeans_assign_ref(
     d2 = x2 - 2.0 * (x @ centroids.T) + c2[None, :]
     best, labels = torch.min(d2, dim=-1)
     return labels.to(torch.int32), torch.clamp_min(best, 0.0)
+
+
+def kmeans_assign_stats_ref(
+    x: torch.Tensor,          # (N, d) float32
+    centroids: torch.Tensor,  # (K, d) float32
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The assignment and the Lloyd step's statistics: (labels int32 (N,),
+    counts float32 (K,), sums float32 (K, d), inertia float32 ()).
+
+    Counts by ``bincount``, sums by a one-hot (N, K)ᵀ·x product, never by
+    float atomics: the arithmetic of the port's Lloyd step before the
+    kernel had a statistics form."""
+    labels, dists = kmeans_assign_ref(x, centroids)
+    k = centroids.shape[0]
+    counts = torch.bincount(labels, minlength=k).to(torch.float32)
+    onehot = F.one_hot(labels.long(), k).to(torch.float32)     # (N, K)
+    return labels, counts, onehot.T @ x, torch.sum(dists)
 
 
 #: Elements of float32 scores one step of the plain attention holds (1 GiB).

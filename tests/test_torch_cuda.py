@@ -14,7 +14,13 @@ on every run (no atomics), and ``z_matmul``'s strip kernel the same bits
 as its gather kernel (both add the grids in order); the strip route needs
 at least ``ops.Z_STRIP_MIN_ROWS`` rows, so its cases are that large.
 ``rb_binning`` is also held bit for bit on ``ref.rb_hard_cases``' planted
-quotients. Flash attention: float32 within 2e-5, bfloat16
+quotients. The fused Gram kernel must give the bits of ``zt_matmul`` then
+``z_matmul`` (it keeps both kernels' sums). ``kmeans_assign`` is held on
+small integer values, where every distance is exact whatever the order of
+the sums, so labels (ties to the first index) and distances agree
+exactly; its statistics form's counts equal ``bincount``'s, its sums and
+inertia are within 1e-6 + 1e-5·Σ|terms|, and two runs give the same
+bits (no float atomics). Flash attention: float32 within 2e-5, bfloat16
 within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
 before normalising, the plain version after). The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
@@ -226,6 +232,160 @@ def test_cuda_kmeans_assign(cuda, n, d, k):
     want_l, want_d = ref.kmeans_assign_ref(x, c)
     assert torch.equal(lab, want_l)
     torch.testing.assert_close(dist, want_d, rtol=1e-5, atol=1e-5)
+
+
+GRAM_STRIP_CASES = [  # n, r, d_g, k: shapes the strip route takes
+    (131_072, 16, 256, 11),    # the fit's width, column groups of 4
+    (140_001, 8, 16, 11),      # every column longer than ZT_CHUNK
+    (131_072, 8, 64, 1),       # column groups of 1
+    (131_072, 8, 8, 1),        # groups of 1, every column long
+    (140_001, 8, 64, 2),       # groups of 2
+    (131_072, 8, 64, 3),       # one group with a pad column
+    (131_072, 8, 64, 40),      # 10 groups, 16 lanes a nonzero
+    (131_072, 16, 4096, 11),   # groups of 2 (a wide strip)
+]
+
+
+def _gram_case(cuda, n, r, d_g, k):
+    rng = np.random.default_rng(n + r + k)
+    idx = torch.from_numpy(_ell(n + d_g, n, r, d_g)).to(cuda)
+    u = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy((rng.uniform(size=n) + 0.5).astype(np.float32)
+                         ).to(cuda)
+    return idx, u, s
+
+
+@pytest.mark.parametrize("n,r,d_g,k", GRAM_STRIP_CASES)
+def test_cuda_gram_matmul_fused(cuda, n, r, d_g, k):
+    """The fused Gram kernel: the bits of zt_matmul then z_matmul, the same
+    bits on a second run, and the plain version's sums."""
+    assert ops.z_strip_plan(n, r, d_g, k, torch.float32) is not None
+    idx, u, s = _gram_case(cuda, n, r, d_g, k)
+    d = r * d_g
+    csc = ops.ell_csc(idx, d)
+    ops.reset_launch_counts()
+    got = ops.gram_matmul(idx, u, s, d, d_g=d_g, csc=csc)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["gram_matmul"] == 1
+    assert counts["zt_matmul"] == counts["z_matmul"] == 0
+    assert counts["gram_matmul_composed"] == 0
+    want = ops.z_matmul(idx, ops.zt_matmul(idx, u, s, d, d_g=d_g, csc=csc),
+                        s, d_g=d_g)
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got, ops.gram_matmul(idx, u, s, d, d_g=d_g, csc=csc))
+    terms = ref.z_matmul_ref(idx, ref.zt_matmul_ref(idx, u.abs(), s, d), s)
+    _assert_sum_close(got, ref.z_matmul_ref(
+        idx, ref.zt_matmul_ref(idx, u, s, d), s), terms)
+
+
+@pytest.mark.parametrize("n,r,d_g,k", [(1000, 8, 64, 11),     # few rows
+                                       (140_001, 12, 64, 11)])  # R % 8
+def test_cuda_gram_matmul_composed_route(cuda, n, r, d_g, k):
+    """Shapes the strip route does not take: zt then z, counted as such."""
+    assert ops.z_strip_plan(n, r, d_g, k, torch.float32) is None
+    idx, u, s = _gram_case(cuda, n, r, d_g, k)
+    d = r * d_g
+    ops.reset_launch_counts()
+    got = ops.gram_matmul(idx, u, s, d, d_g=d_g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["gram_matmul"] == 0 and counts["gram_matmul_composed"] == 1
+    assert counts["zt_matmul"] == 1
+    want = ops.z_matmul(idx, ops.zt_matmul(idx, u, s, d, d_g=d_g), s,
+                        d_g=d_g)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 33])
+@pytest.mark.parametrize("n", [1, 1000, 1025, 131_072])
+def test_cuda_kmeans_assign_every_width(cuda, n, d):
+    """Every instantiation of the kernel (d 1..16, and the looped form for
+    wider rows) against the plain version. Small integer values make every
+    distance exact in float32 whatever the order of the sums, so labels
+    (ties to the first index included) and distances must agree exactly."""
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+                         ).to(cuda)
+    c = torch.from_numpy(rng.integers(-3, 4, size=(7, d)).astype(np.float32)
+                         ).to(cuda)
+    lab, dist = ops.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    want_l, want_d = ref.kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_l)
+    assert torch.equal(dist, want_d)
+
+
+@pytest.mark.parametrize("d", [3, 7])
+def test_cuda_kmeans_assign_unaligned_rows(cuda, d):
+    """Rows that start off a 16-byte boundary (a view one row in): the
+    tile's head and tail take 4-byte loads."""
+    rng = np.random.default_rng(d)
+    full = torch.from_numpy(rng.integers(-3, 4, size=(5001, d))
+                            .astype(np.float32)).to(cuda)
+    x = full[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    c = full[:5].contiguous()
+    lab, dist = ops.kmeans_assign(x, c)
+    want_l, want_d = ref.kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_l) and torch.equal(dist, want_d)
+    lab_s, counts, _, _ = ops.kmeans_assign_stats(x, c)
+    assert torch.equal(lab_s, want_l)
+    assert torch.equal(counts, torch.bincount(want_l, minlength=5).float())
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 7, 7), (1000, 2, 3), (1025, 16, 7),
+                                   (131_072, 7, 7), (20_000, 33, 5),
+                                   (5_000, 16, 40)])
+def test_cuda_kmeans_assign_stats(cuda, n, d, k):
+    """The statistics form: the assignment kernel's labels, counts exactly
+    those of bincount, sums and inertia within 1e-5 of the sum of their
+    absolute terms (another order of addition), and the same bits on a
+    second run (no float atomics)."""
+    rng = np.random.default_rng(n * d + k)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    lab, counts, sums, inertia = ops.kmeans_assign_stats(x, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["kmeans_assign_stats"] == 1
+    assert (lab.dtype, counts.shape, sums.shape, inertia.shape) == \
+        (torch.int32, (k,), (k, d), ())
+    want_l, dist = ops.kmeans_assign(x, c)
+    assert torch.equal(lab, want_l)
+    assert torch.equal(counts, torch.bincount(lab, minlength=k).float())
+    onehot = torch.nn.functional.one_hot(lab.long(), k).float()
+    _assert_sum_close(sums, onehot.T @ x, onehot.T @ x.abs())
+    _assert_sum_close(inertia, dist.sum(), dist.sum())
+    again = ops.kmeans_assign_stats(x, c)
+    for a, b in zip((lab, counts, sums, inertia), again):
+        assert torch.equal(a, b)
+
+
+def test_cuda_kmeans_assign_stats_on_two_streams(cuda):
+    """Statistics launches in flight on two streams at once: each has its
+    own scratch and ticket counters, so every result has the bits of the
+    same call made alone."""
+    rng = np.random.default_rng(7)
+    xs = [torch.from_numpy(rng.normal(size=(n, 7)).astype(np.float32))
+          .to(cuda) for n in (131_072, 200_003)]
+    cs = [x[:7].clone() for x in xs]
+    want = [ops.kmeans_assign_stats(x, c) for x, c in zip(xs, cs)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(ops.kmeans_assign_stats(xs[i], cs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for res in got[i]:
+            for a, b in zip(res, want[i]):
+                assert torch.equal(a, b)
 
 
 def test_cuda_wrappers_reject_mixed_devices(cuda):

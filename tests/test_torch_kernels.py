@@ -10,6 +10,8 @@ rounding of the output (2^-8 relative) on top of that. The CUDA kernels
 themselves are held against these plain versions in
 ``tests/test_torch_cuda.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,6 +256,59 @@ def test_kmeans_assign_plain_matches_pallas():
                                    impl="pallas")
     got_l, _ = ops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c))
     np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
+
+
+@pytest.mark.parametrize("n,d,k", [(64, 2, 3), (1000, 8, 16), (1025, 7, 7)])
+@pytest.mark.parametrize("jimpl", ["xla", "pallas"])
+def test_kmeans_assign_stats_plain_matches_reference(n, d, k, jimpl):
+    """The statistics form's plain version against the JAX package's
+    ``ops.kmeans_assign_stats`` (its XLA path, and the Pallas kernel in
+    interpret mode): labels and counts exact; sums and inertia within
+    1e-5 of the sum of their absolute terms (another order of addition)."""
+    rng = np.random.default_rng(7 * n + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = x[rng.choice(n, size=k, replace=False)] + 0.01
+    jl, jc, js, ji = (np.asarray(a) for a in jops.kmeans_assign_stats(
+        jnp.asarray(x), jnp.asarray(c), impl=jimpl))
+    lab, counts, sums, inertia = ops.kmeans_assign_stats(
+        torch.from_numpy(x), torch.from_numpy(c))
+    assert (lab.dtype, counts.dtype, sums.dtype, inertia.dtype) == \
+        (torch.int32,) + (torch.float32,) * 3
+    assert tuple(sums.shape) == (k, d) and inertia.shape == ()
+    np.testing.assert_array_equal(lab.numpy(), jl)
+    np.testing.assert_array_equal(counts.numpy(), jc)
+    onehot = np.eye(k, dtype=np.float64)[jl]
+    abs_sums = onehot.T @ np.abs(x).astype(np.float64)
+    assert np.all(np.abs(sums.numpy() - js) <= 1e-5 * abs_sums)
+    _, dist = jref.kmeans_assign_ref(jnp.asarray(x), jnp.asarray(c))
+    assert abs(float(inertia) - float(ji)) <= 1e-5 * float(np.sum(dist))
+
+
+def test_lloyd_takes_its_statistics_from_kmeans_assign_stats(monkeypatch):
+    """A Lloyd step is ``ops.kmeans_assign_stats`` and the centroid update;
+    only the last assignment is ``ops.kmeans_assign``. The centroids follow
+    a numpy Lloyd loop on the same seeds."""
+    tkm = importlib.import_module("repro_torch.core.kmeans")
+    calls = {"kmeans_assign_stats": 0, "kmeans_assign": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(ops, name, counted)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(500, 4)).astype(np.float32)
+    c0 = x[:3].copy()
+    res = tkm._lloyd(torch.from_numpy(x), torch.from_numpy(c0), 6)
+    assert calls == {"kmeans_assign_stats": 6, "kmeans_assign": 1}
+    cents = c0.astype(np.float64)
+    for _ in range(6):
+        lab = np.argmin(((x[:, None, :] - cents[None]) ** 2).sum(-1), axis=1)
+        for j in range(3):
+            if np.any(lab == j):
+                cents[j] = x[lab == j].mean(0)
+    np.testing.assert_allclose(res.centroids.numpy(), cents, atol=1e-5)
 
 
 def test_zt_z_adjoint():
