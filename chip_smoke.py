@@ -14,6 +14,8 @@ from a seed):
   phase 1  kernel build; rb_binning's hot loop in SASS (cuobjdump) must hold
            no MUFU, FRND or F2I instruction
   phase 2  every kernel against its plain version, with times and bounds:
+           bin_counts exactly (and equal to the CSC's column lengths, to the
+           sum of the streaming fit's five chunks, and on two streams);
            rb_binning bit for bit on all rows and on planted rows whose
            quotient sits on or one ulp off an integer; z_matmul's strip
            kernel bit-equal to its gather kernel, with its strip, idx and
@@ -49,6 +51,27 @@ from a seed):
            prefill logits through the kernel no further from a float32
            truth than twice the plain bf16 attention's; two greedy runs
            give the same tokens
+  phase 8  the host-chunked (streaming) fit, SCRBModel.fit with chunk_size
+           131,072 (four full chunks and a ragged one of 56,724 rows): x and
+           every O(N) array on the host, one chunk at a time on the card.
+           Its k-means is the reference's host-chunked one (mini-batch
+           streaming_kmeans, max(kmeans_iters, chunks) steps): its labels
+           agree ≥ 0.99 with that k-means run on the card, from the same
+           generator, over phase 3's device-resident embedding cut into the
+           same chunks; the agreement with phase 3's Lloyd labels is
+           printed (the data has no cluster gap, and the two k-means settle
+           apart). The LOBPCG solve stops before its iteration cap at both
+           N, the leading K Ritz values within 1e-3
+           relative of phase 3's and the embedding's span within
+           principal-angle cosines ≥ 1 − 1e-3; one bin_counts launch per
+           chunk, every other kernel of the path launched, no fused Gram
+           product; the degrees the same bits at chunks of 131,072 and
+           100,000 rows;
+           stage seconds, LOBPCG iterations, the Gram sweeps' H2D bytes and
+           GB/s and their share of the svd stage; peak device memory, which
+           must stay within 64 MiB at N = 290,506 (the first half of the
+           rows, same chunk); save → load → predict of the chunked model on
+           4,096 rows agrees with its fit labels ≥ 0.99
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -73,6 +96,7 @@ the pattern does not fit L2.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -100,6 +124,16 @@ FIT_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "gram_matmul",
 # z_matmul: the fused product gives the same bits, so the fit must stop
 # where that composition's did
 FIT_ITERATIONS = 31
+# the host-chunked fit (phase 8): chunks of 131,072 rows (the z strip
+# route's threshold, so the full chunks take it and the ragged last one the
+# gather kernel); its peak device memory may grow by at most 64 MiB from
+# the first half of the rows to all of them
+STREAM_CHUNK = 131_072
+STREAM_HALF = COVTYPE[3] // 2
+STREAM_FLAT_BYTES = 64 * 2**20
+STREAM_KERNELS = ("rb_binning", "zt_matmul", "z_matmul", "z_matmul_gather",
+                  "kmeans_assign", "kmeans_assign_stats")
+STREAM_PREDICT_ROWS = 4_096
 
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
@@ -513,6 +547,57 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
         f"{sectors:g} L2 sectors per {row_b}-byte row = {gather / 1e9:.3f} "
         f"GB, {gather / zt_ms / 1e9:.3f} TB/s at {zt_ms:.4f} ms (the bytes "
         f"bound, {b_ms:.4f} ms, counts idx and u once)")
+
+    # -- bin_counts: exact; the CSC's column lengths; the streaming fit's
+    # five chunks added into one buffer; two streams at once
+    got = ops.bin_counts(idx, d=big_d, d_g=d_g)
+    want = ref.bin_counts_ref(idx, big_d)
+    if not torch.equal(got, want):
+        fail(f"bin_counts differs from its plain version in "
+             f"{int((got != want).sum())} columns")
+    if not torch.equal((csc.colptr[1:] - csc.colptr[:-1]).to(torch.int32),
+                       got):
+        fail("bin_counts differs from the CSC's column lengths")
+    summed = torch.zeros_like(got)
+    chunks = range(0, n, STREAM_CHUNK)
+    for i in chunks:
+        ops.bin_counts(idx[i:i + STREAM_CHUNK], d=big_d, d_g=d_g, out=summed)
+    if not torch.equal(summed, got):
+        fail(f"bin_counts summed over {len(chunks)} chunks differs from the "
+             "single-shot counts")
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    on = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            on.append(ops.bin_counts(idx, d=big_d, d_g=d_g))
+    torch.cuda.synchronize()
+    if not all(torch.equal(c, got) for c in on):
+        fail("bin_counts launched on two streams at once differs")
+    bc_ms, bc_host = time_device(lambda: ops.bin_counts(idx, d=big_d,
+                                                        d_g=d_g))
+    part = idx[:STREAM_CHUNK]
+    bc_chunk_ms, _ = time_device(lambda: ops.bin_counts(part, d=big_d,
+                                                        d_g=d_g))
+    lib_ms = time_ms(lambda: torch.bincount(flat, minlength=big_d))
+    b_ms, b_by = bound(idx_bytes + big_d * 4, n * r)
+    b_chunk, _ = bound(STREAM_CHUNK * r * 4 + big_d * 4, STREAM_CHUNK * r)
+    rows.append(dict(name="bin_counts", route="cuda",
+                     source="src/repro_torch/kernels/csrc/bin_counts.cu",
+                     replaces="src/repro/kernels/ops.py:186",
+                     max_abs_err=0.0, ms=bc_ms,
+                     plain_ms=time_ms(lambda: ref.bin_counts_ref(idx, big_d),
+                                      iters=3, warmup=1),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     check="equal to its plain version, to the CSC's column "
+                           f"lengths and to the sum of {len(chunks)} chunks; "
+                           "the same on two streams"))
+    log(f"[phase 2] bin_counts on one chunk of {STREAM_CHUNK} rows (the "
+        f"streaming degree pass): {bc_chunk_ms:.4f} ms on the device, bound "
+        f"{b_chunk:.4f} ms; whole pattern {bc_ms:.4f} ms "
+        f"({(idx_bytes + big_d * 4) / bc_ms / 1e9:.3f} TB/s), host dispatch "
+        f"{bc_host:.1f} us a call")
+    del summed, on, want
 
     # -- the Gram operator: the fused kernel, against zt then z ------------
     got = ops.gram_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
@@ -1105,6 +1190,198 @@ def phase7_lm(seed: int) -> int:
     return launches
 
 
+def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
+    """The host-chunked fit at covtype scale against the device-resident
+    fit of phase 3 (``device_fit``: its labels, embedding and singular
+    values), its memory at half the rows, and a save → load → predict of
+    the chunked model. Returns the launch counts of the full-N fit."""
+    import importlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SCRBModel, metrics, streaming
+    from repro_torch.kernels import ops
+    from repro_torch.utils import fold_seed, make_generator
+    km = importlib.import_module("repro_torch.core.kmeans")
+
+    cfg_c = dataclasses.replace(cfg, chunk_size=STREAM_CHUNK)
+    gram = streaming.ChunkedELL.gram_matvec_chunked
+    sweeps = {"n": 0, "s": 0.0, "bytes": 0}
+
+    def timed_gram(store, u):
+        """The LOBPCG operator, timed (host clock after a synchronise) and
+        its uploads counted."""
+        torch.cuda.synchronize()
+        b0, t0 = store.h2d_stats.get("bytes", 0), time.perf_counter()
+        out = gram(store, u)
+        torch.cuda.synchronize()
+        sweeps["s"] += time.perf_counter() - t0
+        sweeps["n"] += 1
+        sweeps["bytes"] += store.h2d_stats["bytes"] - b0
+        return out
+
+    def fit(x):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(streaming.ChunkedELL, "gram_matvec_chunked",
+                               timed_gram):
+            model = SCRBModel.fit(x, cfg_c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (model, wall, ops.launch_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    model, wall, counts, peak = fit(x_np)
+    res = model.fit_result
+    diag = res.diagnostics
+    n = x_np.shape[0]
+    cos = subspace_cosine(res.embedding, device_fit["embedding"])
+    log(f"[phase 8] host-chunked fit N={n} chunk_size={STREAM_CHUNK} in "
+        f"{wall:.2f}s; stages (s): " + ", ".join(
+            f"{k}={v:.3f}" for k, v in res.timer.times.items()))
+    acc_lloyd = metrics.accuracy(res.labels, device_fit["labels"])
+    # the same k-means (streaming_kmeans, same generator and step count)
+    # over the device fit's embedding in the same chunks: rows are drawn by
+    # index and distance, so a sign flip of an eigenvector changes nothing
+    same_alg = km.streaming_kmeans(
+        make_generator(fold_seed(cfg.seed, "kmeans"), "cuda"),
+        streaming.ChunkedDense.from_array(device_fit["embedding"],
+                                          STREAM_CHUNK),
+        cfg.n_clusters, n_steps=diag["kmeans_steps"],
+        n_replicates=cfg.kmeans_replicates, impl=cfg.impl, device="cuda")
+    acc_dev = metrics.accuracy(res.labels, same_alg.labels.numpy())
+    theta_c = np.asarray(res.singular_values, np.float64) ** 2
+    theta_d = np.asarray(device_fit["singular_values"], np.float64) ** 2
+    rel = float(np.max(np.abs(theta_c - theta_d) / np.abs(theta_d)))
+    log(f"[phase 8] solver_iterations={diag['solver_iterations']} (the "
+        f"device fit: {device_fit['iterations']}) resnorms="
+        f"{[float(f'{r:.3g}') for r in diag['solver_resnorms']]}; Ritz "
+        f"values {[float(f'{t:.6f}') for t in theta_c]} against the device "
+        f"fit's {[float(f'{t:.6f}') for t in theta_d]}: max relative "
+        f"difference {rel:.3g} (limit 1e-3)")
+    log(f"[phase 8] embedding span against the device fit's: principal-"
+        f"angle cosines >= {cos:.9f} (limit 1 - 1e-3)")
+    log(f"[phase 8] ACC={metrics.accuracy(res.labels, y_np):.4f} against "
+        f"the synthetic truth (device fit "
+        f"{metrics.accuracy(device_fit['labels'], y_np):.4f}); "
+        f"streaming_kmeans, {diag['kmeans_steps']} steps: agreement with "
+        f"the same k-means over the device fit's embedding {acc_dev:.4f} "
+        f"(limit 0.99; its inertia {float(same_alg.inertia):.6g}), with the "
+        f"device fit's Lloyd labels {acc_lloyd:.4f} (not gated); k-means "
+        f"inertia {diag['kmeans_inertia']:.6g} (device fit's Lloyd "
+        f"{device_fit['inertia']:.6g})")
+    resid = {k: diag[k] for k in ("n_chunks", "chunk_rows_max",
+                                  "ell_device_bytes_peak",
+                                  "embedding_device_bytes_peak",
+                                  "h2d_max_chunk_bytes", "prefetch")}
+    log(f"[phase 8] residency diagnostics: {resid}")
+    per = sweeps["s"] / max(sweeps["n"], 1)
+    svd = res.timer.times["svd"]
+    log(f"[phase 8] Gram sweeps (zt over each chunk's CSC, then z over its "
+        f"idx): {sweeps['n']} in the svd stage, {per * 1e3:.1f} ms and "
+        f"{sweeps['bytes'] / max(sweeps['n'], 1) / 1e9:.3f} GB of H2D each "
+        f"({sweeps['bytes'] / max(sweeps['s'], 1e-9) / 1e9:.2f} GB/s); "
+        f"{sweeps['s']:.2f} s of the svd stage's {svd:.2f} s "
+        f"({sweeps['s'] / svd:.1%}); the rest, {svd - sweeps['s']:.2f} s, "
+        f"is the host float64 algebra and its copies")
+    log(f"[phase 8] peak device memory above the start "
+        f"{peak / 2**20:.1f} MiB ({torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB allocated at the peak)")
+    log(f"[phase 8] kernel launches during the fit: {counts}")
+    if rel > 1e-3:
+        fail(f"the host-chunked fit's Ritz values are {rel:.3g} off the "
+             "device fit's (limit 1e-3 relative)")
+    if cos < 1 - 1e-3:
+        fail(f"the host-chunked fit's embedding spans another subspace "
+             f"(principal-angle cosine {cos:.6f})")
+    if acc_dev < 0.99:
+        fail(f"the host-chunked fit's labels agree with the same k-means "
+             f"over the device fit's embedding at {acc_dev:.4f} < 0.99")
+    max_iters = cfg.solver_options.iters
+    if diag["solver_iterations"] >= max_iters:
+        fail(f"the host-chunked LOBPCG solve ran to its cap of {max_iters} "
+             "iterations")
+    n_chunks = -(-n // STREAM_CHUNK)
+    if counts["bin_counts"] != n_chunks:
+        fail(f"{counts['bin_counts']} bin_counts launches, not one per chunk "
+             f"({n_chunks})")
+    missing = [k for k in STREAM_KERNELS if counts[k] <= 0]
+    if missing or counts["gram_matmul"]:
+        fail(f"the host-chunked fit launched no {missing} kernel, or the "
+             f"fused Gram product ({counts['gram_matmul']} times)")
+    if res.labels.shape != (n,) or not np.all(np.isfinite(res.embedding)):
+        fail("the host-chunked fit's labels or embedding are malformed")
+
+    # degrees: the same bits at another chunking
+    chunks = streaming.chunked_rb_transform(
+        streaming.as_row_chunks(x_np, STREAM_CHUNK), model.feature_map.params,
+        device="cuda")
+    whole = torch.cat(chunks)
+    big_d, d_g = model.feature_map.n_features, model.feature_map.d_g
+    deg = {c: streaming.chunked_degrees(streaming.as_row_chunks(whole, c),
+                                        d=big_d, d_g=d_g, device="cuda")
+           for c in (STREAM_CHUNK, 100_000)}
+    same = torch.equal(deg[STREAM_CHUNK], deg[100_000])
+    log(f"[phase 8] degrees at chunks of {STREAM_CHUNK} and 100,000 rows: "
+        f"identical bits = {same}; max degree x R = "
+        f"{float(deg[STREAM_CHUNK].max()) * cfg.n_grids:.4g} (2^24 = "
+        f"{2 ** 24})")
+    if not same or float(deg[STREAM_CHUNK].min()) != diag["degrees_min"]:
+        fail("the streaming degrees depend on the chunking")
+    del chunks, whole, deg
+
+    # save → load → predict of the chunked model
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "chunked.npz")
+        model.save(path)
+        served = SCRBModel.load(path, device="cuda")
+        pred = served.predict(x_np[:STREAM_PREDICT_ROWS])
+    agree = metrics.accuracy(pred, res.labels[:STREAM_PREDICT_ROWS])
+    log(f"[phase 8] save -> load -> predict of the chunked model on "
+        f"{STREAM_PREDICT_ROWS} rows: agreement with its fit labels "
+        f"{agree:.4f}")
+    if agree < 0.99:
+        fail(f"the chunked model's predict agrees at {agree:.4f} < 0.99")
+    del model, served
+
+    sweeps.update(n=0, s=0.0, bytes=0)
+    half, wall_h, _, peak_h = fit(x_np[:STREAM_HALF])
+    diag_h = half.fit_result.diagnostics
+    log(f"[phase 8] host-chunked fit N={STREAM_HALF} in {wall_h:.2f}s "
+        f"({diag_h['n_chunks']} chunks); stages (s): " + ", ".join(
+            f"{k}={v:.3f}" for k, v in half.fit_result.timer.times.items())
+        + f"; solver_iterations={diag_h['solver_iterations']} (cap "
+        f"{max_iters}) resnorms="
+        f"{[float(f'{r:.3g}') for r in diag_h['solver_resnorms']]}; "
+        f"{sweeps['n']} Gram sweeps, {sweeps['s']:.2f} s")
+    log(f"[phase 8] peak device memory above the start at N={STREAM_HALF} "
+        f"{peak_h / 2**20:.1f} MiB against {peak / 2**20:.1f} MiB at N={n} "
+        f"(limit: within {STREAM_FLAT_BYTES / 2**20:.0f} MiB)")
+    if diag_h["solver_iterations"] >= max_iters:
+        fail(f"the host-chunked LOBPCG solve at N={STREAM_HALF} ran to its "
+             f"cap of {max_iters} iterations")
+    if abs(peak - peak_h) > STREAM_FLAT_BYTES:
+        fail(f"the host-chunked fit's peak device memory moved by "
+             f"{(peak - peak_h) / 2**20:.1f} MiB from N={STREAM_HALF} to "
+             f"N={n}")
+    return counts
+
+
+def subspace_cosine(a, b) -> float:
+    """Smallest principal-angle cosine between the column spans of two
+    (N, K) host arrays."""
+    import numpy as np
+    qa, _ = np.linalg.qr(np.asarray(a, np.float64))
+    qb, _ = np.linalg.qr(np.asarray(b, np.float64))
+    return float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1159,7 +1436,12 @@ def main() -> None:
     t0 = time.perf_counter()
     phase5_determinism(x_np, cfg)
     log(f"[phase 5] {time.perf_counter() - t0:.1f}s")
-    del model, x_np, y_np
+    res = model.fit_result
+    device_fit = {"labels": res.labels, "embedding": res.embedding,
+                  "singular_values": res.singular_values,
+                  "iterations": res.diagnostics["solver_iterations"],
+                  "inertia": res.diagnostics["kmeans_inertia"]}
+    del model, res
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1171,6 +1453,14 @@ def main() -> None:
     flash["launches"] = phase7_lm(args.seed)
     kernels.append(flash)
     log(f"[phase 7] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    stream_counts = phase8_streaming(x_np, y_np, cfg, device_fit)
+    for row in kernels:
+        if row["name"] == "bin_counts":       # the streaming path's kernel
+            row["launches"] = stream_counts["bin_counts"]
+    log(f"[phase 8] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

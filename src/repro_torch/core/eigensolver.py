@@ -7,13 +7,20 @@ block mat-vec is the Gram operator (hand-written kernels on the card); the
 dense algebra around it (QR, eigh, GEMM) runs on ``torch.linalg`` and
 ``torch.matmul``, in full float32 — the fit turns TF32 off.
 
-Other solvers of the JAX package (``lobpcg_host``, ``randomized``,
-``auto``, ``lanczos``, ``subspace``, ``compressive``) are not yet ported
-and raise.
+``lobpcg_host_chunked`` is the host-chunked residency's driver: the block
+iterates live as host row chunks (``streaming.ChunkedDense``), only the
+Gram product touches the device (one chunk at a time), and the small
+(3b, 3b) Rayleigh–Ritz algebra runs in host float64 with numpy, as in the
+JAX package. ``top_k_eigenpairs(chunk_sizes=...)`` selects it for
+``solver="lobpcg"`` or ``"lobpcg_host"``.
+
+Other solvers of the JAX package (``lobpcg_host`` on a device operand,
+``randomized``, ``auto``, ``lanczos``, ``subspace``, ``compressive``) are
+not yet ported and raise.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,11 +28,13 @@ import torch
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
 SOLVERS = ("lobpcg",)
+#: Solvers of host-chunked operands (the host-driven LOBPCG).
+CHUNKED_SOLVERS = ("lobpcg", "lobpcg_host")
 
 
 class EigResult(NamedTuple):
     theta: torch.Tensor      # (k,) eigenvalues, descending
-    vectors: torch.Tensor    # (n, k) eigenvectors
+    vectors: "torch.Tensor | object"   # (n, k); a ChunkedDense on chunks
     resnorms: torch.Tensor   # (k,) final residual norms
     iterations: int          # mat-vec blocks used
 
@@ -196,17 +205,28 @@ def lobpcg_block_width(n: int, k: int, buffer: int) -> int:
     return max(1, min(k + buffer, n // 3))
 
 
-def _dense_exact(matvec, n, k, device) -> EigResult:
+def _dense_exact(matvec, n, k, device, chunk_sizes=None) -> EigResult:
     """Exact dense eigensolve for n < 3k (no [X|W|P] subspace fits): one
-    mat-vec against the identity materializes the tiny operator."""
-    a = matvec(torch.eye(n, dtype=torch.float32, device=device))
-    a = a.detach().cpu().numpy().astype(np.float64)
+    mat-vec against the identity materializes the tiny operator (as host
+    chunks with ``chunk_sizes``)."""
+    if chunk_sizes is not None:
+        from repro_torch.core.streaming import ChunkedDense
+        eye = ChunkedDense.from_array(np.eye(n, dtype=np.float32),
+                                      chunk_sizes)
+        a = matvec(eye).to_array().astype(np.float64)
+    else:
+        a = matvec(torch.eye(n, dtype=torch.float32, device=device))
+        a = a.detach().cpu().numpy().astype(np.float64)
     a = 0.5 * (a + a.T)
     evals, evecs = np.linalg.eigh(a)
     kk = min(k, n)
     theta = np.pad(evals[::-1][:kk], (0, k - kk)).astype(np.float32)
     vecs = np.zeros((n, k), np.float32)
     vecs[:, :kk] = evecs[:, ::-1][:, :kk]
+    if chunk_sizes is not None:
+        return EigResult(torch.as_tensor(theta),
+                         ChunkedDense.from_array(vecs, chunk_sizes),
+                         torch.zeros((k,), dtype=torch.float32), 1)
     as_t = lambda a: torch.as_tensor(a, device=device)
     return EigResult(as_t(theta), as_t(vecs),
                      torch.zeros((k,), dtype=torch.float32, device=device), 1)
@@ -217,11 +237,14 @@ def prepare_start_block(x0, n: int, b: int,
                         device) -> torch.Tensor:
     """Normalize a warm start to an (n, b) block on ``device``.
 
-    ``x0`` may be an ``EigResult`` or an (n, kx) array/tensor; extra columns
-    are truncated, missing columns are padded with Gaussian columns drawn
-    from ``generator`` (the QR keeps the warm columns first)."""
+    ``x0`` may be an ``EigResult``, an (n, kx) array/tensor or a
+    ``ChunkedDense``; extra columns are truncated, missing columns are
+    padded with Gaussian columns drawn from ``generator`` (the QR keeps the
+    warm columns first)."""
     if hasattr(x0, "vectors"):                       # EigResult
         x0 = x0.vectors
+    if hasattr(x0, "to_array"):                      # ChunkedDense
+        x0 = x0.to_array()
     if isinstance(x0, torch.Tensor):
         arr = x0.detach().to(device=device, dtype=torch.float32)
     else:
@@ -250,20 +273,48 @@ def top_k_eigenpairs(
     x0=None,
     precond=None,
     stable_tol: Optional[float] = None,
+    chunk_sizes: Optional[Sequence[int]] = None,
 ) -> EigResult:
     """Top-k eigenpairs with a small convergence buffer block.
 
     The start block is ``x0`` (see :func:`prepare_start_block`) or
     Gaussian columns from ``generator``. When n < 3k the blocked iteration
     cannot fit; the solve falls back to a dense exact eigendecomposition.
-    Only ``solver="lobpcg"`` is ported."""
-    if solver not in SOLVERS:
+    Only ``solver="lobpcg"`` is ported for a device operand.
+
+    With ``chunk_sizes``, ``matvec`` maps a ``ChunkedDense`` to a
+    ``ChunkedDense`` over that chunking, the start block is drawn chunk by
+    chunk from ``generator`` (a CPU generator; never an (N, b) array) or
+    made from ``x0``, and ``vectors`` are a ``ChunkedDense``:
+    :func:`lobpcg_host_chunked` for ``"lobpcg"`` or ``"lobpcg_host"``."""
+    if chunk_sizes is not None:
+        if solver in ("randomized", "auto"):
+            raise NotImplementedError(
+                f"solver={solver!r} on host chunks is not yet ported to "
+                f"repro_torch (ported: {CHUNKED_SOLVERS})")
+        if solver not in CHUNKED_SOLVERS:
+            raise ValueError(
+                f"streaming mat-vecs require a host-driven solver "
+                f"({CHUNKED_SOLVERS}), got {solver!r}")
+    elif solver not in SOLVERS:
         raise NotImplementedError(
             f"solver={solver!r} is not yet ported to repro_torch (ported: "
             f"{SOLVERS})")
     if 3 * k > n:
-        return _dense_exact(matvec, n, k, device)
+        return _dense_exact(matvec, n, k, device, chunk_sizes)
     b = lobpcg_block_width(n, k, buffer)
+    if chunk_sizes is not None:
+        from repro_torch.core.streaming import ChunkedDense
+        if x0 is not None:
+            x0c = ChunkedDense.from_array(
+                prepare_start_block(x0, n, b, generator, "cpu"), chunk_sizes)
+        else:
+            x0c = ChunkedDense.random_normal(generator, chunk_sizes, b)
+        out = lobpcg_host_chunked(matvec, x0c, max_iters=max_iters, tol=tol,
+                                  precond=precond, stable_tol=stable_tol,
+                                  stable_k=k, conv_k=k)
+        return EigResult(out.theta[:k], out.vectors.take_cols(k),
+                         out.resnorms[:k], out.iterations)
     if x0 is not None:
         x0a = prepare_start_block(x0, n, b, generator, device)
     else:
@@ -273,3 +324,225 @@ def top_k_eigenpairs(
                  stable_tol=stable_tol, stable_k=k, conv_k=k)
     return EigResult(out.theta[:k], out.vectors[:, :k].contiguous(),
                      out.resnorms[:k], out.iterations)
+
+
+# --------------------------------------------------------------------------
+# Chunked LOBPCG: the block iterates live as host row chunks
+# (streaming.ChunkedDense); only the Gram product touches the device, one
+# chunk at a time. The small (3b, 3b) block algebra runs in host float64.
+# --------------------------------------------------------------------------
+
+def _chunks_inner(a: Sequence[np.ndarray],
+                  b: Sequence[np.ndarray]) -> np.ndarray:
+    """Σ_c A_cᵀ B_c in float64: the tall inner products of LOBPCG."""
+    out = None
+    for ac, bc in zip(a, b):
+        g = ac.astype(np.float64).T @ bc.astype(np.float64)
+        out = g if out is None else out + g
+    return out
+
+
+def _chunks_col_dots(a: Sequence[np.ndarray],
+                     b: Sequence[np.ndarray]) -> np.ndarray:
+    """diag(AᵀB) without the full Gram: Σ_c colsum(A_c ∘ B_c)."""
+    return sum(
+        np.sum(ac.astype(np.float64) * bc.astype(np.float64), axis=0)
+        for ac, bc in zip(a, b))
+
+
+def _chunks_resnorms(x, ax, theta) -> np.ndarray:
+    """Relative residual norms ‖AX − XΘ‖_col / Θ, over the chunks."""
+    rnorm2 = sum(
+        np.sum((axc.astype(np.float64) - xc.astype(np.float64)
+                * theta[None, :]) ** 2, axis=0)
+        for xc, axc in zip(x, ax))
+    return np.sqrt(rnorm2) / np.maximum(theta, 1e-12)
+
+
+def _chunks_cholqr(x: Sequence[np.ndarray],
+                   ax: Optional[Sequence[np.ndarray]] = None):
+    """Cholesky-QR of a chunked tall-skinny block: X ← X·L⁻ᵀ chunk by
+    chunk, with AX kept consistent through the same factor. X is (near-)
+    orthonormal at every call site, so one Cholesky pass suffices; on a
+    breakdown the factorization is skipped."""
+    m = _chunks_inner(x, x)
+    m = 0.5 * (m + m.T)
+    try:
+        lfac = np.linalg.cholesky(
+            m + 1e-12 * max(np.trace(m) / m.shape[0], 1.0)
+            * np.eye(m.shape[0]))
+    except np.linalg.LinAlgError:
+        return list(x), None if ax is None else list(ax)
+    xq = [np.linalg.solve(lfac, c.astype(np.float64).T).T.astype(np.float32)
+          for c in x]
+    if ax is None:
+        return xq, None
+    axq = [np.linalg.solve(lfac, c.astype(np.float64).T).T.astype(np.float32)
+           for c in ax]
+    return xq, axq
+
+
+def _whitened_rayleigh_ritz_grams_np(gram_m, gram_a, k, rcond=3e-4):
+    """Host-float64 :func:`_whitened_rayleigh_ritz` from the (3b, 3b) Gram
+    matrices (the chunked driver adds them up chunk by chunk and never
+    forms S)."""
+    m = gram_m.shape[0]
+    gram_a = 0.5 * (gram_a + gram_a.T)
+    lam, v = np.linalg.eigh(0.5 * (gram_m + gram_m.T))
+    keep = lam > rcond * np.max(lam)
+    inv_sqrt = np.where(keep, 1.0 / np.sqrt(np.maximum(lam, 1e-30)), 0.0)
+    wh = v * inv_sqrt[None, :]
+    t = wh.T @ gram_a @ wh
+    t = 0.5 * (t + t.T)
+    t = t - (1.0 - keep.astype(t.dtype))[:, None] * np.eye(m)
+    evals, evecs = np.linalg.eigh(t)
+    top = np.arange(m - k, m)[::-1]
+    return evals[top], wh @ evecs[:, top]
+
+
+def _split_chunks(vec, sizes: Sequence[int]):
+    """Split an (N,) host vector into row chunks aligned with ``sizes``."""
+    if vec is None:
+        return None
+    if isinstance(vec, torch.Tensor):
+        vec = vec.detach().cpu().numpy()
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    v = np.asarray(vec, np.float32)
+    return [v[offsets[i]:offsets[i + 1]] for i in range(len(sizes))]
+
+
+def _compressed_width(n_active: int) -> int:
+    """Active-column counts rounded up to a multiple of 4: the width the
+    compressed mat-vec streams once Ritz pairs lock."""
+    return max(4, -(-n_active // 4) * 4)
+
+
+def lobpcg_host_chunked(
+    matvec: Callable,
+    x0,
+    *,
+    max_iters: int = 200,
+    tol: float = 1e-5,
+    precond=None,
+    stable_tol: Optional[float] = None,
+    stable_k: Optional[int] = None,
+    check_every: int = 4,
+    conv_k: Optional[int] = None,
+) -> EigResult:
+    """LOBPCG whose block iterates never exist as O(N) device arrays.
+
+    ``x0`` is a ``streaming.ChunkedDense`` start block; ``matvec`` maps a
+    ``ChunkedDense`` to one of the same chunking (``ChunkedELL.
+    gram_matvec_chunked``: one chunk and the (D, K) accumulator on the
+    device). X, AX, W, P and AP stay on the host as numpy row chunks; the
+    Rayleigh–Ritz algebra runs in host float64. The JAX package's driver,
+    line for line: converged columns of W are exactly zero, so they are
+    compressed out of the mat-vec (its cost shrinks as pairs lock) and
+    scattered back as zero columns. Returns the Ritz vectors as a
+    ``ChunkedDense`` and the values as CPU tensors."""
+    from repro_torch.core.streaming import ChunkedDense
+
+    n, k = x0.n, x0.k
+    if 3 * k > n:
+        raise ValueError(f"block too large: need 3k ≤ n, got k={k}, n={n}")
+    wrap = lambda chunks: ChunkedDense(tuple(
+        torch.from_numpy(np.ascontiguousarray(c)) for c in chunks))
+    mv = lambda chunks: [c.numpy() for c in matvec(wrap(chunks)).chunks]
+    tchunks = _split_chunks(precond, x0.chunk_sizes)
+    sk = min(stable_k or k, k)
+    ck = min(conv_k or k, k)
+
+    x, _ = _chunks_cholqr([c.numpy().astype(np.float32) for c in x0.chunks])
+    ax = mv(x)
+    p = [np.zeros_like(c) for c in x]
+    ap = [np.zeros_like(c) for c in x]
+    it = 0
+    x_chk = None
+    res = np.full((k,), np.inf)
+    while it < max_iters:
+        theta = _chunks_col_dots(x, ax)                  # Ritz values
+        res = _chunks_resnorms(x, ax, theta)
+        # converged on the leading-theta conv_k columns only (the buffer
+        # columns help; they need not converge)
+        if float(np.max(res[np.argsort(-theta)][:ck])) <= tol:
+            break
+        if stable_tol is not None and it % check_every == 0:
+            if x_chk is not None:
+                g = _chunks_inner(
+                    [c[:, :sk] for c in x_chk], [c[:, :sk] for c in x])
+                lam_min = float(np.linalg.eigvalsh(g.T @ g)[0])
+                if 1.0 - np.sqrt(max(lam_min, 0.0)) < stable_tol:
+                    break
+            x_chk = [c.copy() for c in x]
+        active = (res > tol).astype(np.float32)
+        thetaf = theta.astype(np.float32)
+        w = [(axc - xc * thetaf[None, :]) * active[None, :]
+             for xc, axc in zip(x, ax)]
+        proj = _chunks_inner(x, w).astype(np.float32)    # W ⊥ X
+        w = [wc - xc @ proj for xc, wc in zip(x, w)]
+        if tchunks is not None:
+            w = [wc * tc[:, None] for wc, tc in zip(w, tchunks)]
+            # re-project: the preconditioner brings X components back
+            proj = _chunks_inner(x, w).astype(np.float32)
+            w = [wc - xc @ proj for xc, wc in zip(x, w)]
+        wn = np.sqrt(np.maximum(_chunks_col_dots(w, w), 0.0))
+        wscale = (np.where(wn > 1e-10, 1.0 / np.maximum(wn, 1e-12), 0.0)
+                  .astype(np.float32))
+        w = [wc * wscale[None, :] for wc in w]
+
+        # soft-lock compression: only the still-active columns of W go
+        # through the mat-vec (locked columns are exactly zero)
+        act_idx = np.nonzero(wn > 1e-10)[0]
+        if len(act_idx) < k:
+            m = min(_compressed_width(len(act_idx)), k)
+            w_cmp = [np.ascontiguousarray(
+                np.pad(wc[:, act_idx], ((0, 0), (0, m - len(act_idx)))))
+                for wc in w]
+            aw_cmp = mv(w_cmp)
+            aw = [np.zeros_like(wc) for wc in w]
+            for awc, cc in zip(aw, aw_cmp):
+                awc[:, act_idx] = cc[:, :len(act_idx)]
+        else:
+            aw = mv(w)
+
+        # [X|W|P] Rayleigh–Ritz from (3b, 3b) Grams added up over the
+        # chunks, block by block (3 × 3 of b × b)
+        gram_m = np.zeros((3 * k, 3 * k))
+        gram_a = np.zeros((3 * k, 3 * k))
+        s_blocks, a_blocks = (x, w, p), (ax, aw, ap)
+        for i in range(3):
+            for j in range(3):
+                bi, bj = slice(i * k, (i + 1) * k), slice(j * k, (j + 1) * k)
+                if i <= j:                               # SᵀS is symmetric
+                    gram_m[bi, bj] = _chunks_inner(s_blocks[i], s_blocks[j])
+                    gram_m[bj, bi] = gram_m[bi, bj].T
+                gram_a[bi, bj] = _chunks_inner(s_blocks[i], a_blocks[j])
+        _, c = _whitened_rayleigh_ritz_grams_np(gram_m, gram_a, k)
+        cf = c.astype(np.float32)
+        cx, cw, cp = cf[:k], cf[k:2 * k], cf[2 * k:]
+        x_new, ax_new, p_new, ap_new = [], [], [], []
+        for xc, wc, pc, axc, awc, apc in zip(x, w, p, ax, aw, ap):
+            x_new.append(xc @ cx + wc @ cw + pc @ cp)
+            ax_new.append(axc @ cx + awc @ cw + apc @ cp)
+            # implicit P: the W/P component only
+            p_new.append(wc @ cw + pc @ cp)
+            ap_new.append(awc @ cw + apc @ cp)
+        # drift control: re-orthonormalize X, AX kept consistent (chol-QR)
+        x, ax = _chunks_cholqr(x_new, ax_new)
+        pn = np.sqrt(np.maximum(_chunks_col_dots(p_new, p_new), 0.0))
+        pscale = (np.where(pn > 1e-10, 1.0 / np.maximum(pn, 1e-12), 0.0)
+                  .astype(np.float32))
+        p = [pc * pscale[None, :] for pc in p_new]
+        ap = [apc * pscale[None, :] for apc in ap_new]
+        it += 1
+        if it % 16 == 0:
+            ax = mv(x)      # exact refresh kills recombination drift
+
+    theta = _chunks_col_dots(x, ax)
+    order = np.argsort(-theta)
+    res_final = _chunks_resnorms(x, ax, theta)
+    vectors = wrap([c[:, order] for c in x])
+    return EigResult(torch.as_tensor(theta[order], dtype=torch.float32),
+                     vectors,
+                     torch.as_tensor(res_final[order], dtype=torch.float32),
+                     it)

@@ -11,9 +11,12 @@ The five stages —
 — run once here, on one device (``device="cuda"`` unless the caller asks
 for the CPU). ``SCRBConfig``, ``ExecutionPlan`` and ``FitResult`` keep the
 JAX package's fields, so configs and artifacts round-trip between the two
-packages. Of the plans, placement ``single`` × residency ``device`` with
-``solver="lobpcg"`` (the defaults) is ported; other placements,
-residencies and solvers raise.
+packages. Of the plans, placement ``single`` is ported, with residency
+``device`` (the default: the whole ELL matrix on the device,
+``solver="lobpcg"``) or ``host_chunked`` (``SCRBConfig(chunk_size=...)``:
+x and every O(N) array on the host in row chunks, uploaded one chunk at a
+time, ``solver="lobpcg"`` or ``"lobpcg_host"``). Other placements and
+solvers, and ``trace=``, raise.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import featuremap, rowmatrix
+from repro_torch.core import eigensolver, featuremap, rowmatrix, streaming
 from repro_torch.core.kmeans import row_normalize
 from repro_torch.core.options import (
     UNSET, CompressiveOptions, PartitionOptions, SolverOptions,
@@ -73,10 +76,10 @@ class SCRBConfig:
     kmeans_replicates: int = 10
     seed: int = 0
     impl: str = "auto"            # auto | pallas | xla: all dispatch by device
-    chunk_size: Optional[int] = None      # host-chunked residency (not ported)
-    prefetch: bool = True
+    chunk_size: Optional[int] = None      # rows per host chunk → streaming
+    prefetch: bool = True                 # double-buffered H2D chunk uploads
     block_rows: Optional[Mapping[str, int]] = None   # TPU tiling; unused here
-    trace: Optional[str] = None           # run-local; never in the artifact
+    trace: Optional[str] = None           # run-local; not yet ported (raises)
     # -- typed option groups (canonical; see repro_torch.core.options) ------
     solver_options: Optional[SolverOptions] = None
     compressive_options: Optional[CompressiveOptions] = None
@@ -168,8 +171,22 @@ class ExecutionPlan:
             raise ValueError("residency='host_chunked' requires chunk_size")
 
 
+_REPRESENTATIONS = {
+    ("single", "device"): rowmatrix.DeviceRows,
+    ("single", "host_chunked"): rowmatrix.HostChunkedRows,
+}
+
+
 def plan_from_config(config: SCRBConfig, mesh=None) -> ExecutionPlan:
     """The config → plan mapping behind the public entry points."""
+    so = config.solver_options
+    if config.chunk_size is not None and mesh is None \
+            and so.solver not in ("lobpcg", "lobpcg_host", "randomized",
+                                  "auto", "compressive"):
+        raise ValueError(
+            f"chunk_size streaming requires a host-driven solver "
+            f"('lobpcg', 'lobpcg_host', 'randomized', 'auto' or "
+            f"'compressive'), got {so.solver!r}")
     part = config.partition
     placement = "single"
     if part is not None and part.n_partitions > 1:
@@ -199,11 +216,21 @@ def effective_solver(config: SCRBConfig, n: int) -> str:
     return so.solver
 
 
+def representation(plan: ExecutionPlan):
+    """The RowMatrix class a plan selects."""
+    return _REPRESENTATIONS[(plan.placement, plan.residency)]
+
+
 def _check_ported(cfg: SCRBConfig, plan: ExecutionPlan) -> None:
-    if (plan.placement, plan.residency) != ("single", "device"):
+    if (plan.placement, plan.residency) not in _REPRESENTATIONS:
         raise NotImplementedError(
             f"placement={plan.placement!r}, residency={plan.residency!r} is "
-            "not yet ported to repro_torch (ported: single/device)")
+            "not yet ported to repro_torch (ported: single/device, "
+            "single/host_chunked)")
+    if cfg.trace is not None:
+        raise NotImplementedError(
+            "SCRBConfig(trace=...) is not yet ported to repro_torch: the "
+            "port has no tracer (obs/) yet")
     if plan.feature_map is not None and \
             not isinstance(plan.feature_map, featuremap.RBMap):
         raise NotImplementedError(
@@ -241,7 +268,9 @@ def execute(
     ``keep_embedding=False`` leaves the (N, K) embedding out of the result.
     ``keep_state=True`` attaches the fitted internals (row matrix, fitted
     map, eigenpairs, k-means result) to ``result.state`` for
-    ``SCRBModel.fit``.
+    ``SCRBModel.fit``. A device-residency plan moves ``x`` to ``device``
+    first; a host-chunked plan leaves ``x`` (an array, a tensor or a list of
+    row chunks) on the host.
     """
     cfg = config
     dev = resolve_device(device)
@@ -251,13 +280,22 @@ def execute(
         raise ValueError(f"unknown final_stage {final_stage!r}")
     _check_ported(cfg, plan)
     configure_device(dev)
-    return _execute_impl(as_device_rows(x, dev), cfg, plan, dev,
+    if plan.residency == "device":
+        x = as_device_rows(x, dev)
+    return _execute_impl(x, cfg, plan, dev,
                          final_stage=final_stage,
                          keep_embedding=keep_embedding, keep_state=keep_state)
 
 
+def host_array(t) -> np.ndarray:
+    """A tall result (a tensor or host chunks) as one host numpy array."""
+    if isinstance(t, streaming.ChunkedDense):
+        return t.to_array()
+    return t.cpu().numpy()
+
+
 def _execute_impl(
-    x: torch.Tensor,
+    x,
     cfg: SCRBConfig,
     plan: ExecutionPlan,
     dev: torch.device,
@@ -266,7 +304,7 @@ def _execute_impl(
     keep_embedding: bool,
     keep_state: bool,
 ) -> FitResult:
-    rep_cls = rowmatrix.DeviceRows
+    rep_cls = representation(plan)
     fm = plan.feature_map
     if fm is None:
         fm = featuremap.from_config(cfg, impl=plan.impl)
@@ -275,14 +313,16 @@ def _execute_impl(
     k = cfg.n_clusters
 
     with timer.stage("rb_features"):
-        feats = rep_cls.fit_transform(x, fm, cfg, plan, seed)
+        feats = rep_cls.fit_transform(x, fm, cfg, plan, seed, dev)
     with timer.stage("degrees"):
-        z = rep_cls.from_features(feats, cfg, plan)
+        z = rep_cls.from_features(feats, cfg, plan, dev)
     solver = effective_solver(cfg, z.n)
-    if solver != "lobpcg":
+    ported = eigensolver.CHUNKED_SOLVERS if plan.residency == "host_chunked" \
+        else eigensolver.SOLVERS
+    if solver not in ported:
         raise NotImplementedError(
-            f"solver={solver!r} is not yet ported to repro_torch (ported: "
-            "lobpcg)")
+            f"solver={solver!r} with residency={plan.residency!r} is not yet "
+            f"ported to repro_torch (ported: {ported})")
     with timer.stage("svd"):
         eig = z.eigenpairs(k, fold_seed(seed, "eig"), cfg, x0=plan.eig_x0)
     with timer.stage("normalize"):
@@ -314,6 +354,7 @@ def _execute_impl(
         "d_g": fitted.d_g,
         "nnz": z.n * fitted.n_grids,
     }
+    diagnostics.update(z.residency_diagnostics(cfg))
     diagnostics.update(cluster_diag)
     if km is not None:
         diagnostics["kmeans_inertia"] = float(km.inertia)
@@ -324,7 +365,7 @@ def _execute_impl(
                  "km": km, "plan": plan}
     return FitResult(
         labels=None if km is None else km.labels.cpu().numpy(),
-        embedding=u_hat.cpu().numpy() if keep_embedding else None,
+        embedding=host_array(u_hat) if keep_embedding else None,
         singular_values=sigmas,
         timer=timer,
         diagnostics=diagnostics,

@@ -45,11 +45,14 @@ class RBMap:
     impl: str = "auto"
     params: Optional[rb.RBParams] = None
 
-    def fit(self, seed: int, x) -> "RBMap":
+    def fit(self, seed: int, x, device=None) -> "RBMap":
         """Draw the grids from ``fold_seed(seed, "rb")`` (and size d_g from
-        ``fold_seed(seed, "probe")``), on ``x``'s device. An already fitted
-        map (``params`` given, e.g. injected) keeps its grids."""
-        device = x.device if isinstance(x, torch.Tensor) else "cpu"
+        ``fold_seed(seed, "probe")``), on ``device``: by default ``x``'s
+        (the CPU for an array or a list of host chunks; a host-chunked fit
+        passes its own). An already fitted map (``params`` given, e.g.
+        injected) keeps its grids."""
+        if device is None:
+            device = x.device if isinstance(x, torch.Tensor) else "cpu"
         if self.params is not None:
             return self.to(device)
         d_g = self.d_g or rb.suggest_d_g(x, self.sigma,

@@ -42,11 +42,28 @@ def rb_degrees_and_counts(
 
 
 def degrees_from_counts(idx: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """deg_i = (1/R) Σ_g counts[idx[i,g]] from the fitted bin occupancies.
+    """deg_i = (1/R) Σ_g counts[idx[i,g]] from the bin occupancies.
 
-    Row-local, so a row's degree does not depend on the rows around it."""
-    r = idx.shape[1]
-    return torch.sum(counts[idx.long()].to(torch.float32), dim=1) / r
+    The gather-and-sum is ``ops.z_matmul`` with the counts as a one-column
+    V and unit row scales: it adds each row's R counts in grid order, and
+    its strip and gather kernels give the same bits, so a row's degree does
+    not depend on the rows around it (nor on the chunking of a streaming
+    fit). That matters: at covtype scale a row's float32 sum of counts
+    passes 2^24, where a reduction order that moved with the row count
+    would move the bits."""
+    n, r = idx.shape
+    v = counts.to(torch.float32).reshape(-1, 1).contiguous()
+    ones = torch.ones((n,), dtype=torch.float32, device=idx.device)
+    return ops.z_matmul(idx, v, ones, d_g=v.shape[0] // r)[:, 0] / r
+
+
+def rb_degrees_exact(idx: torch.Tensor, *, d: int, d_g: int,
+                     impl: str = "auto") -> torch.Tensor:
+    """Eq. 6 degrees from exact int32 bin counts (``ops.bin_counts``): the
+    same for any chunking of the rows, and within float32 rounding of the
+    two-product degrees of :func:`rb_degrees_and_counts`."""
+    return degrees_from_counts(
+        idx, ops.bin_counts(idx, d=d, d_g=d_g, impl=impl))
 
 
 @dataclasses.dataclass(frozen=True)

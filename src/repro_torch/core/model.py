@@ -32,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import executor as _executor, featuremap
+from repro_torch.core import executor as _executor, featuremap, streaming
 from repro_torch.core.kmeans import row_normalize
 from repro_torch.kernels import ops
 from repro_torch.utils import fold_seed, resolve_device
@@ -158,7 +158,8 @@ class SCRBModel:
             inv_sig = torch.where(sig > 1e-6,
                                   1.0 / torch.clamp_min(sig, 1e-30),
                                   torch.zeros_like(sig))
-            # V = Ẑᵀ U Σ⁻¹ — one more pass of the zt kernel
+            # V = Ẑᵀ U Σ⁻¹ — one more pass of the zt kernel (a chunked zt
+            # sweep over host chunks of U on a host-chunked plan)
             v = z.rmatvec(eig.vectors) * inv_sig[None, :]
             dual = z.degree_dual()
         res.state = None          # drop the O(N) internals; model is O(D·K)
@@ -192,7 +193,10 @@ class SCRBModel:
         # eigengap: choose the k ∈ [2, K_max-1] maximizing λ_k − λ_{k+1}
         gaps = theta[:-1] - theta[1:]
         chosen = int(np.argmax(gaps[1:k_max - 1])) + 2
-        vecs_k = eig.vectors[:, :chosen].contiguous()
+        vecs = eig.vectors
+        vecs_k = vecs.take_cols(chosen) \
+            if isinstance(vecs, streaming.ChunkedDense) \
+            else vecs[:, :chosen].contiguous()
         eig_k = eig._replace(theta=eig.theta[:chosen], vectors=vecs_k,
                              resnorms=eig.resnorms[:chosen])
         cfg_k = dataclasses.replace(config, n_clusters=chosen)
@@ -205,7 +209,7 @@ class SCRBModel:
                     fold_seed(config.seed, "kmeans"), u_hat, cfg_k)
         res.labels = None if km is None else km.labels.cpu().numpy()
         if keep_embedding:
-            res.embedding = u_hat.cpu().numpy()
+            res.embedding = _executor.host_array(u_hat)
         res.singular_values = np.asarray(res.singular_values)[:chosen]
         st["eig"], st["km"], st["u_hat"] = eig_k, km, u_hat
         res.diagnostics.update(cluster_diag)

@@ -8,7 +8,10 @@
 
 Both entry points are thin wrappers over ``SCRBModel.fit``:
 ``sc_rb(x, cfg)`` is exactly ``SCRBModel.fit(x, cfg).fit_result``. They run
-on the card unless ``device="cpu"`` is passed.
+on the card unless ``device="cpu"`` is passed. ``SCRBConfig(chunk_size=n)``
+streams host row chunks of n rows through every stage (residency
+``host_chunked``: the device holds O(n·R), whatever N is); ``x`` may then
+also be a list of host row chunks.
 """
 from __future__ import annotations
 

@@ -2,10 +2,18 @@
 
 Algorithm 2's five stages are written once in ``repro_torch.core.executor``
 against a small surface (``matvec``/``rmatvec``/``gram``, ``eigenpairs``,
-``cluster``, ``map_row_chunks``, ``degree_dual``). A representation says
-where Ẑ = D̂^{-1/2}Z lives. Only ``DeviceRows`` — the whole (N, R) ELL
-matrix on one device — is ported; the host-chunked, mesh and partitioned
-representations of the JAX package are not yet.
+``cluster``, ``map_row_chunks``, ``degree_dual``,
+``residency_diagnostics``). A representation says where Ẑ = D̂^{-1/2}Z
+lives:
+
+  - ``DeviceRows``      the whole (N, R) ELL matrix on one device; tall
+    dense operands are device tensors.
+  - ``HostChunkedRows`` host row chunks (``streaming.ChunkedELL``); tall
+    dense operands are ``streaming.ChunkedDense`` and every sweep uploads
+    one prefetched chunk at a time.
+
+The mesh and partitioned representations of the JAX package are not yet
+ported.
 """
 from __future__ import annotations
 
@@ -14,9 +22,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core import eigensolver, graph
-from repro_torch.core.kmeans import kmeans as _kmeans
-from repro_torch.utils import make_generator
+from repro_torch.core import eigensolver, graph, streaming
+from repro_torch.core.kmeans import kmeans as _kmeans, streaming_kmeans
+from repro_torch.utils import make_generator, prefetch_to_device, to_host
 
 
 def _solver_precond(cfg, deg) -> Optional[torch.Tensor]:
@@ -48,13 +56,14 @@ class DeviceRows:
     adj: graph.NormalizedAdjacency
 
     @classmethod
-    def fit_transform(cls, x: torch.Tensor, fm, cfg, plan,
-                      seed: int) -> FittedFeatures:
+    def fit_transform(cls, x: torch.Tensor, fm, cfg, plan, seed: int,
+                      dev: torch.device) -> FittedFeatures:
         fitted = fm.fit(seed, x)
         return FittedFeatures(fitted, fitted.transform(x))
 
     @classmethod
-    def from_features(cls, feats: FittedFeatures, cfg, plan) -> "DeviceRows":
+    def from_features(cls, feats: FittedFeatures, cfg, plan,
+                      dev: torch.device) -> "DeviceRows":
         fm = feats.fmap
         if fm.kind != "ell":
             raise NotImplementedError(
@@ -109,4 +118,115 @@ class DeviceRows:
                       cfg.n_clusters, n_iters=cfg.kmeans_iters,
                       n_replicates=cfg.kmeans_replicates, impl=cfg.impl)
         return res, {}
+
+    def residency_diagnostics(self, cfg) -> dict:
+        return {}
+
+
+@dataclasses.dataclass
+class HostChunkedRows:
+    """Host row chunks; no stage allocates an O(N) device array.
+
+    ``store`` is a ``streaming.ChunkedELL`` (the RB map's ELL pattern; the
+    dense feature maps, whose store the JAX package also chunks, are not
+    yet ported). ``x`` stays on the host: stage 1 uploads it one chunk at a
+    time and brings each chunk's indices back."""
+
+    kind = "host_chunked"
+    store: streaming.ChunkedELL
+
+    @classmethod
+    def fit_transform(cls, x, fm, cfg, plan, seed: int,
+                      dev: torch.device) -> FittedFeatures:
+        x_chunks = streaming.as_row_chunks(x, plan.chunk_size)
+        fitted = fm.fit(seed, x_chunks, device=dev)
+        # row-local ⇒ the single-shot transform's indices for any chunking
+        payload = streaming.chunked_rb_transform(
+            x_chunks, fitted.params, impl=fitted.impl, device=dev,
+            prefetch=plan.prefetch)
+        return FittedFeatures(fitted, payload)
+
+    @classmethod
+    def from_features(cls, feats: FittedFeatures, cfg, plan,
+                      dev: torch.device) -> "HostChunkedRows":
+        fm = feats.fmap
+        if fm.kind != "ell":
+            raise NotImplementedError(
+                "dense feature maps are not yet ported to repro_torch")
+        return cls(streaming.build_chunked_adjacency(
+            feats.payload, d=fm.n_features, d_g=fm.d_g, impl=plan.impl,
+            prefetch=plan.prefetch, normalize=plan.laplacian_normalize,
+            device=dev))
+
+    @property
+    def n(self) -> int:
+        return self.store.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
+
+    def degree_range(self) -> Tuple[float, float]:
+        return float(torch.min(self.store.deg)), float(torch.max(self.store.deg))
+
+    def degree_dual(self) -> torch.Tensor:
+        """The (D,) bin occupancies Zᵀ1 kept by the degree pass, on the
+        fit's device."""
+        return self.store.counts.to(device=self.device, dtype=torch.float32)
+
+    def rmatvec(self, u: streaming.ChunkedDense) -> torch.Tensor:
+        """Ẑᵀ u : host chunks (N, K) → (D, K) on the device."""
+        return self.store.rmatmat_chunked(u)
+
+    def map_row_chunks(self, fn, *tall) -> streaming.ChunkedDense:
+        """``fn`` over aligned row chunks of the tall operands
+        (``ChunkedDense``), one uploaded chunk at a time; the result stays
+        on the host."""
+        seqs = [t.chunks for t in tall]
+        return streaming.ChunkedDense(tuple(
+            to_host(fn(*cs))
+            for cs in prefetch_to_device(
+                zip(*seqs), device=self.device, enabled=self.store.prefetch,
+                measure=self.store.h2d_stats)))
+
+    def eigenpairs(self, k: int, seed: int, cfg,
+                   x0=None) -> eigensolver.EigResult:
+        """Top-k eigenpairs by ``eigensolver.lobpcg_host_chunked``: the
+        start block drawn chunk by chunk on the CPU from ``seed`` unless
+        ``x0`` injects one; the vectors come back as host chunks."""
+        so = cfg.solver_options
+        return eigensolver.top_k_eigenpairs(
+            self.store.gram_matvec_chunked, self.n, k, make_generator(seed),
+            device=self.device, solver=so.solver, max_iters=so.iters,
+            tol=so.tol, buffer=so.buffer, x0=x0,
+            precond=_solver_precond(cfg, self.store.deg),
+            stable_tol=so.stable_tol, chunk_sizes=self.store.chunk_sizes)
+
+    def cluster(self, seed: int, u_hat, cfg) -> Tuple[Any, dict]:
+        """``kmeans.streaming_kmeans`` over the host chunks of the
+        embedding, with the reference's step count: at least one Sculley
+        step per chunk."""
+        kmeans_steps = max(cfg.kmeans_iters, u_hat.n_chunks)
+        res = streaming_kmeans(
+            make_generator(seed, self.device), u_hat, cfg.n_clusters,
+            n_steps=kmeans_steps, n_replicates=cfg.kmeans_replicates,
+            impl=cfg.impl, prefetch=self.store.prefetch,
+            measure=self.store.h2d_stats, device=self.device)
+        return res, {"kmeans_steps": kmeans_steps}
+
+    def residency_diagnostics(self, cfg) -> dict:
+        """The reference's keys: chunking, the closed-form device peaks of
+        the ELL chunk and of the widest dense chunk (the (chunk, k+buffer)
+        LOBPCG block), and the largest upload any sweep measured."""
+        ell = self.store
+        return {
+            "n_chunks": ell.n_chunks,
+            "chunk_rows_max": ell.max_chunk_rows,
+            "ell_device_bytes_peak": ell.ell_device_bytes_peak,
+            "embedding_device_bytes_peak": ell.max_chunk_rows * 4
+            * eigensolver.lobpcg_block_width(
+                ell.n, cfg.n_clusters, cfg.solver_options.buffer),
+            "h2d_max_chunk_bytes": ell.h2d_stats.get("max_item_bytes", 0),
+            "prefetch": ell.prefetch,
+        }
 

@@ -42,6 +42,9 @@ LIBRARIES: Dict[str, tuple] = {
                                                    _P],
         "gram_matmul_launch": [_P] * 12 + [_I] * 8 + [ctypes.c_longlong, _I,
                                                       _P]}),
+    "bin_counts": ("bin_counts.cu", {
+        "bin_counts_launch": [_P, _P, ctypes.c_longlong, _I, _I,
+                              ctypes.c_longlong, _I, _P]}),
     "kmeans_assign": ("kmeans_assign.cu", {
         "kmeans_assign_launch": [_P] * 4 + [_I] * 3 + [_P],
         "kmeans_assign_stats_scratch": [_I, _I,

@@ -12,8 +12,11 @@
 // to V's dtype before the PV product, as the TPU kernel's
 // p.astype(v.dtype) does. Positions count from 0 for both q and kv (top-
 // left alignment, as in the TPU kernel). Keys at j >= T (the ragged edge of
-// the last tile) take no part at all. A query row that sees no key is
-// outside the contract (the TPU kernel's rows always see one).
+// the last tile) take no part at all. A query row that sees no key (a
+// window, and row i >= T + window - 1) is not this kernel's: the TPU
+// kernel gives it mean(V) over all T keys (every score is -1e30, so its
+// softmax is uniform), and ops.flash_attention writes that mean over the
+// kernel's output for those rows after the launch.
 //
 // Layout: q and o (B, S, H, hd), k and v (B, T, Hkv, hd), all contiguous;
 // head h reads kv head h / (H / Hkv), so a grouped-query prefill needs no

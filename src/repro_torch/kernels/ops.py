@@ -36,8 +36,8 @@ IMPLS = ("auto", "pallas", "xla")
 LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0,
                             "z_matmul_gather": 0, "zt_matmul": 0,
                             "gram_matmul": 0, "gram_matmul_composed": 0,
-                            "kmeans_assign": 0, "kmeans_assign_stats": 0,
-                            "flash_attention": 0}
+                            "bin_counts": 0, "kmeans_assign": 0,
+                            "kmeans_assign_stats": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -327,7 +327,7 @@ def z_matmul_gather(
 
 
 def zt_matmul(
-    idx: torch.Tensor,
+    idx: Optional[torch.Tensor],
     u: torch.Tensor,
     rowscale: torch.Tensor,
     d: int,
@@ -340,15 +340,20 @@ def zt_matmul(
 
     On CUDA the kernel reduces the column-sorted copy ``csc`` of ``idx`` in
     a fixed order (one warp per column, chunk sums for the long columns);
-    without one it builds it first (the one-shot form)."""
+    without one it builds it first (the one-shot form). The kernel reads
+    ``csc`` alone, so on CUDA ``idx`` may be None when ``csc`` is given (the
+    streaming sweep uploads a chunk's CSC, not its idx)."""
     _check_impl(impl)
-    if not _on_cuda(idx, u, rowscale):
+    if idx is None and (csc is None or not u.is_cuda):
+        raise ValueError("zt_matmul needs idx, or on CUDA its csc")
+    if not _on_cuda(*(t for t in (idx, u, rowscale) if t is not None)):
         return ref.zt_matmul_ref(idx, u, rowscale, d)
-    _require(idx, "idx", (torch.int32,), 2)
+    if idx is not None:
+        _require(idx, "idx", (torch.int32,), 2)
     _require(u, "u", (torch.float32,), 2)
     _require(rowscale, "rowscale", (torch.float32,), 1)
     n, k = u.shape
-    if idx.shape[0] != n or rowscale.shape != (n,):
+    if (idx is not None and idx.shape[0] != n) or rowscale.shape != (n,):
         raise ValueError("idx, u and rowscale must have the same rows")
     if csc is None:
         csc = ell_csc(idx, d)
@@ -431,6 +436,46 @@ def gram_matmul(
             csc.long_cols.shape[0], n_chunks, ZT_CHUNK)
     LAUNCHES["gram_matmul"] += 1
     return y
+
+
+def bin_counts(
+    idx: torch.Tensor,
+    *,
+    d: int,
+    d_g: int,
+    impl: str = "auto",
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Exact column occupancy Zᵀ1 of the ELL pattern: int32 (D,).
+
+    With ``out`` (an int32 (D,) tensor on ``idx``'s device) the counts are
+    added into it and it is returned: a sweep over row chunks accumulates
+    into one buffer. On CUDA, an integer histogram (``csrc/bin_counts.cu``:
+    per-block counters for a group of grids in shared memory, one global
+    atomic per nonzero counter); integer adds do not depend on their order,
+    so the counts are exact and the same on every run."""
+    _check_impl(impl)
+    if out is not None and (out.dtype != torch.int32 or out.shape != (d,)):
+        raise ValueError(f"out must be int32 ({d},), got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if not _on_cuda(idx, *(() if out is None else (out,))):
+        counts = ref.bin_counts_ref(idx, d)
+        return counts if out is None else out.add_(counts)
+    _require(idx, "idx", (torch.int32,), 2)
+    if out is not None and not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if d > _I32_MAX or d < 0:
+        raise ValueError(f"D = {d} does not fit int32")
+    n, r = idx.shape
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty((d,), dtype=torch.int32, device=idx.device)
+    if n * r == 0 or d == 0:
+        return out if accumulate else out.zero_()
+    _launch("bin_counts", "bin_counts_launch", idx,
+            idx.data_ptr(), out.data_ptr(), n, r, d_g, d, int(accumulate))
+    LAUNCHES["bin_counts"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -586,4 +631,17 @@ def flash_attention(
             b, s, t, h, hkv, hd, int(causal), window or 0,
             int(q.dtype == torch.bfloat16))
     LAUNCHES["flash_attention"] += 1
+    if window is not None and s >= t + window:
+        _fill_keyless_rows(out, v, t + window - 1)
     return out
+
+
+def _fill_keyless_rows(out: torch.Tensor, v: torch.Tensor, row0: int) -> None:
+    """Rows ``row0:`` of a windowed attention see no key. The reference
+    (and the plain version) masks all T scores to -1e30, so its softmax is
+    uniform and such a row is mean(V) over all T keys: p = 1/T rounded to
+    V's dtype, times the float32 sum of V, in ``out``'s dtype."""
+    t, rep = v.shape[1], out.shape[2] // v.shape[2]
+    p = (torch.ones((), dtype=torch.float32) / t).to(v.dtype).float()
+    mean = (v.float().sum(dim=1) * p).repeat_interleave(rep, dim=1)
+    out[:, row0:] = mean[:, None].to(out.dtype)

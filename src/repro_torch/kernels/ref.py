@@ -164,6 +164,15 @@ def zt_matmul_ref(
     return q
 
 
+def bin_counts_ref(idx: torch.Tensor, d: int) -> torch.Tensor:
+    """Column occupancy of the ELL pattern: int32 (D,), out[c] = the number
+    of (row, grid) entries equal to c. Entries outside [0, d) are dropped,
+    as the JAX package's scatter drops them."""
+    flat = idx.reshape(-1).long()
+    flat = flat[(flat >= 0) & (flat < d)]
+    return torch.bincount(flat, minlength=d).to(torch.int32)
+
+
 def kmeans_assign_ref(
     x: torch.Tensor,          # (N, d) float32
     centroids: torch.Tensor,  # (K, d) float32

@@ -1,12 +1,14 @@
 """Shared small utilities: the stage timer, seed derivation, device checks,
-and the package logger."""
+double-buffered host→device uploads, and the package logger."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import time
-from typing import Dict, Iterator, Union
+from typing import Any, Dict, Iterable, Iterator, Optional, Union
 
+import numpy as np
 import torch
 
 logger = logging.getLogger("repro_torch")
@@ -97,3 +99,108 @@ class StageTimer:
     def __repr__(self) -> str:
         inner = ", ".join(f"{k}={v:.3f}s" for k, v in self.times.items())
         return f"StageTimer({inner}, total={self.total:.3f}s)"
+
+
+def tree_map(fn, obj):
+    """``fn`` over the leaves of tuples, lists and dataclasses."""
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(tree_map(fn, o) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: tree_map(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return fn(obj)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU. A CUDA tensor is copied (synchronously) into pinned
+    memory, so that a later upload of it can be asynchronous."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+def prefetch_to_device(
+    items: Iterable[Any], *, device: DeviceLike = "cpu", enabled: bool = True,
+    measure: Optional[Dict[str, int]] = None,
+) -> Iterator[Any]:
+    """Double-buffered upload of an iterable of host items to ``device``.
+
+    An item is a tensor, a numpy array, or a tuple, list or dataclass of
+    them (other leaves pass through). Yields each item with its arrays on
+    ``device``. On CUDA every copy is ``non_blocking`` from pinned host
+    memory (a host tensor that is not pinned is copied into pinned memory
+    first: an upload is never silently synchronous) on a side stream; an
+    event orders it before the consumer's work on the current stream, and
+    ``record_stream`` keeps the caching allocator from reusing its device
+    buffer until that work is done. With ``enabled=True`` the upload of
+    item i+1 is issued before item i is handed out, so it overlaps the
+    compute on item i (up to two items in flight); ``enabled=False``
+    uploads each item as it is consumed. The values, and the order in which
+    a consumer adds them up, are the same either way. On the CPU the items
+    are handed out as they are.
+
+    ``measure`` (a dict) is updated in place with the measured uploads:
+    ``max_item_bytes`` (the largest item), ``items`` and ``bytes`` (their
+    total), the check behind the residency diagnostics.
+    """
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream(dev) if cuda and enabled else None
+
+    def put(item):
+        nbytes = 0
+
+        def leaf(t):
+            nonlocal nbytes
+            if isinstance(t, np.ndarray):
+                t = torch.from_numpy(np.ascontiguousarray(t))
+            if not isinstance(t, torch.Tensor):
+                return t
+            nbytes += t.numel() * t.element_size()
+            if not cuda or t.device.type != "cpu":
+                return t.to(dev)
+            if not t.is_pinned():
+                t = t.pin_memory()
+            if side is None:
+                return t.to(dev, non_blocking=True)
+            with torch.cuda.stream(side):
+                out = t.to(dev, non_blocking=True)
+            out.record_stream(torch.cuda.current_stream(dev))
+            return out
+
+        tree = tree_map(leaf, item)
+        if measure is not None:
+            measure["max_item_bytes"] = max(measure.get("max_item_bytes", 0),
+                                            nbytes)
+            measure["items"] = measure.get("items", 0) + 1
+            measure["bytes"] = measure.get("bytes", 0) + nbytes
+        event = None
+        if side is not None:
+            event = torch.cuda.Event()
+            event.record(side)
+        return tree, event
+
+    def ready(pair):
+        tree, event = pair
+        if event is not None:
+            torch.cuda.current_stream(dev).wait_event(event)
+        return tree
+
+    it = iter(items)
+    if not enabled:
+        for item in it:
+            yield ready(put(item))
+        return
+    try:
+        cur = put(next(it))
+    except StopIteration:
+        return
+    for item in it:
+        nxt = put(item)     # issue the upload of i+1 before i is consumed
+        yield ready(cur)
+        cur = nxt
+    yield ready(cur)

@@ -421,6 +421,8 @@ FLASH_CASES = [  # b, s, t, h, hkv, hd, causal, window
     (1, 255, 255, 4, 2, 64, True, None),       # just below two tiles
     (1, 150, 250, 4, 2, 128, True, None),      # S < T across two key tiles
     (1, 250, 150, 4, 2, 128, True, 120),       # S > T, window across tiles
+    (1, 250, 150, 4, 2, 128, True, 100),       # as above; row 249 sees no
+                                               # key (S >= T + window)
 ]
 
 
@@ -446,6 +448,28 @@ def test_cuda_flash_attention(cuda, case, dtype):
         row_err = (got.float() - want).norm(dim=-1) \
             / want.norm(dim=-1).clamp_min(1e-30)
         assert float(row_err.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hkv", [(16, 3), (128, 1)])
+def test_cuda_flash_attention_rows_that_see_no_key(cuda, dtype, hd, hkv):
+    """S 16, T 4, window 3, causal: rows 6.. see no key, and get mean(V)
+    over all T keys, as the reference's uniform softmax gives them."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 16, 3, hd), generator=g, device=cuda).to(dt)
+    k = torch.randn((2, 4, hkv, hd), generator=g, device=cuda).to(dt)
+    v = torch.randn((2, 4, hkv, hd), generator=g, device=cuda).to(dt)
+    got = ops.flash_attention(q, k, v, causal=True, window=3)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bshd_ref(q, k, v, causal=True,
+                                        window=3).float()
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    mean_v = v.float().mean(dim=1).repeat_interleave(3 // hkv, dim=1)
+    torch.testing.assert_close(got[:, 6:].float(),
+                               mean_v[:, None].expand(2, 10, 3, hd),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("hd", ops.FLASH_HEAD_DIMS)
@@ -500,3 +524,190 @@ def test_cuda_prefill_and_decode_match_cpu(cuda, arch):
         logits.append((first.cpu(), nxt.cpu()))
     for want, got in zip(*logits):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# bin_counts, the uploads and the host-chunked fit
+# --------------------------------------------------------------------------
+
+BIN_CASES = [  # n, r, d_g
+    (1, 3, 16),
+    (1000, 8, 16),
+    (5_001, 7, 2_048),          # R not a multiple of the grid group
+    (70_001, 256, 2_048),       # the fit's R and d_g, ragged rows
+    (3_001, 5, 16_384),         # one grid a group
+    (2_000, 2, 65_536),         # counters past shared memory: global atomics
+    (999, 4, 3),                # d_g not a power of two: global atomics
+]
+
+
+@pytest.mark.parametrize("n,r,d_g", BIN_CASES)
+def test_cuda_bin_counts_exact(cuda, n, r, d_g):
+    idx = torch.from_numpy(_ell(n + r, n, r, d_g)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.bin_counts(idx, d=r * d_g, d_g=d_g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bin_counts"] == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.bin_counts_ref(idx, r * d_g))
+
+
+def test_cuda_bin_counts_hot_bin_and_off_range(cuda):
+    """One bin of 150,000 rows (past any 16-bit counter), and entries off
+    [0, D), which both versions drop."""
+    n, r, d_g = 200_000, 8, 2_048
+    idx = _ell(1, n, r, d_g)
+    idx[:150_000, 3] = 3 * d_g + 7
+    idx[5, 1], idx[6, 2] = r * d_g + 3, -5
+    idx = torch.from_numpy(idx).to(cuda)
+    got = ops.bin_counts(idx, d=r * d_g, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.bin_counts_ref(idx, r * d_g))
+    assert int(got[3 * d_g + 7]) >= 150_000
+    assert int(got.sum()) == n * r - 2
+
+
+def test_cuda_bin_counts_repeat_two_streams_and_chunks(cuda):
+    """The same counts twice, on two streams at once, and as a sum of
+    chunks added into one buffer; equal to the CSC's column lengths."""
+    n, r, d_g = 300_000, 16, 2_048
+    d = r * d_g
+    idx = torch.from_numpy(_ell(2, n, r, d_g)).to(cuda)
+    want = ops.bin_counts(idx, d=d, d_g=d_g)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        a = ops.bin_counts(idx, d=d, d_g=d_g)
+    with torch.cuda.stream(s2):
+        b = ops.bin_counts(idx, d=d, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want) and torch.equal(b, want)
+    assert torch.equal(ops.bin_counts(idx, d=d, d_g=d_g), want)
+    out = torch.zeros((d,), dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    for i in range(0, n, 131_072):
+        ops.bin_counts(idx[i:i + 131_072], d=d, d_g=d_g, out=out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bin_counts"] == 3
+    assert torch.equal(out, want)
+    csc = ops.ell_csc(idx, d)
+    assert torch.equal((csc.colptr[1:] - csc.colptr[:-1]).to(torch.int32),
+                       want)
+
+
+def _chunked_case(cuda, n, r, d_g, k, chunk, seed=0):
+    from repro_torch.core import streaming
+    rng = np.random.default_rng(seed)
+    idx = _ell(seed, n, r, d_g)
+    s = rng.uniform(0.5, 1.5, size=n).astype(np.float32)
+    u = rng.normal(size=(n, k)).astype(np.float32)
+    store = streaming.ChunkedELL.from_dense(idx, s, chunk, d=r * d_g,
+                                            d_g=d_g, device=cuda)
+    return store, idx, s, u, streaming.ChunkedDense.from_array(
+        u, store.chunk_sizes)
+
+
+def test_cuda_prefetch_same_bits_with_and_without_double_buffering(cuda):
+    from repro_torch.utils import prefetch_to_device
+    store, _, _, _, uc = _chunked_case(cuda, 300_000, 16, 2_048, 5, 131_072)
+    on = store.gram_matvec_chunked(uc)
+    off = dataclasses.replace(store, prefetch=False).gram_matvec_chunked(uc)
+    assert all(torch.equal(a, b) for a, b in zip(on.chunks, off.chunks))
+    assert all(c.is_pinned() for c in on.chunks)
+    plain = [torch.arange(i, i + 1000, dtype=torch.float32) for i in range(3)]
+    measure: dict = {}
+    got = list(prefetch_to_device(plain, device=cuda, measure=measure))
+    torch.cuda.synchronize()
+    assert all(g.is_cuda and torch.equal(g.cpu(), p)
+               for g, p in zip(got, plain))
+    assert measure == {"max_item_bytes": 4000, "items": 3, "bytes": 12000}
+
+
+@pytest.mark.parametrize("n,chunk", [(131_072, 131_072), (300_000, 131_072),
+                                     (300_000, 100_000)])
+def test_cuda_chunked_gram_sweep_matches_gram_matmul(cuda, n, chunk):
+    """The host-chunked Gram sweep (zt over each chunk's CSC into one
+    accumulator, then z chunk by chunk) against the device path's fused
+    product, to float32 tolerance (another summation order for q)."""
+    r, d_g, k = 32, 2_048, 11
+    store, idx, s, u, uc = _chunked_case(cuda, n, r, d_g, k, chunk, seed=n)
+    ops.reset_launch_counts()
+    got = torch.cat(store.gram_matvec_chunked(uc).chunks).to(cuda)
+    counts = ops.launch_counts()
+    assert counts["zt_matmul"] == store.n_chunks
+    assert counts["z_matmul"] + counts["z_matmul_gather"] == store.n_chunks
+    ti, ts, tu = (torch.from_numpy(a).to(cuda) for a in (idx, s, u))
+    want = ops.gram_matmul(ti, tu, ts, r * d_g, d_g=d_g)
+    terms = ref.z_matmul_ref(ti, ref.zt_matmul_ref(ti, tu.abs(), ts,
+                                                   r * d_g), ts)
+    _assert_sum_close(got, want, terms)
+
+
+def test_cuda_chunked_degrees_same_bits_for_any_chunking(cuda):
+    """Degrees whose row sums of counts pass 2^24 (four bins a grid over
+    300,000 rows): the same bits at chunks of 131,072 and 100,000 rows and
+    in one piece."""
+    from repro_torch.core import graph, streaming
+    n, r, d_g = 300_000, 256, 2_048
+    rng = np.random.default_rng(4)
+    idx = (rng.integers(0, 4, size=(n, r))
+           + np.arange(r)[None, :] * d_g).astype(np.int32)
+    d = r * d_g
+    whole = graph.rb_degrees_exact(torch.from_numpy(idx).to(cuda), d=d,
+                                   d_g=d_g).cpu()
+    assert float(whole.max()) * r > 2 ** 24
+    for chunk in (131_072, 100_000):
+        got = streaming.chunked_degrees(streaming.as_row_chunks(idx, chunk),
+                                        d=d, d_g=d_g, device=cuda)
+        assert torch.equal(got, whole), chunk
+
+
+def test_cuda_chunked_fit_matches_device_fit(cuda):
+    """The host-chunked fit on the card (a full chunk on the strip route, a
+    ragged one on the gather route) against the device-resident fit."""
+    from repro_torch.core import SCRBConfig, SCRBModel, metrics
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(140_000, 6, 3, seed=0)
+    kw = dict(n_clusters=3, n_grids=64, sigma=1.5, d_g=1_024,
+              kmeans_replicates=2)
+    dev = SCRBModel.fit(x, SCRBConfig(**kw))
+    ops.reset_launch_counts()
+    chunked = SCRBModel.fit(x, SCRBConfig(**kw, chunk_size=131_072))
+    counts = ops.launch_counts()
+    assert counts["bin_counts"] == 2 and counts["gram_matmul"] == 0
+    for name in ("rb_binning", "zt_matmul", "z_matmul", "z_matmul_gather",
+                 "kmeans_assign", "kmeans_assign_stats"):
+        assert counts[name] > 0, name
+    assert metrics.accuracy(chunked.fit_result.labels,
+                            dev.fit_result.labels) >= 0.99
+    assert chunked.fit_result.diagnostics["n_chunks"] == 2
+
+
+def test_cuda_streaming_kmeans_matches_the_cpu(cuda):
+    """The host-chunked fit's k-means on the card (chunks of 131,072 rows,
+    a ragged tail) against its plain version on the CPU, from the same
+    injected seeds: labels agree on ≥ 99.9% of the rows, centroids within
+    1e-4 (float32 sums in another order)."""
+    import importlib
+
+    from repro_torch.core import streaming
+    km = importlib.import_module("repro_torch.core.kmeans")
+    g = torch.Generator().manual_seed(0)
+    centers = torch.randn((7, 7), generator=g) * 2.0
+    pick = torch.randint(0, 7, (300_000,), generator=g)
+    x = km.row_normalize(centers[pick] + 0.3 * torch.randn((300_000, 7),
+                                                           generator=g))
+    chunks = streaming.ChunkedDense.from_array(x, 131_072)
+    init = torch.stack([x[torch.randperm(300_000, generator=g)[:7]]
+                        for _ in range(3)])
+    want = km.streaming_kmeans(None, chunks, 7, n_steps=25, init=init)
+    ops.reset_launch_counts()
+    got = km.streaming_kmeans(None, chunks, 7, n_steps=25, init=init,
+                              device=cuda)
+    counts = ops.launch_counts()
+    assert counts["kmeans_assign_stats"] == 3 * 25
+    assert counts["kmeans_assign"] == 3 * chunks.n_chunks
+    agree = float((got.labels == want.labels).float().mean())
+    assert agree >= 0.999, agree
+    torch.testing.assert_close(got.centroids.cpu(), want.centroids,
+                               atol=1e-4, rtol=0)

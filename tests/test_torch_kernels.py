@@ -467,3 +467,45 @@ def test_flash_attention_rejects_bad_input():
         ops.flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError, match="impl"):
         ops.flash_attention(q, q, q, impl="cuda")
+
+
+# rows 6.. of S 16, T 4, window 3 see no key (i >= T + window - 1)
+KEYLESS = dict(s=16, t=4, window=3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_keyless_rows_match_reference(dtype, causal):
+    """A windowed row that sees no key: the reference's uniform softmax over
+    all T scores of -1e30 gives it mean(V); the plain version agrees."""
+    s, t, window = KEYLESS["s"], KEYLESS["t"], KEYLESS["window"]
+    (q, k, v), (jq, jk, jv) = _flash_inputs(s + t, 2, s, t, 3, 3, 16, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                impl="xla")
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    _flash_close(got, want, dtype)
+    mean_v = v.float().mean(dim=1)                   # (B, H, hd)
+    rows = got[:, t + window - 1:].float()
+    np.testing.assert_allclose(
+        rows.numpy(), mean_v[:, None].expand_as(rows).numpy(),
+        rtol=2e-5 if dtype == "float32" else 3e-2,
+        atol=2e-5 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hkv", [3, 1])
+def test_flash_keyless_fill_matches_the_plain_version(dtype, hkv):
+    """The pass that ``ops.flash_attention`` runs after the kernel for rows
+    that see no key writes the plain version's rows there (grouped K/V
+    included), and nothing else."""
+    s, t, window = KEYLESS["s"], KEYLESS["t"], KEYLESS["window"]
+    (q, k, v), _ = _flash_inputs(7 * hkv, 2, s, t, 3, hkv, 32, dtype)
+    want = ref.flash_attention_bshd_ref(q, k, v, causal=True, window=window)
+    row0 = t + window - 1
+    got = want.clone()
+    got[:, row0:] = 0
+    ops._fill_keyless_rows(got, v, row0)
+    torch.testing.assert_close(got[:, :row0], want[:, :row0], rtol=0, atol=0)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
