@@ -72,6 +72,38 @@ from a seed):
            must stay within 64 MiB at N = 290,506 (the first half of the
            rows, same chunk); save → load → predict of the chunked model on
            4,096 rows agrees with its fit labels ≥ 0.99
+  phase 9  every other solver on the covtype-shaped data, one device fit
+           each (lobpcg_host, randomized, auto, lanczos, subspace), held
+           against a LOBPCG fit of the same rows: for a converged solve
+           (tol reached, or auto's stability stop) Ritz values within 1e-3
+           relative, the sine of the largest principal angle of the
+           leading K vectors ≤ 1e-2 and labels by ARI ≥ 0.99 (LOBPCG from
+           another start block printed beside them); otherwise a
+           Rayleigh–Ritz lower bound; iterations and svd s. A fit with
+           SCRBConfig(trace=...) beside an untraced one: the Chrome trace
+           parses and holds fit, the five stages and eigensolve, and
+           diagnostics["memory"] holds device numbers. The device's busy
+           share over one fit from torch.profiler. The host-chunked
+           randomized and auto on the first 131,072 rows (two chunks)
+  phase 10 the compressive cell on poker-shaped data (paper Table 1: N =
+           1,025,010, d = 10, K = 10, R = 256; not cut). First the kernels
+           at the compressive cell's widths: the Gram product bit-equal to
+           zt then z and within the sum tolerance of its plain version at
+           K = 1, 14 and 32, zt and z at d = 14, kmeans_assign and its
+           statistics form exact at d = 14, K = 10, with times and bounds.
+           Then SCRBModel.fit(solver="auto") must route to compressive on
+           the card (its kernels launched); a second fit gives the same
+           labels; predict on the training rows gives the fit's labels
+           ≥ 0.999. A LOBPCG solve of the same data gives θ_K and θ_K+1:
+           the cold cutoff and its labels' ARI are printed beside them,
+           with the eigencount at θ_K and the share the null space adds
+           (not gated: the reference's estimator, ROADMAP.md C5). The cell
+           with that bracket (CompressiveOptions.lambdas) must agree with
+           LOBPCG's labels by ARI ≥ 0.99 and predict its own ≥ 0.999;
+           solver="auto" with chunk_size=131,072 must route to the
+           host-chunked cell (no fused Gram launch); the bracketed cell on
+           host chunks must agree with the device one by ARI ≥ 0.99, and
+           its peak device memory stay within 64 MiB from N/2 to N
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -82,7 +114,10 @@ Any failed check raises, and the script exits non-zero. It exits non-zero
 before printing any result when no CUDA device is available or when the
 package is not beside it. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the card's name
-and power limit, and the one before that the kernels' JSON record.
+and power limit, and the one before that the kernels' JSON record
+(``launches``: per device-resident covtype fit, per host-chunked fit for
+``bin_counts``, per generate for the flash kernel; ``launches_compressive``:
+per device compressive fit of phase 10).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -134,6 +169,34 @@ STREAM_FLAT_BYTES = 64 * 2**20
 STREAM_KERNELS = ("rb_binning", "zt_matmul", "z_matmul", "z_matmul_gather",
                   "kmeans_assign", "kmeans_assign_stats")
 STREAM_PREDICT_ROWS = 4_096
+# phase 9: every other solver on the covtype-shaped data, device rows; the
+# host-chunked randomized and auto on a row prefix, in two chunks
+SOLVERS = ("lobpcg_host", "randomized", "auto", "lanczos", "subspace")
+SOLVER_KERNELS = ("gram_matmul", "zt_matmul", "z_matmul")
+RITZ_RTOL = 1e-3
+SINE_MAX = 1e-2
+# labels of a converged solver's fit against LOBPCG's: LOBPCG against
+# itself from another start block gave ARI 0.9999, the converged solvers
+# 0.9969-0.9998 in this phase (NVIDIA H100 80GB HBM3, 700 W)
+SOLVER_ARI = 0.99
+CHUNKED_SOLVERS = ("randomized", "auto")
+CHUNKED_PREFIX = 131_072
+CHUNKED_CHUNK = 65_536
+TRACE_SPANS = ("fit", "rb_features", "degrees", "svd", "normalize", "kmeans",
+               "eigensolve")
+# phase 10: the compressive cell on poker-shaped data (paper Table 1),
+# N >= CompressiveOptions.auto_n, so solver="auto" routes to compressive
+POKER = ("poker", 10, 10, 1_025_010, "blobs")
+COMPRESSIVE_KERNELS = ("rb_binning", "gram_matmul", "zt_matmul", "z_matmul",
+                       "kmeans_assign", "kmeans_assign_stats")
+GRAM_WIDTHS = (1, 14, 32)  # lanczos; d = ceil(4 log2(K+1)) at K = 10; probes
+KMEANS_D, KMEANS_K = 14, 10
+PREDICT_AGREE = 0.999
+POKER_CHUNK = 131_072
+# labels of the bracketed compressive cell against LOBPCG's, and of its
+# host-chunked run against its device run: 0.9966 and 1.0000 in this
+# phase (NVIDIA H100 80GB HBM3, 700 W)
+COMPRESSIVE_ARI = 0.99
 
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
@@ -1373,6 +1436,593 @@ def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
     return counts
 
 
+def as_host(t):
+    """A tall result (a tensor or host chunks) as a host numpy array."""
+    if hasattr(t, "to_array"):
+        return t.to_array()
+    return t.detach().cpu().numpy()
+
+
+def principal_sine(a, b, k: int) -> float:
+    """Sine of the largest principal angle between the spans of the
+    leading k columns of two (N, ≥ k) blocks."""
+    cos = subspace_cosine(as_host(a)[:, :k], as_host(b)[:, :k])
+    return float(max(0.0, 1.0 - min(cos, 1.0) ** 2) ** 0.5)
+
+
+def with_solver(cfg, solver: str, **fields):
+    """``cfg`` with another solver (and other fields), through its flat
+    dict: ``dataclasses.replace(cfg, solver_options=...)`` would keep the
+    flat ``solver`` mirror, which takes precedence."""
+    from repro_torch.core import SCRBConfig
+    return SCRBConfig.from_dict({**cfg.to_dict(), "solver": solver,
+                                 **fields})
+
+
+def timed_execute(x, cfg, **kw):
+    """``executor.execute`` with its state, and its host seconds (device
+    synchronised)."""
+    import torch
+
+    from repro_torch.core import executor
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = executor.execute(x, cfg, keep_state=True, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def hold_solver(tag: str, res, wall: float, ref, counts: dict, cfg, *,
+                gate_labels: bool = True) -> dict:
+    """One solver's fit against a LOBPCG fit of the same rows. A solve that
+    converged (reached tol, or ``auto``'s LOBPCG stopped by its stability
+    test before the cap) is held to Ritz values within RITZ_RTOL relative,
+    the leading K vectors within SINE_MAX and, with ``gate_labels``, labels
+    by ARI ≥ SOLVER_ARI; any other to the Rayleigh–Ritz lower bound. The
+    Gram product must have run."""
+    import numpy as np
+
+    from repro_torch.core import metrics
+    k = cfg.n_clusters
+    so = cfg.solver_options
+    d = res.diagnostics
+    theta = np.asarray(res.singular_values, np.float64) ** 2
+    theta_ref = np.asarray(ref.singular_values, np.float64) ** 2
+    rel = float(np.max(np.abs(theta - theta_ref) / theta_ref))
+    resmax = float(np.max(d["solver_resnorms"]))
+    reached = resmax <= so.tol
+    stable = so.solver == "auto" and 3 < d["solver_iterations"] < so.iters + 3
+    converged = reached or stable
+    sine = principal_sine(res.state["eig"].vectors, ref.state["eig"].vectors,
+                          k)
+    ari = metrics.adjusted_rand_index(res.labels, ref.labels)
+    row = {"solver": tag, "wall_s": wall, "stages": dict(res.timer.times),
+           "iterations": d["solver_iterations"], "resnorm_max": resmax,
+           "converged": converged, "ritz_rel": rel, "sine": sine, "ari": ari,
+           "gram_launches": counts["gram_matmul"]
+           + counts["gram_matmul_composed"]}
+    log(f"[phase 9] {tag}: fit {wall:.3f}s, svd {res.timer.times['svd']:.3f}s,"
+        f" {d['solver_iterations']} iterations, resnorm max {resmax:.3g} "
+        f"(tol {so.tol:g}: reached={reached}, converged={converged}); Ritz "
+        f"values {[float(f'{t:.6f}') for t in theta]}, max relative "
+        f"difference from LOBPCG's {rel:.3g}; sine of the largest principal "
+        f"angle {sine:.3g}; ARI against LOBPCG's labels {ari:.4f}"
+        + (f" (bar {SOLVER_ARI})" if converged and gate_labels else "")
+        + f"; Gram products {row['gram_launches']}")
+    if row["gram_launches"] <= 0:
+        fail(f"{tag} launched no Gram product")
+    if not np.all(np.isfinite(theta)) or res.labels.shape != ref.labels.shape:
+        fail(f"{tag}: malformed Ritz values or labels")
+    if converged:
+        if rel > RITZ_RTOL:
+            fail(f"{tag} converged but its Ritz values are {rel:.3g} off "
+                 f"LOBPCG's (limit {RITZ_RTOL:g} relative)")
+        if sine > SINE_MAX:
+            fail(f"{tag} converged but its leading {k} vectors are "
+                 f"{sine:.3g} off LOBPCG's (sine limit {SINE_MAX:g})")
+        if gate_labels and ari < SOLVER_ARI:
+            fail(f"{tag} converged but its labels agree with LOBPCG's at ARI"
+                 f" {ari:.4f} < {SOLVER_ARI}")
+    elif np.any(theta > theta_ref * (1 + 1e-4)):
+        # Rayleigh–Ritz: Ritz values of any subspace lie below the
+        # eigenvalues they approximate
+        fail(f"{tag}: a Ritz value lies above LOBPCG's converged one")
+    return row
+
+
+def device_busy(fn) -> dict:
+    """The device's busy time over ``fn()`` from a ``torch.profiler`` trace
+    (the union of its CUDA kernel, copy and set intervals), beside the host
+    wall time of ``fn()`` run once without the profiler (device
+    synchronised): their ratio is the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"device_events": len(spans), "busy_us": busy, "wall_us": wall_us}
+
+
+def phase9_solvers(x_np, cfg, device_fit) -> dict:
+    """Every other solver on the covtype-shaped data against a LOBPCG fit
+    of the same rows; a traced fit; the device's busy share; the host-
+    chunked randomized and auto on a row prefix."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SCRBModel, executor, metrics
+    from repro_torch.kernels import ops
+
+    out = {"solvers": []}
+    ref, ref_wall = timed_execute(x_np, cfg)
+    same = np.array_equal(ref.labels, device_fit["labels"])
+    log(f"[phase 9] LOBPCG as phase 3: fit {ref_wall:.3f}s, "
+        f"{ref.diagnostics['solver_iterations']} iterations, labels "
+        f"identical to phase 3's = {same}")
+    n = x_np.shape[0]
+    x0 = torch.randn((n, EIG_BLOCK), generator=torch.Generator().manual_seed(1))
+    plan = dataclasses.replace(executor.plan_from_config(cfg), eig_x0=x0)
+    other, other_wall = timed_execute(x_np, cfg, plan=plan)
+    out["lobpcg_other_start"] = hold_solver(
+        "lobpcg (another start block)", other, other_wall, ref,
+        {"gram_matmul": 1, "gram_matmul_composed": 0}, cfg)
+    del other
+    for solver in SOLVERS:
+        cfg_s = with_solver(cfg, solver)
+        ops.reset_launch_counts()
+        res, wall = timed_execute(x_np, cfg_s)
+        counts = ops.launch_counts()
+        out["solvers"].append(hold_solver(solver, res, wall, ref, counts,
+                                          cfg_s))
+        del res
+        torch.cuda.empty_cache()
+
+    # a traced fit beside an untraced one; the trace's spans and memory
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "fit_trace.json")
+        walls = {}
+        for name, c in (("untraced", cfg),
+                        ("traced", dataclasses.replace(cfg, trace=path))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = SCRBModel.fit(x_np, c)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        with open(path) as f:
+            doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"] for e in spans}
+    mem = model.fit_result.diagnostics["memory"]
+    root = next(e for e in spans if e["name"] == "fit")
+    stage_us = {e["name"]: e["dur"] for e in spans
+                if e["name"] in TRACE_SPANS[1:]}
+    gaps = root["dur"] - sum(stage_us[s] for s in TRACE_SPANS[1:6]
+                             if s in stage_us)
+    out["trace"] = {"untraced_s": walls["untraced"],
+                    "traced_s": walls["traced"], "spans": sorted(names),
+                    "span_ms": {s: v / 1e3 for s, v in stage_us.items()},
+                    "fit_ms": root["dur"] / 1e3, "between_stages_ms":
+                    gaps / 1e3, "memory": mem}
+    log(f"[phase 9] fit untraced {walls['untraced']:.3f}s, traced "
+        f"{walls['traced']:.3f}s; trace spans {sorted(names)}; fit span "
+        f"{root['dur'] / 1e3:.1f} ms: " + ", ".join(
+            f"{s} {v / 1e3:.1f}" for s, v in stage_us.items())
+        + f" ms, {gaps / 1e3:.1f} ms outside the five stages; memory "
+        f"{mem}")
+    missing = [s for s in TRACE_SPANS if s not in names]
+    if missing:
+        fail(f"the traced fit's Chrome trace lacks the spans {missing}")
+    if mem.get("device_bytes_in_use") is None \
+            or mem.get("device_peak_bytes") is None:
+        fail(f"diagnostics['memory'] holds no device numbers: {mem}")
+    del model
+
+    busy = device_busy(lambda: SCRBModel.fit(x_np, cfg))
+    out["busy"] = busy
+    if busy["device_events"]:
+        log(f"[phase 9] torch.profiler over one fit: {busy['device_events']}"
+            f" device events, busy {busy['busy_us'] / 1e3:.1f} ms; the same "
+            f"fit without the profiler {busy['wall_us'] / 1e3:.1f} ms: "
+            f"device idle share {1 - busy['busy_us'] / busy['wall_us']:.3f}")
+    else:
+        log("[phase 9] torch.profiler recorded no device events: the idle "
+            "share is not measured")
+
+    # the host-chunked randomized and auto on a row prefix
+    xp = x_np[:CHUNKED_PREFIX]
+    pref, _ = timed_execute(xp, cfg)
+    log(f"[phase 9] host-chunked solvers on the first {CHUNKED_PREFIX} rows "
+        f"(a cut of N = {n}), chunks of {CHUNKED_CHUNK}, against a device "
+        f"LOBPCG fit of the same rows ({pref.diagnostics['solver_iterations']}"
+        f" iterations)")
+    out["chunked"] = []
+    for solver in CHUNKED_SOLVERS:
+        cfg_c = with_solver(cfg, solver, chunk_size=CHUNKED_CHUNK)
+        ops.reset_launch_counts()
+        res, wall = timed_execute(xp, cfg_c)
+        counts = ops.launch_counts()
+        counts["gram_matmul"] = counts["zt_matmul"]   # a zt sweep, then z
+        # host chunks cluster with streaming_kmeans, not Lloyd: labels are
+        # printed, not held to the device fit's (PERF.md §6)
+        out["chunked"].append(hold_solver(f"{solver} on host chunks", res,
+                                          wall, pref, counts, cfg_c,
+                                          gate_labels=False))
+        if res.diagnostics["plan"]["residency"] != "host_chunked":
+            fail(f"the chunked {solver} fit ran on device rows")
+    return out
+
+
+def phase10_kernels(x, fm) -> list:
+    """The kernels at the widths the compressive cell gives them,
+    on the poker-shaped pattern: the Gram product bit-equal to zt then z
+    and within the sum tolerance of its plain version at K = 1, 14, 32;
+    zt and z at the projection's width d = 14;
+    kmeans_assign and its statistics form exact at d = 14, K = 10 (small
+    integer values: every distance is exact)."""
+    import torch
+
+    from repro_torch.core import graph
+    from repro_torch.kernels import ops, ref
+
+    dev = x.device
+    p = fm.params
+    n, r, d_g, big_d = x.shape[0], p.n_grids, p.d_g, p.n_features
+    g = torch.Generator(device=dev).manual_seed(10)
+    idx = ops.rb_binning(x, p.widths, p.biases, p.hash_a, p.hash_c, d_g=d_g)
+    adj = graph.build_normalized_adjacency(idx, d=big_d, d_g=d_g)
+    s, csc = adj.rowscale, adj.csc
+    idx_bytes = n * r * 4
+    rows = []
+    for kk in GRAM_WIDTHS:
+        if ops.z_strip_plan(n, r, d_g, kk, torch.float32) is None:
+            fail(f"the Gram product at K = {kk} has no strip route")
+        u = torch.randn((n, kk), generator=g, device=dev)
+        ops.reset_launch_counts()
+        got = ops.gram_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
+        fused = ops.launch_counts()["gram_matmul"] == 1
+        composed = lambda: ops.z_matmul(
+            idx, ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc), s,
+            d_g=d_g)
+        want = composed()
+        if not fused or not torch.equal(got, want):
+            fail(f"the Gram product at K = {kk} differs from zt_matmul then "
+                 f"z_matmul in {int((got != want).sum())} entries (fused "
+                 f"kernel used: {fused})")
+        # and against the plain version, at this width's column groups
+        plain = ref.z_matmul_ref(idx, ref.zt_matmul_ref(idx, u, s, big_d), s)
+        terms = ref.z_matmul_ref(
+            idx, ref.zt_matmul_ref(idx, u.abs(), s.abs(), big_d), s.abs())
+        ok, err = within_sum_tolerance(got, plain, terms)
+        if not ok:
+            fail(f"the Gram product at K = {kk} differs from its plain "
+                 f"version (max abs {err:.3g})")
+        del plain, terms
+        gb = 2 * idx_bytes + (big_d + 1) * 8 + 2 * n * kk * 4 + n * 4
+        b_ms, b_by = bound(gb, 4.0 * n * r * kk)
+        ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
+                                             csc=csc))
+        c_ms = time_ms(composed)
+        rows.append({"kernel": "gram_matmul", "k": kk, "ms": ms,
+                     "composed_ms": c_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err})
+        log(f"[phase 10] gram_matmul K={kk}: fused {ms:.4f} ms, zt then z "
+            f"{c_ms:.4f} ms (the same bits; within the sum tolerance of the "
+            f"plain version, max abs {err:.3g}); bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del u, got, want
+    kd = KMEANS_D
+    u = torch.randn((n, kd), generator=g, device=dev)
+    v = torch.randn((big_d, kd), generator=g, device=dev)
+    got = ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc)
+    ok, err = within_sum_tolerance(got, ref.zt_matmul_ref(idx, u, s, big_d),
+                                   ref.zt_matmul_ref(idx, u.abs(), s.abs(),
+                                                     big_d))
+    if not ok:
+        fail(f"zt_matmul at K = {kd} differs from its plain version "
+             f"(max abs {err:.3g})")
+    b_ms, b_by = bound(idx_bytes + (big_d + 1) * 8 + n * kd * 4 + n * 4
+                       + big_d * kd * 4, 2.0 * n * r * kd)
+    ms = time_ms(lambda: ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc))
+    rows.append({"kernel": "zt_matmul", "k": kd, "ms": ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err})
+    got = ops.z_matmul(idx, v, s, d_g=d_g)
+    ok, err = within_sum_tolerance(got, ref.z_matmul_ref(idx, v, s),
+                                   ref.z_matmul_ref(idx, v.abs(), s.abs()))
+    if not ok:
+        fail(f"z_matmul at K = {kd} differs from its plain version "
+             f"(max abs {err:.3g})")
+    b_ms, b_by = bound(idx_bytes + big_d * kd * 4 + n * 4 + n * kd * 4,
+                       n * r * kd + n * kd)
+    ms = time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g))
+    rows.append({"kernel": "z_matmul", "k": kd, "ms": ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err})
+    log(f"[phase 10] zt_matmul K={kd}: {rows[-2]['ms']:.4f} ms (bound "
+        f"{rows[-2]['bound_ms']:.4f}); z_matmul K={kd}: {ms:.4f} ms (bound "
+        f"{b_ms:.4f}); both within the sum tolerance of their plain versions")
+    del u, v, got, adj, csc, idx
+    torch.cuda.empty_cache()
+
+    emb = torch.randint(-3, 4, (n, kd), generator=g, device=dev).float()
+    cents = torch.randint(-3, 4, (KMEANS_K, kd), generator=g,
+                          device=dev).float()
+    lab, dist = ops.kmeans_assign(emb, cents)
+    lab_p, dist_p = ref.kmeans_assign_ref(emb, cents)
+    if not (torch.equal(lab, lab_p) and torch.equal(dist, dist_p)):
+        fail(f"kmeans_assign at d = {kd}, K = {KMEANS_K} differs from its "
+             f"plain version: {int((lab != lab_p).sum())} labels, max "
+             f"distance error {float((dist - dist_p).abs().max()):.3g}")
+    lab_s, counts, _, _ = ops.kmeans_assign_stats(emb, cents)
+    if not torch.equal(lab_s, lab) or not torch.equal(
+            counts, torch.bincount(lab, minlength=KMEANS_K).float()):
+        fail(f"kmeans_assign_stats at d = {kd}, K = {KMEANS_K}: labels or "
+             "counts differ")
+    kms, _ = time_device(lambda: ops.kmeans_assign(emb, cents))
+    sms, _ = time_device(lambda: ops.kmeans_assign_stats(emb, cents))
+    b_ms, b_by = bound(n * kd * 4 + KMEANS_K * kd * 4 + n * 8,
+                       3.0 * n * kd * KMEANS_K)
+    rows.append({"kernel": "kmeans_assign", "k": KMEANS_K, "d": kd,
+                 "ms": kms, "bound_ms": b_ms, "bound_by": b_by})
+    e_len = KMEANS_K * (kd + 1) + 1
+    b2, b2_by = bound(n * kd * 4 + KMEANS_K * kd * 4 + n * 4 + e_len * 4,
+                      3.0 * n * kd * KMEANS_K + n * (kd + 1))
+    rows.append({"kernel": "kmeans_assign_stats", "k": KMEANS_K, "d": kd,
+                 "ms": sms, "bound_ms": b2, "bound_by": b2_by})
+    log(f"[phase 10] kmeans_assign d={kd} K={KMEANS_K}: labels and distances"
+        f" exact; {kms:.4f} ms on the device (bound {b_ms:.4f}); "
+        f"kmeans_assign_stats: labels and counts exact, {sms:.4f} ms (bound "
+        f"{b2:.4f})")
+    return rows
+
+
+def phase10_compressive() -> dict:
+    """The compressive cell at the paper's poker size: solver="auto" on
+    1,025,010 rows routes to it, on device rows and on host chunks. Its
+    cold eigencount is printed beside LOBPCG's θ_K and θ_K+1 (at this N the
+    damped step's response at 0 times the null space moves the count:
+    ROADMAP.md C5); the cell with LOBPCG's bracket is held to LOBPCG's
+    labels, on device rows and host chunks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        RBMap, SCRBConfig, SCRBModel, SolverOptions, compressive,
+        eigensolver, metrics,
+    )
+    from repro_torch.core.rb import suggest_sigma
+    from repro_torch.core.rowmatrix import _solver_precond
+    from repro_torch.data.synthetic import SuiteSpec, generate
+    from repro_torch.kernels import ops
+    from repro_torch.utils import fold_seed, make_generator
+
+    t0 = time.perf_counter()
+    x_np, y_np = generate(SuiteSpec(*POKER), scale=1.0, seed=0)
+    n, k = x_np.shape[0], POKER[1]
+    sigma = suggest_sigma(x_np)
+    cfg = SCRBConfig(n_clusters=k, n_grids=N_GRIDS, sigma=sigma,
+                     solver_options=SolverOptions(solver="auto"))
+    log(f"[phase 10] poker-shaped synthetic N={n} d={x_np.shape[1]} K={k} "
+        f"R={N_GRIDS}, sigma={sigma:.6g}, made in "
+        f"{time.perf_counter() - t0:.1f}s (not cut)")
+    out = {}
+    x_dev = torch.as_tensor(x_np, device="cuda")
+    fm = RBMap(n_grids=N_GRIDS, sigma=sigma).fit(cfg.seed, x_dev)
+    out["kernels"] = phase10_kernels(x_dev, fm)
+    del x_dev, fm
+    torch.cuda.empty_cache()
+
+    def fit(x, c):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = SCRBModel.fit(x, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (model, wall, ops.launch_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    model, wall, counts, peak = fit(x_np, cfg)
+    res = model.fit_result
+    d = res.diagnostics
+    if d["solver"] != "compressive":
+        fail(f"solver='auto' at N={n} ran {d['solver']!r}, not compressive")
+    comp = d["compressive"]
+    log(f"[phase 10] SCRBModel.fit(solver='auto') on the card: solver "
+        f"{d['solver']}, {wall:.3f}s; stages (s): " + ", ".join(
+            f"{s}={v:.3f}" for s, v in res.timer.times.items())
+        + f"; {d['solver_iterations']} Gram products ({comp}); d_g "
+        f"{d['d_g']}, D {d['n_features_D']}; Ritz singular values "
+        f"{[float(f'{v:.5f}') for v in res.singular_values]}; peak device "
+        f"memory above the start {peak / 2**20:.1f} MiB; k-means on "
+        f"{d['kmeans_subset_rows']} rows")
+    log(f"[phase 10] kernel launches during the compressive fit: {counts}")
+    log(f"[phase 10] ACC={metrics.accuracy(res.labels, y_np):.4f} "
+        f"NMI={metrics.nmi(res.labels, y_np):.4f} against the synthetic "
+        "truth (for information)")
+    missing = [kname for kname in COMPRESSIVE_KERNELS if counts[kname] <= 0]
+    if missing:
+        fail(f"the compressive fit launched no {missing} kernel")
+    if res.labels.shape != (n,) or not np.all(np.isfinite(res.embedding)):
+        fail("the compressive fit's labels or embedding are malformed")
+    out["device"] = {"wall_s": wall, "stages": dict(res.timer.times),
+                     "iterations": d["solver_iterations"],
+                     "compressive": comp, "peak_bytes": peak,
+                     "launches": counts}
+
+    again, wall2, _, _ = fit(x_np, cfg)
+    same = np.array_equal(again.fit_result.labels, res.labels)
+    log(f"[phase 10] a second compressive fit ({wall2:.3f}s, svd "
+        f"{again.fit_result.timer.times['svd']:.3f}s): labels identical = "
+        f"{same}")
+    out["device"]["wall2_s"] = wall2
+    if not same:
+        fail("two compressive fits of the same data differ in "
+             f"{int((again.fit_result.labels != res.labels).sum())} labels")
+    del again
+
+    t0 = time.perf_counter()
+    pred = model.predict(x_np)
+    dt = time.perf_counter() - t0
+    agree = metrics.accuracy(pred, res.labels)
+    log(f"[phase 10] predict on the {n} training rows: {dt:.3f}s, agreement "
+        f"with the fit labels {agree:.6f} (limit {PREDICT_AGREE})")
+    if agree < PREDICT_AGREE:
+        fail(f"predict on the training rows agrees at {agree:.6f} < "
+             f"{PREDICT_AGREE}")
+
+    # LOBPCG on the same data: its labels, and θ_K, θ_{K+1} for the cutoff
+    cfg_l = with_solver(cfg, "lobpcg")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lres, lwall = timed_execute(x_np, cfg_l)
+    lpeak = torch.cuda.max_memory_allocated() - base
+    z = lres.state["z"]
+    so = cfg_l.solver_options
+    eig = eigensolver.top_k_eigenpairs(
+        z.gram, z.n, k + 1, make_generator(1), device=z.device,
+        max_iters=so.iters, tol=so.tol, buffer=so.buffer,
+        precond=_solver_precond(cfg_l, z.adj.deg))
+    theta = eig.theta.cpu().numpy().astype(np.float64)
+    ari = metrics.adjusted_rand_index(res.labels, lres.labels)
+    # the eigencount behind the cutoff, from the fit's own probe block: the
+    # smoothed count at the true θ_K, and the share of it that the null
+    # space (at least N − D eigenvalues at 0) adds through the damped step
+    est, _ = compressive.estimate_lambda_k(
+        z, k, fold_seed(fold_seed(cfg.seed, "eig"), "count"))
+    at_k = compressive.eigencount(est.moments, est.probes, theta[k - 1])
+    h0 = float(compressive.step_eval(
+        compressive.step_coeffs(theta[k - 1], est.degree), 0.0))
+    null_dim = max(n - d["n_features_D"], 0)      # rank(Â) ≤ D
+    null = null_dim * h0
+    log(f"[phase 10] LOBPCG on the same data: fit {lwall:.3f}s (svd "
+        f"{lres.timer.times['svd']:.3f}s, {lres.diagnostics['solver_iterations']}"
+        f" iterations, peak device memory above the start "
+        f"{lpeak / 2**20:.1f} MiB) against the cold compressive fit's "
+        f"{wall:.3f}s (svd {res.timer.times['svd']:.3f}s); theta_K="
+        f"{theta[k - 1]:.6f}, theta_K+1={theta[k]:.6f} ({eig.iterations} "
+        f"iterations); the cold cutoff {comp['cutoff']:.6f} "
+        f"(in [theta_K+1, theta_K]: "
+        f"{bool(theta[k] <= comp['cutoff'] <= theta[k - 1])}); labels "
+        f"against LOBPCG's: ARI {ari:.4f}")
+    log(f"[phase 10] the eigencount at theta_K={theta[k - 1]:.6f} from the "
+        f"same {est.probes} probes: {at_k:.2f} eigenvalues (K = {k}); the "
+        f"damped step there is h(0) = {h0:.3g} at 0, so the at least "
+        f"{null_dim} null eigenvalues (N - D) add "
+        f"{null:.2f} to it; the count's cutoff {est.cutoff:.6f} (the fit's "
+        f"{comp['cutoff']:.6f})")
+    out["lobpcg"] = {"wall_s": lwall, "svd_s": lres.timer.times["svd"],
+                     "iterations": lres.diagnostics["solver_iterations"],
+                     "peak_bytes": lpeak, "theta": theta.tolist(),
+                     "ari_cold": ari, "count_at_theta_k": at_k,
+                     "null_share": null}
+    if est.cutoff != comp["cutoff"]:
+        fail(f"the eigencount from the fit's probes gives the cutoff "
+             f"{est.cutoff!r}, the fit {comp['cutoff']!r}")
+    lobpcg_labels, bracket = lres.labels, [theta[k - 1], theta[k]]
+    del lres, z, eig, model, res
+    torch.cuda.empty_cache()
+
+    # the cell with LOBPCG's bracket (CompressiveOptions.lambdas, the
+    # reference's warm start): the filter, projection and subset k-means
+    # at full N, held to LOBPCG's labels
+    cfg_w = with_solver(cfg, "compressive", compressive_lambdas=bracket)
+    warm, wwall, _, wpeak = fit(x_np, cfg_w)
+    wres = warm.fit_result
+    wd = wres.diagnostics
+    wari = metrics.adjusted_rand_index(wres.labels, lobpcg_labels)
+    wpred = metrics.accuracy(warm.predict(x_np), wres.labels)
+    log(f"[phase 10] the compressive cell with LOBPCG's bracket: {wwall:.3f}s;"
+        f" stages (s): " + ", ".join(
+            f"{s}={v:.3f}" for s, v in wres.timer.times.items())
+        + f"; {wd['solver_iterations']} Gram products ({wd['compressive']}); "
+        f"Ritz singular values "
+        f"{[float(f'{v:.5f}') for v in wres.singular_values]}; peak device "
+        f"memory above the start {wpeak / 2**20:.1f} MiB; labels against "
+        f"LOBPCG's: ARI {wari:.4f} (bar {COMPRESSIVE_ARI}); ACC "
+        f"{metrics.accuracy(wres.labels, y_np):.4f} against the truth; "
+        f"predict on the training rows agrees {wpred:.6f}")
+    out["warm"] = {"wall_s": wwall, "stages": dict(wres.timer.times),
+                   "iterations": wd["solver_iterations"],
+                   "compressive": wd["compressive"], "peak_bytes": wpeak,
+                   "ari": wari}
+    if wari < COMPRESSIVE_ARI:
+        fail(f"the compressive cell with LOBPCG's bracket agrees with "
+             f"LOBPCG's labels at ARI {wari:.4f} < {COMPRESSIVE_ARI}")
+    if wpred < PREDICT_AGREE:
+        fail(f"predict of the bracketed compressive model agrees at "
+             f"{wpred:.6f} < {PREDICT_AGREE}")
+    warm_labels = wres.labels
+    del warm, wres
+
+    # host chunks: solver="auto" routes there too; the bracketed cell at N
+    # and N/2 (named: auto takes LOBPCG below 10^6 rows) for the labels and
+    # the peak memory
+    cfg_c = dataclasses.replace(cfg, chunk_size=POKER_CHUNK)
+    cold_c, cwall, ccounts, cpeak = fit(x_np, cfg_c)
+    cd = cold_c.fit_result.diagnostics
+    cold_stages = dict(cold_c.fit_result.timer.times)
+    log(f"[phase 10] host-chunked solver='auto', chunk_size={POKER_CHUNK} "
+        f"({cd['n_chunks']} chunks): solver {cd['solver']}, {cwall:.2f}s; "
+        f"stages (s): " + ", ".join(
+            f"{s}={v:.3f}" for s, v in cold_stages.items())
+        + f"; {cd['solver_iterations']} Gram sweeps; cutoff "
+        f"{cd['compressive']['cutoff']:.6f}; peak device memory above the "
+        f"start {cpeak / 2**20:.1f} MiB")
+    log(f"[phase 10] kernel launches during the host-chunked fit: {ccounts}")
+    if cd["solver"] != "compressive" or cd["plan"]["residency"] \
+            != "host_chunked":
+        fail("the chunked solver='auto' fit did not run the host-chunked "
+             "compressive cell")
+    if ccounts["gram_matmul"] or not ccounts["zt_matmul"] \
+            or not ccounts["bin_counts"]:
+        fail("the host-chunked compressive fit ran the fused Gram product, "
+             "or no zt sweep or bin_counts")
+    del cold_c
+    cfg_cw = dataclasses.replace(cfg_w, chunk_size=POKER_CHUNK)
+    chunked, cwwall, _, cwpeak = fit(x_np, cfg_cw)
+    cari = metrics.adjusted_rand_index(chunked.fit_result.labels, warm_labels)
+    del chunked
+    half, hwall, _, hpeak = fit(x_np[:n // 2], cfg_cw)
+    log(f"[phase 10] host-chunked compressive cell with LOBPCG's bracket: "
+        f"N={n} {cwwall:.2f}s, labels against the device cell's ARI "
+        f"{cari:.4f} (bar {COMPRESSIVE_ARI}); N={n // 2} {hwall:.2f}s "
+        f"(solver {half.fit_result.diagnostics['solver']}); peak device "
+        f"memory above the start {hpeak / 2**20:.1f} MiB at N={n // 2}, "
+        f"{cwpeak / 2**20:.1f} MiB at N={n} (limit: within "
+        f"{STREAM_FLAT_BYTES / 2**20:.0f} MiB)")
+    if cari < COMPRESSIVE_ARI:
+        fail(f"the host-chunked compressive labels agree with the device "
+             f"cell's at ARI {cari:.4f} < {COMPRESSIVE_ARI}")
+    if abs(cwpeak - hpeak) > STREAM_FLAT_BYTES:
+        fail(f"the host-chunked compressive fit's peak device memory moved by"
+             f" {(cwpeak - hpeak) / 2**20:.1f} MiB from N={n // 2} to N={n}")
+    out["chunked"] = {"cold_wall_s": cwall, "cold_stages": cold_stages,
+                      "wall_s": cwwall, "peak_bytes": cwpeak,
+                      "half_wall_s": hwall, "half_peak_bytes": hpeak,
+                      "ari": cari}
+    return out
+
+
 def subspace_cosine(a, b) -> float:
     """Smallest principal-angle cosine between the column spans of two
     (N, K) host arrays."""
@@ -1461,10 +2111,24 @@ def main() -> None:
         if row["name"] == "bin_counts":       # the streaming path's kernel
             row["launches"] = stream_counts["bin_counts"]
     log(f"[phase 8] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase9_solvers(x_np, cfg, device_fit)
+    del x_np, y_np, device_fit
+    torch.cuda.empty_cache()
+    log(f"[phase 9] {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    comp = phase10_compressive()
+    for row in kernels:        # launches per device compressive fit
+        row["launches_compressive"] = comp["device"]["launches"][row["name"]]
+    log(f"[phase 10] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_compressive", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

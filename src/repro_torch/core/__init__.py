@@ -8,7 +8,12 @@ Public API (the names of ``repro.core``, as far as they are ported):
   - ``RBMap`` / ``FEATURE_MAPS``                     stage-1 map (rb only)
   - ``make_rb_params`` / ``rb_transform``            Alg. 1
   - ``build_normalized_adjacency``                   Eq. 5/6
-  - ``top_k_eigenpairs`` / ``lobpcg``                the eigensolver
+  - ``top_k_eigenpairs``                             every eigensolver
+    (``lobpcg``, ``lobpcg_host_chunked``, ``lanczos``,
+    ``subspace_iteration``, randomized and ``auto``)
+  - ``compressive``                                  the eigendecomposition-
+    free cell (``solver="compressive"``, ``"auto"`` at N ≥ 10⁶)
+  - ``ChunkedDense`` / ``ChunkedELL`` / ...          host-chunked storage
   - ``kmeans`` / ``row_normalize``                   final stage
   - ``metrics``                                      Table 2 metrics
 """
@@ -19,11 +24,17 @@ from repro_torch.core.graph import (  # noqa: F401
     NormalizedAdjacency, build_normalized_adjacency, degrees_from_counts,
     rb_degrees_and_counts,
 )
+from repro_torch.core.streaming import (  # noqa: F401
+    ChunkedDense, ChunkedELL, as_row_chunks, build_chunked_adjacency,
+    chunked_degrees, chunked_rb_transform,
+)
 from repro_torch.core.eigensolver import (  # noqa: F401
-    EigResult, lobpcg, top_k_eigenpairs,
+    EigResult, lobpcg, lobpcg_host_chunked, lanczos, subspace_iteration,
+    top_k_eigenpairs,
 )
 from repro_torch.core.kmeans import (  # noqa: F401
-    KMeansResult, kmeans, row_normalize,
+    KMeansResult, kmeans, minibatch_kmeans, row_normalize,
+    row_normalize_chunks, streaming_kmeans,
 )
 from repro_torch.core.executor import (  # noqa: F401
     ExecutionPlan, FitResult, execute, plan_from_config,
@@ -32,9 +43,11 @@ from repro_torch.core.options import (  # noqa: F401
     CompressiveOptions, PartitionOptions, SolverOptions,
 )
 from repro_torch.core.featuremap import FEATURE_MAPS, RBMap  # noqa: F401
-from repro_torch.core.rowmatrix import DeviceRows, FittedFeatures  # noqa: F401
+from repro_torch.core.rowmatrix import (  # noqa: F401
+    DeviceRows, FittedFeatures, HostChunkedRows,
+)
 from repro_torch.core.model import SCRBModel  # noqa: F401
 from repro_torch.core.pipeline import (  # noqa: F401
     SCRBConfig, SCRBResult, SpectralEmbedding, sc_rb, spectral_embed,
 )
-from repro_torch.core import metrics  # noqa: F401
+from repro_torch.core import compressive, metrics  # noqa: F401

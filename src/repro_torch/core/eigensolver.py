@@ -1,22 +1,33 @@
-"""Blocked LOBPCG for the implicit operator Â = Ẑ Ẑᵀ.
+"""Blocked iterative eigensolvers for the implicit operator Â = Ẑ Ẑᵀ.
 
-The solver of the main path: a fixed-shape [X|W|P] subspace, whitened
-Rayleigh–Ritz (rank-deficiency safe), soft locking by residual masking, one
-block mat-vec per iteration, and diagonal (degree) preconditioning. The
-block mat-vec is the Gram operator (hand-written kernels on the card); the
-dense algebra around it (QR, eigh, GEMM) runs on ``torch.linalg`` and
-``torch.matmul``, in full float32 — the fit turns TF32 off.
+The JAX package's solvers, as plain loops on tensors. The block mat-vec is
+the Gram operator (hand-written kernels on the card); the dense algebra
+around it (QR, eigh, GEMM) runs on ``torch.linalg`` and ``torch.matmul``,
+in full float32 — the fit turns TF32 off. The Rayleigh–Ritz Grams that the
+JAX package solves in host float64 stay host float64 here.
 
-``lobpcg_host_chunked`` is the host-chunked residency's driver: the block
-iterates live as host row chunks (``streaming.ChunkedDense``), only the
-Gram product touches the device (one chunk at a time), and the small
-(3b, 3b) Rayleigh–Ritz algebra runs in host float64 with numpy, as in the
-JAX package. ``top_k_eigenpairs(chunk_sizes=...)`` selects it for
-``solver="lobpcg"`` or ``"lobpcg_host"``.
+  - ``lobpcg``: the main path's solver. A fixed-shape [X|W|P] subspace,
+    whitened Rayleigh–Ritz (rank-deficiency safe), soft locking by
+    residual masking, one block mat-vec per iteration, diagonal (degree)
+    preconditioning, warm starts and the adaptive ``stable_tol`` stop.
+  - ``lobpcg_host``: ``lobpcg`` with the convergence read only every
+    ``check_every`` iterations (the JAX package's host-driven driver).
+  - ``lobpcg_host_chunked``: the host-chunked residency's driver; the
+    block iterates live as host row chunks (``streaming.ChunkedDense``),
+    only the Gram product touches the device (one chunk at a time), and
+    the (3b, 3b) Rayleigh–Ritz algebra runs in host float64 with numpy.
+  - ``lanczos``: single-vector Lanczos with full reorthogonalisation (the
+    paper's "svds" stand-in), ``subspace_iteration`` (block power method):
+    the comparison baselines.
+  - ``randomized``: a block-Krylov sketch of depth 2 (three block
+    mat-vecs, one whitened Rayleigh–Ritz), on device blocks or host
+    chunks; ``solver="auto"`` runs it first and continues with a
+    warm-started, preconditioned LOBPCG only if the sketch misses ``tol``.
 
-Other solvers of the JAX package (``lobpcg_host`` on a device operand,
-``randomized``, ``auto``, ``lanczos``, ``subspace``, ``compressive``) are
-not yet ported and raise.
+``top_k_eigenpairs`` dispatches by solver and residency, under an
+``eigensolve`` span, and feeds ``repro_eigensolves_total``,
+``repro_solver_iterations`` and ``repro_solver_resnorm_max``.
+``solver="compressive"`` is not an eigensolver (``core.compressive``).
 """
 from __future__ import annotations
 
@@ -25,11 +36,19 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
-SOLVERS = ("lobpcg",)
-#: Solvers of host-chunked operands (the host-driven LOBPCG).
-CHUNKED_SOLVERS = ("lobpcg", "lobpcg_host")
+_SOLVES_TOTAL = obs_metrics.REGISTRY.counter(
+    "repro_eigensolves_total", "Completed top-k eigensolves.", ("solver",))
+_SOLVER_ITERS = obs_metrics.REGISTRY.histogram(
+    "repro_solver_iterations", "Block mat-vec iterations per eigensolve.",
+    ("solver",), buckets=obs_metrics.log_buckets(1.0, 1e4))
+_SOLVER_RESNORM = obs_metrics.REGISTRY.gauge(
+    "repro_solver_resnorm_max", "Worst top-k residual of the last eigensolve.",
+    ("solver",))
 
 
 class EigResult(NamedTuple):
@@ -159,17 +178,22 @@ def lobpcg(
     stable_k: Optional[int] = None,
     check_every: int = 4,
     conv_k: Optional[int] = None,
+    read_every: int = 1,
 ) -> EigResult:
     """Top-k eigenpairs of a symmetric PSD operator. x0: (n, k) start block.
 
     The JAX package's ``lax.while_loop`` as a Python loop with the same
-    semantics: convergence is tested every iteration on the leading
-    ``conv_k`` columns (one scalar read per iteration), AX is recomputed
-    exactly every 16 iterations, and a converged ``x0`` exits with
-    ``iterations == 0``. ``stable_tol`` adds the adaptive stop: every
-    ``check_every`` iterations the leading ``stable_k`` Ritz columns are
-    compared with the last checkpoint, and the solve stops when
-    1 − cos(largest principal angle) < ``stable_tol``."""
+    semantics: convergence is tested on the leading ``conv_k`` columns
+    (one scalar read), AX is recomputed exactly every 16 iterations, and a
+    converged ``x0`` exits with ``iterations == 0``. ``stable_tol`` adds
+    the adaptive stop: every ``check_every`` iterations the leading
+    ``stable_k`` Ritz columns are compared with the last checkpoint, and
+    the solve stops when 1 − cos(largest principal angle) < ``stable_tol``.
+
+    ``read_every`` is the convergence read's cadence. At 1 the read sees
+    the residual computed before the last update, as the ``while_loop``
+    carries it; at more (:func:`lobpcg_host`) it sees the current
+    iterate's."""
     n, k = x0.shape
     if 3 * k > n:
         raise ValueError(f"block too large: need 3k ≤ n, got k={k}, n={n}")
@@ -184,19 +208,34 @@ def lobpcg(
     ap = torch.zeros_like(x)
     x_chk = x
     it = 0
-    while it < max_iters and float(torch.max(res[:ck])) > tol:
-        _, res, w = _lobpcg_residual_block(x, ax, tol, tvec)
+    while it < max_iters:
+        if read_every > 1:
+            _, res, w = _lobpcg_residual_block(x, ax, tol, tvec)
+        if it % read_every == 0 and float(torch.max(res[:ck])) <= tol:
+            break
+        if read_every == 1:
+            _, res, w = _lobpcg_residual_block(x, ax, tol, tvec)
         aw = matvec(w)
         x, ax, p, ap = _lobpcg_rr_update(x, ax, p, ap, w, aw, k)
-        if (it + 1) % 16 == 0:       # exact refresh kills recombination drift
-            ax = matvec(x)
         it += 1
+        if it % 16 == 0:             # exact refresh kills recombination drift
+            ax = matvec(x)
         if stable_tol is not None and it % check_every == 0:
             align = float(_subspace_alignment(x_chk, x, sk))
             x_chk = x
             if 1.0 - align < stable_tol:
                 break
     return _lobpcg_finalize(x, ax, it)
+
+
+def lobpcg_host(matvec: Matvec, x0: torch.Tensor, *, check_every: int = 4,
+                **options) -> EigResult:
+    """The JAX package's host-driven LOBPCG: :func:`lobpcg` reading
+    convergence back only every ``check_every`` iterations (and at
+    iteration 0, so a converged ``x0`` still exits with ``iterations ==
+    0``), the stable-subspace stop tested at the same checkpoints."""
+    return lobpcg(matvec, x0, check_every=check_every,
+                  read_every=check_every, **options)
 
 
 def lobpcg_block_width(n: int, k: int, buffer: int) -> int:
@@ -257,73 +296,6 @@ def prepare_start_block(x0, n: int, b: int,
     pad = torch.randn((n, b - arr.shape[1]), generator=generator,
                       dtype=torch.float32, device=generator.device)
     return torch.cat([arr, pad.to(device)], dim=1)
-
-
-def top_k_eigenpairs(
-    matvec: Matvec,
-    n: int,
-    k: int,
-    generator: torch.Generator,
-    *,
-    device="cpu",
-    solver: str = "lobpcg",
-    max_iters: int = 200,
-    tol: float = 1e-5,
-    buffer: int = 4,
-    x0=None,
-    precond=None,
-    stable_tol: Optional[float] = None,
-    chunk_sizes: Optional[Sequence[int]] = None,
-) -> EigResult:
-    """Top-k eigenpairs with a small convergence buffer block.
-
-    The start block is ``x0`` (see :func:`prepare_start_block`) or
-    Gaussian columns from ``generator``. When n < 3k the blocked iteration
-    cannot fit; the solve falls back to a dense exact eigendecomposition.
-    Only ``solver="lobpcg"`` is ported for a device operand.
-
-    With ``chunk_sizes``, ``matvec`` maps a ``ChunkedDense`` to a
-    ``ChunkedDense`` over that chunking, the start block is drawn chunk by
-    chunk from ``generator`` (a CPU generator; never an (N, b) array) or
-    made from ``x0``, and ``vectors`` are a ``ChunkedDense``:
-    :func:`lobpcg_host_chunked` for ``"lobpcg"`` or ``"lobpcg_host"``."""
-    if chunk_sizes is not None:
-        if solver in ("randomized", "auto"):
-            raise NotImplementedError(
-                f"solver={solver!r} on host chunks is not yet ported to "
-                f"repro_torch (ported: {CHUNKED_SOLVERS})")
-        if solver not in CHUNKED_SOLVERS:
-            raise ValueError(
-                f"streaming mat-vecs require a host-driven solver "
-                f"({CHUNKED_SOLVERS}), got {solver!r}")
-    elif solver not in SOLVERS:
-        raise NotImplementedError(
-            f"solver={solver!r} is not yet ported to repro_torch (ported: "
-            f"{SOLVERS})")
-    if 3 * k > n:
-        return _dense_exact(matvec, n, k, device, chunk_sizes)
-    b = lobpcg_block_width(n, k, buffer)
-    if chunk_sizes is not None:
-        from repro_torch.core.streaming import ChunkedDense
-        if x0 is not None:
-            x0c = ChunkedDense.from_array(
-                prepare_start_block(x0, n, b, generator, "cpu"), chunk_sizes)
-        else:
-            x0c = ChunkedDense.random_normal(generator, chunk_sizes, b)
-        out = lobpcg_host_chunked(matvec, x0c, max_iters=max_iters, tol=tol,
-                                  precond=precond, stable_tol=stable_tol,
-                                  stable_k=k, conv_k=k)
-        return EigResult(out.theta[:k], out.vectors.take_cols(k),
-                         out.resnorms[:k], out.iterations)
-    if x0 is not None:
-        x0a = prepare_start_block(x0, n, b, generator, device)
-    else:
-        x0a = torch.randn((n, b), generator=generator, dtype=torch.float32,
-                          device=generator.device).to(device)
-    out = lobpcg(matvec, x0a, max_iters=max_iters, tol=tol, precond=precond,
-                 stable_tol=stable_tol, stable_k=k, conv_k=k)
-    return EigResult(out.theta[:k], out.vectors[:, :k].contiguous(),
-                     out.resnorms[:k], out.iterations)
 
 
 # --------------------------------------------------------------------------
@@ -546,3 +518,349 @@ def lobpcg_host_chunked(
                      vectors,
                      torch.as_tensor(res_final[order], dtype=torch.float32),
                      it)
+
+
+def lanczos(
+    matvec: Matvec,
+    v0: torch.Tensor,
+    k: int,
+    *,
+    max_iters: int = 100,
+    tol: float = 0.0,
+) -> EigResult:
+    """Symmetric Lanczos with full reorthogonalisation (svds stand-in).
+
+    Single-vector Krylov. The (m, N) basis is float64, as in the JAX
+    package, and lives on ``v0``'s device: on the card one reorthogonalised
+    step reads it from HBM, where the host copy of the JAX package's would
+    cross host memory four times a step (m = 300 rows of 581,012 are
+    1.39 GB; ``tools/fit_study.py lanczos-step`` times one step both
+    ways). The mat-vec is the float32 Gram product at width 1.
+    ``iterations`` is the true basis size: the recurrence exits when the
+    Krylov space exhausts (β → 0) or, with ``tol > 0``, when the
+    tridiagonal residual bounds β_j·|s_{j,i}| of the top-k Ritz pairs all
+    drop below ``tol`` (checked every 5 steps)."""
+    n = v0.shape[0]
+    dev = v0.device
+    m = min(max_iters, n)
+    v = (v0[:, 0] if v0.dim() == 2 else v0).to(torch.float64)
+    v = v / torch.linalg.vector_norm(v)
+    basis = torch.zeros((m, n), dtype=torch.float64, device=dev)
+    alphas: list = []
+    betas: list = []
+    j = 0
+    while j < m:
+        av = matvec(v.to(torch.float32)[:, None].contiguous())[:, 0] \
+            .to(torch.float64)
+        alpha = float(v @ av)
+        basis[j] = v
+        # full reorthogonalisation, twice, against the stored basis: after
+        # exhaustion w → 0 and cannot regrow
+        bj = basis[:j + 1]
+        w = av - bj.T @ (bj @ av)
+        w = w - bj.T @ (bj @ w)
+        beta = float(torch.linalg.vector_norm(w))
+        alphas.append(alpha)
+        betas.append(beta)
+        j += 1
+        if beta <= 1e-6 * max(1.0, abs(alpha)):
+            break                                   # Krylov space exhausted
+        v = w / beta
+        if tol > 0.0 and j >= k and (j % 5 == 0 or j == m):
+            tmat = (np.diag(alphas) + np.diag(betas[:-1], 1)
+                    + np.diag(betas[:-1], -1))
+            evals_j, evecs_j = np.linalg.eigh(tmat)
+            top = evals_j[::-1][:k]
+            bottom_row = np.abs(evecs_j[-1, ::-1][:k])
+            bounds = betas[-1] * bottom_row / np.maximum(top, 1e-12)
+            if float(np.max(bounds)) <= tol:
+                break
+    tmat = np.diag(alphas)
+    if j > 1:
+        tmat += np.diag(betas[:j - 1], 1) + np.diag(betas[:j - 1], -1)
+    evals_h, evecs_h = np.linalg.eigh(tmat)
+    kk = min(k, j)
+    evals = np.pad(evals_h[::-1][:kk], (0, k - kk))
+    evecs = np.zeros((j, k))
+    evecs[:, :kk] = evecs_h[:, ::-1][:, :kk]
+    theta = torch.as_tensor(evals, dtype=torch.float32, device=dev)
+    vectors = (basis[:j].T @ torch.as_tensor(evecs, device=dev)) \
+        .to(torch.float32).contiguous()
+    av = matvec(vectors)
+    res = torch.linalg.vector_norm(av - vectors * theta[None, :], dim=0) \
+        / torch.clamp_min(theta, 1e-12)
+    return EigResult(theta, vectors, res, j)
+
+
+def randomized(matvec: Matvec, x0: torch.Tensor, *,
+               depth: int = 2) -> EigResult:
+    """One-pass randomized block-Krylov eigensolver (Musco–Musco style).
+
+    Builds S = [X, ÂX, …, Â^depth X] with per-block column rescaling (the
+    span is unchanged; the whitened Rayleigh–Ritz absorbs the rest of the
+    ill-conditioning) and solves once on the (depth+1)·b subspace:
+    ``depth + 1`` block mat-vecs, no iteration."""
+    b = x0.shape[1]
+    x = _orthonormalize(x0.to(torch.float32))
+    s_blocks = [x]
+    a_of_s = []                       # a_of_s[i] = Â·s_blocks[i], exact
+    cur = x
+    for i in range(depth + 1):
+        a_cur = matvec(cur)
+        a_of_s.append(a_cur)
+        if i < depth:
+            nrm = torch.linalg.vector_norm(a_cur, dim=0)
+            cur = a_cur / torch.clamp_min(nrm, 1e-30)[None, :]
+            s_blocks.append(cur)
+    s = torch.cat(s_blocks, dim=1)
+    a_s = torch.cat(a_of_s, dim=1)
+    theta, c = _whitened_rayleigh_ritz(s, a_s, b)   # top-b, descending
+    vectors = s @ c
+    av = a_s @ c
+    res = torch.linalg.vector_norm(av - vectors * theta[None, :], dim=0) \
+        / torch.clamp_min(theta, 1e-12)
+    return EigResult(theta, vectors, res, depth + 1)
+
+
+def subspace_iteration(matvec: Matvec, x0: torch.Tensor, *,
+                       max_iters: int = 50, tol: float = 1e-5) -> EigResult:
+    """Block power iteration with Rayleigh–Ritz — the simple baseline. Two
+    block mat-vecs an iteration; ``iterations`` counts them."""
+    k = x0.shape[1]
+    x = _orthonormalize(x0.to(torch.float32))
+    res = torch.full((k,), float("inf"), dtype=torch.float32,
+                     device=x.device)
+    it = 0
+    while it < max_iters and float(torch.max(res)) > tol:
+        q = _orthonormalize(matvec(x))
+        aq = matvec(q)
+        theta, c = _whitened_rayleigh_ritz(q, aq, k)
+        x = q @ c
+        r = aq @ c - x * theta[None, :]
+        res = torch.linalg.vector_norm(r, dim=0) \
+            / torch.clamp_min(theta, 1e-12)
+        it += 1
+    ax = matvec(x)
+    theta = torch.sum(x * ax, dim=0)
+    order = torch.argsort(-theta)
+    return EigResult(theta[order], x[:, order], res[order], it * 2)
+
+
+def _chunked_randomized_impl(matvec, x0c, *, depth: int = 2) -> EigResult:
+    """:func:`randomized` over host chunks: the Krylov blocks live as numpy
+    row chunks, the ((depth+1)b)² Grams are added up chunk by chunk, and
+    the one Rayleigh–Ritz runs in host float64."""
+    from repro_torch.core.streaming import ChunkedDense
+
+    b = x0c.k
+    wrap = lambda chunks: ChunkedDense(tuple(
+        torch.from_numpy(np.ascontiguousarray(c)) for c in chunks))
+    mv = lambda chunks: [c.numpy() for c in matvec(wrap(chunks)).chunks]
+    x, _ = _chunks_cholqr([c.numpy().astype(np.float32) for c in x0c.chunks])
+    s_blocks = [x]
+    a_of_s = []                       # Â applied to each stored block
+    cur = x
+    for i in range(depth + 1):
+        a_cur = mv(cur)               # Â·s_blocks[i], exact
+        a_of_s.append(a_cur)
+        if i < depth:
+            nrm = np.sqrt(np.maximum(_chunks_col_dots(a_cur, a_cur), 1e-60))
+            scale = (1.0 / nrm).astype(np.float32)
+            cur = [c * scale[None, :] for c in a_cur]
+            s_blocks.append(cur)
+    p = depth + 1
+    m = p * b
+    gram_m = np.zeros((m, m))
+    gram_a = np.zeros((m, m))
+    for i in range(p):
+        for j in range(p):
+            bi, bj = slice(i * b, (i + 1) * b), slice(j * b, (j + 1) * b)
+            if i <= j:
+                gram_m[bi, bj] = _chunks_inner(s_blocks[i], s_blocks[j])
+                gram_m[bj, bi] = gram_m[bi, bj].T
+            gram_a[bi, bj] = _chunks_inner(s_blocks[i], a_of_s[j])
+    theta, c = _whitened_rayleigh_ritz_grams_np(gram_m, gram_a, b)
+    cf = c.astype(np.float32)
+    x_out = [sum(parts[i] @ cf[i * b:(i + 1) * b] for i in range(p))
+             for parts in zip(*s_blocks)]
+    ax_out = [sum(parts[i] @ cf[i * b:(i + 1) * b] for i in range(p))
+              for parts in zip(*a_of_s)]
+    order = np.argsort(-theta)
+    res = _chunks_resnorms(x_out, ax_out, theta)
+    return EigResult(torch.as_tensor(theta[order], dtype=torch.float32),
+                     wrap([c[:, order] for c in x_out]),
+                     torch.as_tensor(res[order], dtype=torch.float32),
+                     depth + 1)
+
+
+SOLVERS = {
+    "lobpcg": lobpcg,
+    "lobpcg_host": lobpcg_host,
+    "lanczos": lanczos,
+    "subspace": subspace_iteration,
+    "randomized": randomized,
+}
+
+# ``solver="auto"`` is a policy, not a driver: the randomized sketch first,
+# then (only if its residuals miss tol) a warm-started, preconditioned
+# LOBPCG continuation with the adaptive stability stop.
+AUTO_SOLVER = "auto"
+
+#: Solvers of host-chunked operands (the host-driven ones).
+CHUNKED_SOLVERS = ("lobpcg", "lobpcg_host", "randomized", AUTO_SOLVER)
+
+
+def top_k_eigenpairs(
+    matvec: Matvec,
+    n: int,
+    k: int,
+    generator: torch.Generator,
+    *,
+    device="cpu",
+    solver: str = "lobpcg",
+    max_iters: int = 200,
+    tol: float = 1e-5,
+    buffer: int = 4,
+    x0=None,
+    precond=None,
+    stable_tol: Optional[float] = None,
+    chunk_sizes: Optional[Sequence[int]] = None,
+) -> EigResult:
+    """Top-k eigenpairs (observability wrapper).
+
+    Runs :func:`_top_k_eigenpairs_impl` under an ``eigensolve`` span and
+    records the solve with :func:`record_solve`."""
+    with obs_trace.span("eigensolve", solver=solver, n=n, k=k,
+                        streaming=chunk_sizes is not None) as sp:
+        out = _top_k_eigenpairs_impl(
+            matvec, n, k, generator, device=device, solver=solver,
+            max_iters=max_iters, tol=tol, buffer=buffer, x0=x0,
+            precond=precond, stable_tol=stable_tol, chunk_sizes=chunk_sizes)
+        iters = int(out.iterations)
+        res = out.resnorms
+        resnorm_max = float(res.max()) if res.numel() else 0.0
+        sp.set(iterations=iters, resnorm_max=resnorm_max)
+    record_solve(solver, iters, resnorm_max)
+    return out
+
+
+def record_solve(solver: str, iterations: int, resnorm_max: float) -> None:
+    """One finished solve on the metrics registry:
+    ``repro_eigensolves_total{solver}``, ``repro_solver_iterations{solver}``
+    and ``repro_solver_resnorm_max{solver}`` (the compressive cell reports
+    here too, so a solver comparison reads one series)."""
+    _SOLVES_TOTAL.inc(solver=solver)
+    _SOLVER_ITERS.observe(iterations, solver=solver)
+    _SOLVER_RESNORM.set(resnorm_max, solver=solver)
+
+
+def _top_k_eigenpairs_impl(
+    matvec: Matvec,
+    n: int,
+    k: int,
+    generator: torch.Generator,
+    *,
+    device="cpu",
+    solver: str = "lobpcg",
+    max_iters: int = 200,
+    tol: float = 1e-5,
+    buffer: int = 4,
+    x0=None,
+    precond=None,
+    stable_tol: Optional[float] = None,
+    chunk_sizes: Optional[Sequence[int]] = None,
+) -> EigResult:
+    """Top-k eigenpairs with a small convergence buffer block.
+
+    The start block is ``x0`` (see :func:`prepare_start_block`) or
+    Gaussian columns from ``generator``. When n < 3k the blocked iteration
+    cannot fit; the solve falls back to a dense exact eigendecomposition.
+    ``x0``, ``precond`` and ``stable_tol`` apply to the LOBPCG family and
+    ``"auto"``.
+
+    ``solver="auto"``: one randomized block-Krylov pass (3 block
+    mat-vecs); if its top-k residuals meet ``tol`` that is the answer,
+    otherwise LOBPCG continues warm-started from the sketch with the
+    preconditioner and the adaptive stop (``stable_tol``, default 1e-3);
+    ``iterations`` is the sum over both. ``solver="lanczos"`` honours
+    ``tol`` and reports its Krylov basis size; ``buffer`` does not apply to
+    it.
+
+    With ``chunk_sizes``, ``matvec`` maps a ``ChunkedDense`` to a
+    ``ChunkedDense`` over that chunking, the start block is drawn chunk by
+    chunk from ``generator`` (a CPU generator; never an (N, b) array) or
+    made from ``x0``, and ``vectors`` are a ``ChunkedDense``:
+    :func:`lobpcg_host_chunked` for ``"lobpcg"`` or ``"lobpcg_host"``,
+    :func:`_chunked_randomized_impl` for ``"randomized"``, both for
+    ``"auto"``."""
+    if solver == "compressive":
+        raise ValueError(
+            "solver='compressive' is not an iterative eigensolver — the "
+            "executor routes it to repro_torch.core.compressive before the "
+            "eigensolve stage (Chebyshev-filtered random signals instead "
+            "of eigenpairs); run it via executor.execute / SCRBModel.fit "
+            "with SCRBConfig(solver='compressive')")
+    valid = set(SOLVERS) | {AUTO_SOLVER}
+    if solver not in valid:
+        raise ValueError(f"unknown solver {solver!r}; options {sorted(valid)}")
+    if chunk_sizes is not None and solver not in CHUNKED_SOLVERS:
+        raise ValueError(
+            f"streaming mat-vecs require a host-driven solver "
+            f"({CHUNKED_SOLVERS}), got {solver!r}")
+    if 3 * k > n:
+        return _dense_exact(matvec, n, k, device, chunk_sizes)
+    b = lobpcg_block_width(n, k, buffer)
+    auto_stable = stable_tol if stable_tol is not None else 1e-3
+
+    def trunc(out: EigResult, iterations: Optional[int] = None) -> EigResult:
+        vecs = out.vectors.take_cols(k) if chunk_sizes is not None \
+            else out.vectors[:, :k].contiguous()
+        return EigResult(out.theta[:k], vecs, out.resnorms[:k],
+                         out.iterations if iterations is None
+                         else iterations)
+
+    if chunk_sizes is not None:
+        from repro_torch.core.streaming import ChunkedDense
+        if x0 is not None:
+            x0c = ChunkedDense.from_array(
+                prepare_start_block(x0, n, b, generator, "cpu"), chunk_sizes)
+        else:
+            x0c = ChunkedDense.random_normal(generator, chunk_sizes, b)
+        first = x0c
+        rnd_iters = 0
+        if solver in ("randomized", AUTO_SOLVER):
+            rnd = _chunked_randomized_impl(matvec, x0c, depth=2)
+            if solver == "randomized" \
+                    or float(torch.max(rnd.resnorms[:k])) <= tol:
+                return trunc(rnd)
+            first, rnd_iters = rnd.vectors, rnd.iterations
+        out = lobpcg_host_chunked(
+            matvec, first, max_iters=max_iters, tol=tol, precond=precond,
+            stable_tol=auto_stable if solver == AUTO_SOLVER else stable_tol,
+            stable_k=k, conv_k=k)
+        return trunc(out, out.iterations + rnd_iters)
+
+    if x0 is not None:
+        x0a = prepare_start_block(x0, n, b, generator, device)
+    else:
+        x0a = torch.randn((n, b), generator=generator, dtype=torch.float32,
+                          device=generator.device).to(device)
+    if solver == AUTO_SOLVER:
+        rnd = randomized(matvec, x0a, depth=2)
+        if float(torch.max(rnd.resnorms[:k])) <= tol:
+            return trunc(rnd)
+        out = lobpcg(matvec, rnd.vectors, max_iters=max_iters, tol=tol,
+                     precond=precond, stable_tol=auto_stable, stable_k=k,
+                     conv_k=k)
+        return trunc(out, out.iterations + rnd.iterations)
+    if solver == "randomized":
+        return trunc(randomized(matvec, x0a, depth=2))
+    if solver == "lanczos":
+        return lanczos(matvec, x0a, k, max_iters=max_iters, tol=tol)
+    if solver == "subspace":
+        return trunc(subspace_iteration(matvec, x0a, max_iters=max_iters,
+                                        tol=tol))
+    driver = lobpcg_host if solver == "lobpcg_host" else lobpcg
+    return trunc(driver(matvec, x0a, max_iters=max_iters, tol=tol,
+                        precond=precond, stable_tol=stable_tol, stable_k=k,
+                        conv_k=k))

@@ -27,13 +27,22 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import eigensolver, featuremap, rowmatrix, streaming
+from repro_torch.core import compressive, featuremap, rowmatrix, streaming
 from repro_torch.core.kmeans import row_normalize
 from repro_torch.core.options import (
     UNSET, CompressiveOptions, PartitionOptions, SolverOptions,
     normalize_config,
 )
+from repro_torch.obs import memory as obs_memory
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import StageTimer, fold_seed, resolve_device
+
+_FITS_TOTAL = obs_metrics.REGISTRY.counter(
+    "repro_fits_total", "Completed executor fits.", ("placement", "solver"))
+_FIT_ROWS = obs_metrics.REGISTRY.counter(
+    "repro_fit_rows_total", "Rows processed by completed executor fits.",
+    ("placement",))
 
 # flat fields kept as deprecated shims; typed Any so the UNSET sentinel can
 # flow through (see repro_torch.core.options.normalize_config)
@@ -79,7 +88,9 @@ class SCRBConfig:
     chunk_size: Optional[int] = None      # rows per host chunk → streaming
     prefetch: bool = True                 # double-buffered H2D chunk uploads
     block_rows: Optional[Mapping[str, int]] = None   # TPU tiling; unused here
-    trace: Optional[str] = None           # run-local; not yet ported (raises)
+    trace: Optional[str] = None
+    # ^ Chrome-trace output path: enables obs tracing for this fit and
+    #   writes the trace on completion; run-local, never in the artifact
     # -- typed option groups (canonical; see repro_torch.core.options) ------
     solver_options: Optional[SolverOptions] = None
     compressive_options: Optional[CompressiveOptions] = None
@@ -221,16 +232,12 @@ def representation(plan: ExecutionPlan):
     return _REPRESENTATIONS[(plan.placement, plan.residency)]
 
 
-def _check_ported(cfg: SCRBConfig, plan: ExecutionPlan) -> None:
+def _check_ported(plan: ExecutionPlan) -> None:
     if (plan.placement, plan.residency) not in _REPRESENTATIONS:
         raise NotImplementedError(
             f"placement={plan.placement!r}, residency={plan.residency!r} is "
             "not yet ported to repro_torch (ported: single/device, "
             "single/host_chunked)")
-    if cfg.trace is not None:
-        raise NotImplementedError(
-            "SCRBConfig(trace=...) is not yet ported to repro_torch: the "
-            "port has no tracer (obs/) yet")
     if plan.feature_map is not None and \
             not isinstance(plan.feature_map, featuremap.RBMap):
         raise NotImplementedError(
@@ -271,6 +278,9 @@ def execute(
     ``SCRBModel.fit``. A device-residency plan moves ``x`` to ``device``
     first; a host-chunked plan leaves ``x`` (an array, a tensor or a list of
     row chunks) on the host.
+
+    The run executes under a root ``fit`` span; ``cfg.trace`` scopes
+    tracing to it and exports the Chrome trace on exit.
     """
     cfg = config
     dev = resolve_device(device)
@@ -278,13 +288,27 @@ def execute(
         plan = plan_from_config(cfg)
     if final_stage not in ("normalize", "kmeans"):
         raise ValueError(f"unknown final_stage {final_stage!r}")
-    _check_ported(cfg, plan)
+    _check_ported(plan)
     configure_device(dev)
-    if plan.residency == "device":
-        x = as_device_rows(x, dev)
-    return _execute_impl(x, cfg, plan, dev,
-                         final_stage=final_stage,
-                         keep_embedding=keep_embedding, keep_state=keep_state)
+    with obs_trace.tracing(cfg.trace):
+        with obs_memory.Watermark() as wm:
+            with obs_trace.span("fit", placement=plan.placement,
+                                residency=plan.residency) as root:
+                if plan.residency == "device":
+                    x = as_device_rows(x, dev)
+                res = _execute_impl(
+                    x, cfg, plan, dev, final_stage=final_stage,
+                    keep_embedding=keep_embedding, keep_state=keep_state)
+                solver = res.diagnostics["solver"]
+                root.set(solver=solver)
+        res.diagnostics.setdefault("memory", wm.as_dict())
+    n_rows = (res.labels.shape[0] if res.labels is not None
+              else res.embedding.shape[0] if res.embedding is not None
+              else 0)
+    _FITS_TOTAL.inc(placement=plan.placement, solver=solver)
+    if n_rows:
+        _FIT_ROWS.inc(n_rows, placement=plan.placement)
+    return res
 
 
 def host_array(t) -> np.ndarray:
@@ -317,24 +341,44 @@ def _execute_impl(
     with timer.stage("degrees"):
         z = rep_cls.from_features(feats, cfg, plan, dev)
     solver = effective_solver(cfg, z.n)
-    ported = eigensolver.CHUNKED_SOLVERS if plan.residency == "host_chunked" \
-        else eigensolver.SOLVERS
-    if solver not in ported:
-        raise NotImplementedError(
-            f"solver={solver!r} with residency={plan.residency!r} is not yet "
-            f"ported to repro_torch (ported: {ported})")
+    eig, comp = None, None
     with timer.stage("svd"):
-        eig = z.eigenpairs(k, fold_seed(seed, "eig"), cfg, x0=plan.eig_x0)
+        if solver == "compressive":
+            # eigendecomposition-free: Chebyshev-filter d = O(log K) random
+            # signals through the Gram product (no (N, K + buffer) iterate)
+            comp = compressive.compressive_embed(
+                z, k, fold_seed(seed, "eig"), cfg,
+                laplacian_normalize=plan.laplacian_normalize)
+        else:
+            eig = z.eigenpairs(k, fold_seed(seed, "eig"), cfg,
+                               x0=plan.eig_x0)
     with timer.stage("normalize"):
-        u_hat = z.map_row_chunks(row_normalize, eig.vectors)
+        u_hat = z.map_row_chunks(
+            row_normalize, eig.vectors if comp is None else comp.embedding)
     km, cluster_diag = None, {}
     if final_stage == "kmeans":
         with timer.stage("kmeans"):
-            km, cluster_diag = z.cluster(fold_seed(seed, "kmeans"), u_hat,
-                                         cfg)
+            if comp is None:
+                km, cluster_diag = z.cluster(fold_seed(seed, "kmeans"),
+                                             u_hat, cfg)
+            else:           # k-means on a random row subset, then assign
+                km, cluster_diag = compressive.subset_cluster(
+                    z, u_hat, fold_seed(seed, "kmeans"), cfg)
 
     fitted = feats.fmap
-    sigmas = torch.sqrt(torch.clamp_min(eig.theta, 0.0)).cpu().numpy()
+    if comp is not None:
+        # Ritz values of Â on the filtered span, padded/truncated to k; the
+        # leading-k residuals only (the trailing d − rank directions of the
+        # filtered span are null by design)
+        sig_full = np.sqrt(np.maximum(comp.theta, 0.0))
+        sigmas = np.zeros((k,), sig_full.dtype)
+        sigmas[:min(k, sig_full.shape[0])] = sig_full[:k]
+        resnorms = np.zeros((k,), np.float32)
+        resnorms[:min(k, comp.resnorms.shape[0])] = comp.resnorms[:k]
+        iterations = comp.iterations
+    else:
+        sigmas = torch.sqrt(torch.clamp_min(eig.theta, 0.0)).cpu().numpy()
+        iterations, resnorms = eig.iterations, eig.resnorms.cpu().numpy()
     deg_min, deg_max = z.degree_range()
     diagnostics = {
         "plan": {"placement": plan.placement, "residency": plan.residency,
@@ -346,8 +390,8 @@ def _execute_impl(
         "solver_requested": cfg.solver_options.solver,
         "solver_precond": cfg.solver_options.precond,
         "solver_warm_start": plan.eig_x0 is not None,
-        "solver_iterations": int(eig.iterations),
-        "solver_resnorms": eig.resnorms.cpu().numpy(),
+        "solver_iterations": int(iterations),
+        "solver_resnorms": np.asarray(resnorms),
         "degrees_min": deg_min,
         "degrees_max": deg_max,
         "n_features_D": fitted.n_features,
@@ -355,6 +399,18 @@ def _execute_impl(
         "nnz": z.n * fitted.n_grids,
     }
     diagnostics.update(z.residency_diagnostics(cfg))
+    if comp is not None:
+        est = comp.estimate
+        diagnostics["compressive"] = {
+            "lambda_k": est.lambda_k, "lambda_k1": est.lambda_k1,
+            "cutoff": est.cutoff, "filter_degree": comp.filter_degree,
+            "signals": comp.signals, "probes": est.probes,
+        }
+        if plan.residency == "host_chunked":
+            # the widest dense chunk on the device is the d-wide filter
+            # block, not a LOBPCG (chunk, k+buffer) iterate
+            diagnostics["embedding_device_bytes_peak"] = (
+                z.store.max_chunk_rows * 4 * comp.signals)
     diagnostics.update(cluster_diag)
     if km is not None:
         diagnostics["kmeans_inertia"] = float(km.inertia)
@@ -362,7 +418,8 @@ def _execute_impl(
     state = None
     if keep_state:
         state = {"z": z, "features": feats, "eig": eig, "u_hat": u_hat,
-                 "km": km, "plan": plan}
+                 "km": km, "plan": plan,
+                 "oos_proj": None if comp is None else comp.proj}
     return FitResult(
         labels=None if km is None else km.labels.cpu().numpy(),
         embedding=host_array(u_hat) if keep_embedding else None,

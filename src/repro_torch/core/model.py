@@ -7,7 +7,8 @@ k-means centroids. ``fit`` runs Algorithm 2 once through
 ``executor.execute`` and adds
 
   V = Ẑᵀ U Σ⁻¹                  (D, K) right singular subspace — one more
-                                 pass of the ``zt`` kernel,
+                                 pass of the ``zt`` kernel (the compressive
+                                 cell's filter projection q, with Σ = I),
   dual = Zᵀ 1                    (D,) out-of-sample degree oracle,
 
 after which ``transform``/``predict`` are the Nyström-style out-of-sample
@@ -153,14 +154,25 @@ class SCRBModel:
         st = res.state
         z, eig, km = st["z"], st["eig"], st["km"]
         with res.timer.stage("oos_state"):
-            sig = torch.as_tensor(np.asarray(res.singular_values, np.float32),
-                                  device=z.device)
-            inv_sig = torch.where(sig > 1e-6,
-                                  1.0 / torch.clamp_min(sig, 1e-30),
-                                  torch.zeros_like(sig))
-            # V = Ẑᵀ U Σ⁻¹ — one more pass of the zt kernel (a chunked zt
-            # sweep over host chunks of U on a host-chunked plan)
-            v = z.rmatvec(eig.vectors) * inv_sig[None, :]
+            oos_proj = st.get("oos_proj")
+            if oos_proj is not None:
+                # compressive solver: the (D, d) filter projection q is the
+                # serving subspace — the fit embedding was E = Ẑ q, so unit
+                # "singular values" make _projection = q exactly and
+                # predict/transform on training rows reproduce the fit
+                v = oos_proj.to(device=z.device, dtype=torch.float32)
+                sig = torch.ones((v.shape[1],), dtype=torch.float32,
+                                 device=z.device)
+            else:
+                sig = torch.as_tensor(
+                    np.asarray(res.singular_values, np.float32),
+                    device=z.device)
+                inv_sig = torch.where(sig > 1e-6,
+                                      1.0 / torch.clamp_min(sig, 1e-30),
+                                      torch.zeros_like(sig))
+                # V = Ẑᵀ U Σ⁻¹ — one more pass of the zt kernel (a chunked
+                # zt sweep over host chunks of U on a host-chunked plan)
+                v = z.rmatvec(eig.vectors) * inv_sig[None, :]
             dual = z.degree_dual()
         res.state = None          # drop the O(N) internals; model is O(D·K)
         return cls(
@@ -187,6 +199,11 @@ class SCRBModel:
         res = _executor.execute(x, config, plan, final_stage="normalize",
                                 keep_embedding=False, keep_state=True,
                                 device=device)
+        if res.diagnostics["solver"] == "compressive":
+            raise ValueError(
+                "k='auto' needs an eigensolver spectrum; solver="
+                "'compressive' never computes one (its Ritz values span a "
+                "filtered subspace, not the leading eigenpairs)")
         st = res.state
         z, eig = st["z"], st["eig"]
         theta = np.asarray(res.singular_values, np.float64) ** 2

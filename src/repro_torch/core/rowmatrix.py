@@ -1,10 +1,10 @@
 """RowMatrix — the data-representation layer of the plan-based executor.
 
 Algorithm 2's five stages are written once in ``repro_torch.core.executor``
-against a small surface (``matvec``/``rmatvec``/``gram``, ``eigenpairs``,
-``cluster``, ``map_row_chunks``, ``degree_dual``,
-``residency_diagnostics``). A representation says where Ẑ = D̂^{-1/2}Z
-lives:
+against a small surface (``matvec``/``matvec_tall``/``rmatvec``/``gram``,
+``random_tall``, ``eigenpairs``, ``cluster``, ``map_row_chunks``,
+``reduce``, ``degree_dual``, ``residency_diagnostics``). A representation
+says where Ẑ = D̂^{-1/2}Z lives:
 
   - ``DeviceRows``      the whole (N, R) ELL matrix on one device; tall
     dense operands are device tensors.
@@ -37,6 +37,17 @@ def _solver_precond(cfg, deg) -> Optional[torch.Tensor]:
         return None
     raise ValueError(
         f"unknown solver precond {precond!r}; options ('degree', 'none')")
+
+
+def _draw(generator: torch.Generator, shape, dist: str) -> torch.Tensor:
+    """Gaussian or ±1 (``dist="rademacher"``) float32 entries from
+    ``generator``, on its device."""
+    if dist == "rademacher":
+        return streaming.rademacher(shape, generator)
+    if dist != "normal":
+        raise ValueError(f"unknown dist {dist!r}")
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +97,28 @@ class DeviceRows:
     def matvec(self, v):
         return self.adj.matmat(v)
 
+    def matvec_tall(self, v):
+        return self.adj.matmat(v.to(device=self.device, dtype=torch.float32))
+
     def rmatvec(self, u):
         return self.adj.rmatmat(u)
 
     def gram(self, u):
         return self.adj.gram_matvec(u)
 
+    def random_tall(self, generator: torch.Generator, width: int,
+                    dist: str = "normal") -> torch.Tensor:
+        """An (N, width) random block on the device, drawn from
+        ``generator`` on its own device (a CPU generator gives the same
+        block to a CPU and a CUDA fit): Gaussian, or ±1 for
+        ``dist="rademacher"``."""
+        return _draw(generator, (self.n, width), dist).to(self.device)
+
     def map_row_chunks(self, fn, *tall):
         return fn(*tall)
+
+    def reduce(self, fn, init, *tall):
+        return fn(init, *tall)
 
     def degree_dual(self) -> torch.Tensor:
         """The (D,) bin occupancies Zᵀ1, retained from the degree pass: the
@@ -175,19 +200,54 @@ class HostChunkedRows:
         return self.store.counts.to(device=self.device, dtype=torch.float32)
 
     def rmatvec(self, u: streaming.ChunkedDense) -> torch.Tensor:
-        """Ẑᵀ u : host chunks (N, K) → (D, K) on the device."""
+        """Ẑᵀ u : host chunks (N, K) of any width K → (D, K) on the
+        device."""
         return self.store.rmatmat_chunked(u)
+
+    def matvec_tall(self, v) -> streaming.ChunkedDense:
+        """Ẑ v : (D, K) → host row chunks (N, K). Never an (N, K) device
+        array: each chunk's rows go back to the host as they are made."""
+        return self.store.matmat_chunked(
+            v.to(device=self.device, dtype=torch.float32))
+
+    def gram(self, u: streaming.ChunkedDense) -> streaming.ChunkedDense:
+        """(Ẑ Ẑᵀ) u over host chunks of any width (a zt sweep, then a z
+        sweep)."""
+        return self.store.gram_matvec_chunked(u)
+
+    def random_tall(self, generator: torch.Generator, width: int,
+                    dist: str = "normal") -> streaming.ChunkedDense:
+        """A random block as host chunks aligned with the ELL chunking,
+        drawn chunk after chunk from ``generator`` (a CPU generator): no
+        (N, width) array is built, and the draw does not depend on the
+        prefetch setting."""
+        if dist == "rademacher":
+            return streaming.ChunkedDense.random_rademacher(
+                generator, self.store.chunk_sizes, width)
+        if dist != "normal":
+            raise ValueError(f"unknown dist {dist!r}")
+        return streaming.ChunkedDense.random_normal(
+            generator, self.store.chunk_sizes, width)
+
+    def _uploads(self, *tall):
+        return prefetch_to_device(
+            zip(*[t.chunks for t in tall]), device=self.device,
+            enabled=self.store.prefetch, measure=self.store.h2d_stats)
 
     def map_row_chunks(self, fn, *tall) -> streaming.ChunkedDense:
         """``fn`` over aligned row chunks of the tall operands
         (``ChunkedDense``), one uploaded chunk at a time; the result stays
         on the host."""
-        seqs = [t.chunks for t in tall]
         return streaming.ChunkedDense(tuple(
-            to_host(fn(*cs))
-            for cs in prefetch_to_device(
-                zip(*seqs), device=self.device, enabled=self.store.prefetch,
-                measure=self.store.h2d_stats)))
+            to_host(fn(*cs)) for cs in self._uploads(*tall)))
+
+    def reduce(self, fn, init, *tall):
+        """Fold ``acc = fn(acc, *chunks)`` over aligned uploaded row chunks
+        of the tall operands, in chunk order."""
+        acc = init
+        for cs in self._uploads(*tall):
+            acc = fn(acc, *cs)
+        return acc
 
     def eigenpairs(self, k: int, seed: int, cfg,
                    x0=None) -> eigensolver.EigResult:

@@ -138,6 +138,21 @@ class ChunkedDense:
         return cls(tuple(torch.randn((s, k), generator=generator,
                                      dtype=torch.float32) for s in sizes))
 
+    @classmethod
+    def random_rademacher(cls, generator: torch.Generator,
+                          sizes: Sequence[int], k: int) -> "ChunkedDense":
+        """±1 chunks drawn one after another from ``generator`` (a CPU
+        generator), never an (N, k) array."""
+        return cls(tuple(rademacher((s, k), generator) for s in sizes))
+
+
+def rademacher(shape, generator: torch.Generator) -> torch.Tensor:
+    """±1 float32 entries, equally likely, from ``generator`` on its own
+    device."""
+    bits = torch.randint(0, 2, shape, generator=generator,
+                         dtype=torch.float32, device=generator.device)
+    return bits.mul_(2.0).sub_(1.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class ChunkedELL:

@@ -11,6 +11,9 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
+
 logger = logging.getLogger("repro_torch")
 if not logger.handlers:
     _h = logging.StreamHandler()
@@ -68,12 +71,19 @@ def make_generator(seed: int, device: DeviceLike = "cpu") -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 
 
+_STAGE_SECONDS = _metrics.REGISTRY.histogram(
+    "repro_stage_seconds", "Pipeline stage wall-clock seconds.", ("stage",))
+
+
 class StageTimer:
     """Wall-clock per-stage timer used by the SC_RB pipeline.
 
     Records ``{stage: seconds}``. On a CUDA run every clock read is
     preceded by ``torch.cuda.synchronize()``, so a stage's time includes
-    the device work it queued rather than only the launches.
+    the device work it queued rather than only the launches. Each stage
+    also opens a ``obs.trace`` span of its name (free when tracing is off)
+    and feeds the ``repro_stage_seconds`` histogram, as in the JAX package;
+    ``times`` comes from the timer's own clock either way.
     """
 
     def __init__(self, device: DeviceLike = "cpu") -> None:
@@ -87,10 +97,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
-        t0 = self._clock()
-        yield
-        dt = self._clock() - t0
+        with _trace.span(name):
+            t0 = self._clock()
+            yield
+            dt = self._clock() - t0
         self.times[name] = self.times.get(name, 0.0) + dt
+        _STAGE_SECONDS.observe(dt, stage=name)
 
     @property
     def total(self) -> float:
@@ -121,6 +133,26 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t)
 
 
+_PREFETCH_ITEMS = _metrics.REGISTRY.counter(
+    "repro_prefetch_items_total", "Host pytrees uploaded by prefetch_to_device.")
+_PREFETCH_BYTES = _metrics.REGISTRY.counter(
+    "repro_prefetch_bytes_total", "Bytes uploaded by prefetch_to_device.")
+
+
+def _tree_nbytes(item) -> int:
+    """Bytes of the arrays among an item's leaves."""
+    total = 0
+
+    def add(t):
+        nonlocal total
+        if isinstance(t, (np.ndarray, torch.Tensor)):
+            total += t.nbytes
+        return t
+
+    tree_map(add, item)
+    return total
+
+
 def prefetch_to_device(
     items: Iterable[Any], *, device: DeviceLike = "cpu", enabled: bool = True,
     measure: Optional[Dict[str, int]] = None,
@@ -143,7 +175,10 @@ def prefetch_to_device(
 
     ``measure`` (a dict) is updated in place with the measured uploads:
     ``max_item_bytes`` (the largest item), ``items`` and ``bytes`` (their
-    total), the check behind the residency diagnostics.
+    total), the check behind the residency diagnostics. Every item also
+    feeds the ``repro_prefetch_items_total`` / ``repro_prefetch_bytes_total``
+    counters and, when tracing is on, an ``h2d`` span (``sync=False``: it
+    times the issue; a synchronize there would undo the double buffering).
     """
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -152,15 +187,11 @@ def prefetch_to_device(
     side = torch.cuda.Stream(dev) if cuda and enabled else None
 
     def put(item):
-        nbytes = 0
-
         def leaf(t):
-            nonlocal nbytes
             if isinstance(t, np.ndarray):
                 t = torch.from_numpy(np.ascontiguousarray(t))
             if not isinstance(t, torch.Tensor):
                 return t
-            nbytes += t.numel() * t.element_size()
             if not cuda or t.device.type != "cpu":
                 return t.to(dev)
             if not t.is_pinned():
@@ -172,12 +203,16 @@ def prefetch_to_device(
             out.record_stream(torch.cuda.current_stream(dev))
             return out
 
-        tree = tree_map(leaf, item)
+        nbytes = _tree_nbytes(item)
         if measure is not None:
             measure["max_item_bytes"] = max(measure.get("max_item_bytes", 0),
                                             nbytes)
             measure["items"] = measure.get("items", 0) + 1
             measure["bytes"] = measure.get("bytes", 0) + nbytes
+        _PREFETCH_ITEMS.inc()
+        _PREFETCH_BYTES.inc(nbytes)
+        with _trace.span("h2d", sync=False, bytes=nbytes):
+            tree = tree_map(leaf, item)
         event = None
         if side is not None:
             event = torch.cuda.Event()

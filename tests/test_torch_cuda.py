@@ -711,3 +711,100 @@ def test_cuda_streaming_kmeans_matches_the_cpu(cuda):
     assert agree >= 0.999, agree
     torch.testing.assert_close(got.centroids.cpu(), want.centroids,
                                atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# the solvers and the compressive cell on the card
+# --------------------------------------------------------------------------
+
+#: The Gram product's widths on the solvers' path: lanczos' single vector,
+#: the compressive cell's d = ceil(4 log2(K + 1)) signals at K = 10, and its
+#: 32 Rademacher probes.
+GRAM_SOLVER_WIDTHS = (1, 14, 32)
+
+
+@pytest.mark.parametrize("k", GRAM_SOLVER_WIDTHS)
+def test_cuda_gram_matmul_at_the_solvers_widths(cuda, k):
+    """The fused Gram kernel at the widths the solvers give it: the bits of
+    zt_matmul then z_matmul."""
+    test_cuda_gram_matmul_fused(cuda, 131_072, 16, 256, k)
+
+
+def _blob_fit_cfg(solver, **kw):
+    from repro_torch.core import SCRBConfig, SolverOptions
+    return SCRBConfig(n_clusters=4, n_grids=32, sigma=1.5, d_g=256,
+                      kmeans_replicates=2,
+                      solver_options=SolverOptions(solver=solver, tol=1e-4),
+                      **kw)
+
+
+@pytest.mark.parametrize("solver", ["lobpcg_host", "randomized", "auto",
+                                    "lanczos", "subspace"])
+def test_cuda_solver_fit_matches_the_cpu(cuda, solver):
+    """Each solver's fit on the card against the same fit on the CPU (the
+    start block is drawn on the CPU either way): Ritz values within 1e-4
+    relative, labels by ARI ≥ 0.99."""
+    from repro_torch.core import SCRBModel, metrics
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(3_000, 6, 4, seed=3)
+    cfg = _blob_fit_cfg(solver)
+    card = SCRBModel.fit(x, cfg).fit_result
+    cpu = SCRBModel.fit(x, cfg, device="cpu").fit_result
+    assert card.diagnostics["solver"] == solver
+    np.testing.assert_allclose(card.singular_values ** 2,
+                               cpu.singular_values ** 2, rtol=1e-4)
+    assert metrics.adjusted_rand_index(card.labels, cpu.labels) >= 0.99
+
+
+def test_cuda_compressive_fit_matches_the_cpu(cuda):
+    """A small compressive fit on the card against the same fit on the CPU
+    (probe and signal blocks drawn on the CPU either way): the same cutoff
+    and filter degree, the embedding within 1e-3, labels by ARI ≥ 0.99;
+    predict on the training rows gives the fit's labels; on host chunks
+    the same cell runs with no Gram kernel launch."""
+    from repro_torch.core import SCRBModel, metrics
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(3_000, 6, 4, seed=3)
+    cfg = _blob_fit_cfg("compressive")
+    ops.reset_launch_counts()
+    card = SCRBModel.fit(x, cfg)
+    counts = ops.launch_counts()
+    assert counts["gram_matmul"] + counts["gram_matmul_composed"] > 0
+    assert counts["kmeans_assign"] > 0 and counts["kmeans_assign_stats"] > 0
+    cpu = SCRBModel.fit(x, cfg, device="cpu")
+    dc = card.fit_result.diagnostics["compressive"]
+    dp = cpu.fit_result.diagnostics["compressive"]
+    assert dc["cutoff"] == pytest.approx(dp["cutoff"], abs=1e-4)
+    assert dc["filter_degree"] == dp["filter_degree"]
+    np.testing.assert_allclose(card.fit_result.embedding,
+                               cpu.fit_result.embedding, atol=1e-3)
+    assert metrics.adjusted_rand_index(card.fit_result.labels,
+                                       cpu.fit_result.labels) >= 0.99
+    np.testing.assert_array_equal(card.predict(x), card.fit_result.labels)
+    ops.reset_launch_counts()
+    chunked = SCRBModel.fit(x, _blob_fit_cfg("compressive", chunk_size=1_024))
+    counts = ops.launch_counts()
+    assert chunked.fit_result.diagnostics["n_chunks"] == 3
+    assert counts["gram_matmul"] == 0 and counts["zt_matmul"] > 0
+    assert metrics.adjusted_rand_index(chunked.fit_result.labels,
+                                       card.fit_result.labels) >= 0.99
+
+
+def test_cuda_traced_fit_reports_device_memory(cuda, tmp_path):
+    """A traced fit on the card writes the root, stage and eigensolve spans,
+    and its memory diagnostics hold the allocator's numbers."""
+    import json
+
+    from repro_torch.core import SCRBModel
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(3_000, 6, 4, seed=3)
+    path = tmp_path / "trace.json"
+    cfg = dataclasses.replace(_blob_fit_cfg("lobpcg"), trace=str(path))
+    mem = SCRBModel.fit(x, cfg).fit_result.diagnostics["memory"]
+    assert mem["device_bytes_in_use"] is not None
+    assert mem["device_peak_bytes"] >= mem["device_bytes_in_use"]
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"}
+    assert {"fit", "rb_features", "degrees", "svd", "normalize", "kmeans",
+            "eigensolve"} <= names

@@ -52,6 +52,40 @@ sys.exit(1 if loaded else 0)
 """
 
 
+SOLVERS_SCRIPT = """
+import json, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)   # hundreds of tiny ops: threads only contend
+from repro_torch.core import SCRBConfig, SCRBModel, SolverOptions, metrics
+from repro_torch.data.synthetic import make_blobs
+x, y = make_blobs(300, 4, 3, seed=0)
+for solver in ("lobpcg_host", "randomized", "auto", "lanczos", "subspace",
+               "compressive"):
+    for chunk in ((None,) if solver in ("lanczos", "subspace")
+                  else (None, 100)):
+        cfg = SCRBConfig(n_clusters=3, n_grids=16, sigma=1.5, d_g=256,
+                         kmeans_replicates=1, chunk_size=chunk,
+                         solver_options=SolverOptions(solver=solver))
+        m = SCRBModel.fit(x, cfg, device="cpu")
+        assert m.predict(x[:50]).shape == (50,)
+path = os.path.join(tempfile.mkdtemp(), "trace.json")
+cfg = SCRBConfig(n_clusters=3, n_grids=16, sigma=1.5, d_g=256,
+                 kmeans_replicates=1, trace=path)
+SCRBModel.fit(x, cfg, device="cpu")
+assert json.load(open(path))["traceEvents"]
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+#: Modules that the source check must cover: observability, the solvers
+#: and the compressive cell.
+SOLVER_OBS_MODULES = ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                 "obs/memory.py", "core/compressive.py", "core/eigensolver.py")
+
+
 def _run_alone(script: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script], env=env,
@@ -65,6 +99,16 @@ def test_cpu_fit_in_a_fresh_process_loads_no_jax():
 
 def test_cpu_generate_in_a_fresh_process_loads_no_jax():
     _run_alone(GENERATE_SCRIPT)
+
+
+def test_every_solver_and_a_traced_fit_in_a_fresh_process_load_no_jax():
+    _run_alone(SOLVERS_SCRIPT)
+
+
+def test_source_check_covers_obs_and_compressive():
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(SOLVER_OBS_MODULES) <= checked
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

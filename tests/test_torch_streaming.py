@@ -17,6 +17,7 @@ own chunkings; whole-fit labels ≥ 0.99 agreement and k-means inertia
 within rtol 1e-4.
 """
 import importlib
+import json
 
 import jax
 import jax.numpy as jnp
@@ -299,15 +300,18 @@ def test_lobpcg_host_chunked_matches_reference(ell, chunk_size, precond):
 
 
 def test_top_k_chunked_solvers_and_dense_exact(ell):
-    """The chunked branch: randomized and auto are not yet ported, a
-    non-host-driven solver is refused, and n < 3k solves densely."""
+    """The chunked branch: randomized and auto run on the chunks (their
+    vectors come back as host chunks), a non-host-driven solver is
+    refused, and n < 3k solves densely."""
     idx, d, d_g = ell
     _, tc = _chunked_pair(ell, 128)
     g = torch.Generator().manual_seed(0)
     for solver in ("randomized", "auto"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            teig.top_k_eigenpairs(tc.gram_matvec_chunked, tc.n, 2, g,
-                                  solver=solver, chunk_sizes=tc.chunk_sizes)
+        got = teig.top_k_eigenpairs(tc.gram_matvec_chunked, tc.n, 2, g,
+                                    solver=solver, chunk_sizes=tc.chunk_sizes)
+        assert got.vectors.chunk_sizes == tc.chunk_sizes
+        assert got.vectors.k == 2 and got.iterations >= 3
+        assert bool(torch.all(torch.isfinite(got.theta)))
     with pytest.raises(ValueError, match="host-driven"):
         teig.top_k_eigenpairs(tc.gram_matvec_chunked, tc.n, 2, g,
                               solver="lanczos", chunk_sizes=tc.chunk_sizes)
@@ -552,10 +556,10 @@ def test_chunked_fit_refuses_what_is_not_ported():
     x, _ = make_blobs(200, 4, 2, seed=0)
     base = dict(n_clusters=2, n_grids=16, sigma=1.0, d_g=256,
                 kmeans_replicates=1, chunk_size=64)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        texec.execute(x, texec.SCRBConfig(
-            **base, solver_options=TSolverOptions(solver="randomized")),
-            device="cpu")
+    res = texec.execute(x, texec.SCRBConfig(
+        **base, solver_options=TSolverOptions(solver="randomized")),
+        device="cpu")
+    assert res.diagnostics["solver"] == "randomized"
     with pytest.raises(ValueError, match="host-driven"):
         texec.plan_from_config(texec.SCRBConfig(
             **base, solver_options=TSolverOptions(solver="lanczos")))
@@ -567,16 +571,18 @@ def test_chunked_fit_refuses_what_is_not_ported():
 
 
 def test_trace_raises_not_yet_ported(tmp_path):
-    """``SCRBConfig(trace=...)`` is refused until the tracer is ported,
-    for either residency, before any stage runs."""
+    """``SCRBConfig(trace=...)`` (ported since the tracer landed) writes a
+    Chrome trace for either residency, holding the root ``fit`` span."""
     x, _ = make_blobs(60, 3, 2, seed=0)
     for chunk in (None, 32):
+        path = tmp_path / f"fit_{chunk}.json"
         cfg = texec.SCRBConfig(n_clusters=2, n_grids=8, d_g=64,
-                               chunk_size=chunk,
-                               trace=str(tmp_path / "fit.json"))
-        with pytest.raises(NotImplementedError, match="trace"):
-            texec.execute(x, cfg, device="cpu")
-    assert not (tmp_path / "fit.json").exists()
+                               chunk_size=chunk, trace=str(path))
+        texec.execute(x, cfg, device="cpu")
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"}
+        assert {"fit", "svd", "eigensolve"} <= names
 
 
 def test_chunked_model_artifact_cross_loads(tmp_path):
