@@ -19,7 +19,9 @@ from a seed):
            rb_binning bit for bit on all rows and on planted rows whose
            quotient sits on or one ulp off an integer; z_matmul's strip
            kernel bit-equal to its gather kernel, with its strip, idx and
-           shared-memory traffic; zt's L2 gather volume; the fused Gram
+           shared-memory traffic; the gather kernel on its own row at the
+           serving engine's top bucket (4,096 rows, K = 7, phase 12's
+           shape); zt's L2 gather volume; the fused Gram
            kernel bit-equal to zt_matmul then z_matmul, timed beside that
            composition; kmeans_assign and its statistics form (counts
            equal to bincount's, the same bits twice) timed on the device
@@ -104,6 +106,33 @@ from a seed):
            host-chunked cell (no fused Gram launch); the bracketed cell on
            host chunks must agree with the device one by ARI ≥ 0.99, and
            its peak device memory stay within 64 MiB from N/2 to N
+  phase 11 the paper's comparison methods (baselines.METHODS, Table 2) on
+           phase 3's covtype-shaped data, rank 256: every method on the
+           card (sc on the first 8,192 rows: its W is N × N), with fit
+           seconds by stage, accuracy and ARI against the planted labels
+           and peak device memory. Each dense map's transform of 65,536
+           rows within 1e-5 of the same fitted map on the CPU (an LSC row
+           whose kept anchors differ must sit on a near-tie); SCRBModel
+           fits of sc_rf, sv_rf, sc_nys and sc_lsc predict their fit
+           labels ≥ 0.99 on the training rows and save → load → predict
+           the same bits; two runs of each method on 65,536 rows give the
+           same labels; a host-chunked sc_rf fit (chunks of 131,072 on the
+           first 262,144 rows) agrees ≥ 0.99 by ARI with the same
+           streaming k-means over the device sc_rf fit's embedding in the
+           same chunks (its ARI against the device fit's Lloyd labels is
+           printed)
+  phase 12 the serving engine (ClusterEngine on CUDA graphs) with phase 3's
+           RB model and phase 11's sc_nys model, buckets 64 to 4,096: after
+           warmup one graph per (model, bucket, mode); two waves of 160
+           requests of 1–5,000 rows in both modes, every answer bit-
+           identical to model.predict/transform; no capture, no staging
+           buffer and no device allocation in the second wave; the RB
+           path's kernels replayed; the LRU leg (max_resident_models=1)
+           bit-identical with no new capture; every kernel the graphs
+           replayed has a row in the kernels line; an HTTP round trip through
+           ClusterServer on 127.0.0.1. Rows/s against per-request
+           model.predict, p50/p99 latency per bucket, and a 64-row cell's
+           graph replay against the same launches issued eagerly
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -116,8 +145,10 @@ package is not beside it. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the card's name
 and power limit, and the one before that the kernels' JSON record
 (``launches``: per device-resident covtype fit, per host-chunked fit for
-``bin_counts``, per generate for the flash kernel; ``launches_compressive``:
-per device compressive fit of phase 10).
+``bin_counts`` and ``z_matmul_gather`` (the gather route of its ragged last
+chunk), per generate for the flash kernel; ``launches_compressive``:
+per device compressive fit of phase 10; ``launches_engine``: launched by
+the engine's graph replays in phase 12, which no wrapper counts).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -197,6 +228,21 @@ POKER_CHUNK = 131_072
 # host-chunked run against its device run: 0.9966 and 1.0000 in this
 # phase (NVIDIA H100 80GB HBM3, 700 W)
 COMPRESSIVE_ARI = 0.99
+# phase 11: the Table-2 methods on phase 3's covtype-shaped data
+BASELINE_RANK = 256
+EXACT_SC_ROWS = 8_192        # sc's cut: its W is N × N
+DENSE_ROWS = 65_536          # transform gate and determinism slice
+DENSE_TOL = 1e-5             # tests/test_torch_cuda.py's card-vs-CPU limit
+PREDICT_METHODS = (("sc_rf", "rff", True), ("sv_rf", "rff", False),
+                   ("sc_nys", "nystrom", True), ("sc_lsc", "lsc", True))
+BASELINE_CHUNK = 131_072
+BASELINE_CHUNK_ROWS = 262_144   # the host-chunked sc_rf's cut
+# phase 12: the serving engine
+ENGINE_BUCKETS = (64, 256, 1_024, 4_096)
+ENGINE_REQUESTS = 160        # requests a wave, 1–5,000 rows each
+ENGINE_MAX_ROWS = 5_000
+ENGINE_LATENCY_REPS = 50
+ENGINE_KERNELS = ("rb_binning", "z_matmul_gather", "kmeans_assign")
 
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
@@ -556,6 +602,7 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
                      check="|err| <= 1e-6 + 1e-5 * sum|terms|; the same "
                            "bits as the gather kernel"))
     gather_ms = time_ms(lambda: ops.z_matmul_gather(idx, v, s, d_g=d_g))
+    rows.append(engine_gather_row(idx, v, s, d_g, big_d))
     t = strip_traffic(n, r, d_g, kb, plan[0])
     log(f"[phase 2] z_matmul strip kernel (kc {plan[0]}, {plan[1]} stages, "
         f"{t['blocks']} blocks of {t['tile_rows']} rows) {z_ms:.4f} ms, the "
@@ -1740,8 +1787,16 @@ def phase10_kernels(x, fm) -> list:
     b_ms, b_by = bound(idx_bytes + (big_d + 1) * 8 + n * kd * 4 + n * 4
                        + big_d * kd * 4, 2.0 * n * r * kd)
     ms = time_ms(lambda: ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc))
+    plain_ms = time_ms(lambda: ref.zt_matmul_ref(idx, u, s, big_d), iters=2,
+                       warmup=1)
+    src_rows = (u * s[:, None]).repeat_interleave(r, dim=0)
+    flat = idx.reshape(-1)
+    lib_ms = time_ms(lambda: torch.zeros((big_d, kd), device=dev).index_add_(
+        0, flat, src_rows), iters=3, warmup=1)
+    del src_rows, flat
     rows.append({"kernel": "zt_matmul", "k": kd, "ms": ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "max_abs_err": err})
+                 "bound_by": b_by, "max_abs_err": err, "plain_ms": plain_ms,
+                 "library_ms": lib_ms})
     got = ops.z_matmul(idx, v, s, d_g=d_g)
     ok, err = within_sum_tolerance(got, ref.z_matmul_ref(idx, v, s),
                                    ref.z_matmul_ref(idx, v.abs(), s.abs()))
@@ -1751,11 +1806,22 @@ def phase10_kernels(x, fm) -> list:
     b_ms, b_by = bound(idx_bytes + big_d * kd * 4 + n * 4 + n * kd * 4,
                        n * r * kd + n * kd)
     ms = time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g))
+    plain_ms = time_ms(lambda: ref.z_matmul_ref(idx, v, s), iters=2,
+                       warmup=1)
+    w_bag = s[:, None].expand(n, r).contiguous()
+    lib_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+        idx, v, mode="sum", per_sample_weights=w_bag))
+    del w_bag
     rows.append({"kernel": "z_matmul", "k": kd, "ms": ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "max_abs_err": err})
-    log(f"[phase 10] zt_matmul K={kd}: {rows[-2]['ms']:.4f} ms (bound "
-        f"{rows[-2]['bound_ms']:.4f}); z_matmul K={kd}: {ms:.4f} ms (bound "
-        f"{b_ms:.4f}); both within the sum tolerance of their plain versions")
+                 "bound_by": b_by, "max_abs_err": err, "plain_ms": plain_ms,
+                 "library_ms": lib_ms})
+    zt_row = rows[-2]
+    log(f"[phase 10] zt_matmul K={kd}: {zt_row['ms']:.4f} ms (bound "
+        f"{zt_row['bound_ms']:.4f}, plain {zt_row['plain_ms']:.4f}, "
+        f"index_add_ {zt_row['library_ms']:.4f}); z_matmul K={kd}: "
+        f"{ms:.4f} ms (bound {b_ms:.4f}, plain {plain_ms:.4f}, embedding_bag "
+        f"{lib_ms:.4f}); both within the sum tolerance of their plain "
+        "versions")
     del u, v, got, adj, csc, idx
     torch.cuda.empty_cache()
 
@@ -2023,6 +2089,355 @@ def phase10_compressive() -> dict:
     return out
 
 
+def dense_transform_gate(tag: str, fm, rows_np) -> float:
+    """A fitted dense map's transform on the card against the same map on
+    the CPU: within DENSE_TOL; for LSC, a row whose kept anchors differ must
+    have its s-th and (s+1)-th largest affinities within DENSE_TOL
+    relative (a near-tie the two devices' rounding may break either way),
+    and the other rows are held to DENSE_TOL."""
+    import torch
+
+    from repro_torch.core.nystrom import pairwise_kernel
+
+    got = fm.transform(torch.as_tensor(rows_np, device="cuda")).cpu()
+    cpu = fm.to("cpu")
+    xs = torch.from_numpy(rows_np)
+    want = cpu.transform(xs)
+    keep = torch.ones(rows_np.shape[0], dtype=torch.bool)
+    if fm.name == "lsc":
+        keep = ((got > 0) == (want > 0)).all(1)
+        bad = torch.nonzero(~keep).reshape(-1)
+        if bad.numel():
+            aff = pairwise_kernel(xs[bad], cpu.anchors, cpu.sigma,
+                                  cpu.kernel)
+            s = min(cpu.n_nearest, cpu.anchors.shape[0])
+            top = torch.topk(aff, s + 1, dim=-1).values
+            gap = (top[:, s - 1] - top[:, s]) / top[:, s - 1]
+            if bool((gap > DENSE_TOL).any()):
+                fail(f"{tag}: {int((gap > DENSE_TOL).sum())} rows keep other "
+                     "anchors on the card than on the CPU without a near-tie")
+        log(f"[phase 11] {tag}: {int((~keep).sum())} of {keep.numel()} rows "
+            "keep other anchors than on the CPU, each on a near-tie")
+    err = float((got[keep] - want[keep]).abs().max())
+    if err > DENSE_TOL:
+        fail(f"{tag}: the transform on the card differs from the CPU's by "
+             f"{err:.3g} > {DENSE_TOL}")
+    return err
+
+
+def phase11_baselines(x_np, y_np, sigma: float) -> dict:
+    """The Table-2 methods on the covtype-shaped data; returns the sc_nys
+    model for phase 12."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        SCRBModel, baselines, executor, featuremap, metrics, streaming,
+    )
+    from repro_torch.core.kmeans import streaming_kmeans
+    from repro_torch.utils import fold_seed, make_generator
+
+    k = COVTYPE[1]
+    cfg = baselines.BaselineConfig(n_clusters=k, rank=BASELINE_RANK,
+                                   sigma=sigma, seed=0)
+    scfg = baselines._scrb_config(cfg)
+    out = {"methods": {}}
+    labels = {}
+
+    def run(name, xs):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = baselines.METHODS[name](xs, cfg)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() - base
+
+    for name in baselines.METHODS:
+        xs, ys = (x_np[:EXACT_SC_ROWS], y_np[:EXACT_SC_ROWS]) \
+            if name == "sc" else (x_np, y_np)
+        res, wall, peak = run(name, xs)
+        labels[name] = res.labels
+        acc = metrics.accuracy(res.labels, ys)
+        ari = metrics.adjusted_rand_index(res.labels, ys)
+        out["methods"][name] = {"s": wall, "acc": acc, "ari": ari,
+                                "peak_mib": peak / 2**20,
+                                "stages": dict(res.timer.times)}
+        log(f"[phase 11] {name} N={xs.shape[0]}: {wall:.3f}s ("
+            + ", ".join(f"{s}={v:.3f}" for s, v in res.timer.times.items())
+            + f"); ACC={acc:.4f} ARI={ari:.4f} against the planted labels; "
+            f"peak {peak / 2**20:.1f} MiB above the start")
+
+    x_dev = torch.as_tensor(x_np, device="cuda")
+    rows = x_np[:DENSE_ROWS]
+    nys_model = None
+    for name, fm_name, lap in PREDICT_METHODS:
+        fm = featuremap.make_feature_map(fm_name, rank=BASELINE_RANK,
+                                         sigma=sigma)
+        plan = executor.ExecutionPlan(feature_map=fm,
+                                      laplacian_normalize=lap)
+        t0 = time.perf_counter()
+        model = SCRBModel.fit(x_dev, scfg, plan=plan)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_labels = model.fit_result.labels
+        same = bool(np.array_equal(fit_labels, labels[name]))
+        t0 = time.perf_counter()
+        pred = model.predict(x_np)
+        pred_s = time.perf_counter() - t0
+        agree = metrics.accuracy(pred, fit_labels)
+        diag = model.fit_result.diagnostics
+        log(f"[phase 11] {name} SCRBModel.fit {fit_s:.3f}s "
+            f"(iterations {diag['solver_iterations']}, degrees "
+            f"[{diag['degrees_min']:.4g}, {diag['degrees_max']:.4g}], labels "
+            f"the METHODS run's: {same}); predict on the {x_np.shape[0]} "
+            f"training rows {pred_s:.3f}s, agreement with the fit labels "
+            f"{agree:.4f} (limit 0.99)")
+        if agree < 0.99:
+            fail(f"{name}: predict agrees with the fit labels at "
+                 f"{agree:.4f} < 0.99")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "model.npz")
+            model.save(path)
+            loaded = SCRBModel.load(path, device="cuda")
+        if not (np.array_equal(loaded.predict(rows), model.predict(rows))
+                and np.array_equal(loaded.transform(rows),
+                                   model.transform(rows))):
+            fail(f"{name}: save → load → predict/transform is not "
+                 "bit-identical")
+        if fm_name != "rff" or lap:          # one transform gate per map
+            err = dense_transform_gate(f"{fm_name} transform",
+                                       model.feature_map, rows)
+            log(f"[phase 11] {fm_name} transform of {DENSE_ROWS} rows: max "
+                f"abs {err:.3g} from the CPU's (limit {DENSE_TOL})")
+        if name == "sc_nys":
+            nys_model = model
+        del model, loaded
+    del x_dev
+
+    xs = x_np[:DENSE_ROWS]
+    for name in baselines.METHODS:
+        part = xs[:EXACT_SC_ROWS] if name == "sc" else xs
+        a = baselines.METHODS[name](part, cfg).labels
+        b = baselines.METHODS[name](part, cfg).labels
+        if not np.array_equal(a, b):
+            fail(f"{name}: two runs on {part.shape[0]} rows differ in "
+                 f"{int((a != b).sum())} labels")
+    log(f"[phase 11] two runs of each method on {DENSE_ROWS} rows (sc "
+        f"{EXACT_SC_ROWS}): the same labels")
+
+    xs = x_np[:BASELINE_CHUNK_ROWS]
+    fm = featuremap.make_feature_map("rff", rank=BASELINE_RANK, sigma=sigma)
+    plan = executor.ExecutionPlan(feature_map=fm)
+    t0 = time.perf_counter()
+    dev = executor.execute(xs, scfg, plan)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = executor.execute(xs, scfg, dataclasses.replace(
+        plan, residency="host_chunked", chunk_size=BASELINE_CHUNK))
+    ch_s = time.perf_counter() - t0
+    steps = chunked.diagnostics["kmeans_steps"]
+    same_alg = streaming_kmeans(
+        make_generator(fold_seed(cfg.seed, "kmeans"), "cuda"),
+        streaming.ChunkedDense.from_array(dev.embedding, BASELINE_CHUNK),
+        k, n_steps=steps, n_replicates=cfg.kmeans_replicates, device="cuda")
+    ari = metrics.adjusted_rand_index(chunked.labels,
+                                      same_alg.labels.numpy())
+    ari_lloyd = metrics.adjusted_rand_index(chunked.labels, dev.labels)
+    theta_c = np.asarray(chunked.singular_values, np.float64) ** 2
+    theta_d = np.asarray(dev.singular_values, np.float64) ** 2
+    log(f"[phase 11] sc_rf host-chunked on {xs.shape[0]} rows (chunks of "
+        f"{BASELINE_CHUNK}) {ch_s:.2f}s ("
+        + ", ".join(f"{s}={v:.3f}" for s, v in chunked.timer.times.items())
+        + f"), device {dev_s:.2f}s; iterations "
+        f"{chunked.diagnostics['solver_iterations']} and "
+        f"{dev.diagnostics['solver_iterations']}; Ritz values max relative "
+        f"difference {float(np.max(np.abs(theta_c - theta_d) / theta_d)):.3g}"
+        f"; ARI {ari:.4f} against the same streaming k-means over the device "
+        f"fit's embedding (limit 0.99), {ari_lloyd:.4f} against the device "
+        "fit's Lloyd labels (not gated: mini-batch against Lloyd k-means)")
+    if ari < 0.99:
+        fail(f"the host-chunked sc_rf fit agrees with the device one at ARI "
+             f"{ari:.4f} < 0.99")
+    out["chunked"] = {"s": ch_s, "device_s": dev_s, "ari": ari,
+                      "ari_lloyd": ari_lloyd}
+    out["nys_model"] = nys_model
+    return out
+
+
+def phase12_engine(models: dict, x_np) -> dict:
+    """The predict serving engine on CUDA graphs, with ``models`` (name →
+    fitted SCRBModel on the card)."""
+    import json as _json
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.cluster_engine import (
+        MODES, ClusterEngine, EngineConfig,
+    )
+    from repro_torch.serve.server import ClusterServer
+
+    n = x_np.shape[0]
+    ops.reset_launch_counts()
+    eng = ClusterEngine(EngineConfig(buckets=ENGINE_BUCKETS))
+    t0 = time.perf_counter()
+    for name, mdl in models.items():
+        eng.load_model(name, mdl)
+        eng.warmup(name, modes=MODES)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = ops.launch_counts()          # the eager warm-ups and captures
+    expect = len(models) * len(ENGINE_BUCKETS) * len(MODES)
+    log(f"[phase 12] warmup of {list(models)}: {eng.total_compiles} graphs "
+        f"captured in {warm_s:.2f}s (models × buckets × modes = {expect})")
+    if eng.total_compiles != expect:
+        fail(f"{eng.total_compiles} cells after warmup, not {expect}")
+    rng = np.random.default_rng(12)
+    names = list(models)
+
+    def wave():
+        reqs = []
+        for _ in range(ENGINE_REQUESTS):
+            rows = int(rng.integers(1, ENGINE_MAX_ROWS + 1))
+            a = int(rng.integers(0, n - rows))
+            reqs.append((names[int(rng.integers(len(names)))],
+                         MODES[int(rng.integers(len(MODES)))], a, a + rows))
+        before = state()
+        t0 = time.perf_counter()
+        tickets = [eng.submit(m, x_np[a:b], mode) for m, mode, a, b in reqs]
+        eng.drain()
+        wall = time.perf_counter() - t0
+        after = state()
+        got = [eng.take(t).values for t in tickets]
+        t0 = time.perf_counter()
+        want = [getattr(models[m], mode)(x_np[a:b])
+                for m, mode, a, b in reqs]
+        direct = time.perf_counter() - t0
+        for (m, mode, a, b), g, w in zip(reqs, got, want):
+            if not np.array_equal(g, w):
+                fail(f"engine {mode} of {m} rows {a}:{b} is not bit-identical "
+                     "to the model's")
+        return sum(b - a for _, _, a, b in reqs), wall, direct, before, after
+
+    def state():
+        torch.cuda.synchronize()
+        return (eng.total_compiles, eng.stats()["staging_allocations"],
+                torch.cuda.memory_stats()["allocation.all.allocated"])
+
+    rows1, wall1, direct1, _, _ = wave()
+    rows2, wall2, direct2, before, after = wave()     # the steady state
+    log(f"[phase 12] two waves of {ENGINE_REQUESTS} requests (1–"
+        f"{ENGINE_MAX_ROWS} rows, both modes, both models): every answer "
+        f"bit-identical to model.predict/transform; engine "
+        f"{rows1 / wall1:.0f}, {rows2 / wall2:.0f} rows/s, per-request "
+        f"model calls {rows1 / direct1:.0f}, {rows2 / direct2:.0f} rows/s")
+    log(f"[phase 12] second wave, submit to drain: captures {before[0]} → "
+        f"{after[0]}, staging buffers {before[1]} → {after[1]}, device "
+        f"allocations {before[2]} → {after[2]}")
+    if after != before or after[0] != expect:
+        fail(f"the steady-state wave captured, staged or allocated: "
+             f"{before} → {after} ({expect} cells after warmup)")
+
+    lat = {}
+    for name in names:
+        for bucket in ENGINE_BUCKETS:
+            xs = x_np[:bucket]
+            times = []
+            for _ in range(ENGINE_LATENCY_REPS):
+                t0 = time.perf_counter()
+                eng.predict(name, xs)
+                times.append(time.perf_counter() - t0)
+            p50, p99 = np.percentile(np.asarray(times) * 1e3, [50, 99])
+            lat[(name, bucket)] = (float(p50), float(p99))
+    log("[phase 12] predict latency p50/p99 ms by bucket: " + "; ".join(
+        f"{m} {b}: {p50:.3f}/{p99:.3f}" for (m, b), (p50, p99) in
+        lat.items()))
+
+    replay = {}
+    for name in names:
+        slot = eng._resident[name].slot
+        cell = eng._cells[(slot.id, ENGINE_BUCKETS[0], "predict")]
+
+        def per_call(fn, reps=200):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return float(np.median(times) * 1e6)
+
+        g_us = per_call(cell.graph.replay)
+        e_us = per_call(lambda: cell.fn(cell.x))
+        replay[name] = (g_us, e_us, sum(cell.launches.values()))
+        log(f"[phase 12] {name} {ENGINE_BUCKETS[0]}-row predict cell "
+            f"({sum(cell.launches.values())} wrapper launches "
+            f"{cell.launches}): graph replay {g_us:.1f} µs, the same "
+            f"launches issued eagerly {e_us:.1f} µs a call (host clock to a "
+            "synchronize, medians of 200)")
+
+    replayed = eng.stats()["replayed_launches"]
+    log(f"[phase 12] kernel launches through the wrappers (eager warm-ups "
+        f"and captures): {counts}; by graph replays: {replayed}")
+    missing = [k for k in ENGINE_KERNELS
+               if counts[k] <= 0 or replayed.get(k, 0) <= 0]
+    if missing:
+        fail(f"the engine's RB path did not launch {missing}")
+
+    lru = ClusterEngine(EngineConfig(buckets=ENGINE_BUCKETS,
+                                     max_resident_models=1))
+    for name, mdl in models.items():
+        lru.load_model(name, mdl)
+        lru.warmup(name)
+    compiles = lru.total_compiles
+    for rep in range(3):
+        for name, mdl in models.items():
+            xs = x_np[rep * 1_000:rep * 1_000 + 3_000]
+            if not np.array_equal(lru.predict(name, xs), mdl.predict(xs)):
+                fail(f"the LRU leg's predict of {name} is not bit-identical")
+    st = lru.stats()
+    log(f"[phase 12] LRU leg (max_resident_models=1): bit-identical, "
+        f"evictions {st['evictions']}, captures {compiles} → "
+        f"{lru.total_compiles}, slots {st['slots']}")
+    if lru.total_compiles != compiles or st["evictions"] < 5:
+        fail("the LRU leg captured again or did not evict")
+    del lru
+
+    name = names[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "model.npz")
+        models[name].save(path)
+        with ClusterServer(eng) as srv:
+            def post(route, body):
+                req = urllib.request.Request(
+                    srv.url + route, _json.dumps(body).encode(),
+                    {"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    return _json.loads(r.read())
+
+            post("/v1/models", {"name": "http", "path": path})
+            labels = post("/v1/predict", {"model": "http",
+                                          "rows": x_np[:300].tolist()})
+    if not np.array_equal(labels["labels"], models[name].predict(
+            x_np[:300])):
+        fail("the HTTP round trip's labels differ from model.predict's")
+    log(f"[phase 12] HTTP round trip through ClusterServer on {srv.url}: "
+        f"300 labels equal to model.predict's")
+    return {"replayed": replayed, "latency": lat, "replay": replay,
+            "rows_s": (rows1 / wall1, rows2 / wall2),
+            "direct_rows_s": (rows1 / direct1, rows2 / direct2)}
+
+
 def subspace_cosine(a, b) -> float:
     """Smallest principal-angle cosine between the column spans of two
     (N, K) host arrays."""
@@ -2030,6 +2445,45 @@ def subspace_cosine(a, b) -> float:
     qa, _ = np.linalg.qr(np.asarray(a, np.float64))
     qb, _ = np.linalg.qr(np.asarray(b, np.float64))
     return float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
+
+
+def engine_gather_row(idx, v, s, d_g: int, big_d: int) -> dict:
+    """``z_matmul``'s gather kernel at the serving engine's largest shape
+    (phase 12): the top bucket's rows of the fit's pattern and row scales
+    against a K-wide V, the predict cell's projection. Its other launch in
+    a cell, the degrees' gather, is one column wide. The kernel and
+    ``embedding_bag`` are timed on the device alone (a launch of
+    microseconds), the plain version by events around its calls."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    n, k = ENGINE_BUCKETS[-1], COVTYPE[1]
+    r = idx.shape[1]
+    ie, se = idx[:n], s[:n].contiguous()
+    ve = v[:, :k].contiguous()
+    got = ops.z_matmul_gather(ie, ve, se, d_g=d_g)
+    ok, err = within_sum_tolerance(got, ref.z_matmul_ref(ie, ve, se),
+                                   ref.z_matmul_ref(ie, ve.abs(), se.abs()))
+    if not ok:
+        fail(f"z_matmul_gather differs from its plain version at {(n, r, k)}"
+             f" (max abs {err:.3g})")
+    w_bag = se[:, None].expand(n, r).contiguous()
+    lib_ms, _ = time_device(lambda: torch.nn.functional.embedding_bag(
+        ie, ve, mode="sum", per_sample_weights=w_bag))
+    b_ms, b_by = bound(n * r * 4 + big_d * k * 4 + n * 4 + n * k * 4,
+                       n * r * k + n * k)
+    g_ms, _ = time_device(lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g))
+    plain_ms = time_ms(lambda: ref.z_matmul_ref(ie, ve, se))
+    log(f"[phase 2] z_matmul_gather at the engine's top bucket {(n, r)} x "
+        f"K {k}: {g_ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, max abs {err:.3g}")
+    return dict(name="z_matmul_gather", route="cuda",
+                source="src/repro_torch/kernels/csrc/ell_spmm.cu",
+                replaces="src/repro/kernels/ell_spmm.py:85",
+                max_abs_err=err, ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                check="|err| <= 1e-6 + 1e-5 * sum|terms|")
 
 
 def main() -> None:
@@ -2091,7 +2545,8 @@ def main() -> None:
                   "singular_values": res.singular_values,
                   "iterations": res.diagnostics["solver_iterations"],
                   "inertia": res.diagnostics["kmeans_inertia"]}
-    del model, res
+    model.fit_result = None        # the O(D·K) model stays for phase 12
+    del res
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2108,14 +2563,14 @@ def main() -> None:
     t0 = time.perf_counter()
     stream_counts = phase8_streaming(x_np, y_np, cfg, device_fit)
     for row in kernels:
-        if row["name"] == "bin_counts":       # the streaming path's kernel
-            row["launches"] = stream_counts["bin_counts"]
+        if row["name"] in ("bin_counts", "z_matmul_gather"):
+            row["launches"] = stream_counts[row["name"]]   # streaming path's
     log(f"[phase 8] {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     phase9_solvers(x_np, cfg, device_fit)
-    del x_np, y_np, device_fit
+    del device_fit
     torch.cuda.empty_cache()
     log(f"[phase 9] {time.perf_counter() - t0:.1f}s")
 
@@ -2124,11 +2579,28 @@ def main() -> None:
     for row in kernels:        # launches per device compressive fit
         row["launches_compressive"] = comp["device"]["launches"][row["name"]]
     log(f"[phase 10] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    base = phase11_baselines(x_np, y_np, sigma)
+    log(f"[phase 11] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = phase12_engine({"rb": model, "sc_nys": base["nys_model"]}, x_np)
+    for row in kernels:
+        row["launches_engine"] = engine["replayed"].get(row["name"], 0)
+    named = {row["name"] for row in kernels}
+    unlisted = [k for k, v in engine["replayed"].items()
+                if v and k not in named]
+    if unlisted:
+        fail(f"the engine replayed {unlisted}, which no kernels row holds")
+    log(f"[phase 12] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_compressive", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "launches_compressive", "launches_engine", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

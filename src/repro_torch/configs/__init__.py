@@ -70,7 +70,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch in UNPORTED:
         raise NotImplementedError(
             f"{arch} needs {UNPORTED[arch]}, which repro_torch does not have "
-            "yet (ROADMAP.md A13); ported: " + ", ".join(PORTED_ARCHS))
+            "yet (ROADMAP.md A10); ported: " + ", ".join(PORTED_ARCHS))
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.config()
 

@@ -5,7 +5,10 @@ Public API (the names of ``repro.core``, as far as they are ported):
   - ``SCRBModel``                                    fit / transform /
     predict / save / load
   - ``SCRBConfig`` / ``sc_rb`` / ``spectral_embed``  Alg. 2, one-shot
-  - ``RBMap`` / ``FEATURE_MAPS``                     stage-1 map (rb only)
+  - ``RBMap`` / ``FEATURE_MAPS`` / ...               stage-1 maps (rb, rff,
+    nystrom, lsc) and the dense operands
+  - ``METHODS`` / ``BaselineConfig``                 the Table-2 methods
+  - ``pairwise_kernel`` / ``rff_transform``          dense kernel blocks
   - ``make_rb_params`` / ``rb_transform``            Alg. 1
   - ``build_normalized_adjacency``                   Eq. 5/6
   - ``top_k_eigenpairs``                             every eigensolver
@@ -42,7 +45,15 @@ from repro_torch.core.executor import (  # noqa: F401
 from repro_torch.core.options import (  # noqa: F401
     CompressiveOptions, PartitionOptions, SolverOptions,
 )
-from repro_torch.core.featuremap import FEATURE_MAPS, RBMap  # noqa: F401
+from repro_torch.core.featuremap import (  # noqa: F401
+    FEATURE_MAPS, ChunkedDenseFeatures, LSCMap, NormalizedDenseFeatures,
+    NystromMap, RBMap, RFFMap, build_chunked_dense, build_normalized_dense,
+    load_fitted, make_feature_map,
+)
+from repro_torch.core.rff import (  # noqa: F401
+    RFFParams, make_rff_params, rff_transform,
+)
+from repro_torch.core.nystrom import pairwise_kernel  # noqa: F401
 from repro_torch.core.rowmatrix import (  # noqa: F401
     DeviceRows, FittedFeatures, HostChunkedRows,
 )
@@ -50,4 +61,7 @@ from repro_torch.core.model import SCRBModel  # noqa: F401
 from repro_torch.core.pipeline import (  # noqa: F401
     SCRBConfig, SCRBResult, SpectralEmbedding, sc_rb, spectral_embed,
 )
-from repro_torch.core import compressive, metrics  # noqa: F401
+from repro_torch.core.baselines import (  # noqa: F401
+    METHOD_FEATURE_MAPS, METHODS, BaselineConfig, BaselineResult,
+)
+from repro_torch.core import baselines, compressive, metrics  # noqa: F401

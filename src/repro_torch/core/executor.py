@@ -12,11 +12,12 @@ The five stages —
 for the CPU). ``SCRBConfig``, ``ExecutionPlan`` and ``FitResult`` keep the
 JAX package's fields, so configs and artifacts round-trip between the two
 packages. Of the plans, placement ``single`` is ported, with residency
-``device`` (the default: the whole ELL matrix on the device,
-``solver="lobpcg"``) or ``host_chunked`` (``SCRBConfig(chunk_size=...)``:
-x and every O(N) array on the host in row chunks, uploaded one chunk at a
-time, ``solver="lobpcg"`` or ``"lobpcg_host"``). Other placements and
-solvers, and ``trace=``, raise.
+``device`` (the default: the whole feature matrix on the device) or
+``host_chunked`` (``SCRBConfig(chunk_size=...)``: x and every O(N) array
+on the host in row chunks, uploaded one chunk at a time), with every
+solver and every registered feature map (``ExecutionPlan(feature_map=
+...)``: the Table-2 baselines). The mesh and partitioned placements
+raise.
 """
 from __future__ import annotations
 
@@ -238,10 +239,11 @@ def _check_ported(plan: ExecutionPlan) -> None:
             f"placement={plan.placement!r}, residency={plan.residency!r} is "
             "not yet ported to repro_torch (ported: single/device, "
             "single/host_chunked)")
-    if plan.feature_map is not None and \
-            not isinstance(plan.feature_map, featuremap.RBMap):
-        raise NotImplementedError(
-            "only the Random Binning feature map is ported to repro_torch")
+    if plan.feature_map is not None and not isinstance(
+            plan.feature_map, tuple(featuremap.FEATURE_MAPS.values())):
+        raise ValueError(
+            f"feature_map must be one of {sorted(featuremap.FEATURE_MAPS)}'s "
+            f"maps, got {type(plan.feature_map).__name__}")
 
 
 def as_device_rows(x, device: torch.device) -> torch.Tensor:
@@ -395,8 +397,9 @@ def _execute_impl(
         "degrees_min": deg_min,
         "degrees_max": deg_max,
         "n_features_D": fitted.n_features,
-        "d_g": fitted.d_g,
-        "nnz": z.n * fitted.n_grids,
+        "d_g": getattr(fitted, "d_g", None),
+        "nnz": z.n * (fitted.n_grids if fitted.kind == "ell"
+                      else fitted.n_features),
     }
     diagnostics.update(z.residency_diagnostics(cfg))
     if comp is not None:

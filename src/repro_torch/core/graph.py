@@ -90,6 +90,10 @@ class NormalizedAdjacency:
     def n(self) -> int:
         return self.idx.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
     def rmatmat(self, u: torch.Tensor) -> torch.Tensor:
         """Ẑᵀ u : (N, K) → (D, K)."""
         return ops.zt_matmul(self.idx, u.contiguous(), self.rowscale, self.d,

@@ -3,8 +3,10 @@
 The RB feature matrix Z implicitly carries the similarity graph, so what is
 needed to embed and label a new point is computed at fit time: the feature
 map's grids, the degree dual Zᵀ1, the right singular subspace and the
-k-means centroids. ``fit`` runs Algorithm 2 once through
-``executor.execute`` and adds
+k-means centroids. A model of a dense map (the Table-2 baselines' rff,
+nystrom and lsc) keeps the same state, with Φᵀ1 for the dual and the
+map's transform and products in place of the three kernels. ``fit`` runs
+Algorithm 2 once through ``executor.execute`` and adds
 
   V = Ẑᵀ U Σ⁻¹                  (D, K) right singular subspace — one more
                                  pass of the ``zt`` kernel (the compressive
@@ -36,7 +38,7 @@ import torch
 from repro_torch.core import executor as _executor, featuremap, streaming
 from repro_torch.core.kmeans import row_normalize
 from repro_torch.kernels import ops
-from repro_torch.utils import fold_seed, resolve_device
+from repro_torch.utils import fold_seed, full_float32, resolve_device
 
 #: Serialization format. Major bumps break ``load``; minor bumps are
 #: additive and readable by any same-major build.
@@ -97,7 +99,8 @@ class SCRBModel:
     N_train."""
 
     config: _executor.SCRBConfig
-    feature_map: Any                       # fitted featuremap.RBMap
+    feature_map: Any                       # fitted featuremap map (any of
+                                           # FEATURE_MAPS: rb, rff, ...)
     degree_dual: torch.Tensor              # (D,) Zᵀ1
     right_vectors: torch.Tensor            # (D, K) V = Ẑᵀ U Σ⁻¹
     singular_values: torch.Tensor          # (K,)
@@ -267,12 +270,13 @@ class SCRBModel:
         """Out-of-sample spectral embedding (n_new, K), in batches of
         ``batch_size`` rows rounded up to ``BUCKET_GRID``."""
         proj = self._projection
-        outs = [
-            _oos_embed_impl(self.feature_map, self.degree_dual, proj, xb,
-                            laplacian=self.laplacian_normalize)[:rows]
-            .cpu().numpy()
-            for xb, rows in self._serve_batches(x, batch_size)
-        ]
+        with full_float32():
+            outs = [
+                _oos_embed_impl(self.feature_map, self.degree_dual, proj, xb,
+                                laplacian=self.laplacian_normalize)[:rows]
+                .cpu().numpy()
+                for xb, rows in self._serve_batches(x, batch_size)
+            ]
         return np.concatenate(outs, axis=0)
 
     def predict(self, x, *, batch_size: Optional[int] = None) -> np.ndarray:
@@ -283,18 +287,20 @@ class SCRBModel:
                 "stage); use transform() or refit with final_stage='kmeans'")
         proj = self._projection
         cents = self.centroids.contiguous()
-        outs = [
-            _oos_predict_impl(self.feature_map, self.degree_dual, proj, cents,
-                              xb, laplacian=self.laplacian_normalize,
-                              impl=self.config.impl)[:rows].cpu().numpy()
-            for xb, rows in self._serve_batches(x, batch_size)
-        ]
+        with full_float32():
+            outs = [
+                _oos_predict_impl(self.feature_map, self.degree_dual, proj,
+                                  cents, xb,
+                                  laplacian=self.laplacian_normalize,
+                                  impl=self.config.impl)[:rows].cpu().numpy()
+                for xb, rows in self._serve_batches(x, batch_size)
+            ]
         return np.concatenate(outs, axis=0)
 
     @property
     def data_dim(self) -> int:
         """Input dimensionality d expected by ``transform``/``predict``."""
-        return int(self.feature_map.params.dim)
+        return int(self.feature_map.dim)
 
     def _arrays(self) -> dict:
         as_np = lambda t: t.detach().cpu().numpy().astype(np.float32)

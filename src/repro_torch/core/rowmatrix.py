@@ -6,11 +6,12 @@ against a small surface (``matvec``/``matvec_tall``/``rmatvec``/``gram``,
 ``reduce``, ``degree_dual``, ``residency_diagnostics``). A representation
 says where Ẑ = D̂^{-1/2}Z lives:
 
-  - ``DeviceRows``      the whole (N, R) ELL matrix on one device; tall
-    dense operands are device tensors.
-  - ``HostChunkedRows`` host row chunks (``streaming.ChunkedELL``); tall
-    dense operands are ``streaming.ChunkedDense`` and every sweep uploads
-    one prefetched chunk at a time.
+  - ``DeviceRows``      the whole (N, R) ELL matrix (or a dense map's
+    (N, m) features) on one device; tall dense operands are device tensors.
+  - ``HostChunkedRows`` host row chunks (``streaming.ChunkedELL``, or
+    ``featuremap.ChunkedDenseFeatures`` for a dense map); tall dense
+    operands are ``streaming.ChunkedDense`` and every sweep uploads one
+    prefetched chunk at a time.
 
 The mesh and partitioned representations of the JAX package are not yet
 ported.
@@ -22,7 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core import eigensolver, graph, streaming
+from repro_torch.core import eigensolver, featuremap, graph, streaming
 from repro_torch.core.kmeans import kmeans as _kmeans, streaming_kmeans
 from repro_torch.utils import make_generator, prefetch_to_device, to_host
 
@@ -61,10 +62,12 @@ class FittedFeatures:
 @dataclasses.dataclass
 class DeviceRows:
     """Whole-array residency on one device: ``adj`` is a
-    ``graph.NormalizedAdjacency`` whose tensors lie on the fit's device."""
+    ``graph.NormalizedAdjacency`` (ELL maps) or a
+    ``featuremap.NormalizedDenseFeatures`` (dense maps), with the same
+    product surface, its tensors on the fit's device."""
 
     kind = "device"
-    adj: graph.NormalizedAdjacency
+    adj: Any
 
     @classmethod
     def fit_transform(cls, x: torch.Tensor, fm, cfg, plan, seed: int,
@@ -77,8 +80,8 @@ class DeviceRows:
                       dev: torch.device) -> "DeviceRows":
         fm = feats.fmap
         if fm.kind != "ell":
-            raise NotImplementedError(
-                "dense feature maps are not yet ported to repro_torch")
+            return cls(featuremap.build_normalized_dense(
+                feats.payload, laplacian=plan.laplacian_normalize))
         return cls(graph.build_normalized_adjacency(
             feats.payload, d=fm.n_features, d_g=fm.d_g, impl=plan.impl,
             normalize=plan.laplacian_normalize))
@@ -89,7 +92,7 @@ class DeviceRows:
 
     @property
     def device(self) -> torch.device:
-        return self.adj.idx.device
+        return self.adj.device
 
     def degree_range(self) -> Tuple[float, float]:
         return float(torch.min(self.adj.deg)), float(torch.max(self.adj.deg))
@@ -121,8 +124,11 @@ class DeviceRows:
         return fn(init, *tall)
 
     def degree_dual(self) -> torch.Tensor:
-        """The (D,) bin occupancies Zᵀ1, retained from the degree pass: the
-        vector a new point's degree is read from."""
+        """The (D,) vector a new point's degree is read from, retained from
+        the degree pass: the bin occupancies Zᵀ1 (ELL maps) or Φᵀ1 (dense
+        maps)."""
+        if isinstance(self.adj, featuremap.NormalizedDenseFeatures):
+            return self.adj.colsum
         return self.adj.counts.to(torch.float32)
 
     def eigenpairs(self, k: int, seed: int, cfg,
@@ -152,23 +158,22 @@ class DeviceRows:
 class HostChunkedRows:
     """Host row chunks; no stage allocates an O(N) device array.
 
-    ``store`` is a ``streaming.ChunkedELL`` (the RB map's ELL pattern; the
-    dense feature maps, whose store the JAX package also chunks, are not
-    yet ported). ``x`` stays on the host: stage 1 uploads it one chunk at a
-    time and brings each chunk's indices back."""
+    ``store`` is a ``streaming.ChunkedELL`` (the RB map's ELL pattern) or
+    a ``featuremap.ChunkedDenseFeatures`` (dense maps), with the same sweep
+    surface. ``x`` stays on the host: stage 1 uploads it one chunk at a
+    time and brings each chunk's features back."""
 
     kind = "host_chunked"
-    store: streaming.ChunkedELL
+    store: Any
 
     @classmethod
     def fit_transform(cls, x, fm, cfg, plan, seed: int,
                       dev: torch.device) -> FittedFeatures:
         x_chunks = streaming.as_row_chunks(x, plan.chunk_size)
         fitted = fm.fit(seed, x_chunks, device=dev)
-        # row-local ⇒ the single-shot transform's indices for any chunking
-        payload = streaming.chunked_rb_transform(
-            x_chunks, fitted.params, impl=fitted.impl, device=dev,
-            prefetch=plan.prefetch)
+        # row-local ⇒ the single-shot transform's features for any chunking
+        payload = streaming.chunked_transform(
+            fitted.transform, x_chunks, device=dev, prefetch=plan.prefetch)
         return FittedFeatures(fitted, payload)
 
     @classmethod
@@ -176,8 +181,9 @@ class HostChunkedRows:
                       dev: torch.device) -> "HostChunkedRows":
         fm = feats.fmap
         if fm.kind != "ell":
-            raise NotImplementedError(
-                "dense feature maps are not yet ported to repro_torch")
+            return cls(featuremap.build_chunked_dense(
+                feats.payload, laplacian=plan.laplacian_normalize,
+                prefetch=plan.prefetch, device=dev))
         return cls(streaming.build_chunked_adjacency(
             feats.payload, d=fm.n_features, d_g=fm.d_g, impl=plan.impl,
             prefetch=plan.prefetch, normalize=plan.laplacian_normalize,
@@ -195,8 +201,10 @@ class HostChunkedRows:
         return float(torch.min(self.store.deg)), float(torch.max(self.store.deg))
 
     def degree_dual(self) -> torch.Tensor:
-        """The (D,) bin occupancies Zᵀ1 kept by the degree pass, on the
-        fit's device."""
+        """The (D,) degree dual kept by the degree pass, on the fit's
+        device: the bin occupancies Zᵀ1, or Φᵀ1 for a dense map."""
+        if isinstance(self.store, featuremap.ChunkedDenseFeatures):
+            return self.store.colsum
         return self.store.counts.to(device=self.device, dtype=torch.float32)
 
     def rmatvec(self, u: streaming.ChunkedDense) -> torch.Tensor:

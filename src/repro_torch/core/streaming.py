@@ -275,21 +275,30 @@ def _csc_chunks(idx_chunks, d: int, dev: torch.device, prefetch: bool,
                                               measure=measure))
 
 
+def chunked_transform(transform, x_chunks, *, device: DeviceLike = "cpu",
+                      prefetch: bool = True, measure: Optional[dict] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """A row-local feature ``transform`` over host row chunks: each chunk
+    uploaded, transformed on ``device`` and brought back (pinned on the
+    card), so the result is the single-shot transform's for any
+    chunking."""
+    rows = (_as_host(c).to(torch.float32).contiguous() for c in x_chunks)
+    return tuple(
+        to_host(transform(xc))
+        for xc in prefetch_to_device(rows, device=device, enabled=prefetch,
+                                     measure=measure))
+
+
 def chunked_rb_transform(x_chunks, params: rb.RBParams, *,
                          impl: str = "auto", device: DeviceLike = "cpu",
                          prefetch: bool = True,
                          measure: Optional[dict] = None
                          ) -> Tuple[torch.Tensor, ...]:
-    """Alg. 1 over row chunks; each chunk's indices go back to the host
-    (pinned on the card). RB binning is row-local, so the result is the
-    single-shot ``rb_transform``'s for any chunking."""
-    dev = torch.device(device)
-    params = params.to(dev)
-    rows = (_as_host(c).to(torch.float32).contiguous() for c in x_chunks)
-    return tuple(
-        to_host(rb.rb_transform(xc, params, impl=impl))
-        for xc in prefetch_to_device(rows, device=dev, enabled=prefetch,
-                                     measure=measure))
+    """Alg. 1 over row chunks: the ELL indices of each chunk."""
+    params = params.to(device)
+    return chunked_transform(
+        lambda xc: rb.rb_transform(xc, params, impl=impl), x_chunks,
+        device=device, prefetch=prefetch, measure=measure)
 
 
 def chunked_bin_counts(idx_chunks, *, d: int, d_g: int, impl: str = "auto",

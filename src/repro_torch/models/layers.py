@@ -15,7 +15,7 @@ case (decode: queries against the cache, masked to its valid prefix) is
 plain PyTorch, the grouped einsum of the JAX package, which computes it
 outside any Pallas kernel too.
 
-Not ported yet (ROADMAP.md A13): MLA, MoE, the SSM and hybrid mixers,
+Not ported yet (ROADMAP.md A10): MLA, MoE, the SSM and hybrid mixers,
 M-RoPE, and the sharding hints.
 """
 from __future__ import annotations
@@ -80,7 +80,7 @@ def rope_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables (B, S, rotary_dim/2), float32."""
     if mrope_sections is not None or positions.dim() != 2:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md A13)")
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md A10.4)")
     half = rotary_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half

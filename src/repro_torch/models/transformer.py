@@ -12,7 +12,7 @@ the dense GQA architectures):
 
 This is a serving port. Weights are held in ``cfg.dtype`` on the device
 and carry no gradient; the trainer's float32 masters and ``lm_loss`` come
-with the training slice (ROADMAP.md A13). A layer is an ``nn.Module``, a
+with the training slice (ROADMAP.md A10.5). A layer is an ``nn.Module``, a
 segment a ``ModuleList``, and layers run in a Python loop (the JAX package
 scans them). Caches are updated in place and returned.
 
@@ -47,7 +47,7 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: layers {sorted(kinds)}, input {cfg.input_mode!r}, "
             f"M-RoPE {cfg.mrope_sections}: only dense GQA + MLP layers on "
-            "token input are ported (ROADMAP.md A13)")
+            "token input are ported (ROADMAP.md A10)")
 
 
 class Layer(nn.Module):

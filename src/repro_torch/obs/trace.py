@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import itertools
 import json
 import os
 import threading
@@ -62,6 +63,19 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+_THREAD = threading.local()
+_TRACKS = itertools.count(1)
+
+
+def _track() -> int:
+    """The calling thread's track number, never given to another thread.
+    A thread's ``ident`` is not: a thread that starts after another ended
+    may get its ident, and the two would share a track."""
+    track = getattr(_THREAD, "track", None)
+    if track is None:
+        track = _THREAD.track = next(_TRACKS)
+    return track
 
 
 class Span:
@@ -115,7 +129,7 @@ class Span:
                     m1["device_bytes_in_use"]
                     - (self._mem0.get("device_bytes_in_use") or 0))
         th = threading.current_thread()
-        self.tid = th.ident or 0
+        self.tid = _track()
         self.thread_name = th.name
         stack = tr._stack()
         if stack and stack[-1] is self:

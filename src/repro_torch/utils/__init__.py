@@ -71,6 +71,52 @@ def make_generator(seed: int, device: DeviceLike = "cpu") -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 
 
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 products in full float32 (no TF32) inside the block, whatever
+    the process has set; the previous settings come back on exit. Serving
+    (``SCRBModel.predict``/``transform``, the cluster engine) runs under it,
+    as a fit runs under ``executor.configure_device``."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+#: Rows of the fixed tiles that ``map_row_tiles`` runs a row-local function
+#: on.
+ROW_TILE = 4096
+
+
+def map_row_tiles(fn, *xs: torch.Tensor, rows: int = ROW_TILE
+                  ) -> torch.Tensor:
+    """``fn`` over consecutive tiles of ``rows`` rows of the row-aligned
+    tensors ``xs`` (the last tile zero-padded), the outputs concatenated
+    with the padding cut.
+
+    BLAS libraries pick their kernel by shape: MKL and cuBLAS may give a
+    row other bits in a call of 1 row than in a call of 4,096 (a
+    matrix-vector product sums in another order). A row-local ``fn`` run
+    at one shape gives each row the same bits whatever batch it came in,
+    so the fit's transform, ``predict`` and the serving engine's buckets
+    agree bit for bit."""
+    n = xs[0].shape[0]
+    outs = []
+    for start in range(0, max(n, 1), rows):
+        parts = [x[start:start + rows] for x in xs]
+        m = parts[0].shape[0]
+        if m < rows:
+            parts = [torch.cat([p, p.new_zeros((rows - m,) + p.shape[1:])])
+                     for p in parts]
+        outs.append(fn(*parts)[:m])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 _STAGE_SECONDS = _metrics.REGISTRY.histogram(
     "repro_stage_seconds", "Pipeline stage wall-clock seconds.", ("stage",))
 

@@ -24,7 +24,12 @@ bits (no float atomics). Flash attention: float32 within 2e-5, bfloat16
 within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
 before normalising, the plain version after). The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
-1e-4 of the same model on the CPU.
+1e-4 of the same model on the CPU. Dense feature maps: features within
+1e-5 of the CPU's and the same bits in any batch; every Table-2 method's
+labels against the CPU's by ARI ≥ 0.99. The serving engine: each CUDA
+graph's replay the bits of the same cell run eagerly, every answer the
+bits of ``model.predict``/``transform``, and no capture, staging buffer or
+device allocation at steady state.
 """
 import dataclasses
 
@@ -808,3 +813,182 @@ def test_cuda_traced_fit_reports_device_memory(cuda, tmp_path):
                  if e["ph"] == "X"}
     assert {"fit", "rb_features", "degrees", "svd", "normalize", "kmeans",
             "eigensolve"} <= names
+
+
+# --------------------------------------------------------------------------
+# dense feature maps, the Table-2 methods and the serving engine's graphs
+# --------------------------------------------------------------------------
+
+def _dense_models(device, x):
+    """An RB model and a model of each dense map, fitted on ``device``."""
+    from repro_torch.core import SCRBConfig, SCRBModel, executor, featuremap
+    kw = dict(n_clusters=4, n_grids=64, sigma=1.5, d_g=512,
+              kmeans_replicates=2)
+    out = {"rb": SCRBModel.fit(x, SCRBConfig(**kw), device=device)}
+    for name in ("rff", "nystrom", "lsc"):
+        fm = featuremap.make_feature_map(name, rank=64, sigma=1.5)
+        out[name] = SCRBModel.fit(
+            x, SCRBConfig(**kw), plan=executor.ExecutionPlan(feature_map=fm),
+            device=device)
+    return out
+
+
+@pytest.mark.parametrize("name", ["rff", "nystrom", "lsc"])
+def test_cuda_dense_transform_matches_cpu_and_is_batch_invariant(cuda, name):
+    """A dense map's features on the card within 1e-5 of the same fitted
+    map on the CPU (LSC's kept pattern exact), and a row's bits the same
+    in any batch (its products run in fixed row tiles)."""
+    from repro_torch.core import featuremap
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(9_000, 6, 4, seed=0)
+    fm = featuremap.make_feature_map(name, rank=64, sigma=1.5).fit(0, x)
+    xs = torch.from_numpy(x)
+    want = fm.transform(xs)
+    dev = fm.to(cuda)
+    got = dev.transform(xs.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    if name == "lsc":
+        assert torch.equal(got.cpu() > 0, want > 0)
+    for a, b in ((0, 1), (7, 70), (4000, 4200), (100, 9000)):
+        assert torch.equal(dev.transform(xs[a:b].to(cuda)), got[a:b])
+
+
+@pytest.mark.parametrize("name", ["kmeans", "sc", "kk_rf", "kk_rs", "sv_rf",
+                                  "sc_lsc", "sc_nys", "sc_rf", "sc_rb",
+                                  "csc_rb"])
+def test_cuda_baselines_match_the_cpu(cuda, name):
+    """Every Table-2 method on the card against the same method on the CPU
+    with the same map: labels by ARI ≥ 0.99. At rank 256 every RFF degree
+    of this data is positive; at rank 128 some are negative (RFF features
+    take both signs), the 1e-8 clamp gives those rows a scale of 1e4 and
+    sc_rf a spurious singular value near 1.4e4, and the two devices'
+    rounding then picks other vectors (ROADMAP.md C7)."""
+    from repro_torch.core import baselines, featuremap, metrics
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(2_000, 6, 4, seed=1)
+    cfg = baselines.BaselineConfig(n_clusters=4, rank=256, sigma=1.5,
+                                   kmeans_replicates=4)
+    kw = {}
+    fm_name = baselines.METHOD_FEATURE_MAPS[name]
+    if fm_name is not None:
+        kw["feature_map"] = featuremap.make_feature_map(
+            fm_name, rank=256, sigma=1.5).fit(0, x)
+    if fm_name == "rff":
+        phi = kw["feature_map"].transform(torch.from_numpy(x))
+        assert float(featuremap.build_normalized_dense(phi).deg.min()) > 0
+    want = baselines.METHODS[name](x, cfg, device="cpu", **kw)
+    got = baselines.METHODS[name](x, cfg, device="cuda", **kw)
+    assert metrics.adjusted_rand_index(got.labels, want.labels) >= 0.99
+
+
+def _engine_state(eng):
+    torch.cuda.synchronize()
+    return (eng.total_compiles, eng.stats()["staging_allocations"],
+            torch.cuda.memory_stats()["allocation.all.allocated"])
+
+
+def _engine_traffic(eng, models, x, rng):
+    """A mix of requests in both modes; every answer against the model's
+    own predict/transform, bit for bit. Returns the engine's state before
+    the first submit and after the drain."""
+    reqs = []
+    for _ in range(24):
+        name = list(models)[int(rng.integers(len(models)))]
+        mode = ("predict", "transform")[int(rng.integers(2))]
+        a = int(rng.integers(0, 2_000))
+        reqs.append((name, mode, a, a + int(rng.integers(1, 1_000))))
+    before = _engine_state(eng)
+    tickets = [eng.submit(name, x[a:b], mode) for name, mode, a, b in reqs]
+    eng.drain()
+    after = _engine_state(eng)
+    for t, (name, mode, a, b) in zip(tickets, reqs):
+        want = getattr(models[name], mode)(x[a:b])
+        np.testing.assert_array_equal(eng.take(t).values, want)
+    return before, after
+
+
+def test_cuda_engine_graphs_equal_eager_and_allocate_nothing(cuda):
+    """The engine on the card: one CUDA graph per (model, bucket, mode),
+    each replay bit-identical to the same cell run eagerly and every
+    response to model.predict/transform; at steady state no capture, no
+    staging buffer and no device allocation."""
+    from repro_torch.data.synthetic import make_blobs
+    from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+    x, _ = make_blobs(3_000, 6, 4, seed=2)
+    models = _dense_models("cuda", x)
+    buckets = (64, 256, 1_024)
+    eng = ClusterEngine(EngineConfig(buckets=buckets), device="cuda")
+    for name, mdl in models.items():
+        eng.load_model(name, mdl)
+        eng.warmup(name, modes=("predict", "transform"))
+    assert eng.total_compiles == len(models) * len(buckets) * 2
+    for cell in eng._cells.values():
+        assert cell.graph is not None
+        if cell.out.dtype == torch.int32:           # predict: the assign
+            assert cell.launches["kmeans_assign"] == 1
+        cell.x.copy_(torch.from_numpy(x[:cell.x.shape[0]]).to(cuda))
+        cell.graph.replay()
+        eager = cell.fn(cell.x)
+        torch.cuda.synchronize()
+        assert torch.equal(cell.out, eager)
+    rng = np.random.default_rng(0)
+    _engine_traffic(eng, models, x, rng)            # a first wave
+    before, after = _engine_traffic(eng, models, x, rng)   # steady state
+    assert after == before
+    assert eng.stats()["replayed_launches"]["rb_binning"] > 0
+
+
+def test_cuda_engine_lru_refault_copies_state_only(cuda):
+    """max_resident_models=1 over two models: every switch evicts and
+    re-faults into the model's free slot; answers stay bit-identical and
+    nothing is captured again."""
+    from repro_torch.data.synthetic import make_blobs
+    from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+    x, _ = make_blobs(3_000, 6, 4, seed=3)
+    models = {k: v for k, v in _dense_models("cuda", x).items()
+              if k in ("rb", "nystrom")}
+    eng = ClusterEngine(EngineConfig(buckets=(64, 256),
+                                     max_resident_models=1), device="cuda")
+    for name, mdl in models.items():
+        eng.load_model(name, mdl)
+        eng.warmup(name)
+    compiles = eng.total_compiles
+    for rep in range(3):
+        for name, mdl in models.items():
+            rows = x[rep * 50:rep * 50 + 200]
+            np.testing.assert_array_equal(eng.predict(name, rows),
+                                          mdl.predict(rows))
+    assert eng.total_compiles == compiles
+    assert eng.stats()["evictions"] >= 5
+
+
+def test_cuda_engine_refit_swaps_free_the_old_slot(cuda):
+    """Hot-swaps between refits with other sigmas (a new signature each
+    time): each swap frees the old slot with its graphs, so the slots and
+    cells stay bounded, the device memory in use is the same after every
+    second swap, and the answers are the newest model's."""
+    import dataclasses
+
+    from repro_torch.core import SCRBConfig, SCRBModel
+    from repro_torch.data.synthetic import make_blobs
+    from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+    x, _ = make_blobs(3_000, 6, 4, seed=4)
+    cfg = SCRBConfig(n_clusters=4, n_grids=64, sigma=1.5, d_g=512,
+                     kmeans_replicates=2)
+    refits = [SCRBModel.fit(x, dataclasses.replace(cfg, sigma=sig),
+                            device="cuda") for sig in (1.4, 1.6)]
+    buckets = (64, 256)
+    eng = ClusterEngine(EngineConfig(buckets=buckets), device="cuda")
+    used = []
+    for i in range(6):
+        m = refits[i % 2]
+        eng.load_model("m", m)
+        eng.warmup("m")
+        np.testing.assert_array_equal(eng.predict("m", x[:200]),
+                                      m.predict(x[:200]))
+        s = eng.stats()
+        assert (s["slots"], s["slots_freed"]) == (1, i)
+        assert s["cells"] == len(buckets)
+        torch.cuda.synchronize()
+        used.append(torch.cuda.memory_allocated())
+    assert used[2:] == used[:2] * 2

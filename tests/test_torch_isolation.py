@@ -142,3 +142,54 @@ def test_entry_points_raise_without_a_card():
     model = T.init_params(lm, 0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(lm, model, ServeConfig(cache_len=8, batch_size=1))
+
+
+BASELINES_SCRIPT = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)   # small ops: threads only contend
+from repro_torch.core import BaselineConfig, METHODS, metrics
+from repro_torch.data.synthetic import make_blobs
+from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+x, y = make_blobs(300, 4, 3, seed=0)
+cfg = BaselineConfig(n_clusters=3, rank=64, sigma=1.5, kmeans_replicates=2)
+for name, run in METHODS.items():
+    assert run(x, cfg, device="cpu").labels.shape == (300,), name
+from repro_torch.core import ExecutionPlan, SCRBConfig, SCRBModel
+from repro_torch.core import make_feature_map
+m = SCRBModel.fit(x, SCRBConfig(n_clusters=3, sigma=1.5),
+                  plan=ExecutionPlan(feature_map=make_feature_map(
+                      "nystrom", rank=64, sigma=1.5)), device="cpu")
+eng = ClusterEngine(EngineConfig(buckets=(64, 256)), device="cpu")
+eng.load_model("m", m)
+assert (eng.predict("m", x[:100]) == m.predict(x[:100])).all()
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_baselines_and_engine_in_a_fresh_process_load_no_jax():
+    _run_alone(BASELINES_SCRIPT)
+
+
+@pytest.mark.parametrize("name", ["kmeans", "sc", "kk_rs", "kk_rf", "sv_rf",
+                                  "sc_lsc", "sc_nys", "sc_rf", "sc_rb",
+                                  "csc_rb"])
+def test_baselines_raise_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.core import BaselineConfig, METHODS
+    x = np.zeros((30, 2), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        METHODS[name](x, BaselineConfig(n_clusters=2, rank=8))
+
+
+def test_cluster_engine_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.serve.cluster_engine import ClusterEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClusterEngine()

@@ -70,7 +70,7 @@ def test_configs_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_get_config_raises_for_unported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         configs.get_config(arch)
 
 
@@ -79,7 +79,7 @@ def test_unknown_arch_and_unported_layers_raise():
         configs.get_config("gpt-5")
     cfg = dataclasses.replace(configs.smoke_config("internlm2-1.8b"),
                               segments=(Segment("mla", "moe", 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         T.init_params(cfg, 0, device="cpu")
 
 

@@ -112,6 +112,27 @@ def test_spans_closed_on_other_threads_get_own_tracks():
     assert {"wk0", "wk1"} <= set(names)
 
 
+def test_threads_that_do_not_overlap_get_own_tracks():
+    """A thread started after another has ended may get its ident; its
+    spans still go on a track of its own."""
+    def work(i):
+        with obs_trace.span("job", i=i):
+            pass
+
+    with _tracer(sync=False) as tr:
+        for i in range(2):
+            t = threading.Thread(target=work, args=(i,), name=f"wk{i}")
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+        jobs = tr.finished("job")
+        assert len({s.tid for s in jobs}) == 2
+        doc = tr.export_chrome()
+    names = [e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"]
+    assert {"wk0", "wk1"} <= set(names)
+
+
 def test_tracing_contextmanager_scopes_and_is_reentrant(tmp_path):
     path = str(tmp_path / "scoped.json")
     with obs_trace.tracing(path):
