@@ -15,13 +15,19 @@ from a seed):
            no MUFU, FRND or F2I instruction
   phase 2  every kernel against its plain version, with times and bounds:
            bin_counts exactly (and equal to the CSC's column lengths, to the
-           sum of the streaming fit's five chunks, and on two streams);
+           sum of the streaming fit's five chunks, on two streams, and on a
+           planted pattern of every row in one bin a grid), with the
+           pattern's skew (the hottest bin's share of a grid's rows);
            rb_binning bit for bit on all rows and on planted rows whose
            quotient sits on or one ulp off an integer; z_matmul's strip
            kernel bit-equal to its gather kernel, with its strip, idx and
            shared-memory traffic; the gather kernel on its own row at the
            serving engine's top bucket (4,096 rows, K = 7, phase 12's
-           shape); zt's L2 gather volume; the fused Gram
+           shape), and at each bucket (64 to 4,096 rows) for K = 1 (the
+           degrees) and K = 7 (the projection), the bits of the in-order
+           fold over the grids, timed beside embedding_bag and its bound
+           (the V rows the batch references), and its launch floor (one
+           row, one grid); zt's L2 gather volume; the fused Gram
            kernel bit-equal to zt_matmul then z_matmul, timed beside that
            composition; kmeans_assign and its statistics form (counts
            equal to bincount's, the same bits twice) timed on the device
@@ -131,8 +137,11 @@ from a seed):
            bit-identical with no new capture; every kernel the graphs
            replayed has a row in the kernels line; an HTTP round trip through
            ClusterServer on 127.0.0.1. Rows/s against per-request
-           model.predict, p50/p99 latency per bucket, and a 64-row cell's
-           graph replay against the same launches issued eagerly
+           model.predict, p50/p99 latency per bucket, a 64-row cell's
+           graph replay against the same launches issued eagerly, and at
+           each bucket the RB predict replay's host and device µs beside
+           the device µs of each kernel in it (torch.profiler: rb_binning,
+           the two gathers, kmeans_assign) and the bucket's gather launches
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -603,6 +612,7 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
                            "bits as the gather kernel"))
     gather_ms = time_ms(lambda: ops.z_matmul_gather(idx, v, s, d_g=d_g))
     rows.append(engine_gather_row(idx, v, s, d_g, big_d))
+    rows[-1]["buckets"] = engine_gather_buckets(idx, v, s, d_g)
     t = strip_traffic(n, r, d_g, kb, plan[0])
     log(f"[phase 2] z_matmul strip kernel (kc {plan[0]}, {plan[1]} stages, "
         f"{t['blocks']} blocks of {t['tile_rows']} rows) {z_ms:.4f} ms, the "
@@ -684,6 +694,25 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
     torch.cuda.synchronize()
     if not all(torch.equal(c, got) for c in on):
         fail("bin_counts launched on two streams at once differs")
+    per_grid = got.view(r, d_g)
+    share = (per_grid.max(dim=1).values.double() / n).cpu()
+    q = torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64)
+    occupied = (per_grid > 0).sum(1).double().cpu()
+    log(f"[phase 2] the pattern's skew: the hottest bin's share of the rows "
+        f"in a grid min/median/max "
+        f"{[round(float(x), 4) for x in share.quantile(q)]}; occupied bins "
+        f"a grid {[int(x) for x in occupied.quantile(q)]} of {d_g}; rows "
+        f"whose bin equals the previous row's "
+        f"{int((idx[1:] == idx[:-1]).sum()) / ((n - 1) * r):.4f}")
+    hot = torch.randint(0, d_g, (r,), generator=g, device=dev,
+                        dtype=torch.int32) + torch.arange(
+        r, device=dev, dtype=torch.int32) * d_g
+    planted = hot.expand(STREAM_CHUNK, r).contiguous()  # one bin a grid
+    if not torch.equal(ops.bin_counts(planted, d=big_d, d_g=d_g),
+                       ref.bin_counts_ref(planted, big_d)):
+        fail("bin_counts miscounts the planted pattern (every row in one bin "
+             "of each grid)")
+    del planted
     bc_ms, bc_host = time_device(lambda: ops.bin_counts(idx, d=big_d,
                                                         d_g=d_g))
     part = idx[:STREAM_CHUNK]
@@ -701,7 +730,8 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      check="equal to its plain version, to the CSC's column "
                            f"lengths and to the sum of {len(chunks)} chunks; "
-                           "the same on two streams"))
+                           "the same on two streams; exact on every row in "
+                           "one bin a grid"))
     log(f"[phase 2] bin_counts on one chunk of {STREAM_CHUNK} rows (the "
         f"streaming degree pass): {bc_chunk_ms:.4f} ms on the device, bound "
         f"{b_chunk:.4f} ms; whole pattern {bc_ms:.4f} ms "
@@ -2302,6 +2332,20 @@ def phase12_engine(models: dict, x_np) -> dict:
         fail(f"{eng.total_compiles} cells after warmup, not {expect}")
     rng = np.random.default_rng(12)
     names = list(models)
+    # graph replays of the RB model's cells by bucket (both modes: each
+    # replays the degrees' and the projection's gather once)
+    rb_slot = eng._resident[names[0]].slot.id
+    bucket_of = {id(c): b for (sid, b, _), c in eng._cells.items()
+                 if sid == rb_slot}
+    rb_replays = dict.fromkeys(ENGINE_BUCKETS, 0)
+    run = eng._run
+
+    def counted_run(cell, buf, out):
+        if id(cell) in bucket_of:
+            rb_replays[bucket_of[id(cell)]] += 1
+        run(cell, buf, out)
+
+    eng._run = counted_run
 
     def wave():
         reqs = []
@@ -2386,6 +2430,15 @@ def phase12_engine(models: dict, x_np) -> dict:
             f"launches issued eagerly {e_us:.1f} µs a call (host clock to a "
             "synchronize, medians of 200)")
 
+    eng._run = run
+    breakdown = {}
+    for bucket in ENGINE_BUCKETS:
+        cell = eng._cells[(rb_slot, bucket, "predict")]
+        breakdown[bucket] = replay_breakdown(cell.graph)
+        log(f"[phase 12] {names[0]} {bucket}-row predict replay: "
+            f"{breakdown[bucket]}; {rb_replays[bucket]} replays of its "
+            f"cells (each one degrees and one projection gather)")
+
     replayed = eng.stats()["replayed_launches"]
     log(f"[phase 12] kernel launches through the wrappers (eager warm-ups "
         f"and captures): {counts}; by graph replays: {replayed}")
@@ -2434,8 +2487,57 @@ def phase12_engine(models: dict, x_np) -> dict:
     log(f"[phase 12] HTTP round trip through ClusterServer on {srv.url}: "
         f"300 labels equal to model.predict's")
     return {"replayed": replayed, "latency": lat, "replay": replay,
+            "breakdown": breakdown, "rb_replays": rb_replays,
             "rows_s": (rows1 / wall1, rows2 / wall2),
             "direct_rows_s": (rows1 / direct1, rows2 / direct2)}
+
+
+def replay_breakdown(graph, reps: int = 20) -> dict:
+    """One RB predict cell's graph replay: host µs to a synchronize (median
+    of 200), device µs (``time_device``), and the device µs of each of its
+    kernels from a ``torch.profiler`` trace of ``reps`` replays (medians;
+    its two gathers told apart by their order after the replay's
+    rb_binning: the degrees' comes first). The kernels' times are None
+    when the trace holds no device event."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    device_ms, _ = time_device(graph.replay, iters=20)
+    for _ in range(2):        # the first trace of a process may hold none
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                graph.replay()
+            torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end - e.time_range.start,
+                     e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    kinds = {"rb_binning": [], "gather K 1": [], "gather K 7": [],
+             "kmeans_assign": []}
+    gathers = None                 # gathers since the replay's rb_binning
+    for _, dur, name in events:
+        if "rb_binning_kernel" in name:
+            kinds["rb_binning"].append(dur)
+            gathers = 0
+        elif "gather" in name and gathers is not None and gathers < 2:
+            kinds[("gather K 1", "gather K 7")[gathers]].append(dur)
+            gathers += 1
+        elif "kmeans_assign" in name:
+            kinds["kmeans_assign"].append(dur)
+    out = {"replay host us": round(float(np.median(host)) * 1e6, 1),
+           "replay device us": round(device_ms * 1e3, 2)}
+    for kind, durs in kinds.items():
+        out[f"{kind} us"] = round(float(np.median(durs)), 2) if durs else None
+    return out
 
 
 def subspace_cosine(a, b) -> float:
@@ -2471,19 +2573,73 @@ def engine_gather_row(idx, v, s, d_g: int, big_d: int) -> dict:
     w_bag = se[:, None].expand(n, r).contiguous()
     lib_ms, _ = time_device(lambda: torch.nn.functional.embedding_bag(
         ie, ve, mode="sum", per_sample_weights=w_bag))
-    b_ms, b_by = bound(n * r * 4 + big_d * k * 4 + n * 4 + n * k * 4,
+    b_ms, b_by = gather_bound(ie, k)
+    whole_v, _ = bound(n * r * 4 + big_d * k * 4 + n * 4 + n * k * 4,
                        n * r * k + n * k)
     g_ms, _ = time_device(lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g))
     plain_ms = time_ms(lambda: ref.z_matmul_ref(ie, ve, se))
     log(f"[phase 2] z_matmul_gather at the engine's top bucket {(n, r)} x "
-        f"K {k}: {g_ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}), plain "
-        f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, max abs {err:.3g}")
+        f"K {k}: {g_ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}; "
+        f"{whole_v:.4f} ms counting all of V), plain {plain_ms:.4f} ms, "
+        f"embedding_bag {lib_ms:.4f} ms, max abs {err:.3g}")
     return dict(name="z_matmul_gather", route="cuda",
                 source="src/repro_torch/kernels/csrc/ell_spmm.cu",
                 replaces="src/repro/kernels/ell_spmm.py:85",
                 max_abs_err=err, ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 check="|err| <= 1e-6 + 1e-5 * sum|terms|")
+
+
+def gather_bound(ie, k: int) -> tuple[float, str]:
+    """The gather's bound on this batch: idx, the V rows it references
+    (each read once), s and y; one multiply-add a (row, grid, column)."""
+    import torch
+    n, r = ie.shape
+    rows = torch.unique(ie).numel()
+    return bound(n * r * 4 + rows * k * 4 + n * 4 + n * k * 4,
+                 n * r * k + n * k)
+
+
+def engine_gather_buckets(idx, v, s, d_g: int) -> dict:
+    """The gather kernel at each of the engine's buckets for K = 1 (the
+    degrees' launch, V the counts) and K = 7 (the projection), on the first
+    rows of the fit's pattern: the bits of the in-order fold over the
+    grids (acc += v[idx[:, g]] for g = 0 ... R-1, then · s, by elementwise
+    adds on the card), device ms beside its bound and ``embedding_bag``'s;
+    and a launch's floor (one row, one grid). Returns {(bucket, K): row}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    out = {}
+    for n in ENGINE_BUCKETS:
+        ie, se = idx[:n], s[:n].contiguous()
+        for k in (1, COVTYPE[1]):
+            ve = v[:, :k].contiguous()
+            got = ops.z_matmul_gather(ie, ve, se, d_g=d_g)
+            acc = torch.zeros_like(got)
+            for col in ie.T.long():
+                acc += ve[col]
+            if not torch.equal(got, acc * se[:, None]):
+                fail(f"z_matmul_gather at {n} rows, K {k} is not the "
+                     "in-order fold over the grids")
+            w_bag = se[:, None].expand_as(ie).contiguous()
+            lib_ms, _ = time_device(lambda: torch.nn.functional.embedding_bag(
+                ie, ve, mode="sum", per_sample_weights=w_bag), iters=100)
+            ms, _ = time_device(
+                lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g), iters=100)
+            b_ms, b_by = gather_bound(ie, k)
+            out[(n, k)] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=lib_ms)
+            log(f"[phase 2] z_matmul_gather bucket {n} x K {k}: "
+                f"{ms * 1e3:.2f} µs device, bound {b_ms * 1e3:.3f} µs "
+                f"({b_by}), embedding_bag {lib_ms * 1e3:.2f} µs; the bits "
+                f"of the in-order fold")
+    i1, v1, s1 = idx[:1, :1].contiguous(), v[:d_g, :1].contiguous(), s[:1]
+    floor, _ = time_device(lambda: ops.z_matmul_gather(i1, v1, s1, d_g=d_g),
+                           iters=100)
+    log(f"[phase 2] z_matmul_gather launch floor (1 row, 1 grid): "
+        f"{floor * 1e3:.2f} µs device")
+    return out
 
 
 def main() -> None:
@@ -2590,6 +2746,14 @@ def main() -> None:
     engine = phase12_engine({"rb": model, "sc_nys": base["nys_model"]}, x_np)
     for row in kernels:
         row["launches_engine"] = engine["replayed"].get(row["name"], 0)
+    for row in kernels:
+        for (bucket, k), b in row.pop("buckets", {}).items():
+            log(f"[phase 12] z_matmul_gather bucket {bucket} x K {k}: "
+                f"{b['ms'] * 1e3:.2f} µs device, bound "
+                f"{b['bound_ms'] * 1e3:.3f} µs ({b['bound_by']}), "
+                f"embedding_bag {b['library_ms'] * 1e3:.2f} µs, "
+                f"{engine['rb_replays'][bucket]} launches by phase 12's "
+                f"replays; the replay {engine['breakdown'][bucket]}")
     named = {row["name"] for row in kernels}
     unlisted = [k for k, v in engine["replayed"].items()
                 if v and k not in named]

@@ -36,7 +36,7 @@ LIBRARIES: Dict[str, tuple] = {
     "rb_binning": ("rb_binning.cu", {
         "rb_binning_launch": [_P] * 7 + [_I] * 4 + [_P]}),
     "ell_spmm": ("ell_spmm.cu", {
-        "z_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+        "z_gather_launch": [_P] * 4 + [_I] * 10 + [_P],
         "z_strip_launch": [_P] * 5 + [_I] * 7 + [_P],
         "zt_matmul_launch": [_P] * 10 + [_I] * 5 + [ctypes.c_longlong, _I,
                                                    _P],

@@ -40,10 +40,44 @@
 // shared-memory gathers of 16 bytes at random addresses (about 2.6-way
 // bank conflicts), then the L2 traffic of strips and idx.
 //
-// Gather route (z_matmul_kernel), for every other shape: one thread per
-// (row, k); the K threads of a row read the same idx entries (served as one
-// broadcast) and neighbouring k of one gathered V row from L2. Each thread
-// sums its R terms in order, in float32, and scales once.
+// Gather route, for every other shape: every RB predict batch (the
+// degrees' one-column gather and the K-wide projection, below
+// Z_STRIP_MIN_ROWS rows) and the ragged last chunk of a host-chunked fit.
+// Two forms, chosen by shape alone (ops.z_gather_plan):
+//
+// Register form (z_gather_rows_kernel), for batches of 10,240 outputs
+// (rows x K) or more, and at R <= 32: one thread per (row, k),
+// neighbouring k of a row in neighbouring lanes (one gathered V
+// row a few lanes wide). A thread loads 32 idx entries of its row (16-byte
+// loads where aligned), issues their 32 V gathers at once, and adds them
+// to its float32 sum in grid order; a row of R = 256 grids is 8 such
+// rounds. What bounds it: once the batch fills the card, the L1's
+// processing of scattered load instructions (each touches a few 128-byte
+// lines); below that, the 8 dependent rounds.
+//
+// Staged form (z_gather_kernel), for the smaller batches, where a thread
+// per (row, k) leaves most SMs idle and the rounds' latency is the time. A
+// warp owns P rows (P = 1 at R = 256) and a column group of KC columns,
+// and walks the grids in passes of up to 256:
+//   1. its lanes copy the rows' idx entries of the pass into shared memory
+//      (16-byte loads where aligned: one round trip);
+//   2. every lane issues its share of the P x grids x KC gathers at once
+//      (cp.async of 4 bytes for float32 V, so none waits for another;
+//      batches of 8 through registers for bfloat16): neighbouring lanes
+//      take neighbouring columns of one gathered V row; each value lands
+//      in a staged column (grids, padded to a stride of 4 mod 8 floats: no
+//      bank conflict for the 16-byte reads below) in shared memory, as
+//      float32;
+//   3. P x KC lanes each fold their column over the pass's grids, in
+//      order, 16 bytes at a time, in a float32 register kept across
+//      passes, and scale once at the end.
+// So a batch's memory chain is two round trips, and a 64-row batch spreads
+// over 64 SMs. What bounds it: the launch, the two round trips and the
+// fold's R dependent adds (about 4 cycles each).
+//
+// Both forms compute each y[i, k] as acc = 0; acc += float(v[idx[i, r],
+// k]) for r = 0 ... R-1; y = acc * s[i]: the strip kernel's order, so
+// every route gives the same bits.
 //
 // zt_matmul design: a scatter-add with float atomics would sum in a
 // different order on every run, and the fit's labels would follow. So the
@@ -103,20 +137,167 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The gather kernels' block: at most 4 warps (ops.z_gather_plan).
+constexpr int kGatherMaxWarps = 4;
+// Grids a thread of the register form has in flight.
+constexpr int kRowsAhead = 32;
+
+// Register form (ops.z_gather_plan route 1); see "Gather route" above.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-z_matmul_kernel(const int32_t* __restrict__ idx, const T* __restrict__ v,
-                const float* __restrict__ s, T* __restrict__ out, int n, int r,
-                int k) {
+__global__ void __launch_bounds__(kGatherMaxWarps * 32)
+z_gather_rows_kernel(const int32_t* __restrict__ idx, const T* __restrict__ v,
+                     const float* __restrict__ s, T* __restrict__ out, int n,
+                     int r, int k) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= (long long)n * k) return;
   const long long i = gid / k;
   const int kk = (int)(gid - i * k);
   const int32_t* row = idx + i * r;
+  const T* vk = v + kk;
+  const bool by16 = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
   float acc = 0.f;
-#pragma unroll 8
-  for (int g = 0; g < r; ++g) acc += to_float(v[(size_t)row[g] * k + kk]);
+  int g = 0;
+  for (; g + kRowsAhead <= r; g += kRowsAhead) {
+    int c[kRowsAhead];
+    if (by16) {
+#pragma unroll
+      for (int u = 0; u < kRowsAhead; u += 4) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(row + g + u));
+        c[u] = q.x;
+        c[u + 1] = q.y;
+        c[u + 2] = q.z;
+        c[u + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kRowsAhead; ++u) c[u] = __ldg(row + g + u);
+    }
+    float x[kRowsAhead];
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u)
+      x[u] = to_float(__ldg(vk + (size_t)c[u] * k));
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) acc += x[u];
+  }
+  for (; g < r; ++g) acc += to_float(__ldg(vk + (size_t)__ldg(row + g) * k));
   store(out + gid, acc * s[i]);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Staged form (route 0): one warp per (tile of `rows` rows, column group
+// of kc columns); see "Gather route" above. Shared memory per warp: the
+// pass's idx entries (rows * chunk int32, rounded up to 4) then rows * kc
+// staged columns of `stride` floats.
+template <typename T>
+__global__ void __launch_bounds__(kGatherMaxWarps * 32)
+z_gather_kernel(const int32_t* __restrict__ idx, const T* __restrict__ v,
+                const float* __restrict__ s, T* __restrict__ out, int n,
+                int r, int k, int kc, int rows, int chunk, int stride,
+                long long items) {
+  extern __shared__ __align__(16) int32_t gather_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long item = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (item >= items) return;
+  const int groups = (k + kc - 1) / kc;
+  const long long tile = item / groups;
+  const int c0 = (int)(item - tile * groups) * kc;
+  const int kce = min(kc, k - c0);
+  const long long row0 = tile * rows;
+  const int pv = (int)min((long long)rows, (long long)n - row0);
+  const int idx_ints = (rows * chunk + 3) & ~3;
+  int32_t* idx_s = gather_smem + (size_t)warp * (idx_ints + rows * kc * stride);
+  float* stage = reinterpret_cast<float*>(idx_s + idx_ints);
+  const int folders = pv * kce;              // lanes that fold a column
+  const int dk = 32 % kce, dr = 32 / kce;    // a lane's step in (g, kk)
+  float acc = 0.f;
+  for (int g0 = 0; g0 < r; g0 += chunk) {
+    const int rc = min(chunk, r - g0);
+    // 1. idx of the pass: pv rows of rc entries, contiguous (rows > 1 only
+    // when one pass holds all R grids)
+    const int32_t* src = idx + row0 * r + g0;
+    const int len = pv * rc;
+    int j0 = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      j0 = len & ~3;
+      for (int j = lane * 4; j < j0; j += 128)
+        *reinterpret_cast<int4*>(idx_s + j) =
+            __ldg(reinterpret_cast<const int4*>(src + j));
+    }
+    for (int j = j0 + lane; j < len; j += 32) idx_s[j] = __ldg(src + j);
+    __syncwarp();
+    // 2. every gather of the pass: element e = (p * rc + g) * kce + kk for
+    // e = lane, lane + 32, ..., walked incrementally
+    const int total = len * kce;
+    int kk = lane % kce, g = lane / kce, p = g / rc;
+    g -= p * rc;
+    auto advance = [&]() {
+      kk += dk;
+      g += dr;
+      if (kk >= kce) {
+        kk -= kce;
+        ++g;
+      }
+      if (g >= rc) {
+        const int q = g / rc;
+        p += q;
+        g -= q * rc;
+      }
+    };
+    if constexpr (sizeof(T) == 4) {          // all in flight: cp.async
+      for (int e = lane; e < total; e += 32) {
+        const int col = idx_s[p * rc + g];
+        cp_async4(stage + (p * kce + kk) * stride + g,
+                  reinterpret_cast<const float*>(v) + (size_t)col * k + c0 +
+                      kk);
+        advance();
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else {                                 // batches through registers
+      constexpr int kBatch = 8;
+      for (int e = lane; e < total; e += 32 * kBatch) {
+        float val[kBatch];
+        int dst[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          dst[u] = -1;
+          if (e + 32 * u < total) {
+            const int col = idx_s[p * rc + g];
+            dst[u] = (p * kce + kk) * stride + g;
+            val[u] = to_float(__ldg(v + (size_t)col * k + c0 + kk));
+            advance();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (dst[u] >= 0) stage[dst[u]] = val[u];
+      }
+    }
+    __syncwarp();
+    // 3. the in-order fold of this lane's column over the pass
+    if (lane < folders) {
+      const float* c = stage + lane * stride;
+      int j = 0;
+      for (; j + 4 <= rc; j += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(c + j);
+        acc += q.x;
+        acc += q.y;
+        acc += q.z;
+        acc += q.w;
+      }
+      for (; j < rc; ++j) acc += c[j];
+    }
+    __syncwarp();  // the next pass overwrites idx_s and stage
+  }
+  if (lane < folders) {
+    const int p = lane / kce, c = lane - p * kce;
+    store(out + (row0 + p) * k + c0 + c, acc * s[row0 + p]);
+  }
 }
 
 // Programmatic dependent launch: a kernel launched with
@@ -415,7 +596,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tm,
 //     reads 4 grids a row into registers at a time, and once it has read
 //     the second 4 it asks for the next chunk.
 //   Sums: V[idx[i, r], cols] for r = 0, 1, ..., R-1, in order, in float32
-//     registers, scaled by s[i] once, as z_matmul_kernel does.
+//     registers, scaled by s[i] once, as z_gather_kernel does.
 // Thread 0 reads vp only after grid_dependency_wait: the Gram product
 // launches this kernel as a programmatic dependent of its scatter.
 template <typename T, int KC, int M>
@@ -854,20 +1035,51 @@ cudaError_t launch_gram_kc(int l, const void* rows, const void* colptr,
 
 }  // namespace
 
-extern "C" int z_matmul_launch(const void* idx, const void* v, const void* s,
-                               void* out, int n, int r, int k, int v_is_bf16,
-                               void* stream) {
-  const long long total = (long long)n * k;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  if (v_is_bf16) {
-    z_matmul_kernel<__nv_bfloat16><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)idx, (const __nv_bfloat16*)v, (const float*)s,
-        (__nv_bfloat16*)out, n, r, k);
-  } else {
-    z_matmul_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)idx, (const float*)v, (const float*)s, (float*)out, n,
-        r, k);
+// y (n, k) = diag(s) Z v through the gather route, on the geometry of
+// ops.z_gather_plan. route 1: the register form, `warps` warps a block.
+// route 0: the staged form, kc columns and `rows` rows a warp, `warps`
+// warps a block, passes of `chunk` grids, staged columns of `stride`
+// floats (a multiple of 4, at least chunk). v (r*d_g, k) float32 or
+// bfloat16. Returns cudaErrorInvalidValue for a geometry the kernels do
+// not take.
+extern "C" int z_gather_launch(const void* idx, const void* v, const void* s,
+                               void* out, int n, int r, int k, int route,
+                               int kc, int rows, int warps, int chunk,
+                               int stride, int v_is_bf16, void* stream) {
+  if (n <= 0 || k <= 0) return (int)cudaGetLastError();
+  if (warps < 1 || warps > kGatherMaxWarps) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    const long long total = (long long)n * k;
+    const unsigned blocks =
+        (unsigned)((total + warps * 32 - 1) / (warps * 32));
+    if (v_is_bf16)
+      z_gather_rows_kernel<__nv_bfloat16><<<blocks, warps * 32, 0, st>>>(
+          (const int32_t*)idx, (const __nv_bfloat16*)v, (const float*)s,
+          (__nv_bfloat16*)out, n, r, k);
+    else
+      z_gather_rows_kernel<float><<<blocks, warps * 32, 0, st>>>(
+          (const int32_t*)idx, (const float*)v, (const float*)s,
+          (float*)out, n, r, k);
+    return (int)cudaGetLastError();
   }
+  const long long smem =
+      (long long)warps * (((rows * chunk + 3) & ~3) + rows * kc * stride) * 4;
+  if (route != 0 || r < 1 || kc < 1 || kc > k || rows < 1 ||
+      rows * kc > 32 || chunk < 1 || (rows > 1 && chunk < r) ||
+      stride < chunk || stride % 4 || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const long long items =
+      ((long long)(n + rows - 1) / rows) * ((k + kc - 1) / kc);
+  const unsigned blocks = (unsigned)((items + warps - 1) / warps);
+  if (v_is_bf16)
+    z_gather_kernel<__nv_bfloat16><<<blocks, warps * 32, (size_t)smem, st>>>(
+        (const int32_t*)idx, (const __nv_bfloat16*)v, (const float*)s,
+        (__nv_bfloat16*)out, n, r, k, kc, rows, chunk, stride, items);
+  else
+    z_gather_kernel<float><<<blocks, warps * 32, (size_t)smem, st>>>(
+        (const int32_t*)idx, (const float*)v, (const float*)s, (float*)out, n,
+        r, k, kc, rows, chunk, stride, items);
   return (int)cudaGetLastError();
 }
 

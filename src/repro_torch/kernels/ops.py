@@ -246,6 +246,122 @@ def z_strip_plan(n: int, r: int, d_g: int, k: int,
     return None
 
 
+#: Fewest outputs (rows · K) for which the gather route takes its register
+#: form (a thread per output, 32 grids in flight); below, the staged form
+#: (a warp per row, every gather in flight, the fold from shared memory).
+#: On the H100 SXM at R = 256 the staged form was faster up to 7,168
+#: outputs (1,024 × K 7; 4,096 × K 1) and the register form from 14,336
+#: (2,048 × K 7; PERF.md); 10,240 is where the staged form's time at K 7,
+#: interpolated linearly between 1,024 and 2,048 rows, meets the register
+#: form's (not measured there). At R ≤ 32 the register form holds every
+#: grid in flight anyway and takes every shape.
+Z_GATHER_ROWS_MIN_OUTPUTS = 10_240
+#: Grids a thread of the register form has in flight (csrc/ell_spmm.cu).
+_ROWS_AHEAD = 32
+#: Grids the staged form holds per pass at most (csrc/ell_spmm.cu): R =
+#: 256 is one pass while K ≤ 10.
+Z_GATHER_CHUNK = 256
+#: Shared memory one warp of the staged form may use: a block of at most
+#: four warps stays within the 48 KB a launch gets without an attribute
+#: (nothing to set before a CUDA graph capture).
+_GATHER_WARP_BYTES = 12 * 1024
+_GATHER_MAX_WARPS = 4
+#: The H100 SXM's streaming multiprocessors: the gather plan spreads a
+#: small batch over them. The plan is tuned for that card and right on any
+#: other (only its spread of a small batch depends on the count); a
+#: constant keeps it a function of the shape alone, which the CPU tests
+#: check and a graph capture needs no device query for.
+_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class ZGatherPlan:
+    """Launch geometry of the gather route (csrc/ell_spmm.cu,
+    ``z_gather_launch``). ``route`` 1 is the register form: a thread per
+    (row, column), ``warps`` warps a block. ``route`` 0 is the staged form:
+    a warp owns ``rows`` rows and a column group of ``kc`` columns
+    (``groups`` groups cover K); ``warps`` warps form a block; the grids go
+    in passes of ``chunk``, each staged column padded to ``stride`` floats.
+    ``smem`` bytes a block, ``blocks`` blocks."""
+
+    route: int
+    kc: int
+    groups: int
+    rows: int
+    warps: int
+    chunk: int
+    stride: int
+    smem: int
+    blocks: int
+
+
+def _gather_stride(chunk: int) -> int:
+    """Floats between two staged columns: ≥ chunk, 4 mod 8, so that the
+    16-byte reads of 8 lanes' columns meet no bank conflict."""
+    stride = -(-chunk // 4) * 4
+    return stride + 4 if stride // 4 % 2 == 0 else stride
+
+
+def _gather_warp_ints(rows: int, chunk: int, kc: int) -> int:
+    return -(-rows * chunk // 4) * 4 + rows * kc * _gather_stride(chunk)
+
+
+def _gather_warps(items: int) -> int:
+    """Warps a block: 4, unless that leaves fewer blocks than SMs."""
+    warps = _GATHER_MAX_WARPS
+    while warps > 1 and -(-items // warps) < _SMS:
+        warps //= 2
+    return warps
+
+
+def z_gather_plan(n: int, r: int, k: int, dtype: torch.dtype) -> ZGatherPlan:
+    """The gather route's geometry for y (n, k) = diag(s)·Z·v at R = r.
+
+    A function of the shape alone (V's dtype changes nothing), tuned for
+    the H100 SXM's 132 SMs and correct on any card. From ``Z_GATHER_ROWS_MIN_OUTPUTS`` outputs (n·k), or
+    at R ≤ 32, the register form: one thread per output, ``warps`` warps a
+    block. Otherwise the staged form: a warp folds at most 32 columns, so
+    K is cut into ``groups`` = ⌈K/32⌉ balanced column groups (each
+    re-gathers its rows' V entries, so fewer is better); the grids go in
+    the fewest passes of even length whose staged columns fit a warp's 12
+    KB beside its idx (at most 256 grids a pass: one pass at R = 256 for K
+    ≤ 10). ``rows`` is 1
+    unless a warp would otherwise issue fewer than about 8 gathers a lane
+    (R·kc small), and then no more than keeps ≥ 2 warps an SM. Blocks
+    have 4 warps unless that leaves fewer blocks than SMs: a 64-row batch
+    is 64 blocks of one warp. Every y[i, k] is summed by one thread in
+    grid order, whatever the plan."""
+    del dtype
+    if n < 1 or r < 1 or k < 1:
+        raise ValueError(f"no gather plan for n={n}, r={r}, k={k}")
+    if n * k >= Z_GATHER_ROWS_MIN_OUTPUTS or r <= _ROWS_AHEAD:
+        warps = _gather_warps(-(-n * k // 32))
+        return ZGatherPlan(route=1, kc=k, groups=1, rows=1, warps=warps,
+                           chunk=r, stride=r, smem=0,
+                           blocks=-(-n * k // (32 * warps)))
+    budget = _GATHER_WARP_BYTES // 4
+    groups = -(-k // 32)
+    kc = -(-k // groups)
+    chunk = min(r, Z_GATHER_CHUNK)
+    while _gather_warp_ints(1, chunk, kc) > budget:
+        chunk -= 4
+    passes = -(-r // chunk)
+    chunk = -(-r // passes)               # passes of even length
+    rows = 1
+    if r <= chunk:
+        while (rows * 2 * kc <= 32 and rows * 2 * r * kc <= 256
+               and _gather_warp_ints(rows * 2, chunk, kc) <= budget
+               and -(-n // (rows * 2)) * groups >= 2 * _SMS):
+            rows *= 2
+    items = -(-n // rows) * groups
+    warps = _gather_warps(items)
+    return ZGatherPlan(route=0, kc=kc, groups=groups, rows=rows,
+                       warps=warps, chunk=chunk,
+                       stride=_gather_stride(chunk),
+                       smem=warps * _gather_warp_ints(rows, chunk, kc) * 4,
+                       blocks=-(-items // warps))
+
+
 def _z_args(idx: torch.Tensor, v: torch.Tensor, rowscale: torch.Tensor,
             d_g: int) -> bool:
     """Check a z product's operands; True if they lie on the card."""
@@ -309,9 +425,14 @@ def z_matmul_gather(
     *,
     d_g: int,
 ) -> torch.Tensor:
-    """:func:`z_matmul` through the gather kernel (one thread per (row, k),
-    V rows gathered from L2), whatever the shape: the route of the shapes
-    the strip kernel does not take."""
+    """:func:`z_matmul` through the gather route, whatever the shape: the
+    route of the shapes the strip kernel does not take. :func:`z_gather_plan`
+    picks its form by shape: for large batches a thread per output with
+    32 grids in flight; for small ones a warp per row that stages every
+    gather in shared memory at once and folds each column in grid order.
+    Safe inside
+    a CUDA graph capture: the launch allocates nothing but ``out`` and sets
+    no attribute."""
     if not _z_args(idx, v, rowscale, d_g):
         return ref.z_matmul_ref(idx, v, rowscale)
     n, r = idx.shape
@@ -319,9 +440,13 @@ def z_matmul_gather(
     out = torch.empty((n, k), dtype=v.dtype, device=v.device)
     if n == 0 or k == 0:
         return out
-    _launch("ell_spmm", "z_matmul_launch", v,
+    if r == 0:                          # no grid: each y[i, k] is 0 · s[i]
+        return out.copy_((rowscale * 0.0)[:, None].expand(n, k))
+    p = z_gather_plan(n, r, k, v.dtype)
+    _launch("ell_spmm", "z_gather_launch", v,
             idx.data_ptr(), v.data_ptr(), rowscale.data_ptr(), out.data_ptr(),
-            n, r, k, int(v.dtype == torch.bfloat16))
+            n, r, k, p.route, p.kc, p.rows, p.warps, p.chunk, p.stride,
+            int(v.dtype == torch.bfloat16))
     LAUNCHES["z_matmul_gather"] += 1
     return out
 
@@ -451,9 +576,11 @@ def bin_counts(
     With ``out`` (an int32 (D,) tensor on ``idx``'s device) the counts are
     added into it and it is returned: a sweep over row chunks accumulates
     into one buffer. On CUDA, an integer histogram (``csrc/bin_counts.cu``:
-    per-block counters for a group of grids in shared memory, one global
-    atomic per nonzero counter); integer adds do not depend on their order,
-    so the counts are exact and the same on every run."""
+    per-block counters for a group of up to 32 grids in shared memory, each
+    lane of a warp on its own grid with 16 rows in flight, one global
+    atomic per nonzero counter); integer adds do not
+    depend on their order, so the counts are exact and the same on every
+    run."""
     _check_impl(impl)
     if out is not None and (out.dtype != torch.int32 or out.shape != (d,)):
         raise ValueError(f"out must be int32 ({d},), got {out.dtype} "

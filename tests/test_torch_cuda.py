@@ -129,7 +129,7 @@ def _strip_case(cuda, n, r, d_g, k, dtype, seed=0):
     rng = np.random.default_rng(seed)
     idx = _ell(seed, n, r, d_g)
     ends = np.where(np.arange(1000)[:, None] % 2 == 0, 0, d_g - 1)
-    idx[:1000] = ends + np.arange(r)[None, :] * d_g
+    idx[:1000] = (ends + np.arange(r)[None, :] * d_g)[:n]
     v = torch.from_numpy(rng.normal(size=(r * d_g, k)).astype(np.float32)
                          ).to(cuda, getattr(torch, dtype))
     s = torch.from_numpy((rng.uniform(size=n) + 0.5).astype(np.float32)
@@ -181,6 +181,87 @@ def test_cuda_z_matmul_gather_route(cuda, n, r, d_g):
     assert ops.launch_counts()["z_matmul_gather"] == 1
     _assert_sum_close(got, ref.z_matmul_ref(idx, v, s),
                       ref.z_matmul_ref(idx, v.abs(), s))
+
+
+def _host_fold(idx, v, s):
+    """y = diag(s)·Z·v as the kernels promise it, on the host: acc = 0, acc
+    += float32(v[idx[:, r]]) for r = 0 ... R-1 in order, then acc · s once,
+    rounded to V's dtype."""
+    idx, v, s = idx.cpu().long(), v.cpu(), s.cpu()
+    acc = torch.zeros((idx.shape[0], v.shape[1]), dtype=torch.float32)
+    for g in range(idx.shape[1]):
+        acc += v[idx[:, g]].float()
+    return (acc * s[:, None]).to(v.dtype)
+
+
+ENGINE_BUCKETS = (64, 256, 1_024, 4_096)   # ClusterEngine's default buckets
+
+
+@pytest.mark.parametrize("n", ENGINE_BUCKETS)
+@pytest.mark.parametrize("k", [1, 7, 11, 14, 40])
+@pytest.mark.parametrize("r", [5, 12, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_z_matmul_gather_is_the_in_order_fold(cuda, n, k, r, dtype):
+    """The gather kernel at the engine's buckets gives the bits of the
+    in-order float32 fold over the grids, scaled once (the promise the
+    strip kernel, the degrees and the engine's bit-identity rest on)."""
+    idx, v, s = _strip_case(cuda, n, r, 512, k, dtype, seed=n * k + r)
+    ops.reset_launch_counts()
+    got = ops.z_matmul_gather(idx, v, s, d_g=512)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["z_matmul_gather"] == 1
+    assert got.dtype == v.dtype and got.shape == (n, k)
+    assert torch.equal(got.cpu(), _host_fold(idx, v, s))
+
+
+@pytest.mark.parametrize("n,r,d_g,k", [
+    (131_071, 256, 2_048, 7),    # one row short of the strip route
+    (56_724, 256, 2_048, 11),    # a host-chunked fit's ragged last chunk
+    (4_096, 8, 16_384, 7),       # a strip too large for the strip route
+    (3_001, 600, 16, 3),         # R > 256: passes of 256 grids
+    (777, 1, 8, 40),             # one grid
+    (1_000, 36, 16, 1),          # staged, 2 rows a warp
+    (16_000, 40, 8, 1),          # staged, 4 rows a warp
+])
+def test_cuda_z_matmul_gather_in_order_fold_other_shapes(cuda, n, r, d_g, k):
+    idx, v, s = _strip_case(cuda, n, r, d_g, k, "float32", seed=n + r)
+    got = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _host_fold(idx, v, s))
+
+
+@pytest.mark.parametrize("n", [1_024, 4_096])
+@pytest.mark.parametrize("k", [1, 7, 11, 40])
+@pytest.mark.parametrize("form", ["staged", "register"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_z_matmul_gather_forms_give_the_fold(cuda, monkeypatch, n, k,
+                                                  form, aligned):
+    """Both forms of the gather route (``z_gather_plan``'s route, forced
+    here at 1,024 and 4,096 rows) on idx rows that are 16-byte aligned or
+    not (the idx loads then go 4 bytes at a time): the bits of the
+    in-order fold."""
+    r, d_g = 255 if not aligned else 256, 512
+    idx, v, s = _strip_case(cuda, n, r, d_g, k, "float32", seed=n + k)
+    monkeypatch.setattr(ops, "Z_GATHER_ROWS_MIN_OUTPUTS",
+                        0 if form == "register" else 1 << 62)
+    assert ops.z_gather_plan(n, r, k, torch.float32).route == (
+        form == "register")
+    got = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _host_fold(idx, v, s))
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_cuda_z_matmul_gather_equals_strip_at_full_width(cuda, k):
+    """At the fit's R and d_g, on a shape both routes take: the same bits
+    (the degrees' K = 1 and the projection's K = 7)."""
+    n, r, d_g = 131_072, 256, 2_048
+    assert ops.z_strip_plan(n, r, d_g, k, torch.float32) is not None
+    idx, v, s = _strip_case(cuda, n, r, d_g, k, "float32", seed=k)
+    strip = ops.z_matmul(idx, v, s, d_g=d_g)
+    gather = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(strip, gather)
 
 
 def test_cuda_z_matmul_rejects_v_off_the_strips(cuda):
@@ -570,6 +651,22 @@ def test_cuda_bin_counts_hot_bin_and_off_range(cuda):
     assert torch.equal(got, ref.bin_counts_ref(idx, r * d_g))
     assert int(got[3 * d_g + 7]) >= 150_000
     assert int(got.sum()) == n * r - 2
+
+
+def test_cuda_bin_counts_every_row_in_one_bin_per_grid(cuda):
+    """The hottest pattern: at the fit's R and d_g, every row of a grid in
+    one bin (each grid its own), so every lane of every warp meets on one
+    counter a grid."""
+    n, r, d_g = 200_001, 256, 2_048
+    hot = np.random.default_rng(3).integers(0, d_g, size=r)
+    idx = np.broadcast_to(hot + np.arange(r) * d_g, (n, r)).astype(np.int32)
+    idx = torch.from_numpy(np.ascontiguousarray(idx)).to(cuda)
+    got = ops.bin_counts(idx, d=r * d_g, d_g=d_g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.bin_counts_ref(idx, r * d_g))
+    want = torch.zeros(r * d_g, dtype=torch.int32)
+    want[torch.from_numpy(hot + np.arange(r) * d_g)] = n
+    assert torch.equal(got.cpu(), want)
 
 
 def test_cuda_bin_counts_repeat_two_streams_and_chunks(cuda):

@@ -350,6 +350,95 @@ def test_z_strip_plan_routes_by_shape(n, r, d_g, k, dtype, plan):
     assert ops.z_strip_plan(n, r, d_g, k, dtype) == plan
 
 
+ENGINE_BUCKETS = (64, 256, 1_024, 4_096)   # ClusterEngine's default buckets
+
+
+@pytest.mark.parametrize("n", ENGINE_BUCKETS + (56_724, 131_071))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_z_gather_plan_covers_the_shape_within_budget(n, dtype):
+    """For K 1..40 and R 1..256: every row and column has a thread, every
+    column of a staged warp a folding lane, the block's shared memory fits
+    the 48 KB a launch gets without an attribute, and the plan is the same
+    on every call (a function of the shape alone)."""
+    for k in range(1, 41):
+        for r in range(1, 257):
+            p = ops.z_gather_plan(n, r, k, dtype)
+            assert p == ops.z_gather_plan(n, r, k, dtype)
+            assert 1 <= p.warps <= 4
+            if n * k >= ops.Z_GATHER_ROWS_MIN_OUTPUTS or r <= 32:
+                # the register form: a thread per output
+                assert p.route == 1 and p.smem == 0
+                threads = p.blocks * p.warps * 32
+                assert threads - p.warps * 32 < n * k <= threads
+                continue
+            assert p.route == 0
+            assert p.groups == -(-k // 32)                 # fewest groups
+            assert (p.groups - 1) * p.kc < k <= p.groups * p.kc
+            assert 1 <= p.rows and p.rows * p.kc <= 32      # folding lanes
+            items = -(-n // p.rows) * p.groups
+            assert (p.blocks - 1) * p.warps < items <= p.blocks * p.warps
+            passes = -(-r // p.chunk)                   # even passes
+            assert p.chunk <= ops.Z_GATHER_CHUNK and p.chunk * passes >= r
+            assert p.chunk * (passes - 1) < r
+            assert p.rows == 1 or p.chunk == r           # one pass if rows > 1
+            assert p.stride >= p.chunk and p.stride % 8 == 4
+            per_warp = -(-p.rows * p.chunk // 4) * 4 + p.rows * p.kc * p.stride
+            assert p.smem == p.warps * per_warp * 4 <= 48 * 1024
+
+
+@pytest.mark.parametrize("n,r,k,want", [
+    (64, 256, 1, (0, 1, 1, 1, 64)),       # the degrees at the smallest bucket
+    (64, 256, 7, (0, 7, 1, 1, 64)),       # 64 rows spread over 64 SMs
+    (1_024, 256, 7, (0, 7, 1, 4, 256)),
+    (768, 256, 11, (0, 11, 1, 4, 192)),   # one group, passes of 128
+    (192, 256, 40, (0, 20, 1, 2, 192)),   # two column groups of 20
+    (1_000, 36, 1, (0, 1, 2, 2, 250)),    # few grids: 2 rows a warp
+    (1_000, 1_000, 3, (0, 3, 1, 4, 250)),  # R > 256: passes of 250 grids
+    (4_096, 256, 1, (0, 1, 1, 4, 1_024)),  # the top bucket's degrees
+    (4_096, 256, 7, (1, 7, 1, 4, 224)),   # its projection: register form
+    (2_048, 256, 7, (1, 7, 1, 2, 224)),   # past the forms' crossover
+    (56_724, 256, 11, (1, 11, 1, 4, 4_875)),  # a chunked fit's ragged chunk
+    (1, 1, 1, (1, 1, 1, 1, 1)),           # R ≤ 32: register form
+])
+def test_z_gather_plan_geometry(n, r, k, want):
+    p = ops.z_gather_plan(n, r, k, torch.float32)
+    assert (p.route, p.kc, p.rows, p.warps, p.blocks) == want
+
+
+def _gather_walk(lane, rows, rc, kce):
+    """The (row, grid, column) gathers lane ``lane`` issues in one pass of
+    the staged form (csrc/ell_spmm.cu, z_gather_kernel, step 2): element
+    e = (p·rc + g)·kce + kk for e = lane, lane + 32, ..., walked with the
+    kernel's own incremental steps."""
+    dk, dr = 32 % kce, 32 // kce
+    kk, g = lane % kce, lane // kce
+    p, g = divmod(g, rc)
+    out = []
+    for e in range(lane, rows * rc * kce, 32):
+        assert e == (p * rc + g) * kce + kk
+        out.append((p, g, kk))
+        kk, g = kk + dk, g + dr
+        if kk >= kce:
+            kk, g = kk - kce, g + 1
+        if g >= rc:
+            p, g = p + g // rc, g % rc
+    return out
+
+
+@pytest.mark.parametrize("rows,rc,kce", [(1, 256, 7), (1, 256, 1),
+                                         (1, 128, 11), (32, 5, 1),
+                                         (2, 12, 14), (1, 3, 32),
+                                         (16, 1, 2), (1, 37, 5),
+                                         (4, 9, 8), (1, 140, 20)])
+def test_z_gather_walk_issues_every_gather_once(rows, rc, kce):
+    """The staged form's lane walk (mirrored in Python) gathers each (row,
+    grid, column) of a pass exactly once."""
+    seen = [t for lane in range(32) for t in _gather_walk(lane, rows, rc,
+                                                           kce)]
+    assert sorted(seen) == [(p, g, kk) for p in range(rows)
+                            for g in range(rc) for kk in range(kce)]
+
+
 def test_wrappers_reject_bad_input():
     idx = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="impl"):

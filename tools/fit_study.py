@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Measurements of the port's device-resident covtype-shaped fit on one GPU.
+"""Measurements of the port's device-resident covtype-shaped fit, and of
+two of its kernels, on one GPU.
 
     python3 tools/fit_study.py ab --trees TREE [TREE ...] [--rounds 4] [--fits 6]
+    python3 tools/fit_study.py kernels --trees TREE [TREE ...] [--rounds 2]
+    python3 tools/fit_study.py gather-forms [--rounds 2]
     python3 tools/fit_study.py residuals
     python3 tools/fit_study.py obs [--pairs 6]
     python3 tools/fit_study.py lanczos-step
 
 ``chip_smoke.py`` gates the port; this script only measures, on the fit of
 its phase 3 (``SCRBModel.fit`` of the covtype-shaped synthetic data, N =
-581,012, d = 54, K = 7, R = 256, seed 0):
+581,012, d = 54, K = 7, R = 256, seed 0) and on the RB patterns of its
+phases 2 and 10 (that data, d_g 2,048; the poker-shaped data, N =
+1,025,010, d_g 512):
 
   ab            the fit from each TREE's own ``src/`` (a checkout of this
                 repo, for example a parent commit unpacked with ``git
@@ -18,6 +23,23 @@ its phase 3 (``SCRBModel.fit`` of the covtype-shaped synthetic data, N =
                 after a device synchronise, and StageTimer's stages). A
                 first untimed process per tree builds its kernels. Prints
                 the medians per tree and stage, and each process's median.
+  kernels       device ms (``chip_smoke.time_device``: launches queued
+                behind a spin kernel) of each TREE's ``ops.z_matmul_gather``
+                and ``ops.bin_counts``, one process per (round, tree) as in
+                ``ab``: the gather at the serving engine's buckets (64 to
+                4,096 rows of the covtype pattern) for K = 1 (the degrees)
+                and K = 7 (the projection), at one row and one grid (a
+                launch's floor) and on the host-chunked fits' ragged last
+                chunks (covtype 56,724 rows at K = 1 and 11, poker 107,506
+                at K = 14 and 32); ``bin_counts`` on the whole pattern, one
+                131,072-row chunk and poker's ragged chunk. Prints each
+                shape's bound (``chip_smoke.bound``) and medians per tree.
+  gather-forms  this tree's gather route in each of its forms (staged
+                through shared memory, or the register form:
+                ``ops.Z_GATHER_ROWS_MIN_OUTPUTS`` forced), in turns, at each
+                bucket for K = 1 and 7, between them (2,048 to 3,072 rows
+                at K = 7) and on the covtype ragged chunk; the forms'
+                outputs must be equal.
   residuals     the same fit with solver="lobpcg" and "lobpcg_host": the
                 largest leading-K relative residual of every iterate, and
                 the iterates at which it is within tol.
@@ -127,29 +149,41 @@ def child(src: str, fits: int) -> None:
                       "iterations": iters, "gc": gcs}), flush=True)
 
 
-def run_child(tree: Path, fits: int) -> dict:
+def run_child(tree: Path, *args: str) -> dict:
+    """One process of this script (mode ``args``) on ``tree``'s own
+    ``src/``: the JSON line it prints last."""
     out = subprocess.run(
-        [sys.executable, __file__, "child", "--src", str(tree / "src"),
-         "--fits", str(fits)], capture_output=True, text=True, timeout=900)
+        [sys.executable, __file__, *args, "--src", str(tree / "src")],
+        capture_output=True, text=True, timeout=900)
     if out.returncode:
-        sys.exit(f"the fits of {tree} failed:\n{out.stderr[-4000:]}")
+        sys.exit(f"the study of {tree} failed:\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def alternate(trees, rounds: int, args, show) -> dict:
+    """One process (``run_child(tree, *args)``) per (round, tree), the trees
+    in the order A B, B A, A B, ...; ``show(round, tree, result)`` as each
+    ends. Returns each tree's results."""
+    runs = {str(t): [] for t in trees}
+    for r in range(rounds):
+        for tree in (trees if r % 2 == 0 else trees[::-1]):
+            runs[str(tree)].append(run_child(tree, *args))
+            show(r, tree, runs[str(tree)][-1])
+    return runs
 
 
 def ab(trees, rounds: int, fits: int) -> None:
     for tree in trees:                  # builds the kernels, untimed
-        run_child(tree, 1)
-    runs = {str(t): [] for t in trees}
-    for r in range(rounds):
-        for tree in (trees if r % 2 == 0 else trees[::-1]):
-            runs[str(tree)].append(run_child(tree, fits))
-            last = runs[str(tree)][-1]
-            print(f"round {r} {tree}: fit median "
-                  f"{statistics.median(last['walls']):.4f}s "
-                  f"{[round(w, 4) for w in last['walls']]} iterations "
-                  f"{sorted(set(last['iterations']))}; gc ms "
-                  f"{[round(g['gc_ms'], 1) for g in last['gc']]}",
-                  flush=True)
+        run_child(tree, "child", "--fits", "1")
+
+    def show(r, tree, last):
+        print(f"round {r} {tree}: fit median "
+              f"{statistics.median(last['walls']):.4f}s "
+              f"{[round(w, 4) for w in last['walls']]} iterations "
+              f"{sorted(set(last['iterations']))}; gc ms "
+              f"{[round(g['gc_ms'], 1) for g in last['gc']]}", flush=True)
+
+    runs = alternate(trees, rounds, ("child", "--fits", str(fits)), show)
     for tree, procs in runs.items():
         walls = [w for p in procs for w in p["walls"]]
         stages = {}
@@ -163,6 +197,131 @@ def ab(trees, rounds: int, fits: int) -> None:
               " stage medians " + ", ".join(
                   f"{k} {statistics.median(v):.4f}"
                   for k, v in stages.items()), flush=True)
+
+
+BUCKETS = (64, 256, 1_024, 4_096)        # the serving engine's
+CHUNK = 131_072                          # the host-chunked fits' chunk
+
+
+def rb_pattern(spec):
+    """The RB idx (N, R) int32 on the card, d_g and D of the synthetic rows
+    of ``spec`` (a ``SuiteSpec``'s fields), as chip_smoke.py's phases 2 and
+    10 make them."""
+    import torch
+
+    from repro_torch.core import RBMap, SCRBConfig
+    from repro_torch.core.rb import suggest_sigma
+    from repro_torch.data.synthetic import SuiteSpec, generate
+    from repro_torch.kernels import ops
+
+    x, _ = generate(SuiteSpec(*spec), scale=1.0, seed=0)
+    cfg = SCRBConfig(n_clusters=spec[1], n_grids=N_GRIDS,
+                     sigma=suggest_sigma(x))
+    xd = torch.as_tensor(x, device="cuda")
+    p = RBMap(n_grids=N_GRIDS, sigma=cfg.sigma).fit(cfg.seed, xd).params
+    idx = ops.rb_binning(xd, p.widths, p.biases, p.hash_a, p.hash_c,
+                         d_g=p.d_g)
+    return idx, p.d_g, p.n_features
+
+
+def kernel_child(src: str) -> None:
+    """One process of ``kernels``: the device ms of the tree whose ``src/``
+    is ``src``, and each shape's bound, as one JSON line."""
+    sys.path[:0] = [src, str(ROOT)]
+    import torch
+
+    from chip_smoke import POKER, bound, gather_bound, time_device
+    from repro_torch.kernels import _build, ops
+    _build.build_all()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ms, bounds = {}, {}
+
+    def gather(name, ie, d_g, k):
+        ve = torch.randn((ie.shape[1] * d_g, k), generator=g, device="cuda")
+        se = torch.rand((ie.shape[0],), generator=g, device="cuda") + 0.5
+        ms[name] = time_device(
+            lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g), iters=100)[0]
+        bounds[name] = gather_bound(ie, k)[0]
+
+    def counts(name, ie, d_g, big_d):
+        ms[name] = time_device(
+            lambda: ops.bin_counts(ie, d=big_d, d_g=d_g))[0]
+        bounds[name] = bound(ie.numel() * 4 + big_d * 4, ie.numel())[0]
+
+    for spec in (COVTYPE, POKER):
+        idx, d_g, big_d = rb_pattern(spec)
+        n = idx.shape[0]
+        tag = f"{spec[0]} d_g {d_g}"
+        ragged = idx[n // CHUNK * CHUNK:]
+        if spec is COVTYPE:
+            for rows in BUCKETS:
+                for k in (1, 7):
+                    gather(f"{tag} gather {rows} x K {k}", idx[:rows], d_g, k)
+            gather(f"{tag} gather floor (1 row, 1 grid)",
+                   idx[:1, :1].contiguous(), d_g, 1)
+        for k in ((1, 11) if spec is COVTYPE else (14, 32)):
+            gather(f"{tag} gather ragged chunk {ragged.shape[0]} x K {k}",
+                   ragged, d_g, k)
+        counts(f"{tag} bin_counts whole", idx, d_g, big_d)
+        counts(f"{tag} bin_counts chunk", idx[:CHUNK], d_g, big_d)
+        counts(f"{tag} bin_counts ragged chunk {ragged.shape[0]}", ragged,
+               d_g, big_d)
+        del idx, ragged
+        torch.cuda.empty_cache()
+    print(json.dumps({"src": src, "ms": ms, "bound_ms": bounds}), flush=True)
+
+
+def kernels(trees, rounds: int) -> None:
+    def show(r, tree, last):
+        print(f"round {r} {tree}: " + json.dumps(
+            {k: round(x, 5) for k, x in last["ms"].items()}), flush=True)
+
+    runs = alternate(trees, rounds, ("kernel-child",), show)
+    first = next(iter(runs.values()))[0]
+    for name, b_ms in first["bound_ms"].items():
+        times = {tree: [p["ms"][name] for p in procs]
+                 for tree, procs in runs.items()}
+        print(f"{name} (bound {b_ms:.5f} ms): " + "; ".join(
+            f"{tree} median {statistics.median(t):.5f} ms "
+            f"{[round(x, 5) for x in t]}" for tree, t in times.items()),
+            flush=True)
+
+
+GATHER_FORMS = {"staged form": 1 << 62,   # ops.Z_GATHER_ROWS_MIN_OUTPUTS
+                "register form": 0}
+
+
+def gather_forms(rounds: int) -> None:
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import time_device
+    from repro_torch.kernels import ops
+    idx, d_g, big_d = rb_pattern(COVTYPE)
+    ragged = idx[idx.shape[0] // CHUNK * CHUNK:]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ([(idx[:n], k) for n in BUCKETS for k in (1, 7)]
+              + [(idx[:n], 7) for n in (2_048, 2_560, 3_072)]
+              + [(ragged, 1), (ragged, 11)])
+    times = {}
+    for _ in range(rounds):
+        for ie, k in shapes:
+            n = ie.shape[0]
+            ve = torch.randn((big_d, k), generator=g, device="cuda")
+            se = torch.rand((n,), generator=g, device="cuda") + 0.5
+            outs = []
+            for form, rows_min in GATHER_FORMS.items():
+                ops.Z_GATHER_ROWS_MIN_OUTPUTS = rows_min
+                outs.append(ops.z_matmul_gather(ie, ve, se, d_g=d_g))
+                times.setdefault((n, k, form), []).append(time_device(
+                    lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g),
+                    iters=100)[0])
+            if not all(torch.equal(o, outs[0]) for o in outs):
+                sys.exit(f"the gather forms differ at {n} x K {k}")
+    for (n, k, form), ms in times.items():
+        print(f"gather {n} x K {k} ({n * k} outputs), {form}: median "
+              f"{statistics.median(ms):.5f} ms {[round(t, 5) for t in ms]}",
+              flush=True)
 
 
 def residuals() -> None:
@@ -309,9 +468,16 @@ def main() -> None:
     p.add_argument("--trees", type=Path, nargs="+", required=True)
     p.add_argument("--rounds", type=int, default=4)
     p.add_argument("--fits", type=int, default=6)
+    p = sub.add_parser("kernels")
+    p.add_argument("--trees", type=Path, nargs="+", required=True)
+    p.add_argument("--rounds", type=int, default=2)
+    p = sub.add_parser("gather-forms")
+    p.add_argument("--rounds", type=int, default=2)
     p = sub.add_parser("child")
     p.add_argument("--src", required=True)
     p.add_argument("--fits", type=int, required=True)
+    p = sub.add_parser("kernel-child")
+    p.add_argument("--src", required=True)
     sub.add_parser("residuals")
     p = sub.add_parser("obs")
     p.add_argument("--pairs", type=int, default=6)
@@ -320,6 +486,9 @@ def main() -> None:
     if args.mode == "child":
         child(args.src, args.fits)
         return
+    if args.mode == "kernel-child":
+        kernel_child(args.src)
+        return
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
@@ -327,9 +496,13 @@ def main() -> None:
     if args.mode == "ab":
         ab([t.resolve() for t in args.trees], args.rounds, args.fits)
         return
+    if args.mode == "kernels":
+        kernels([t.resolve() for t in args.trees], args.rounds)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     {"residuals": residuals, "obs": lambda: obs(args.pairs),
-     "lanczos-step": lanczos_step}[args.mode]()
+     "lanczos-step": lanczos_step,
+     "gather-forms": lambda: gather_forms(args.rounds)}[args.mode]()
 
 
 if __name__ == "__main__":
