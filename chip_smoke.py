@@ -143,6 +143,41 @@ from a seed):
            the device µs of each kernel in it (torch.profiler: rb_binning,
            the two gathers, kmeans_assign) and the bucket's gather launches
 
+  phase 13 the partitioned fit (placement="partitioned", 4 partitions of
+           145,253 rows) at covtype's N: one worker, then a worker a
+           partition each on a CUDA stream of its own; labels and merged
+           singular values bit-identical between the two, their launch
+           counts equal to each other and to the sub-fits run one by one
+           plus a zt a partition (the merge) plus the labelling pass;
+           predict on the training rows the fit labels at 1.000000; save →
+           load → predict the same bits; the engine at one bucket equal to
+           model.predict; the card against the CPU on 24,000 rows (k-means++
+           drawn on the CPU for both) by ARI ≥ 0.99; a host-chunked
+           partitioned fit on the first 131,072 rows (2 partitions, chunks
+           of 32,768). Printed, not gated: stage seconds at each worker
+           count, the 4-worker fit's device idle share (phase 9's
+           profiler method), ARI against phase 3 and accuracy
+  phase 14 the mesh placement (SCRBModel.fit(..., mesh=...)) at covtype's
+           N: a spawned gloo world of 2 ranks sharing the card (290,506
+           rows a shard) fits fp32 twice, with a bf16 all_reduce payload and
+           with chunks of 131,072 rows within the shards; each shard's ELL
+           indices and the all_reduced (D,) counts equal to the single
+           card's bit for bit; one Gram product (local zt, all_reduce,
+           local z) within 1e-5 relative of the fused single-card product;
+           every fit's Ritz values within 1e-4 of phase 3's and its
+           embedding's span within a principal-angle sine of 1e-2; the
+           ranks' labels equal, a repeat fit's too, and ARI ≥ 0.99 against
+           the mesh's k-means run in one process over the same embedding;
+           predict(mesh=) equal to a one-process predict (the bf16 fit:
+           Ritz values within 2^-8, the payload's rounding, and its span
+           printed). Then a spawned NCCL world of 1: the Ritz and span
+           gates, and its labels against the gloo world's by ARI ≥ 0.99.
+           Printed: fit seconds, iterations, the all_reduce ms of the (D,
+           K) payload (two ranks on one card: not a scaling figure), ARI
+           against phase 3's labels (not gated: the mesh's k-means seeds
+           from a pool of 64 rows, and on data with no cluster gap k-means
+           settles by its seeds)
+
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
 entry point, holds its labels and distances against this tree's kernel and
@@ -157,7 +192,9 @@ and power limit, and the one before that the kernels' JSON record
 ``bin_counts`` and ``z_matmul_gather`` (the gather route of its ragged last
 chunk), per generate for the flash kernel; ``launches_compressive``:
 per device compressive fit of phase 10; ``launches_engine``: launched by
-the engine's graph replays in phase 12, which no wrapper counts).
+the engine's graph replays in phase 12, which no wrapper counts;
+``launches_partitioned``: per partitioned fit of phase 13;
+``launches_mesh``: per mesh fit of phase 14, on one of its two ranks).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -289,6 +326,40 @@ FLASH_TILE = 64            # keys per tile of the bf16 kernel
 # stablelm-12b's attention (configs/stablelm_12b.py: 32 heads, 8 KV heads,
 # head dim 160) at one request of 4,096 tokens: timed beside SDPA
 FLASH_HD160 = (1, 4_096, 4_096, 32, 8, 160)       # B S T H Hkv hd
+# phase 13: the partitioned fit at covtype's N (145,253 rows a partition:
+# each sub-fit on the strip route), one worker and then one a partition,
+# each worker on a CUDA stream of its own
+PART_N = 4
+PART_WORKERS = (1, 4)
+PART_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "gram_matmul",
+                "kmeans_assign", "kmeans_assign_stats")
+PART_CPU_ROWS = 24_000     # the card against the CPU, the same draws
+PART_CHUNKED_ROWS = 131_072   # the host-chunked partitioned fit's prefix
+PART_CHUNK = 32_768
+PART_CHUNKED_N = 2
+# chunks of 32,768 rows: every z product on the gather route
+PART_CHUNKED_KERNELS = ("rb_binning", "bin_counts", "zt_matmul",
+                        "z_matmul_gather", "kmeans_assign",
+                        "kmeans_assign_stats")
+PART_ARI = 0.99
+PART_ENGINE_BUCKET = 4_096
+# phase 14: the mesh placement, a gloo world of 2 ranks on the one card
+# (290,506 rows a shard) and an NCCL world of 1
+MESH_WORLD = 2
+MESH_CHUNK = 131_072
+MESH_KERNELS = ("rb_binning", "bin_counts", "zt_matmul", "z_matmul",
+                "kmeans_assign", "kmeans_assign_stats")
+MESH_GRAM_RTOL = 1e-5
+MESH_RITZ_ATOL = 1e-4
+# the bf16 payload rounds q by up to 2^-9 an entry: the operator moves by
+# ‖E‖ ≲ 2^-8 (‖Â‖ ≤ 1), so its Ritz values may move that far (Weyl), and
+# LOBPCG's residuals stall near that floor, above tol 1e-4
+MESH_BF16_RITZ_ATOL = 2.0 ** -8
+MESH_SINE = 1e-2
+MESH_ARI = 0.99
+MESH_PREDICT_ROWS = 100_000
+MESH_REDUCE_REPS = 20
+MESH_JOIN_S = 420.0
 
 
 def log(msg: str) -> None:
@@ -2642,6 +2713,502 @@ def engine_gather_buckets(idx, v, s, d_g: int) -> dict:
     return out
 
 
+def cpu_drawn_plusplus():
+    """A context in which k-means++ draws its seeds on the CPU (from a CPU
+    generator with the device generator's seed, over a host copy of the
+    rows) and hands them back on the rows' device: a fit on the card and
+    one on the CPU then start Lloyd from the same rows."""
+    import contextlib
+    import importlib
+
+    import torch
+
+    # the package re-exports a ``kmeans`` function over the module's name
+    km = importlib.import_module("repro_torch.core.kmeans")
+
+    @contextlib.contextmanager
+    def ctx():
+        orig, gens = km._plusplus_init, {}
+
+        def seeded(generator, x, k):
+            _, g = gens.setdefault(id(generator), (generator, torch.Generator(
+            ).manual_seed(generator.initial_seed())))
+            return orig(g, x.cpu(), k).to(x.device)
+
+        km._plusplus_init = seeded
+        try:
+            yield
+        finally:
+            km._plusplus_init = orig
+
+    return ctx()
+
+
+def phase13_partitioned(x_np, y_np, cfg, device_fit) -> dict:
+    """The divide-and-conquer fit (placement="partitioned") at covtype's N:
+    one worker, then a worker a partition on streams of their own; the
+    card's launches, predict, save/load, the engine, the card against the
+    CPU, and a host-chunked partitioned fit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        PartitionOptions, SCRBModel, executor, metrics, partitioned,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+
+    def pcfg(n_parts, workers, **fields):
+        return dataclasses.replace(cfg, **fields, partition=PartitionOptions(
+            n_partitions=n_parts, workers=workers))
+
+    fits = {}
+    for w in PART_WORKERS:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = SCRBModel.fit(x_np, pcfg(PART_N, w))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        res = model.fit_result
+        d = res.diagnostics["partitioned"]
+        fits[w] = (model, counts)
+        log(f"[phase 13] partitioned fit, {PART_N} partitions of "
+            f"{d['partition_rows']} rows, workers={d['workers']}: "
+            f"{wall:.3f}s; stages (s): " + ", ".join(
+                f"{k}={v:.3f}" for k, v in res.timer.times.items())
+            + f"; sub-fits (s) "
+            f"{[round(t, 3) for t in d['partition_fit_s']]}; LOBPCG "
+            f"iterations ≤ {res.diagnostics['solver_iterations']}; merged "
+            f"singular values {[float(f'{v:.5f}') for v in res.singular_values]}")
+        log(f"[phase 13] launches (workers={w}): {counts}")
+        missing = [k for k in PART_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"the partitioned fit (workers={w}) launched no {missing}")
+    (m1, c1), (m4, c4) = fits[1], fits[4]
+    r1, r4 = m1.fit_result, m4.fit_result
+    same = bool(np.array_equal(r1.labels, r4.labels)
+                and np.array_equal(r1.singular_values, r4.singular_values))
+    log(f"[phase 13] workers 1 and {PART_WORKERS[1]}: labels and merged "
+        f"singular values bit-identical = {same}; launch counts equal = "
+        f"{c1 == c4}")
+    if not same:
+        fail("the partitioned fit's labels or merged singular values differ "
+             "between one worker and a stream a partition")
+    if c1 != c4:
+        fail(f"launch counts differ between the workers: {c1} and {c4}")
+
+    # predict on the training rows: the labelling pass's launches
+    ops.reset_launch_counts()
+    pred = m1.predict(x_np)
+    label_counts = ops.launch_counts()
+    agree = float(np.mean(pred == r1.labels))
+    log(f"[phase 13] predict on the training rows agrees with the fit "
+        f"labels at {agree:.6f}")
+    if agree != 1.0:
+        fail(f"predict on the training rows gives the fit labels at "
+             f"{agree:.6f}, not 1")
+    # the launches, counted from the sub-fits run one by one
+    parts = partitioned.partition_rows(x_np, PART_N, shuffle=True,
+                                       seed=cfg.seed)
+    sub_cfg = dataclasses.replace(cfg, partition=None)
+    sub_plan = executor.ExecutionPlan(feature_map=m1.feature_map)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    for part in parts:
+        ops.reset_launch_counts()
+        partitioned._fit_partition(part, sub_cfg, sub_plan,
+                                   torch.device("cuda"))
+        for k, v in ops.launch_counts().items():
+            want[k] += v
+    want["zt_matmul"] += PART_N     # the merge: one-hot rmatvec a partition
+    for k, v in label_counts.items():
+        want[k] += v                # the labelling pass
+    log(f"[phase 13] sub-fits one by one + a zt a partition + the "
+        f"labelling pass: {want}")
+    if c4 != want:
+        fail(f"the {PART_WORKERS[1]}-worker fit counted {c4} launches, the "
+             f"sub-fits, merge and labelling {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "partitioned.npz")
+        m1.save(path)
+        loaded = SCRBModel.load(path)
+        same = bool(np.array_equal(loaded.predict(x_np), pred))
+        log(f"[phase 13] save -> load -> predict bit-identical = {same}")
+        if not same:
+            fail("the loaded partitioned model predicts other labels")
+    eng = ClusterEngine(EngineConfig(buckets=(PART_ENGINE_BUCKET,)))
+    eng.load_model("partitioned", m1)
+    rows = x_np[:PART_ENGINE_BUCKET]
+    same = bool(np.array_equal(eng.predict("partitioned", rows),
+                               m1.predict(rows)))
+    log(f"[phase 13] engine at bucket {PART_ENGINE_BUCKET}: labels equal "
+        f"to model.predict = {same}")
+    if not same:
+        fail("the engine serves the partitioned model other labels")
+    del eng
+
+    busy = device_busy(lambda: SCRBModel.fit(x_np, pcfg(PART_N,
+                                                         PART_WORKERS[1])))
+    log(f"[phase 13] {PART_WORKERS[1]}-worker fit: device busy "
+        f"{busy['busy_us'] / 1e3:.1f} ms of {busy['wall_us'] / 1e3:.1f} ms "
+        f"wall (idle share {1 - busy['busy_us'] / busy['wall_us']:.3f}, "
+        f"{busy['device_events']} device events)")
+
+    ari3 = metrics.adjusted_rand_index(r1.labels, device_fit["labels"])
+    log(f"[phase 13] against phase 3's single fit: ARI {ari3:.4f}; "
+        f"accuracy against the planted labels {metrics.accuracy(r1.labels, y_np):.4f}"
+        f" (phase 3: {metrics.accuracy(device_fit['labels'], y_np):.4f}); "
+        "not gated: the merge approximates the global solve")
+
+    # the card against the CPU, the same draws
+    xs = x_np[:PART_CPU_ROWS]
+    with cpu_drawn_plusplus():
+        t0 = time.perf_counter()
+        card = executor.execute(xs, pcfg(PART_N, 1), device="cuda")
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = executor.execute(xs, pcfg(PART_N, 1), device="cpu")
+        t_cpu = time.perf_counter() - t0
+    ari = metrics.adjusted_rand_index(card.labels, cpu.labels)
+    sig_rel = float(np.max(np.abs(card.singular_values - cpu.singular_values)
+                           / cpu.singular_values))
+    log(f"[phase 13] {PART_CPU_ROWS} rows, card {t_card:.2f}s against the "
+        f"CPU {t_cpu:.2f}s (k-means++ drawn on the CPU for both): ARI "
+        f"{ari:.4f}, merged singular values within {sig_rel:.3g} relative")
+    if ari < PART_ARI:
+        fail(f"the partitioned fit on the card agrees with the CPU's at ARI "
+             f"{ari:.4f} < {PART_ARI}")
+
+    # host-chunked partitions on a prefix
+    xc = x_np[:PART_CHUNKED_ROWS]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunked = SCRBModel.fit(xc, pcfg(PART_CHUNKED_N, 1,
+                                     chunk_size=PART_CHUNK))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    res = chunked.fit_result
+    log(f"[phase 13] host-chunked partitioned fit, {PART_CHUNKED_N} "
+        f"partitions of the first {PART_CHUNKED_ROWS} rows in chunks of "
+        f"{PART_CHUNK}: {wall:.2f}s ({res.diagnostics['n_chunks']} chunks); "
+        "stages (s): " + ", ".join(f"{k}={v:.3f}"
+                                   for k, v in res.timer.times.items())
+        + f"; launches {counts}")
+    missing = [k for k in PART_CHUNKED_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"the host-chunked partitioned fit launched no {missing}")
+    if res.diagnostics["plan"]["residency"] != "host_chunked":
+        fail("the chunked partitioned fit did not run host-chunked")
+    agree = float(np.mean(chunked.predict(xc) == res.labels))
+    log(f"[phase 13] its predict on the training rows agrees at {agree:.6f}")
+    if agree != 1.0:
+        fail(f"the host-chunked partitioned model predicts its fit labels "
+             f"at {agree:.6f}")
+    if not (np.all(np.isfinite(r1.singular_values))
+            and r1.labels.shape == (x_np.shape[0],)):
+        fail("malformed partitioned fit")
+    return {"launches": c1, "model": m1}
+
+
+MESH_FITS = (("fp32", None, False), ("fp32 again", None, False),
+             ("bf16", None, True), ("chunked", MESH_CHUNK, False))
+MESH_U_SEED = 14
+
+
+def require_built() -> None:
+    """A spawned rank loads the libraries phase 1 built, never builds."""
+    from repro_torch.kernels import _build
+    missing = [n for n in _build.LIBRARIES
+               if not _build.library_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"kernels {missing} are not built")
+
+
+def mesh_fit(x, cfg, mesh, chunk, compress):
+    """One mesh fit on this rank: (model, host seconds, launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import SCRBModel, executor
+    from repro_torch.kernels import ops
+
+    c = dataclasses.replace(cfg, chunk_size=chunk)
+    plan = dataclasses.replace(executor.plan_from_config(c, mesh=mesh),
+                               collective_compress=compress)
+    dist.barrier()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = SCRBModel.fit(x, c, plan=plan)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, ops.launch_counts()
+
+
+def fit_summary(model, wall: float, counts: dict) -> dict:
+    res = model.fit_result
+    d = res.diagnostics
+    return {"labels": res.labels, "sig": res.singular_values,
+            "iterations": d["solver_iterations"],
+            "resmax": float(max(d["solver_resnorms"])), "wall": wall,
+            "stages": dict(res.timer.times), "counts": counts,
+            "plan": d["plan"], "kmeans_chunk_rows": d["kmeans_chunk_rows"],
+            "shard_rows": d["shard_rows"]}
+
+
+def mesh_rank(tmp: str, cfg_dict: dict) -> dict:
+    """Phase 14 on one rank of the gloo world on the one card: the mesh fits
+    (fp32 twice, bf16 payload, chunks within the shard), predict with the
+    mesh, this shard's ELL pattern, counts and one Gram product, and the
+    all_reduce of the (D, K) payload."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import SCRBConfig
+    from repro_torch.core.distributed import make_degree_pass, make_gram_matvec
+    from repro_torch.launch import mesh as lm
+    from repro_torch.utils import make_generator
+
+    require_built()
+    x = np.load(Path(tmp) / "x.npy")
+    cfg = SCRBConfig.from_dict(cfg_dict)
+    mesh = lm.make_host_mesh()
+    rank = lm.data_rank(mesh)
+    out = {"rank": rank, "backend": dist.get_backend(), "fits": {}}
+    for i, (tag, chunk, compress) in enumerate(MESH_FITS):
+        model, wall, counts = mesh_fit(x, cfg, mesh, chunk, compress)
+        out["fits"][tag] = fit_summary(model, wall, counts)
+        if rank == 0:
+            np.save(Path(tmp) / f"emb{i}.npy", model.fit_result.embedding)
+        if i == 0:
+            first = model
+    rows = x[:MESH_PREDICT_ROWS]
+    out["predict_equal"] = bool(np.array_equal(
+        first.predict(rows, mesh=mesh), first.predict(rows)))
+
+    n = x.shape[0]
+    lo, m = lm.data_rank(mesh) * n // lm.data_shards(mesh), \
+        n // lm.data_shards(mesh)
+    fm = first.feature_map
+    idx = fm.transform(torch.as_tensor(x[lo:lo + m], device="cuda"))
+    out["idx_sha"] = hashlib.sha256(idx.cpu().numpy().tobytes()).hexdigest()
+    deg, counts = make_degree_pass(mesh, idx, fm.n_features, fm.d_g)()
+    out["counts"] = counts.cpu().numpy()
+    scale = 1.0 / torch.sqrt(float(fm.n_grids) * torch.clamp_min(deg, 1e-8))
+    u = torch.randn((n, EIG_BLOCK), generator=make_generator(MESH_U_SEED))
+    gram = make_gram_matvec(mesh, idx, scale, fm.n_features, fm.d_g)
+    out["gram"] = gram(u[lo:lo + m].to("cuda")).cpu().numpy()
+
+    group = lm.data_group(mesh)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.ones((fm.n_features, EIG_BLOCK), dtype=dtype, device="cuda")
+        for _ in range(3):
+            dist.all_reduce(q, group=group)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_REDUCE_REPS):
+            dist.all_reduce(q, group=group)
+        torch.cuda.synchronize()
+        out[f"all_reduce_ms_{str(dtype)[6:]}"] = \
+            (time.perf_counter() - t0) * 1e3 / MESH_REDUCE_REPS
+    return out
+
+
+def nccl_rank(tmp: str, cfg_dict: dict, n_embeddings: int) -> dict:
+    """Phase 14 in an NCCL world of 1: the mesh fit, and the mesh's k-means
+    run in one process over each embedding the other fits saved."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import SCRBConfig
+    from repro_torch.core.distributed import distributed_kmeans
+    from repro_torch.launch import mesh as lm
+    from repro_torch.utils import fold_seed
+
+    require_built()
+    x = np.load(Path(tmp) / "x.npy")
+    cfg = SCRBConfig.from_dict(cfg_dict)
+    mesh = lm.make_host_mesh()
+    model, wall, counts = mesh_fit(x, cfg, mesh, None, False)
+    out = {"backend": dist.get_backend(), "fit": fit_summary(model, wall,
+                                                             counts),
+           "embedding": model.fit_result.embedding, "kmeans": []}
+    names = ["emb3.npy"] + [f"emb{i}.npy" for i in range(n_embeddings)]
+    for name in names:
+        u = torch.as_tensor(np.load(Path(tmp) / name), device="cuda")
+        res, _ = distributed_kmeans(
+            fold_seed(cfg.seed, "kmeans"), u, cfg.n_clusters, mesh,
+            n=u.shape[0], n_iters=cfg.kmeans_iters,
+            n_replicates=cfg.kmeans_replicates)
+        out["kmeans"].append(res.labels.numpy())
+    return out
+
+
+def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
+    """The mesh placement at covtype's N: a gloo world of 2 ranks sharing
+    the one card (290,506 rows a shard), then an NCCL world of 1; held
+    against phase 3's single fit and the single card's kernels."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import graph, metrics
+    from repro_torch.kernels import ops
+    from repro_torch.launch.world import run_world
+    from repro_torch.utils import make_generator
+
+    n = x_np.shape[0]
+    rows = n // MESH_WORLD
+    theta3 = np.asarray(device_fit["singular_values"], np.float64) ** 2
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "x.npy", x_np)
+        np.save(Path(tmp) / "emb3.npy", device_fit["embedding"])
+        # the single card: the fit's ELL pattern, its exact counts, and the
+        # fused Gram product with the row scales of those counts' degrees
+        idx = fm3.transform(torch.as_tensor(x_np, device="cuda"))
+        digests = [hashlib.sha256(idx[i * rows:(i + 1) * rows].cpu().numpy()
+                                  .tobytes()).hexdigest()
+                   for i in range(MESH_WORLD)]
+        counts = ops.bin_counts(idx, d=fm3.n_features, d_g=fm3.d_g)
+        deg = graph.degrees_from_counts(idx, counts)
+        scale = 1.0 / torch.sqrt(float(fm3.n_grids)
+                                 * torch.clamp_min(deg, 1e-8))
+        u = torch.randn((n, EIG_BLOCK), generator=make_generator(MESH_U_SEED))
+        want = ops.gram_matmul(idx, u.to("cuda"), scale, fm3.n_features,
+                               d_g=fm3.d_g).cpu().numpy()
+        counts = counts.cpu().numpy()
+        del idx, deg, scale, u
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = run_world(mesh_rank, MESH_WORLD, backend="gloo",
+                          device="cuda:0", args=(tmp, cfg.to_dict()),
+                          timeout_s=60.0, join_timeout_s=MESH_JOIN_S)
+        t_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl, = run_world(nccl_rank, 1, backend="nccl", device="cuda",
+                          args=(tmp, cfg.to_dict(), len(MESH_FITS)),
+                          timeout_s=60.0, join_timeout_s=MESH_JOIN_S)
+        t_nccl = time.perf_counter() - t0
+        embs = [np.load(Path(tmp) / f"emb{i}.npy")
+                for i in range(len(MESH_FITS))]
+    log(f"[phase 14] gloo world of {MESH_WORLD} on one card: {t_gloo:.1f}s "
+        f"(spawn included); NCCL world of 1: {t_nccl:.1f}s")
+    r0 = ranks[0]
+    if [r["rank"] for r in ranks] != list(range(MESH_WORLD)) or \
+            r0["backend"] != "gloo" or nccl["backend"] != "nccl":
+        fail("the worlds are not the ones asked for")
+
+    same_ell = all(r["idx_sha"] == digests[r["rank"]] for r in ranks)
+    same_counts = all(np.array_equal(r["counts"], counts) for r in ranks)
+    got = np.concatenate([r["gram"] for r in ranks])
+    gram_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[phase 14] each shard's ELL indices equal to the single fit's rows "
+        f"= {same_ell}; the (D,) counts after all_reduce equal to the "
+        f"single card's bin_counts = {same_counts}; one Gram product "
+        f"(local zt, all_reduce, local z) within {gram_rel:.3g} relative of "
+        "the fused single-card product")
+    if not (same_ell and same_counts):
+        fail("the mesh's ELL pattern or counts differ from the single fit's")
+    if gram_rel > MESH_GRAM_RTOL:
+        fail(f"the mesh's Gram product is {gram_rel:.3g} off the fused "
+             f"product (limit {MESH_GRAM_RTOL:g} relative)")
+
+    def hold(tag, fit, emb, one_process_labels, bf16=False):
+        theta = np.asarray(fit["sig"], np.float64) ** 2
+        ritz = float(np.max(np.abs(theta - theta3)))
+        k = theta.shape[0]
+        sine = float(max(0.0, 1.0 - min(subspace_cosine(
+            emb[:, :k], device_fit["embedding"][:, :k]), 1.0) ** 2) ** 0.5)
+        ari3 = metrics.adjusted_rand_index(fit["labels"],
+                                           device_fit["labels"])
+        ari1 = metrics.adjusted_rand_index(fit["labels"], one_process_labels)
+        log(f"[phase 14] {tag}: fit {fit['wall']:.2f}s, stages (s) "
+            + ", ".join(f"{s}={v:.3f}" for s, v in fit["stages"].items())
+            + f"; {fit['iterations']} iterations (phase 3: "
+            f"{device_fit['iterations']}), resnorm max {fit['resmax']:.3g}; "
+            f"Ritz values within {ritz:.3g} of phase 3's; sine of the "
+            f"embedding's largest principal angle to phase 3's {sine:.3g}; "
+            f"labels ARI {ari1:.4f} against the same k-means in one "
+            f"process, {ari3:.4f} against phase 3's; kmeans_chunk_rows "
+            f"{fit['kmeans_chunk_rows']}, shard rows {fit['shard_rows']}")
+        limit = MESH_BF16_RITZ_ATOL if bf16 else MESH_RITZ_ATOL
+        if ritz > limit:
+            fail(f"{tag}: Ritz values {ritz:.3g} off phase 3's (limit "
+                 f"{limit:g})")
+        if sine > MESH_SINE and not bf16:
+            fail(f"{tag}: the embedding is {sine:.3g} off phase 3's span")
+        if ari1 < MESH_ARI:
+            fail(f"{tag}: labels agree with the same k-means in one process "
+                 f"at ARI {ari1:.4f} < {MESH_ARI}")
+        if fit["labels"].shape != (n,):
+            fail(f"{tag}: labels of shape {fit['labels'].shape}")
+        return ari3
+
+    for i, (tag, chunk, compress) in enumerate(MESH_FITS):
+        fits = [r["fits"][tag] for r in ranks]
+        if not all(np.array_equal(f["labels"], fits[0]["labels"])
+                   for f in fits):
+            fail(f"{tag}: the ranks' labels differ")
+        hold(f"gloo x{MESH_WORLD} {tag}", fits[0], embs[i],
+             nccl["kmeans"][1 + i], bf16=compress)
+        if fits[0]["kmeans_chunk_rows"] != (chunk or rows):
+            fail(f"{tag}: k-means swept {fits[0]['kmeans_chunk_rows']} rows "
+                 f"at a time, not {chunk or rows}")
+    again = np.array_equal(r0["fits"]["fp32"]["labels"],
+                           r0["fits"]["fp32 again"]["labels"])
+    log(f"[phase 14] a repeat fit gives the same labels = {again}; "
+        f"predict(mesh=) on {MESH_PREDICT_ROWS} rows equal to a one-process "
+        f"predict = {all(r['predict_equal'] for r in ranks)}")
+    if not again:
+        fail("two mesh fits gave different labels")
+    if not all(r["predict_equal"] for r in ranks):
+        fail("predict(mesh=) differs from predict()")
+    ari_pool3 = metrics.adjusted_rand_index(nccl["kmeans"][0],
+                                            device_fit["labels"])
+    log(f"[phase 14] the mesh's k-means (a pool of 64 rows seeds k-means++) "
+        f"over phase 3's own embedding agrees with phase 3's labels at ARI "
+        f"{ari_pool3:.4f}: the covtype-shaped data has no cluster gap, so "
+        "k-means settles by its seeds")
+    hold("nccl x1", nccl["fit"], nccl["embedding"], nccl["fit"]["labels"])
+    ari_worlds = metrics.adjusted_rand_index(nccl["fit"]["labels"],
+                                             r0["fits"]["fp32"]["labels"])
+    log(f"[phase 14] nccl x1 against gloo x{MESH_WORLD} fp32: ARI "
+        f"{ari_worlds:.4f}")
+    if ari_worlds < MESH_ARI:
+        fail(f"the NCCL world's labels agree with the gloo world's at ARI "
+             f"{ari_worlds:.4f} < {MESH_ARI}")
+
+    counts0 = r0["fits"]["fp32"]["counts"]
+    log(f"[phase 14] launches a mesh fit (rank 0 of {MESH_WORLD}): "
+        f"{counts0}")
+    missing = [k for k in MESH_KERNELS if counts0[k] <= 0]
+    if missing:
+        fail(f"the mesh fit launched no {missing}")
+    if counts0["gram_matmul"]:
+        fail("a mesh Gram product took the fused kernel, which cannot sum "
+             "q over the ranks")
+    it = r0["fits"]["fp32"]["iterations"]
+    log(f"[phase 14] all_reduce of the (D, K) = ({counts.shape[0]}, "
+        f"{EIG_BLOCK}) payload, two ranks sharing one card over gloo: "
+        f"{r0['all_reduce_ms_float32']:.2f} ms float32 "
+        f"({counts.shape[0] * EIG_BLOCK * 4 / 1e6:.1f} MB), "
+        f"{r0['all_reduce_ms_bfloat16']:.2f} ms bf16 "
+        f"({counts.shape[0] * EIG_BLOCK * 2 / 1e6:.1f} MB); ~{it + it // 16 + 2}"
+        " Gram products a fit. Not a scaling figure: both ranks share the "
+        "card and the host")
+    return {"launches": counts0}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2726,7 +3293,6 @@ def main() -> None:
 
     t0 = time.perf_counter()
     phase9_solvers(x_np, cfg, device_fit)
-    del device_fit
     torch.cuda.empty_cache()
     log(f"[phase 9] {time.perf_counter() - t0:.1f}s")
 
@@ -2760,10 +3326,27 @@ def main() -> None:
     if unlisted:
         fail(f"the engine replayed {unlisted}, which no kernels row holds")
     log(f"[phase 12] {time.perf_counter() - t0:.1f}s")
+    del engine, base
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    part = phase13_partitioned(x_np, y_np, cfg, device_fit)
+    for row in kernels:          # launches per partitioned covtype fit
+        row["launches_partitioned"] = part["launches"][row["name"]]
+    del part
+    torch.cuda.empty_cache()
+    log(f"[phase 13] {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    mesh = phase14_mesh(x_np, cfg, device_fit, model.feature_map)
+    for row in kernels:          # launches per mesh fit, on one rank
+        row["launches_mesh"] = mesh["launches"][row["name"]]
+    log(f"[phase 14] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_compressive", "launches_engine", "max_abs_err", "ms",
+            "launches_compressive", "launches_engine",
+            "launches_partitioned", "launches_mesh", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))

@@ -1,7 +1,7 @@
 """SC_RB (scalable spectral clustering with Random Binning features) in
 PyTorch, with hand-written CUDA kernels for the card.
 
-Public API (the names of ``repro.core``, as far as they are ported):
+Public API (the names of ``repro.core``):
   - ``SCRBModel``                                    fit / transform /
     predict / save / load
   - ``SCRBConfig`` / ``sc_rb`` / ``spectral_embed``  Alg. 2, one-shot
@@ -17,19 +17,23 @@ Public API (the names of ``repro.core``, as far as they are ported):
   - ``compressive``                                  the eigendecomposition-
     free cell (``solver="compressive"``, ``"auto"`` at N ≥ 10⁶)
   - ``ChunkedDense`` / ``ChunkedELL`` / ...          host-chunked storage
+  - ``DeviceRows`` / ``HostChunkedRows`` /
+    ``MeshRows`` / ``PartitionedRows``               the executor's row
+    representations (single, mesh and partitioned placements)
   - ``kmeans`` / ``row_normalize``                   final stage
   - ``metrics``                                      Table 2 metrics
 """
 from repro_torch.core.rb import (  # noqa: F401
     RBParams, make_rb_params, rb_transform, suggest_d_g, suggest_sigma,
+    laplacian_kernel, gaussian_kernel, expected_nonempty_bins,
 )
 from repro_torch.core.graph import (  # noqa: F401
     NormalizedAdjacency, build_normalized_adjacency, degrees_from_counts,
-    rb_degrees_and_counts,
+    rb_degrees, rb_degrees_and_counts, rb_degrees_exact,
 )
 from repro_torch.core.streaming import (  # noqa: F401
     ChunkedDense, ChunkedELL, as_row_chunks, build_chunked_adjacency,
-    chunked_degrees, chunked_rb_transform,
+    chunked_degrees, chunked_rb_transform, chunked_gram_matvec,
 )
 from repro_torch.core.eigensolver import (  # noqa: F401
     EigResult, lobpcg, lobpcg_host_chunked, lanczos, subspace_iteration,
@@ -55,7 +59,7 @@ from repro_torch.core.rff import (  # noqa: F401
 )
 from repro_torch.core.nystrom import pairwise_kernel  # noqa: F401
 from repro_torch.core.rowmatrix import (  # noqa: F401
-    DeviceRows, FittedFeatures, HostChunkedRows,
+    DeviceRows, FittedFeatures, HostChunkedRows, MeshRows, PartitionedRows,
 )
 from repro_torch.core.model import SCRBModel  # noqa: F401
 from repro_torch.core.pipeline import (  # noqa: F401

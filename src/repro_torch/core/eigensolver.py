@@ -16,6 +16,10 @@ JAX package solves in host float64 stay host float64 here.
     block iterates live as host row chunks (``streaming.ChunkedDense``),
     only the Gram product touches the device (one chunk at a time), and
     the (3b, 3b) Rayleigh–Ritz algebra runs in host float64 with numpy.
+  - ``lobpcg_sharded``: the mesh placement's solver; the same algorithm
+    on this rank's row shard, on the device, its tall inner products
+    float64 Grams summed over the ranks (Cholesky-QR in place of the
+    tall QR, which cannot be split).
   - ``lanczos``: single-vector Lanczos with full reorthogonalisation (the
     paper's "svds" stand-in), ``subspace_iteration`` (block power method):
     the comparison baselines.
@@ -518,6 +522,196 @@ def lobpcg_host_chunked(
                      vectors,
                      torch.as_tensor(res_final[order], dtype=torch.float32),
                      it)
+
+
+# --------------------------------------------------------------------------
+# Sharded LOBPCG: the mesh placement's solver. Each rank holds its row
+# shard of every block on its device; the tall inner products are local
+# float64 Grams summed over the ranks, the (3b, 3b) algebra is that of
+# lobpcg_host_chunked, in host float64, the same on every rank.
+# --------------------------------------------------------------------------
+
+def lobpcg_sharded(
+    matvec: Matvec,
+    x0: torch.Tensor,
+    *,
+    reduce: Callable[[torch.Tensor], torch.Tensor],
+    max_iters: int = 200,
+    tol: float = 1e-5,
+    precond: Optional[torch.Tensor] = None,
+    stable_tol: Optional[float] = None,
+    stable_k: Optional[int] = None,
+    check_every: int = 4,
+    conv_k: Optional[int] = None,
+) -> EigResult:
+    """LOBPCG on a row-sharded operator: :func:`lobpcg_host_chunked`'s
+    algorithm with this rank's shard of the rows as its one chunk, on the
+    device.
+
+    ``x0`` and ``precond`` are this rank's rows of the start block and of
+    the diagonal; ``matvec`` maps this rank's rows of u to its rows of Âu
+    (the collective is inside it). ``reduce`` sums a float64 tensor over
+    the ranks (an ``all_reduce``). Every tall inner product is a local
+    float64 Gram on the device, summed by ``reduce`` — the [X|W|P] Grams
+    of an iteration in one call — so every rank solves the same (3b, 3b)
+    Rayleigh–Ritz problem in host float64
+    (:func:`_whitened_rayleigh_ritz_grams_np`) and re-orthonormalises X by
+    Cholesky-QR, a Gram and a (b, b) factor, where :func:`lobpcg`'s
+    Householder QR of the tall block cannot be split over ranks. Returns
+    this rank's rows of the Ritz vectors."""
+    dev = x0.device
+    n_local, k = x0.shape
+    f64 = lambda a: a.to(torch.float64)
+    to_dev = lambda a: torch.as_tensor(a, device=dev)
+
+    def inner(a, b) -> np.ndarray:
+        return reduce(f64(a).T @ f64(b)).cpu().numpy()
+
+    def col_dots(a, b) -> np.ndarray:
+        return reduce(torch.sum(f64(a) * f64(b), dim=0)).cpu().numpy()
+
+    def resnorms(x, ax, theta) -> np.ndarray:
+        r = f64(ax) - f64(x) * to_dev(theta)[None, :]
+        rn2 = reduce(torch.sum(r * r, dim=0)).cpu().numpy()
+        return np.sqrt(rn2) / np.maximum(theta, 1e-12)
+
+    def cholqr(x, ax=None):
+        m = inner(x, x)
+        m = 0.5 * (m + m.T)
+        try:
+            lfac = np.linalg.cholesky(
+                m + 1e-12 * max(np.trace(m) / m.shape[0], 1.0)
+                * np.eye(m.shape[0]))
+        except np.linalg.LinAlgError:
+            return x, ax
+        lit = to_dev(np.linalg.inv(lfac).T)              # X ← X·L⁻ᵀ
+        xq = (f64(x) @ lit).to(torch.float32)
+        return xq, None if ax is None else (f64(ax) @ lit).to(torch.float32)
+
+    tvec = None if precond is None else precond.to(torch.float32)
+    sk = min(stable_k or k, k)
+    ck = min(conv_k or k, k)
+    x, _ = cholqr(x0.to(torch.float32))
+    ax = matvec(x)
+    p = torch.zeros_like(x)
+    ap = torch.zeros_like(x)
+    it = 0
+    x_chk = None
+    while it < max_iters:
+        theta = col_dots(x, ax)                          # Ritz values
+        res = resnorms(x, ax, theta)
+        if float(np.max(res[np.argsort(-theta)][:ck])) <= tol:
+            break
+        if stable_tol is not None and it % check_every == 0:
+            if x_chk is not None:
+                g = inner(x_chk[:, :sk], x[:, :sk])
+                lam_min = float(np.linalg.eigvalsh(g.T @ g)[0])
+                if 1.0 - np.sqrt(max(lam_min, 0.0)) < stable_tol:
+                    break
+            x_chk = x.clone()
+        active = to_dev((res > tol).astype(np.float32))
+        thetaf = to_dev(theta.astype(np.float32))
+        w = (ax - x * thetaf[None, :]) * active[None, :]
+        w = w - x @ to_dev(inner(x, w).astype(np.float32))      # W ⊥ X
+        if tvec is not None:
+            w = w * tvec[:, None]
+            # re-project: the preconditioner brings X components back
+            w = w - x @ to_dev(inner(x, w).astype(np.float32))
+        wn = np.sqrt(np.maximum(col_dots(w, w), 0.0))
+        wscale = np.where(wn > 1e-10, 1.0 / np.maximum(wn, 1e-12), 0.0)
+        w = w * to_dev(wscale.astype(np.float32))[None, :]
+        aw = matvec(w)
+
+        # [X|W|P] Rayleigh–Ritz: both (3b, 3b) Grams in one reduce
+        s = f64(torch.cat([x, w, p], dim=1))
+        a_s = f64(torch.cat([ax, aw, ap], dim=1))
+        grams = reduce(torch.stack([s.T @ s, s.T @ a_s])).cpu().numpy()
+        del s, a_s
+        _, c = _whitened_rayleigh_ritz_grams_np(grams[0], grams[1], k)
+        cf = to_dev(c.astype(np.float32))
+        cx, cw, cp = cf[:k], cf[k:2 * k], cf[2 * k:]
+        x_new = x @ cx + w @ cw + p @ cp
+        ax_new = ax @ cx + aw @ cw + ap @ cp
+        p_new = w @ cw + p @ cp                          # implicit P
+        ap_new = aw @ cw + ap @ cp
+        x, ax = cholqr(x_new, ax_new)                    # drift control
+        pn = np.sqrt(np.maximum(col_dots(p_new, p_new), 0.0))
+        pscale = to_dev(np.where(pn > 1e-10, 1.0 / np.maximum(pn, 1e-12),
+                                 0.0).astype(np.float32))
+        p = p_new * pscale[None, :]
+        ap = ap_new * pscale[None, :]
+        it += 1
+        if it % 16 == 0:
+            ax = matvec(x)      # exact refresh kills recombination drift
+
+    theta = col_dots(x, ax)
+    order = np.argsort(-theta)
+    res_final = resnorms(x, ax, theta)
+    return EigResult(torch.as_tensor(theta[order], dtype=torch.float32),
+                     x[:, to_dev(order)].contiguous(),
+                     torch.as_tensor(res_final[order], dtype=torch.float32),
+                     it)
+
+
+#: Solvers of row-sharded operands (the mesh placement).
+SHARDED_SOLVERS = ("lobpcg", "lobpcg_host")
+
+
+def top_k_eigenpairs_sharded(
+    matvec: Matvec,
+    n: int,
+    k: int,
+    generator: torch.Generator,
+    *,
+    rows: slice,
+    device,
+    reduce: Callable[[torch.Tensor], torch.Tensor],
+    solver: str = "lobpcg",
+    max_iters: int = 200,
+    tol: float = 1e-5,
+    buffer: int = 4,
+    x0=None,
+    precond: Optional[torch.Tensor] = None,
+    stable_tol: Optional[float] = None,
+) -> EigResult:
+    """Top-k eigenpairs of a row-sharded operator by :func:`lobpcg_sharded`
+    (``"lobpcg"`` and ``"lobpcg_host"`` alike), under an ``eigensolve``
+    span. The start block is the single placement's — the global (n, b)
+    Gaussian draw from ``generator`` on the CPU, or ``x0`` — cut to this
+    rank's ``rows``; ``precond`` is this rank's rows of the diagonal.
+    Returns this rank's rows of the vectors. The other solvers and the
+    n < 3k dense fallback need their own tall algebra sharded and raise
+    ``NotImplementedError``."""
+    if solver not in SHARDED_SOLVERS:
+        raise NotImplementedError(
+            f"solver={solver!r} under placement='mesh' is not yet ported to "
+            f"repro_torch (ROADMAP.md A8; ported: {SHARDED_SOLVERS})")
+    if 3 * k > n:
+        raise NotImplementedError(
+            f"the dense fallback for n < 3k (n={n}, k={k}) under "
+            "placement='mesh' is not yet ported to repro_torch "
+            "(ROADMAP.md A8)")
+    b = lobpcg_block_width(n, k, buffer)
+    with obs_trace.span("eigensolve", solver=solver, n=n, k=k,
+                        streaming=False, sharded=True) as sp:
+        if x0 is not None:
+            start = prepare_start_block(x0, n, b, generator, "cpu")
+        else:
+            start = torch.randn((n, b), generator=generator,
+                                dtype=torch.float32,
+                                device=generator.device)
+        x0_local = start[rows].to(device).contiguous()
+        del start
+        out = lobpcg_sharded(matvec, x0_local, reduce=reduce,
+                             max_iters=max_iters, tol=tol, precond=precond,
+                             stable_tol=stable_tol, stable_k=k, conv_k=k)
+        out = EigResult(out.theta[:k], out.vectors[:, :k].contiguous(),
+                        out.resnorms[:k], out.iterations)
+        resnorm_max = float(out.resnorms.max()) if out.resnorms.numel() \
+            else 0.0
+        sp.set(iterations=int(out.iterations), resnorm_max=resnorm_max)
+    record_solve(solver, int(out.iterations), resnorm_max)
+    return out
 
 
 def lanczos(

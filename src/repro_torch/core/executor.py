@@ -11,13 +11,25 @@ The five stages —
 — run once here, on one device (``device="cuda"`` unless the caller asks
 for the CPU). ``SCRBConfig``, ``ExecutionPlan`` and ``FitResult`` keep the
 JAX package's fields, so configs and artifacts round-trip between the two
-packages. Of the plans, placement ``single`` is ported, with residency
-``device`` (the default: the whole feature matrix on the device) or
-``host_chunked`` (``SCRBConfig(chunk_size=...)``: x and every O(N) array
-on the host in row chunks, uploaded one chunk at a time), with every
-solver and every registered feature map (``ExecutionPlan(feature_map=
-...)``: the Table-2 baselines). The mesh and partitioned placements
-raise.
+packages. Every plan of the JAX package runs:
+
+  placement  ``single``       one device;
+             ``mesh``         SPMD row shards over ``torch.distributed``
+                              (``SCRBModel.fit(..., mesh=...)``; every rank
+                              calls with the same x; ELL maps, the LOBPCG
+                              solvers);
+             ``partitioned``  the divide-and-conquer fit
+                              (``SCRBConfig(partition=PartitionOptions(
+                              n_partitions>1))``, ``core.partitioned``),
+                              with or without a mesh;
+  residency  ``device``       whole arrays on the device (the default);
+             ``host_chunked`` ``SCRBConfig(chunk_size=...)``: x and every
+                              O(N) array on the host in row chunks, one
+                              uploaded at a time; under a mesh, the
+                              within-shard chunking of every sweep;
+
+with every solver (single placement) and every registered feature map
+(``ExecutionPlan(feature_map=...)``: the Table-2 baselines).
 """
 from __future__ import annotations
 
@@ -186,6 +198,12 @@ class ExecutionPlan:
 _REPRESENTATIONS = {
     ("single", "device"): rowmatrix.DeviceRows,
     ("single", "host_chunked"): rowmatrix.HostChunkedRows,
+    ("mesh", "device"): rowmatrix.MeshRows,
+    ("mesh", "host_chunked"): rowmatrix.MeshRows,
+    # the divide-and-conquer fit: per-partition single-placement sub-fits
+    # aggregated by core.partitioned
+    ("partitioned", "device"): rowmatrix.PartitionedRows,
+    ("partitioned", "host_chunked"): rowmatrix.PartitionedRows,
 }
 
 
@@ -233,12 +251,12 @@ def representation(plan: ExecutionPlan):
     return _REPRESENTATIONS[(plan.placement, plan.residency)]
 
 
-def _check_ported(plan: ExecutionPlan) -> None:
-    if (plan.placement, plan.residency) not in _REPRESENTATIONS:
+def _check_ported(plan: ExecutionPlan, cfg: SCRBConfig) -> None:
+    solver = cfg.solver_options.solver
+    if plan.placement == "mesh" and solver not in ("lobpcg", "lobpcg_host"):
         raise NotImplementedError(
-            f"placement={plan.placement!r}, residency={plan.residency!r} is "
-            "not yet ported to repro_torch (ported: single/device, "
-            "single/host_chunked)")
+            f"solver={solver!r} under placement='mesh' is not yet ported to "
+            "repro_torch (ROADMAP.md A8; ported: 'lobpcg', 'lobpcg_host')")
     if plan.feature_map is not None and not isinstance(
             plan.feature_map, tuple(featuremap.FEATURE_MAPS.values())):
         raise ValueError(
@@ -290,13 +308,13 @@ def execute(
         plan = plan_from_config(cfg)
     if final_stage not in ("normalize", "kmeans"):
         raise ValueError(f"unknown final_stage {final_stage!r}")
-    _check_ported(plan)
+    _check_ported(plan, cfg)
     configure_device(dev)
     with obs_trace.tracing(cfg.trace):
         with obs_memory.Watermark() as wm:
             with obs_trace.span("fit", placement=plan.placement,
                                 residency=plan.residency) as root:
-                if plan.residency == "device":
+                if plan.placement == "single" and plan.residency == "device":
                     x = as_device_rows(x, dev)
                 res = _execute_impl(
                     x, cfg, plan, dev, final_stage=final_stage,
@@ -313,10 +331,13 @@ def execute(
     return res
 
 
-def host_array(t) -> np.ndarray:
-    """A tall result (a tensor or host chunks) as one host numpy array."""
+def host_array(t, z=None) -> np.ndarray:
+    """A tall result (a tensor or host chunks) as one host numpy array; a
+    mesh representation ``z`` gathers its rows from every rank first."""
     if isinstance(t, streaming.ChunkedDense):
         return t.to_array()
+    if isinstance(z, rowmatrix.MeshRows):
+        t = z.gather_rows(t)
     return t.cpu().numpy()
 
 
@@ -330,6 +351,12 @@ def _execute_impl(
     keep_embedding: bool,
     keep_state: bool,
 ) -> FitResult:
+    if plan.placement == "partitioned":
+        # lazy import: partitioned re-enters execute() per partition
+        from repro_torch.core import partitioned
+        return partitioned.execute_partitioned(
+            x, cfg, plan, dev, final_stage=final_stage,
+            keep_embedding=keep_embedding, keep_state=keep_state)
     rep_cls = representation(plan)
     fm = plan.feature_map
     if fm is None:
@@ -425,7 +452,7 @@ def _execute_impl(
                  "oos_proj": None if comp is None else comp.proj}
     return FitResult(
         labels=None if km is None else km.labels.cpu().numpy(),
-        embedding=host_array(u_hat) if keep_embedding else None,
+        embedding=host_array(u_hat, z) if keep_embedding else None,
         singular_values=sigmas,
         timer=timer,
         diagnostics=diagnostics,

@@ -41,6 +41,12 @@ def rb_degrees_and_counts(
     return deg[:, 0], counts[:, 0] * sqrt_r
 
 
+def rb_degrees(idx: torch.Tensor, *, d: int, d_g: int,
+               impl: str = "auto") -> torch.Tensor:
+    """deg_i = (1/R) Σ_g counts_g[idx[i,g]] — Eq. 6 via two ELL products."""
+    return rb_degrees_and_counts(idx, d=d, d_g=d_g, impl=impl)[0]
+
+
 def degrees_from_counts(idx: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """deg_i = (1/R) Σ_g counts[idx[i,g]] from the bin occupancies.
 

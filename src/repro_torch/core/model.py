@@ -132,8 +132,12 @@ class SCRBModel:
         ``k`` overrides ``config.n_clusters``; ``k="auto"`` picks K by the
         eigengap over the rank-``n_clusters`` spectrum (``n_clusters`` acts
         as K_max). ``x0`` warm-starts (or injects) the eigensolve's start
-        block through ``ExecutionPlan.eig_x0``. The train-run ``FitResult``
-        rides along as ``model.fit_result``.
+        block through ``ExecutionPlan.eig_x0``. ``mesh`` (a
+        ``torch.distributed`` DeviceMesh, ``launch.mesh``) selects the
+        mesh placement, or spreads a partitioned fit's partitions over its
+        data shards: every rank calls ``fit`` with the same x and gets the
+        same model. The train-run ``FitResult`` rides along as
+        ``model.fit_result``.
         """
         auto_k = False
         if isinstance(k, str):
@@ -158,7 +162,15 @@ class SCRBModel:
         z, eig, km = st["z"], st["eig"], st["km"]
         with res.timer.stage("oos_state"):
             oos_proj = st.get("oos_proj")
-            if oos_proj is not None:
+            part_state = st.get("partitioned")
+            if part_state is not None:
+                # partitioned fit: the merge already factored the
+                # representatives into (V, Σ) and summed the degree dual
+                as_t = lambda a: torch.as_tensor(
+                    np.asarray(a, np.float32), device=z.device)
+                v = as_t(part_state["right_vectors"])
+                sig = as_t(part_state["singular_values"])
+            elif oos_proj is not None:
                 # compressive solver: the (D, d) filter projection q is the
                 # serving subspace — the fit embedding was E = Ẑ q, so unit
                 # "singular values" make _projection = q exactly and
@@ -176,7 +188,7 @@ class SCRBModel:
                 # V = Ẑᵀ U Σ⁻¹ — one more pass of the zt kernel (a chunked
                 # zt sweep over host chunks of U on a host-chunked plan)
                 v = z.rmatvec(eig.vectors) * inv_sig[None, :]
-            dual = z.degree_dual()
+            dual = z.degree_dual()      # the summed dual when partitioned
         res.state = None          # drop the O(N) internals; model is O(D·K)
         return cls(
             config=config,
@@ -195,6 +207,11 @@ class SCRBModel:
         """``k="auto"``: one run stopped after the normalize stage with
         K_max eigenpairs, the eigengap pick, then prefix truncation of the
         eigenvectors and k-means at the chosen K — no second eigensolve."""
+        if plan.placement == "partitioned":
+            raise ValueError(
+                "k='auto' needs the global eigenspectrum; it is not "
+                "available under placement='partitioned' (pick k first, "
+                "then fit partitioned)")
         k_max = config.n_clusters
         if k_max < 3:
             raise ValueError(
@@ -229,7 +246,7 @@ class SCRBModel:
                     fold_seed(config.seed, "kmeans"), u_hat, cfg_k)
         res.labels = None if km is None else km.labels.cpu().numpy()
         if keep_embedding:
-            res.embedding = _executor.host_array(u_hat)
+            res.embedding = _executor.host_array(u_hat, z)
         res.singular_values = np.asarray(res.singular_values)[:chosen]
         st["eig"], st["km"], st["u_hat"] = eig_k, km, u_hat
         res.diagnostics.update(cluster_diag)
@@ -251,51 +268,78 @@ class SCRBModel:
                               torch.zeros_like(sig))
         return (self.right_vectors * inv_sig[None, :]).contiguous()
 
-    def _serve_batches(self, x, batch_size: Optional[int]):
+    def _serve_batches(self, x, batch_size: Optional[int],
+                       n_shards: int = 1):
         """Yield (device_batch, n_real_rows) pairs, zero-padding each chunk
-        up to the bucket grid when ``batch_size`` is set."""
-        eff = None if batch_size is None else round_to_bucket(batch_size)
+        up to the bucket grid when ``batch_size`` is set, and to a multiple
+        of ``n_shards`` (a mesh's data shards)."""
+        eff = None if batch_size is None else \
+            round_to_bucket(batch_size, multiple_of=n_shards)
         for c in _row_chunks(x, eff):
             rows = c.shape[0]
             xb = _executor.as_device_rows(c, self.device)
             if batch_size is not None and rows > 0:
-                target = round_to_bucket(rows)
-                if target != rows:
-                    pad = torch.zeros((target - rows, xb.shape[1]),
-                                      dtype=xb.dtype, device=xb.device)
-                    xb = torch.cat([xb, pad])
+                target = round_to_bucket(rows, multiple_of=n_shards)
+            elif n_shards > 1:
+                target = _ceil_to(max(rows, 1), n_shards)
+            else:
+                target = rows
+            if target != rows:
+                pad = torch.zeros((target - rows, xb.shape[1]),
+                                  dtype=xb.dtype, device=xb.device)
+                xb = torch.cat([xb, pad])
             yield xb, rows
 
-    def transform(self, x, *, batch_size: Optional[int] = None) -> np.ndarray:
-        """Out-of-sample spectral embedding (n_new, K), in batches of
-        ``batch_size`` rows rounded up to ``BUCKET_GRID``."""
-        proj = self._projection
+    def _serve(self, fn, x, batch_size: Optional[int], mesh) -> np.ndarray:
+        """``fn`` over the served batches. With a mesh the O(D·K) state is
+        already on every rank (replicated); each rank runs ``fn`` on its
+        contiguous share of each padded batch and the shares are
+        ``all_gather``ed over the data group, so every rank returns the
+        whole answer (every rank calls with the same x)."""
+        shards, gather = 1, None
+        if mesh is not None:
+            from repro_torch.core.distributed import all_gather_rows
+            from repro_torch.launch.mesh import data_group, data_rank, \
+                data_shards
+            shards, me, group = data_shards(mesh), data_rank(mesh), \
+                data_group(mesh)
+            gather = lambda xb: all_gather_rows(
+                fn(xb.chunk(shards)[me].contiguous()), group)
         with full_float32():
-            outs = [
-                _oos_embed_impl(self.feature_map, self.degree_dual, proj, xb,
-                                laplacian=self.laplacian_normalize)[:rows]
+            return np.concatenate([
+                (fn(xb) if gather is None else gather(xb))[:rows]
                 .cpu().numpy()
-                for xb, rows in self._serve_batches(x, batch_size)
-            ]
-        return np.concatenate(outs, axis=0)
+                for xb, rows in self._serve_batches(x, batch_size, shards)
+            ], axis=0)
 
-    def predict(self, x, *, batch_size: Optional[int] = None) -> np.ndarray:
-        """Nearest-fitted-centroid labels for new points, (n_new,) int32."""
+    def transform(self, x, *, batch_size: Optional[int] = None,
+                  mesh=None) -> np.ndarray:
+        """Out-of-sample spectral embedding (n_new, K), in batches of
+        ``batch_size`` rows rounded up to ``BUCKET_GRID``; ``mesh`` serves
+        each batch's rows spread over the mesh's data shards."""
+        proj = self._projection
+        return self._serve(
+            lambda xb: _oos_embed_impl(self.feature_map, self.degree_dual,
+                                       proj, xb,
+                                       laplacian=self.laplacian_normalize),
+            x, batch_size, mesh)
+
+    def predict(self, x, *, batch_size: Optional[int] = None,
+                mesh=None) -> np.ndarray:
+        """Nearest-fitted-centroid labels for new points, (n_new,) int32.
+        Batching, padding and ``mesh`` as for ``transform``."""
         if self.centroids is None:
             raise ValueError(
                 "model has no centroids (fit stopped before the k-means "
                 "stage); use transform() or refit with final_stage='kmeans'")
         proj = self._projection
         cents = self.centroids.contiguous()
-        with full_float32():
-            outs = [
-                _oos_predict_impl(self.feature_map, self.degree_dual, proj,
-                                  cents, xb,
-                                  laplacian=self.laplacian_normalize,
-                                  impl=self.config.impl)[:rows].cpu().numpy()
-                for xb, rows in self._serve_batches(x, batch_size)
-            ]
-        return np.concatenate(outs, axis=0)
+        return self._serve(
+            lambda xb: _oos_predict_impl(self.feature_map, self.degree_dual,
+                                         proj, cents, xb,
+                                         laplacian=self.laplacian_normalize,
+                                         impl=self.config.impl),
+            x, batch_size, mesh)
 
     @property
     def data_dim(self) -> int:

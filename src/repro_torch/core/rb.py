@@ -114,6 +114,32 @@ def rb_bins_exact(x: np.ndarray, params: RBParams) -> np.ndarray:
     return np.floor((x[:, None, :] - u) / w).astype(np.int64)
 
 
+def laplacian_kernel(x: np.ndarray, y: Optional[np.ndarray] = None, *,
+                     sigma: float) -> np.ndarray:
+    """Exact product-Laplacian kernel matrix exp(−‖x−y‖₁/σ) (test oracle)."""
+    y = x if y is None else y
+    l1 = np.abs(x[:, None, :] - y[None, :, :]).sum(-1)
+    return np.exp(-l1 / sigma)
+
+
+def gaussian_kernel(x: np.ndarray, y: Optional[np.ndarray] = None, *,
+                    sigma: float) -> np.ndarray:
+    """Gaussian RBF kernel exp(−‖x−y‖²/2σ²) (baselines)."""
+    y = x if y is None else y
+    sq = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+    return np.exp(-sq / (2.0 * sigma**2))
+
+
+def expected_nonempty_bins(idx: torch.Tensor, d_g: int) -> float:
+    """Empirical κ (Def. 1): the mean over grids of 1/max_b ν_b, ν_b the
+    share of the rows in bin b (from ``ops.bin_counts``' exact occupancies).
+    Larger κ ⇒ faster convergence in R."""
+    n, r = idx.shape
+    counts = ops.bin_counts(idx, d=r * d_g, d_g=d_g).reshape(r, d_g)
+    top = counts.max(dim=1).values.to(torch.float64)
+    return float(torch.mean(n / top))
+
+
 def _to_numpy_rows(x, sel: Optional[np.ndarray]) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         rows = x if sel is None else x[torch.as_tensor(sel, device=x.device)]

@@ -13,18 +13,26 @@ says where Ẑ = D̂^{-1/2}Z lives:
     operands are ``streaming.ChunkedDense`` and every sweep uploads one
     prefetched chunk at a time.
 
-The mesh and partitioned representations of the JAX package are not yet
-ported.
+  - ``MeshRows``        this rank's contiguous row shard of the (N, R)
+    ELL matrix on its device, in an SPMD world over ``torch.distributed``
+    (``placement="mesh"``): products are local, and the collectives of
+    ``core.distributed`` join the shards.
+  - ``PartitionedRows`` the aggregate handle of a divide-and-conquer fit
+    (``placement="partitioned"``): the summed degree dual and the
+    partitions' degree ranges and residency diagnostics.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import eigensolver, featuremap, graph, streaming
 from repro_torch.core.kmeans import kmeans as _kmeans, streaming_kmeans
+from repro_torch.kernels import ops
 from repro_torch.utils import make_generator, prefetch_to_device, to_host
 
 
@@ -298,3 +306,304 @@ class HostChunkedRows:
             "prefetch": ell.prefetch,
         }
 
+
+
+# --------------------------------------------------------------------------
+# Mesh placement — rows sharded over the data axes of a DeviceMesh; with
+# chunk_size every within-shard sweep runs over row chunks.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MeshRows:
+    """This rank's row shard of Ẑ, in an SPMD world (``placement="mesh"``).
+
+    Every rank runs the fit with the same global x; rank r keeps rows
+    ``[r·N/S, (r+1)·N/S)`` of the S data shards (N must divide by S). The
+    products are local and the collectives of ``core.distributed`` join
+    the shards: one ``all_reduce`` of q per Gram product, of the (D,)
+    counts in the degree pass. ``chunk_size`` bounds every within-shard
+    sweep (Gram products, k-means) to O(chunk) temporaries. Tall operands
+    are this rank's rows on its device; (D, K) results are replicated.
+    Supports ELL maps only, as the JAX package's."""
+
+    kind = "mesh"
+    mesh: Any                      # torch.distributed DeviceMesh
+    idx: torch.Tensor              # (n_local, R) int32, this rank's rows
+    rowscale: torch.Tensor         # (n_local,) float32
+    degrees: torch.Tensor          # (n_local,) float32
+    n_total: int                   # N, all shards
+    row0: int                      # this shard's first global row
+    d: int
+    d_g: int
+    impl: str = "auto"
+    chunk_size: Optional[int] = None
+    compress: bool = False
+    counts: Optional[torch.Tensor] = None   # (D,) int32 replicated Zᵀ1
+    cscs: Optional[Sequence[ops.EllCSC]] = None   # card: each chunk's CSC
+    _gram_cache: Any = dataclasses.field(default=None, repr=False,
+                                         compare=False)
+
+    @staticmethod
+    def shard_bounds(mesh, n: int) -> Tuple[int, int]:
+        """(first row, row count) of this rank's shard of ``n`` rows;
+        raises the JAX package's error when ``n`` does not divide."""
+        from repro_torch.launch.mesh import data_rank, data_shards
+        shards = data_shards(mesh)
+        if n % shards:
+            raise ValueError(
+                f"distributed k-means needs N divisible by the data shards: "
+                f"N={n}, shards={shards}")
+        rows = n // shards
+        return data_rank(mesh) * rows, rows
+
+    @classmethod
+    def fit_transform(cls, x, fm, cfg, plan, seed: int,
+                      dev: torch.device) -> FittedFeatures:
+        """Fit the map on the global x (the same grids on every rank: they
+        come from the seed) and transform this rank's rows on ``dev``."""
+        if fm.kind != "ell":
+            raise ValueError(
+                f"placement='mesh' currently supports ELL feature maps only "
+                f"(got {fm.name!r} of kind {fm.kind!r}); run dense maps "
+                f"under placement='single'")
+        if isinstance(x, (list, tuple)):
+            x = np.concatenate([np.asarray(c) for c in x])
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        x = np.asarray(x, np.float32)
+        lo, rows = cls.shard_bounds(plan.mesh, x.shape[0])
+        fitted = fm.fit(seed, x).to(dev)
+        x_local = torch.as_tensor(x[lo:lo + rows], device=dev)
+        return FittedFeatures(fitted, fitted.transform(x_local))
+
+    @classmethod
+    def from_features(cls, feats: FittedFeatures, cfg, plan,
+                      dev: torch.device) -> "MeshRows":
+        from repro_torch.core.distributed import make_degree_pass
+        from repro_torch.launch.mesh import data_shards
+        fm = feats.fmap
+        idx = feats.payload
+        d, r = fm.n_features, idx.shape[1]
+        n_total = idx.shape[0] * data_shards(plan.mesh)
+        lo, _ = cls.shard_bounds(plan.mesh, n_total)
+        # one pass yields the degrees and the replicated (D,) occupancies:
+        # the fitted model's degree dual, kept for free
+        deg, counts = make_degree_pass(plan.mesh, idx, d, fm.d_g, plan.impl,
+                                       chunk_size=plan.chunk_size)()
+        if plan.laplacian_normalize:
+            rowscale = 1.0 / torch.sqrt(float(r) * torch.clamp_min(deg, 1e-8))
+        else:
+            rowscale = torch.full_like(deg, graph._sqrt_r(r)[1])
+        cscs = None
+        if idx.is_cuda:
+            cscs = tuple(ops.ell_csc(idx[s:e], d) for s, e in
+                         streaming.row_chunk_bounds(idx.shape[0],
+                                                    plan.chunk_size))
+        return cls(plan.mesh, idx, rowscale.contiguous(), deg,
+                   n_total=n_total, row0=lo, d=d, d_g=fm.d_g,
+                   impl=plan.impl, chunk_size=plan.chunk_size,
+                   compress=plan.collective_compress, counts=counts,
+                   cscs=cscs)
+
+    @property
+    def n(self) -> int:
+        return self.n_total
+
+    @property
+    def n_local(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def rows(self) -> slice:
+        """This shard's global rows."""
+        return slice(self.row0, self.row0 + self.n_local)
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
+    @property
+    def group(self):
+        from repro_torch.launch.mesh import data_group
+        return data_group(self.mesh)
+
+    @property
+    def n_shards(self) -> int:
+        from repro_torch.launch.mesh import data_shards
+        return data_shards(self.mesh)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global (N, …) tensor from every rank's rows of it
+        (``all_gather``): the labels, or an embedding the caller keeps."""
+        from repro_torch.core.distributed import all_gather_rows
+        return all_gather_rows(t, self.group)
+
+    @property
+    def deg(self) -> torch.Tensor:
+        """The global (N,) degrees (gathered)."""
+        return self.gather_rows(self.degrees)
+
+    def degree_range(self) -> Tuple[float, float]:
+        """Min/max reduced over the ranks (two scalars; no O(N) gather)."""
+        lo = torch.min(self.degrees).reshape(1).clone()
+        hi = torch.max(self.degrees).reshape(1).clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=self.group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=self.group)
+        return float(lo), float(hi)
+
+    def _gram_fn(self):
+        if self._gram_cache is None:
+            from repro_torch.core.distributed import make_gram_matvec
+            self._gram_cache = make_gram_matvec(
+                self.mesh, self.idx, self.rowscale, self.d, self.d_g,
+                self.impl, compress=self.compress,
+                chunk_size=self.chunk_size, cscs=self.cscs)
+        return self._gram_cache
+
+    def matvec(self, v):
+        """Ẑ v: (D, K) replicated → this rank's rows (n_local, K)."""
+        return streaming.chunked_z_matmul(
+            self.idx, v.to(device=self.device, dtype=torch.float32),
+            self.rowscale, d_g=self.d_g, chunk_size=self.chunk_size,
+            impl=self.impl)
+
+    def matvec_tall(self, v):
+        return self.matvec(v)
+
+    def rmatvec(self, u):
+        """Ẑᵀ u: this rank's rows of u → (D, K) replicated."""
+        from repro_torch.core.distributed import make_zt_matvec
+        return make_zt_matvec(self.mesh, self.idx, self.rowscale, self.d,
+                              self.d_g, self.impl,
+                              chunk_size=self.chunk_size,
+                              cscs=self.cscs)(u.contiguous())
+
+    def gram(self, u):
+        return self._gram_fn()(u)
+
+    def random_tall(self, generator: torch.Generator, width: int,
+                    dist: str = "normal") -> torch.Tensor:
+        """This rank's rows of the global (N, width) draw from
+        ``generator`` (on the CPU): the single placement's block, cut."""
+        return _draw(generator, (self.n, width), dist)[self.rows] \
+            .to(self.device)
+
+    def map_row_chunks(self, fn, *tall):
+        return fn(*tall)
+
+    def reduce(self, fn, init, *tall):
+        """``fn`` folded over this rank's row chunks, then summed over the
+        ranks (``init`` must be the identity, e.g. zeros)."""
+        from repro_torch.core.distributed import make_sharded_reduce
+        return make_sharded_reduce(self.mesh, fn,
+                                   chunk_size=self.chunk_size)(init, *tall)
+
+    def degree_dual(self) -> torch.Tensor:
+        """The bin occupancies Zᵀ1, kept from the degree pass."""
+        return self.counts.to(torch.float32)
+
+    def eigenpairs(self, k: int, seed: int, cfg,
+                   x0=None) -> eigensolver.EigResult:
+        """Top-k eigenpairs by the sharded LOBPCG (``lobpcg`` and
+        ``lobpcg_host``); the start block is the single placement's global
+        draw from ``seed``, cut to this shard. The degree preconditioner
+        needs the global degrees (its clip is at their median): one
+        gather of the (N,) vector."""
+        so = cfg.solver_options
+        precond = _solver_precond(
+            cfg, self.deg if so.precond == "degree" else None)
+        if precond is not None:
+            precond = precond[self.rows]
+        group = self.group
+
+        def reduce(t: torch.Tensor) -> torch.Tensor:
+            dist.all_reduce(t, group=group)
+            return t
+
+        return eigensolver.top_k_eigenpairs_sharded(
+            self._gram_fn(), self.n, k, make_generator(seed),
+            rows=self.rows, device=self.device, reduce=reduce,
+            solver=so.solver, max_iters=so.iters, tol=so.tol,
+            buffer=so.buffer, x0=x0, precond=precond,
+            stable_tol=so.stable_tol)
+
+    def cluster(self, seed: int, u_hat: torch.Tensor, cfg
+                ) -> Tuple[Any, dict]:
+        from repro_torch.core.distributed import distributed_kmeans
+        return distributed_kmeans(
+            seed, u_hat, cfg.n_clusters, self.mesh, n=self.n,
+            n_iters=cfg.kmeans_iters, n_replicates=cfg.kmeans_replicates,
+            impl=cfg.impl, chunk_size=self.chunk_size)
+
+    def residency_diagnostics(self, cfg) -> dict:
+        chunk = min(self.chunk_size or self.n_local, self.n_local)
+        return {
+            "n_shards": self.n_shards,
+            "shard_rows": self.n_local,
+            # per-device temporary working set of a within-shard ELL sweep
+            "ell_device_bytes_peak": chunk * self.idx.shape[1] * 4,
+        }
+
+
+# --------------------------------------------------------------------------
+# Partitioned placement — the divide-and-conquer fit's aggregate handle.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PartitionedRows:
+    """Union of per-partition representations (``placement="partitioned"``).
+
+    Each partition's sub-fit built its own ``DeviceRows`` /
+    ``HostChunkedRows`` under one shared fitted feature map, so all
+    partitions live in one feature space; this is what the merge in
+    ``core.partitioned`` hands to ``SCRBModel.fit`` as the run's
+    ``state["z"]``: the summed degree dual, the degree range and the
+    residency diagnostics — not the solver surface (no global solve
+    happens). Under a mesh a rank holds only its own partitions in
+    ``parts``; the per-partition summaries (``part_rows``,
+    ``degree_ranges``, ``part_residency``) cover all of them."""
+
+    kind = "partitioned"
+    parts: Tuple[Any, ...]         # this process's partitions' RowMatrix
+    fmap: Any                      # the shared fitted feature map
+    dual: torch.Tensor             # (D,) summed Zᵀ1 across partitions
+    part_rows: Tuple[int, ...] = ()
+    degree_ranges: Tuple[Tuple[float, float], ...] = ()
+    part_residency: Tuple[dict, ...] = ()
+
+    @property
+    def n(self) -> int:
+        return sum(self.part_rows)
+
+    @property
+    def n_partitions(self) -> int:
+        return len(self.part_rows)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dual.device
+
+    def degree_range(self) -> Tuple[float, float]:
+        """Within-partition degree range (each partition normalises against
+        its own degrees — the divide-and-conquer approximation)."""
+        return (min(r[0] for r in self.degree_ranges),
+                max(r[1] for r in self.degree_ranges))
+
+    def degree_dual(self) -> torch.Tensor:
+        return self.dual
+
+    def residency_diagnostics(self, cfg) -> dict:
+        """The partitions' residency diagnostics aggregated: peak byte
+        counts max'd (partitions share a device in turn or run on distinct
+        ones), chunk counts summed."""
+        out = {"n_partitions": self.n_partitions}
+        for diag in self.part_residency:
+            for key, val in diag.items():
+                if key == "n_chunks":
+                    out[key] = out.get(key, 0) + val
+                elif isinstance(val, (int, float)) and \
+                        not isinstance(val, bool):
+                    out[key] = max(out.get(key, 0), val)
+                else:
+                    out[key] = val
+        return out

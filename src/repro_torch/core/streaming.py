@@ -27,8 +27,10 @@ zt sweep uploads the CSC (chunk·R int32 row ids and a (D+1) int64 column
 pointer), the z sweep uploads idx. The uploaded bytes are those of
 uploading idx twice; the host holds the pattern twice.
 
-The JAX package's ``lax.scan`` variants (``chunked_zt_matmul`` and its
-kin, for the mesh path) are not ported.
+The JAX package's ``lax.scan`` products (``chunked_zt_matmul``,
+``chunked_z_matmul``, ``chunked_gram_matvec``) are loops over row chunks of
+device tensors here: the within-shard chunking of the mesh placement
+(``core.distributed``), one (D, K) accumulator added to in chunk order.
 """
 from __future__ import annotations
 
@@ -361,3 +363,57 @@ def build_chunked_adjacency(idx_chunks, *, d: int, d_g: int,
         deg=torch.cat(deg_chunks), prefetch=prefetch, h2d_stats=h2d_stats,
         counts=to_host(counts), csc_chunks=tuple(csc_chunks) if pin else None,
         device=dev)
+
+
+# --------------------------------------------------------------------------
+# Row-chunked products of device-resident operands (the JAX package's
+# lax.scan forms): the mesh placement chunks within each row shard, so the
+# kernels' temporaries are O(chunk · R) whatever the shard's size.
+# --------------------------------------------------------------------------
+
+def row_chunk_bounds(n: int, chunk_size: Optional[int]) -> list:
+    """``(start, stop)`` of consecutive row chunks of ``chunk_size`` rows
+    (one chunk of all ``n`` rows without one)."""
+    c = n if chunk_size is None else max(1, min(int(chunk_size), n))
+    return [(s, min(s + c, n)) for s in range(0, max(n, 1), max(c, 1))]
+
+
+def chunked_zt_matmul(idx: torch.Tensor, u: torch.Tensor,
+                      rowscale: torch.Tensor, *, d: int, d_g: int,
+                      chunk_size: Optional[int], impl: str = "auto",
+                      cscs: Optional[Sequence[ops.EllCSC]] = None
+                      ) -> torch.Tensor:
+    """q = Ẑᵀu, one ``ops.zt_matmul`` a row chunk added into one (D, K)
+    accumulator in chunk order. ``cscs`` are the chunks' CSC copies
+    (built once by the caller on the card; else each launch builds its
+    own)."""
+    q = torch.zeros((d, u.shape[1]), dtype=torch.float32, device=u.device)
+    for j, (s, e) in enumerate(row_chunk_bounds(idx.shape[0], chunk_size)):
+        q.add_(ops.zt_matmul(idx[s:e], u[s:e].contiguous(), rowscale[s:e],
+                             d, d_g=d_g, impl=impl,
+                             csc=None if cscs is None else cscs[j]))
+    return q
+
+
+def chunked_z_matmul(idx: torch.Tensor, v: torch.Tensor,
+                     rowscale: torch.Tensor, *, d_g: int,
+                     chunk_size: Optional[int],
+                     impl: str = "auto") -> torch.Tensor:
+    """y = Ẑv, one ``ops.z_matmul`` a row chunk; row-local, so each row
+    has the bits of the unchunked product."""
+    v = v.contiguous()
+    return torch.cat([
+        ops.z_matmul(idx[s:e], v, rowscale[s:e], d_g=d_g, impl=impl)
+        for s, e in row_chunk_bounds(idx.shape[0], chunk_size)])
+
+
+def chunked_gram_matvec(idx: torch.Tensor, u: torch.Tensor,
+                        rowscale: torch.Tensor, *, d: int, d_g: int,
+                        chunk_size: Optional[int], impl: str = "auto",
+                        cscs: Optional[Sequence[ops.EllCSC]] = None
+                        ) -> torch.Tensor:
+    """(Ẑ Ẑᵀ)u over row chunks: the two products above."""
+    q = chunked_zt_matmul(idx, u, rowscale, d=d, d_g=d_g,
+                          chunk_size=chunk_size, impl=impl, cscs=cscs)
+    return chunked_z_matmul(idx, q, rowscale, d_g=d_g,
+                            chunk_size=chunk_size, impl=impl)

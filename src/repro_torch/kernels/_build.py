@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -56,6 +57,10 @@ LIBRARIES: Dict[str, tuple] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: One build or load at a time in a process: worker threads of a
+#: partitioned fit may reach their first launch together, and two builds
+#: of one process would write the same temporary file.
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -117,15 +122,18 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    path = library_path(name)
-    if not path.exists():
-        build_all()
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in LIBRARIES[name][1].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _LOADED[name] = lib
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
+        path = library_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in LIBRARIES[name][1].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LOADED[name] = lib
     return lib
 
 

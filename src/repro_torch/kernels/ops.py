@@ -12,12 +12,14 @@ accepted for signature parity with the JAX package, whose values
 Each CUDA wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
 without synchronising, and adds one to ``LAUNCHES[<kernel>]`` per launch —
-the count a run reads to show that it went through the kernel.
+the count a run reads to show that it went through the kernel (under a
+lock: worker threads of a partitioned fit launch at once).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -40,13 +42,25 @@ LAUNCHES: Dict[str, int] = {"rb_binning": 0, "z_matmul": 0,
                             "kmeans_assign_stats": 0, "flash_attention": 0}
 
 
+#: Guards ``LAUNCHES``: a partitioned fit launches from several worker
+#: threads, and ``+=`` on a dict entry is a read and a write.
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
 
 
 def _check_impl(impl: str) -> None:
@@ -141,7 +155,7 @@ def rb_binning(
             x.data_ptr(), widths.data_ptr(), biases.data_ptr(),
             hash_a.data_ptr(), hash_c.data_ptr(), consts.data_ptr(),
             out.data_ptr(), n, d, r, d_g)
-    LAUNCHES["rb_binning"] += 1
+    _count("rb_binning")
     return out
 
 
@@ -414,7 +428,7 @@ def z_matmul(
             idx.data_ptr(), v.data_ptr(), rowscale.data_ptr(), vp.data_ptr(),
             out.data_ptr(), n, r, d_g, k, kc, stages,
             int(v.dtype == torch.bfloat16))
-    LAUNCHES["z_matmul"] += 1
+    _count("z_matmul")
     return out
 
 
@@ -447,7 +461,7 @@ def z_matmul_gather(
             idx.data_ptr(), v.data_ptr(), rowscale.data_ptr(), out.data_ptr(),
             n, r, k, p.route, p.kc, p.rows, p.warps, p.chunk, p.stride,
             int(v.dtype == torch.bfloat16))
-    LAUNCHES["z_matmul_gather"] += 1
+    _count("z_matmul_gather")
     return out
 
 
@@ -497,7 +511,7 @@ def zt_matmul(
             csc.chunk_long.data_ptr(), u.data_ptr(), rowscale.data_ptr(),
             su.data_ptr(), partial.data_ptr(), q.data_ptr(), n, d, k, kp,
             csc.long_cols.shape[0], n_chunks, ZT_CHUNK)
-    LAUNCHES["zt_matmul"] += 1
+    _count("zt_matmul")
     return q
 
 
@@ -535,7 +549,7 @@ def gram_matmul(
     plan = z_strip_plan(n, r, d_g, k, torch.float32)
     if plan is None:
         q = zt_matmul(idx, u, rowscale, d, d_g=d_g, impl=impl, csc=csc)
-        LAUNCHES["gram_matmul_composed"] += 1
+        _count("gram_matmul_composed")
         return z_matmul(idx, q, rowscale, d_g=d_g, impl=impl)
     if csc is None:
         csc = ell_csc(idx, d)
@@ -559,7 +573,7 @@ def gram_matmul(
             rowscale.data_ptr(), su.data_ptr(), partial.data_ptr(),
             qp.data_ptr(), y.data_ptr(), n, r, d_g, k, kp, kc, stages,
             csc.long_cols.shape[0], n_chunks, ZT_CHUNK)
-    LAUNCHES["gram_matmul"] += 1
+    _count("gram_matmul")
     return y
 
 
@@ -601,7 +615,7 @@ def bin_counts(
         return out if accumulate else out.zero_()
     _launch("bin_counts", "bin_counts_launch", idx,
             idx.data_ptr(), out.data_ptr(), n, r, d_g, d, int(accumulate))
-    LAUNCHES["bin_counts"] += 1
+    _count("bin_counts")
     return out
 
 
@@ -646,7 +660,7 @@ def kmeans_assign(
     _launch("kmeans_assign", "kmeans_assign_launch", x,
             x.data_ptr(), centroids.data_ptr(), labels.data_ptr(),
             dist.data_ptr(), n, d, k)
-    LAUNCHES["kmeans_assign"] += 1
+    _count("kmeans_assign")
     return labels, dist
 
 
@@ -694,7 +708,7 @@ def kmeans_assign_stats(
             x.data_ptr(), centroids.data_ptr(), labels.data_ptr(),
             counts.data_ptr(), sums.data_ptr(), inertia.data_ptr(),
             scratch.data_ptr(), nbytes, n, d, k)
-    LAUNCHES["kmeans_assign_stats"] += 1
+    _count("kmeans_assign_stats")
     return labels, counts, sums, inertia
 
 
@@ -757,7 +771,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, h, hkv, hd, int(causal), window or 0,
             int(q.dtype == torch.bfloat16))
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     if window is not None and s >= t + window:
         _fill_keyless_rows(out, v, t + window - 1)
     return out

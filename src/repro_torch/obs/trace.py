@@ -12,7 +12,9 @@ read alike.
    before the device is done: a span closed right after a kernel call has
    timed the enqueue. With ``sync=True`` (the default for stage-level
    spans) the span exit calls ``torch.cuda.synchronize()`` first (when CUDA
-   is initialised; on the CPU there is nothing to wait for), so the
+   is initialised; on the CPU there is nothing to wait for; on a worker
+   thread under ``stream_scoped_sync``, its current stream's
+   ``synchronize()``), so the
    recorded duration covers the device work launched inside the span.
    Spans that time only the issue side (the prefetch ``h2d`` spans) pass
    ``sync=False`` and never synchronize.
@@ -39,12 +41,34 @@ import torch
 
 _DISABLED = os.environ.get("REPRO_OBS_DISABLED", "") not in ("", "0")
 
+_SYNC = threading.local()
+
+
+@contextlib.contextmanager
+def stream_scoped_sync():
+    """Inside the block, on this thread, :func:`_device_sync` waits for the
+    thread's current CUDA stream only (for the spans and ``StageTimer``).
+    A worker thread of a partitioned fit runs its partitions on a stream of
+    its own: a whole-device synchronize there would wait for every other
+    worker's partitions too, and a stage timed on one worker would include
+    the others' work."""
+    prev = getattr(_SYNC, "stream", False)
+    _SYNC.stream = True
+    try:
+        yield
+    finally:
+        _SYNC.stream = prev
+
 
 def _device_sync() -> None:
-    """Wait for the work queued on the current CUDA device, when CUDA is
+    """Wait for the work queued on the current CUDA device (on this thread's
+    current stream alone under :func:`stream_scoped_sync`), when CUDA is
     initialised; a no-op on the CPU (nothing is queued there)."""
     if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        if getattr(_SYNC, "stream", False):
+            torch.cuda.current_stream().synchronize()
+        else:
+            torch.cuda.synchronize()
 
 
 class _NullSpan:

@@ -125,8 +125,10 @@ class StageTimer:
     """Wall-clock per-stage timer used by the SC_RB pipeline.
 
     Records ``{stage: seconds}``. On a CUDA run every clock read is
-    preceded by ``torch.cuda.synchronize()``, so a stage's time includes
-    the device work it queued rather than only the launches. Each stage
+    preceded by ``obs.trace._device_sync()`` (``torch.cuda.synchronize()``;
+    the thread's current stream alone on a partitioned fit's worker), so a
+    stage's time includes the device work it queued rather than only the
+    launches. Each stage
     also opens a ``obs.trace`` span of its name (free when tracing is off)
     and feeds the ``repro_stage_seconds`` histogram, as in the JAX package;
     ``times`` comes from the timer's own clock either way.
@@ -138,7 +140,7 @@ class StageTimer:
 
     def _clock(self) -> float:
         if self._sync:
-            torch.cuda.synchronize()
+            _trace._device_sync()
         return time.perf_counter()
 
     @contextlib.contextmanager

@@ -29,7 +29,10 @@ card: one flash launch per layer in a generate, and float32 logits within
 labels against the CPU's by ARI ≥ 0.99. The serving engine: each CUDA
 graph's replay the bits of the same cell run eagerly, every answer the
 bits of ``model.predict``/``transform``, and no capture, staging buffer or
-device allocation at steady state.
+device allocation at steady state. The placements: a partitioned fit
+against the CPU by ARI ≥ 0.99, one worker against a stream a partition
+bit for bit with equal launch counts, and a gloo world of 2 ranks on the
+card holding its Gram product within 1e-5 relative of the fused one.
 """
 import dataclasses
 
@@ -1089,3 +1092,99 @@ def test_cuda_engine_refit_swaps_free_the_old_slot(cuda):
         torch.cuda.synchronize()
         used.append(torch.cuda.memory_allocated())
     assert used[2:] == used[:2] * 2
+
+
+# --------------------------------------------------------------------------
+# The partitioned and mesh placements on the card
+# --------------------------------------------------------------------------
+
+def _partitioned_cfg(workers, **kw):
+    from repro_torch.core import PartitionOptions
+    return _blob_fit_cfg("lobpcg", **kw, partition=PartitionOptions(
+        n_partitions=3, workers=workers))
+
+
+def test_cuda_partitioned_fit_matches_the_cpu(cuda):
+    """A partitioned fit on the card against the same fit on the CPU (the
+    start blocks are drawn on the CPU either way; the blobs are apart, so
+    the k-means seeds, drawn on each device, settle alike): labels by ARI ≥
+    0.99, merged singular values within 1e-4 relative; predict on the
+    training rows gives the fit's labels."""
+    from repro_torch.core import SCRBModel, metrics
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(6_000, 6, 4, seed=3)
+    card = SCRBModel.fit(x, _partitioned_cfg(1))
+    cpu = SCRBModel.fit(x, _partitioned_cfg(1), device="cpu").fit_result
+    res = card.fit_result
+    assert metrics.adjusted_rand_index(res.labels, cpu.labels) >= 0.99
+    np.testing.assert_allclose(res.singular_values, cpu.singular_values,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(card.predict(x), res.labels)
+
+
+def test_cuda_partitioned_workers_on_streams_same_bits_and_launches(cuda):
+    """One worker against a worker (and a CUDA stream) a partition, at
+    partitions on the strip route: the same labels, merged singular values
+    and embedding bit for bit, and the same launch counts (the counts are
+    taken under a lock)."""
+    from repro_torch.core import SCRBModel
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(3 * 140_000, 6, 4, seed=5)
+    runs = []
+    for workers in (1, 3):
+        ops.reset_launch_counts()
+        m = SCRBModel.fit(x, _partitioned_cfg(workers))
+        runs.append((m.fit_result, ops.launch_counts()))
+    (a, ca), (b, cb) = runs
+    assert b.diagnostics["partitioned"]["workers"] == 3
+    np.testing.assert_array_equal(a.labels, b.labels)
+    np.testing.assert_array_equal(a.singular_values, b.singular_values)
+    np.testing.assert_array_equal(a.embedding, b.embedding)
+    assert ca == cb and ca["gram_matmul"] > 0 and ca["z_matmul"] > 0
+
+
+def _gloo_gram(x, params, u, rows):
+    """On each rank of a gloo world on one card: this rank's rows of the
+    sharded Gram product."""
+    from repro_torch.core import featuremap as tfm
+    from repro_torch.core.distributed import make_degree_pass, make_gram_matvec
+    from repro_torch.launch import mesh as lm
+    mesh = lm.make_host_mesh()
+    lo = lm.data_rank(mesh) * rows
+    fmap = tfm.RBMap.from_state(*params, device="cuda")
+    idx = fmap.transform(torch.as_tensor(x[lo:lo + rows], device="cuda"))
+    deg, counts = make_degree_pass(mesh, idx, fmap.n_features, fmap.d_g)()
+    scale = 1.0 / torch.sqrt(float(fmap.n_grids) * deg)
+    y = make_gram_matvec(mesh, idx, scale, fmap.n_features, fmap.d_g)(
+        torch.as_tensor(u[lo:lo + rows], device="cuda"))
+    return y.cpu().numpy(), counts.cpu().numpy()
+
+
+def test_cuda_gloo_world_gram_matches_the_single_card(cuda):
+    """A gloo world of 2 ranks sharing the card (CUDA tensors through
+    gloo): the all_reduced counts equal the single card's bin counts, and
+    the sharded Gram product is within 1e-5 relative of the fused product
+    on one card (at ≥ 131,072 rows a shard: the strip route)."""
+    from repro_torch.core import featuremap as tfm
+    from repro_torch.core import graph
+    from repro_torch.launch.world import run_world
+    n = 2 * 140_000
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    u = rng.normal(size=(n, 11)).astype(np.float32)
+    fmap = tfm.RBMap(n_grids=32, sigma=1.5, d_g=512).fit(0, x)
+    params = (fmap.meta_dict(), fmap.state_dict())
+    ranks = run_world(_gloo_gram, 2, backend="gloo", device="cuda:0",
+                      args=(x, params, u, n // 2), timeout_s=60.0,
+                      join_timeout_s=300.0)
+    fmap = fmap.to("cuda")
+    idx = fmap.transform(torch.as_tensor(x, device="cuda"))
+    counts = ops.bin_counts(idx, d=fmap.n_features, d_g=fmap.d_g)
+    deg = graph.degrees_from_counts(idx, counts)
+    scale = 1.0 / torch.sqrt(float(fmap.n_grids) * deg)
+    want = ops.gram_matmul(idx, torch.as_tensor(u, device="cuda"), scale,
+                           fmap.n_features, d_g=fmap.d_g).cpu().numpy()
+    got = np.concatenate([r[0] for r in ranks])
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    for _, c in ranks:
+        np.testing.assert_array_equal(c, counts.cpu().numpy())

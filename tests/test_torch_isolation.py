@@ -193,3 +193,54 @@ def test_cluster_engine_raises_without_a_card():
     from repro_torch.serve.cluster_engine import ClusterEngine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ClusterEngine()
+
+
+#: The placement modules: the partitioned fit, the mesh collectives and the
+#: launchers.
+PLACEMENT_MODULES = ("core/partitioned.py", "core/distributed.py",
+                     "launch/__init__.py", "launch/mesh.py",
+                     "launch/world.py")
+
+PLACEMENT_SCRIPT = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.core import (PartitionOptions, SCRBConfig, SCRBModel,
+                              MeshRows, PartitionedRows, metrics)
+from repro_torch.core import distributed, partitioned
+from repro_torch.launch import mesh, world
+from repro_torch.data.synthetic import make_blobs
+x, y = make_blobs(300, 4, 3, seed=0)
+cfg = SCRBConfig(n_clusters=3, n_grids=16, sigma=1.5, d_g=256,
+                 kmeans_replicates=1,
+                 partition=PartitionOptions(n_partitions=3, workers=2))
+m = SCRBModel.fit(x, cfg, device="cpu")
+assert (m.predict(x) == m.fit_result.labels).all()
+assert metrics.accuracy(m.fit_result.labels, y) > 0.9
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_source_check_covers_the_placements():
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(PLACEMENT_MODULES) <= checked
+
+
+def test_partitioned_fit_in_a_fresh_process_loads_no_jax():
+    _run_alone(PLACEMENT_SCRIPT)
+
+
+def test_partitioned_fit_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.core import PartitionOptions, SCRBConfig, SCRBModel
+    x = np.zeros((30, 2), np.float32)
+    cfg = SCRBConfig(n_clusters=2, n_grids=4, d_g=16,
+                     partition=PartitionOptions(n_partitions=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SCRBModel.fit(x, cfg)

@@ -4,7 +4,8 @@ Mirrors ``tests/test_obs.py``: span nesting, cross-thread tracks and the
 Chrome-trace JSON, histogram quantiles, Prometheus text, registry
 snapshot/reset, memory watermarks, ``StageTimer`` over spans, the prefetch
 counters and ``h2d`` spans, and a traced fit. The reference's partitioned
-and serving-engine cases have no port yet; in their place the two packages
+case is ported in ``tests/test_torch_partitioned.py`` and its serving-engine
+cases in ``tests/test_torch_serve.py``; here the two packages
 are held against each other: the same Prometheus text for the same
 operations, the same span names and ``timer.times`` keys from the same
 traced fit (device rows and host chunks), the same metric names, and no

@@ -8,6 +8,7 @@ two of its kernels, on one GPU.
     python3 tools/fit_study.py residuals
     python3 tools/fit_study.py obs [--pairs 6]
     python3 tools/fit_study.py lanczos-step
+    python3 tools/fit_study.py kmeans-seeds [--device cpu] [--rows N] [--seeds 4]
 
 ``chip_smoke.py`` gates the port; this script only measures, on the fit of
 its phase 3 (``SCRBModel.fit`` of the covtype-shaped synthetic data, N =
@@ -55,7 +56,16 @@ Every fit also records the cyclic garbage collector's pauses inside it.
                 basis): host numpy, where the JAX package keeps the basis,
                 and the card.
 
-Every mode prints the card's name and power limit first.
+  kmeans-seeds  how far the fit's k-means moves with its seeds: the fit
+                (``--rows`` first rows, on ``--device``: ``cuda`` or
+                ``cpu``), then its embedding through the single
+                placement's ``kmeans`` (k-means++ on all rows) from
+                ``--seeds`` other seeds and through the mesh's
+                ``distributed_kmeans`` (k-means++ on a 64-row pool) in a
+                gloo world of 1 from ``--seeds`` seeds; the ARI of each
+                against the fit's labels, and each inertia.
+
+Every mode on the card prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -461,6 +471,48 @@ def lanczos_step() -> None:
           f"{start.elapsed_time(end) / 5:.3f} ms", flush=True)
 
 
+def kmeans_seeds(device: str, rows, seeds: int) -> None:
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import executor, metrics
+    from repro_torch.core.distributed import distributed_kmeans
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.world import init_world
+    from repro_torch.utils import make_generator
+
+    x, cfg = covtype_fit_inputs()
+    x = x[:rows] if rows else x
+    res = executor.execute(x, cfg, device=device)
+    u = torch.as_tensor(res.embedding, device=device)
+    k, it, reps = cfg.n_clusters, cfg.kmeans_iters, cfg.kmeans_replicates
+    print(f"fit of {x.shape[0]} rows on {device}: inertia "
+          f"{res.diagnostics['kmeans_inertia']:.2f}", flush=True)
+    for s in range(seeds):
+        km = kmeans(make_generator(100 + s, device), u, k, n_iters=it,
+                    n_replicates=reps)
+        print(f"kmeans, k-means++ on all rows, seed {100 + s}: ARI "
+              f"{metrics.adjusted_rand_index(km.labels.cpu().numpy(), res.labels):.4f}"
+              f", inertia {float(km.inertia):.2f}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(0, 1, str(Path(tmp) / "store"), backend="gloo")
+        try:
+            mesh = make_host_mesh(device_type=torch.device(device).type)
+            for s in range(seeds):
+                km, _ = distributed_kmeans(200 + s, u, k, mesh,
+                                           n=u.shape[0], n_iters=it,
+                                           n_replicates=reps)
+                print(f"distributed_kmeans, k-means++ on a 64-row pool, "
+                      f"seed {200 + s}: ARI "
+                      f"{metrics.adjusted_rand_index(km.labels.numpy(), res.labels):.4f}"
+                      f", inertia {float(km.inertia):.2f}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="mode", required=True)
@@ -482,7 +534,17 @@ def main() -> None:
     p = sub.add_parser("obs")
     p.add_argument("--pairs", type=int, default=6)
     sub.add_parser("lanczos-step")
+    p = sub.add_parser("kmeans-seeds")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--rows", type=int, default=None)
+    p.add_argument("--seeds", type=int, default=4)
     args = parser.parse_args()
+    if args.mode == "kmeans-seeds":
+        sys.path.insert(0, str(ROOT / "src"))
+        if args.device == "cuda":
+            print(card(), flush=True)
+        kmeans_seeds(args.device, args.rows, args.seeds)
+        return
     if args.mode == "child":
         child(args.src, args.fits)
         return
