@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 0-14, on card 0
+    python3 chip_smoke.py --cards 4    # phases 0, 1 and 15, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -176,7 +177,36 @@ from a seed):
            K) payload (two ranks on one card: not a scaling figure), ARI
            against phase 3's labels (not gated: the mesh's k-means seeds
            from a pool of 64 rows, and on data with no cluster gap k-means
-           settles by its seeds)
+           settles by its seeds). Then one mesh fit of each other solver
+           (lanczos, subspace, randomized, auto, compressive) in the gloo
+           world, each held to the same solver's single fit on the card
+           (phase 9's, and for compressive a fit with LOBPCG's bracket
+           CompressiveOptions.lambdas, the same options for both): Ritz
+           values within 1e-3 relative, the same iteration count on both
+           ranks, labels ARI ≥ 0.99 against the same k-means (or, for
+           compressive, the same subset k-means) run in one process over
+           the same embedding; the embedding's sine to the single fit's,
+           wall and svd seconds, Gram products and the all_gather ms of a
+           global mat-vec printed
+  phase 15 only with --cards N (N = 2 or 4; fails unless N cards are
+           present; phases 2-14 do not run): (a) each library's entry
+           points on cuda:0, then on every other card in the same process,
+           against the plain version and bit-equal to card 0's output (the
+           kernels' launch setup is per device); (b) the mesh over NCCL,
+           one rank a card, at 1, 2 and N ranks against a single fit on
+           cuda:0 in this process: Ritz values within 1e-5, counts and
+           degrees bit-equal, labels ARI ≥ 0.99 against the same k-means in
+           one process, iteration counts equal on every rank; at N ranks
+           also chunks of 131,072 within the shards, the bf16 payload
+           (Ritz within 2^-8), every other solver as in phase 14 and
+           predict(mesh=) (≥ 0.99 against the fit, equal to predict());
+           the all_reduce ms of the (D, K) payload beside a ring
+           all-reduce's bound over NVLink; (c) the partitioned fit with
+           device="cuda" (partition i on card i mod N) at one worker and a
+           worker a card, bit-identical to each other and to the same fit
+           on cuda:0 alone, predict at 1.000000, save/load and the engine
+           bit-identical, and each card's idle share; (d) every card's name
+           and power limit and `nvidia-smi topo -m`
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -360,6 +390,12 @@ MESH_ARI = 0.99
 MESH_PREDICT_ROWS = 100_000
 MESH_REDUCE_REPS = 20
 MESH_JOIN_S = 420.0
+MESH_SOLVERS = ("lanczos", "subspace", "randomized", "auto", "compressive")
+Z_STRIP_ROWS_15 = 131_072     # phase 15's kernel rows: the strip route's
+MESH_GATHER_WIDTHS = (1, EIG_BLOCK)   # lanczos; the block solvers
+MESH_NCCL_RITZ_ATOL = 1e-5
+NVLINK_BYTES_PER_S = 450e9        # NVLink on an HGX H100, each way
+CARDS_JOIN_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -1718,7 +1754,7 @@ def phase9_solvers(x_np, cfg, device_fit) -> dict:
     from repro_torch.core import SCRBModel, executor, metrics
     from repro_torch.kernels import ops
 
-    out = {"solvers": []}
+    out = {"solvers": [], "fits": {}}
     ref, ref_wall = timed_execute(x_np, cfg)
     same = np.array_equal(ref.labels, device_fit["labels"])
     log(f"[phase 9] LOBPCG as phase 3: fit {ref_wall:.3f}s, "
@@ -1739,6 +1775,7 @@ def phase9_solvers(x_np, cfg, device_fit) -> dict:
         counts = ops.launch_counts()
         out["solvers"].append(hold_solver(solver, res, wall, ref, counts,
                                           cfg_s))
+        out["fits"][solver] = single_summary(res, wall)
         del res
         torch.cuda.empty_cache()
 
@@ -2914,6 +2951,177 @@ def phase13_partitioned(x_np, y_np, cfg, device_fit) -> dict:
     return {"launches": c1, "model": m1}
 
 
+def single_summary(res, wall: float) -> dict:
+    """What a mesh fit is held to of a single fit on the card."""
+    d = res.diagnostics
+    return {"sig": res.singular_values, "labels": res.labels,
+            "embedding": res.embedding, "iterations": d["solver_iterations"],
+            "solver": d["solver"], "wall": wall,
+            "svd_s": res.timer.times["svd"]}
+
+
+def single_solver_fits(x_np, cfg, have: dict) -> tuple:
+    """The single fits on the card that the mesh's solver fits are held to:
+    those of ``have`` (phase 9's), the rest fitted here. The compressive
+    fit gets LOBPCG's bracket (θ_K, θ_K+1) from a fit at K + 1
+    (CompressiveOptions.lambdas: the cold eigencount misplaces the cutoff
+    on such data, ROADMAP.md C5). Returns (fits, {solver: config dict})."""
+    import numpy as np
+
+    k = cfg.n_clusters
+    wide, _ = timed_execute(x_np, with_solver(cfg, "lobpcg",
+                                              n_clusters=k + 1))
+    theta = np.asarray(wide.singular_values, np.float64) ** 2
+    bracket = [float(theta[k - 1]), float(theta[k])]
+    del wide
+    cfgs = {s: with_solver(cfg, s, **({"compressive_lambdas": bracket}
+                                      if s == "compressive" else {}))
+            for s in MESH_SOLVERS}
+    fits = dict(have)
+    for s in MESH_SOLVERS:
+        if s not in fits:
+            res, wall = timed_execute(x_np, cfgs[s])
+            fits[s] = single_summary(res, wall)
+            del res
+    log(f"[solvers] single fits on the card for the mesh: LOBPCG's bracket "
+        f"(theta_K, theta_K+1) = ({bracket[0]:.6f}, {bracket[1]:.6f}) for "
+        f"the compressive cell; " + "; ".join(
+            f"{s} {f['wall']:.3f}s, {f['iterations']} iterations"
+            for s, f in fits.items()))
+    return fits, {s: c.to_dict() for s, c in cfgs.items()}
+
+
+def one_process_subset_labels(emb, cfg_dict: dict):
+    """The compressive cell's k-means (a subset, then every row assigned)
+    over a whole embedding in this process, on card 0: what a mesh fit's
+    compressive labels are held to."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.core import SCRBConfig, compressive
+    from repro_torch.utils import fold_seed
+    cfg = SCRBConfig.from_dict(cfg_dict)
+    u = torch.as_tensor(emb, device="cuda")
+    rows = SimpleNamespace(kind="device", n=u.shape[0], device=u.device,
+                           map_row_chunks=lambda fn, *t: fn(*t))
+    km, _ = compressive.subset_cluster(rows, u, fold_seed(cfg.seed, "kmeans"),
+                                       cfg)
+    return km.labels.numpy()
+
+
+def time_all_reduce(group, rows: int) -> dict:
+    """ms of one all_reduce of a (rows, EIG_BLOCK) payload, float32 and
+    bfloat16, over ``group`` (host clock, device synchronised)."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.ones((rows, EIG_BLOCK), dtype=dtype, device="cuda")
+        for _ in range(3):
+            dist.all_reduce(q, group=group)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_REDUCE_REPS):
+            dist.all_reduce(q, group=group)
+        torch.cuda.synchronize()
+        out[str(dtype)[6:]] = (time.perf_counter() - t0) * 1e3 \
+            / MESH_REDUCE_REPS
+    return out
+
+
+def time_all_gather(group, rows: int) -> dict:
+    """ms of one all_gather of this rank's (rows, w) float32 block into
+    the global one (``distributed.all_gather_rows``: a global mat-vec's
+    collective), at each width of MESH_GATHER_WIDTHS."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import all_gather_rows
+    out = {}
+    for w in MESH_GATHER_WIDTHS:
+        t = torch.ones((rows, w), dtype=torch.float32, device="cuda")
+        for _ in range(3):
+            all_gather_rows(t, group)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_REDUCE_REPS):
+            all_gather_rows(t, group)
+        torch.cuda.synchronize()
+        out[w] = (time.perf_counter() - t0) * 1e3 / MESH_REDUCE_REPS
+    return out
+
+
+def mesh_solver_fits(x, solver_cfgs: dict, mesh, save) -> dict:
+    """A mesh fit of each solver on this rank (``save(name, embedding)``
+    keeps rank 0's gathered embedding), with the all_gather ms of a global
+    mat-vec at each width."""
+    from repro_torch.core import SCRBConfig
+    from repro_torch.launch import mesh as lm
+    out = {}
+    for name, cd in solver_cfgs.items():
+        model, wall, counts = mesh_fit(x, SCRBConfig.from_dict(cd), mesh,
+                                       None, False)
+        out[name] = fit_summary(model, wall, counts)
+        save(name, model.fit_result.embedding)
+        del model
+    gather_ms = time_all_gather(lm.data_group(mesh),
+                                x.shape[0] // lm.data_shards(mesh))
+    for f in out.values():
+        f["all_gather_ms"] = gather_ms
+    return out
+
+
+def hold_mesh_solver(tag: str, fits: list, single: dict, emb,
+                     one_process_labels) -> None:
+    """A mesh fit of one solver (each rank's summary) against the same
+    solver's single fit on the card."""
+    import numpy as np
+
+    from repro_torch.core import metrics
+    f = fits[0]
+    theta = np.asarray(f["sig"], np.float64) ** 2
+    theta1 = np.asarray(single["sig"], np.float64) ** 2
+    rel = float(np.max(np.abs(theta - theta1) / np.maximum(
+        np.abs(theta1), np.finfo(np.float32).tiny)))
+    k = theta.shape[0]
+    sine = float(max(0.0, 1.0 - min(subspace_cosine(
+        emb[:, :k], single["embedding"][:, :k]), 1.0) ** 2) ** 0.5)
+    ari1 = metrics.adjusted_rand_index(f["labels"], one_process_labels)
+    ari_single = metrics.adjusted_rand_index(f["labels"], single["labels"])
+    iters = [g["iterations"] for g in fits]
+    widths = f["all_gather_ms"]
+    gather = ("none (the cell's mat-vecs stay on the shards)"
+              if f["solver"] == "compressive" else
+              f"{widths[1 if f['solver'] == 'lanczos' else EIG_BLOCK]:.3f} ms")
+    log(f"[mesh] {tag}: fit {f['wall']:.2f}s (single {single['wall']:.2f}s),"
+        f" svd {f['stages']['svd']:.3f}s (single {single['svd_s']:.3f}s); "
+        f"{f['solver']}, iterations {iters} on the ranks (single "
+        f"{single['iterations']}); Gram products {f['counts']['zt_matmul']} "
+        f"zt and {f['counts']['z_matmul']} z launches; all_gather a global "
+        f"mat-vec {gather}; Ritz values "
+        f"{[float(f'{t:.6f}') for t in theta]}, within {rel:.3g} relative "
+        f"of the single fit's; embedding sine {sine:.3g}; labels ARI "
+        f"{ari1:.4f} against the same k-means in one process, {ari_single:.4f} against "
+        f"the single fit's; launches {f['counts']}")
+    if len(set(iters)) != 1:
+        fail(f"{tag}: the ranks took {iters} iterations")
+    if not all(np.array_equal(g["labels"], f["labels"]) for g in fits):
+        fail(f"{tag}: the ranks' labels differ")
+    if f["solver"] != single["solver"]:
+        fail(f"{tag} ran {f['solver']}, the single fit {single['solver']}")
+    if not np.all(np.isfinite(theta)) or rel > RITZ_RTOL:
+        fail(f"{tag}: Ritz values {rel:.3g} off the single fit's (limit "
+             f"{RITZ_RTOL:g} relative)")
+    if ari1 < MESH_ARI:
+        fail(f"{tag}: labels agree with the same k-means in one process at "
+             f"ARI {ari1:.4f} < {MESH_ARI}")
+    if f["labels"].shape != single["labels"].shape:
+        fail(f"{tag}: labels of shape {f['labels'].shape}")
+
+
 MESH_FITS = (("fp32", None, False), ("fp32 again", None, False),
              ("bf16", None, True), ("chunked", MESH_CHUNK, False))
 MESH_U_SEED = 14
@@ -2952,18 +3160,19 @@ def fit_summary(model, wall: float, counts: dict) -> dict:
     res = model.fit_result
     d = res.diagnostics
     return {"labels": res.labels, "sig": res.singular_values,
-            "iterations": d["solver_iterations"],
+            "iterations": d["solver_iterations"], "solver": d["solver"],
             "resmax": float(max(d["solver_resnorms"])), "wall": wall,
             "stages": dict(res.timer.times), "counts": counts,
-            "plan": d["plan"], "kmeans_chunk_rows": d["kmeans_chunk_rows"],
+            "plan": d["plan"],
+            "kmeans_chunk_rows": d.get("kmeans_chunk_rows"),
             "shard_rows": d["shard_rows"]}
 
 
-def mesh_rank(tmp: str, cfg_dict: dict) -> dict:
+def mesh_rank(tmp: str, cfg_dict: dict, solver_cfgs: dict) -> dict:
     """Phase 14 on one rank of the gloo world on the one card: the mesh fits
     (fp32 twice, bf16 payload, chunks within the shard), predict with the
-    mesh, this shard's ELL pattern, counts and one Gram product, and the
-    all_reduce of the (D, K) payload."""
+    mesh, this shard's ELL pattern, counts and one Gram product, the
+    all_reduce of the (D, K) payload, and a fit of each other solver."""
     import hashlib
 
     import numpy as np
@@ -3005,19 +3214,15 @@ def mesh_rank(tmp: str, cfg_dict: dict) -> dict:
     gram = make_gram_matvec(mesh, idx, scale, fm.n_features, fm.d_g)
     out["gram"] = gram(u[lo:lo + m].to("cuda")).cpu().numpy()
 
-    group = lm.data_group(mesh)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.ones((fm.n_features, EIG_BLOCK), dtype=dtype, device="cuda")
-        for _ in range(3):
-            dist.all_reduce(q, group=group)
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(MESH_REDUCE_REPS):
-            dist.all_reduce(q, group=group)
-        torch.cuda.synchronize()
-        out[f"all_reduce_ms_{str(dtype)[6:]}"] = \
-            (time.perf_counter() - t0) * 1e3 / MESH_REDUCE_REPS
+    del first, idx, deg, scale, gram
+    out["all_reduce_ms"] = time_all_reduce(lm.data_group(mesh),
+                                           fm.n_features)
+
+    def save(name, emb):
+        if rank == 0:
+            np.save(Path(tmp) / f"emb_{name}.npy", emb)
+
+    out["solver_fits"] = mesh_solver_fits(x, solver_cfgs, mesh, save)
     return out
 
 
@@ -3041,7 +3246,8 @@ def nccl_rank(tmp: str, cfg_dict: dict, n_embeddings: int) -> dict:
     out = {"backend": dist.get_backend(), "fit": fit_summary(model, wall,
                                                              counts),
            "embedding": model.fit_result.embedding, "kmeans": []}
-    names = ["emb3.npy"] + [f"emb{i}.npy" for i in range(n_embeddings)]
+    names = ["emb3.npy"] + [f"emb{i}.npy" for i in range(n_embeddings)] \
+        + [f"emb_{s}.npy" for s in MESH_SOLVERS if s != "compressive"]
     for name in names:
         u = torch.as_tensor(np.load(Path(tmp) / name), device="cuda")
         res, _ = distributed_kmeans(
@@ -3052,10 +3258,11 @@ def nccl_rank(tmp: str, cfg_dict: dict, n_embeddings: int) -> dict:
     return out
 
 
-def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
+def phase14_mesh(x_np, cfg, device_fit, fm3, solver_fits) -> dict:
     """The mesh placement at covtype's N: a gloo world of 2 ranks sharing
     the one card (290,506 rows a shard), then an NCCL world of 1; held
-    against phase 3's single fit and the single card's kernels."""
+    against phase 3's single fit and the single card's kernels, and each
+    other solver's mesh fit against its single fit (phase 9's)."""
     import hashlib
 
     import numpy as np
@@ -3089,9 +3296,12 @@ def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
         del idx, deg, scale, u
         torch.cuda.empty_cache()
 
+        singles, solver_cfgs = single_solver_fits(x_np, cfg, solver_fits)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = run_world(mesh_rank, MESH_WORLD, backend="gloo",
-                          device="cuda:0", args=(tmp, cfg.to_dict()),
+                          device="cuda:0",
+                          args=(tmp, cfg.to_dict(), solver_cfgs),
                           timeout_s=60.0, join_timeout_s=MESH_JOIN_S)
         t_gloo = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3101,6 +3311,8 @@ def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
         t_nccl = time.perf_counter() - t0
         embs = [np.load(Path(tmp) / f"emb{i}.npy")
                 for i in range(len(MESH_FITS))]
+        solver_embs = {s: np.load(Path(tmp) / f"emb_{s}.npy")
+                       for s in MESH_SOLVERS}
     log(f"[phase 14] gloo world of {MESH_WORLD} on one card: {t_gloo:.1f}s "
         f"(spawn included); NCCL world of 1: {t_nccl:.1f}s")
     r0 = ranks[0]
@@ -3188,6 +3400,20 @@ def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
         fail(f"the NCCL world's labels agree with the gloo world's at ARI "
              f"{ari_worlds:.4f} < {MESH_ARI}")
 
+    # every other solver on the mesh, against its single fit
+    kmeans_at = 1 + len(MESH_FITS)
+    for name in MESH_SOLVERS:
+        if name == "compressive":
+            one = one_process_subset_labels(solver_embs[name],
+                                            solver_cfgs[name])
+        else:
+            one = nccl["kmeans"][kmeans_at]
+            kmeans_at += 1
+        hold_mesh_solver(f"gloo x{MESH_WORLD} {name}",
+                         [r["solver_fits"][name] for r in ranks],
+                         singles[name], solver_embs[name], one)
+    del solver_embs
+
     counts0 = r0["fits"]["fp32"]["counts"]
     log(f"[phase 14] launches a mesh fit (rank 0 of {MESH_WORLD}): "
         f"{counts0}")
@@ -3200,13 +3426,497 @@ def phase14_mesh(x_np, cfg, device_fit, fm3) -> dict:
     it = r0["fits"]["fp32"]["iterations"]
     log(f"[phase 14] all_reduce of the (D, K) = ({counts.shape[0]}, "
         f"{EIG_BLOCK}) payload, two ranks sharing one card over gloo: "
-        f"{r0['all_reduce_ms_float32']:.2f} ms float32 "
+        f"{r0['all_reduce_ms']['float32']:.2f} ms float32 "
         f"({counts.shape[0] * EIG_BLOCK * 4 / 1e6:.1f} MB), "
-        f"{r0['all_reduce_ms_bfloat16']:.2f} ms bf16 "
+        f"{r0['all_reduce_ms']['bfloat16']:.2f} ms bf16 "
         f"({counts.shape[0] * EIG_BLOCK * 2 / 1e6:.1f} MB); ~{it + it // 16 + 2}"
         " Gram products a fit. Not a scaling figure: both ranks share the "
         "card and the host")
     return {"launches": counts0}
+
+
+# --------------------------------------------------------------------------
+# phase 15: more than one card (--cards N)
+# --------------------------------------------------------------------------
+
+def library_outputs(dev, x_np, fm) -> dict:
+    """Each library's entry points on card ``dev`` at small shapes, held
+    against the plain version on the same card: {kernel: (outputs on the
+    host, max abs error against the plain version)}. The strip route of
+    z_matmul (227 KB of shared memory), the statistics form of
+    kmeans_assign at d 16, K 64 (57 KB) and the bf16 flash kernel (hd 128)
+    each need their shared-memory limit lifted on this card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    def host(*ts):
+        return tuple(t.cpu() for t in ts)
+
+    out = {}
+    gen = torch.Generator().manual_seed(15)
+    with torch.cuda.device(dev):
+        x = torch.as_tensor(x_np, device=dev)
+        f = fm.to(dev)
+        p = f.params
+        idx = ops.rb_binning(x, p.widths, p.biases, p.hash_a, p.hash_c,
+                             d_g=p.d_g)
+        want = ref.rb_binning_ref(x, p.widths, p.biases, p.hash_a,
+                                  p.hash_c, p.d_g)
+        if not torch.equal(idx, want):
+            fail(f"rb_binning on {dev} differs from its plain version")
+        out["rb_binning"] = (host(idx), 0.0)
+
+        d, d_g = f.n_features, p.d_g
+        counts = ops.bin_counts(idx, d=d, d_g=d_g)
+        if not torch.equal(counts, ref.bin_counts_ref(idx, d)):
+            fail(f"bin_counts on {dev} differs from its plain version")
+        out["bin_counts"] = (host(counts), 0.0)
+
+        v = torch.randn((d, EIG_BLOCK), generator=gen).to(dev)
+        u = torch.randn((idx.shape[0], EIG_BLOCK), generator=gen).to(dev)
+        s = torch.rand((idx.shape[0],), generator=gen).to(dev) + 0.5
+        y = ops.z_matmul(idx, v, s, d_g=d_g)
+        yg = ops.z_matmul_gather(idx, v, s, d_g=d_g)
+        q = ops.zt_matmul(idx, u, s, d=d, d_g=d_g)
+        g = ops.gram_matmul(idx, u, s, d, d_g=d_g)
+        if not torch.equal(y, yg):
+            fail(f"z_matmul's strip kernel on {dev} differs from its gather "
+                 "kernel")
+        if not torch.equal(g, ops.z_matmul(idx, q, s, d_g=d_g)):
+            fail(f"the fused Gram product on {dev} differs from zt then z")
+        yw = ref.z_matmul_ref(idx, v, s)
+        qw = ref.zt_matmul_ref(idx, u, s, d)
+        for name, got, want, terms in (
+                ("z_matmul", y, yw, ref.z_matmul_ref(idx, v.abs(), s)),
+                ("zt_matmul", q, qw, ref.zt_matmul_ref(idx, u.abs(), s, d))):
+            if not within_sum_tolerance(got, want, terms)[0]:
+                fail(f"{name} on {dev} is off its plain version")
+        err = max(float((y - yw).abs().max()), float((q - qw).abs().max()))
+        out["ell_spmm"] = (host(y, yg, q, g), err)
+
+        rng = np.random.default_rng(15)
+        for dd, k, n in ((7, 7, 131_072), (16, 64, 20_000)):
+            xs = torch.as_tensor(rng.integers(-8, 8, size=(n, dd))
+                                 .astype(np.float32), device=dev)
+            cs = torch.as_tensor(rng.integers(-8, 8, size=(k, dd))
+                                 .astype(np.float32), device=dev)
+            lab, dist2 = ops.kmeans_assign(xs, cs)
+            wl, wd = ref.kmeans_assign_ref(xs, cs)
+            st = ops.kmeans_assign_stats(xs, cs)
+            onehot = torch.nn.functional.one_hot(st[0].long(), k).float()
+            if not (torch.equal(lab, wl) and torch.equal(dist2, wd)
+                    and torch.equal(st[0], lab)
+                    and torch.equal(st[1], onehot.sum(0))
+                    and torch.equal(st[2], onehot.T @ xs)):
+                fail(f"kmeans_assign (d {dd}, K {k}) on {dev} differs from "
+                     "its plain version")
+            out[f"kmeans_assign d{dd} K{k}"] = (host(lab, dist2, *st), 0.0)
+
+        for hd, dtype in ((128, torch.bfloat16), (64, torch.float32)):
+            qa = torch.randn((1, 1000, 4, hd), generator=gen).to(dev, dtype)
+            ka = torch.randn((1, 1000, 2, hd), generator=gen).to(dev, dtype)
+            va = torch.randn((1, 1000, 2, hd), generator=gen).to(dev, dtype)
+            got = ops.flash_attention(qa, ka, va, causal=True)
+            want = ref.flash_attention_bshd_ref(qa, ka, va, causal=True)
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL[str(dtype)[6:]]
+            if err > tol:
+                fail(f"flash_attention ({dtype}) on {dev} is {err:.3g} off "
+                     f"its plain version (limit {tol:g})")
+            out[f"flash_attention {str(dtype)[6:]}"] = (host(got), err)
+        torch.cuda.synchronize(dev)
+    return out
+
+
+def phase15a_cards(n_cards: int, x_np, fm) -> None:
+    """Every library on card 0, then on each other card, in this process."""
+    import torch
+
+    from repro_torch.kernels import ops
+    base = None
+    for c in range(n_cards):
+        dev = torch.device("cuda", c)
+        ops.reset_launch_counts()
+        got = library_outputs(dev, x_np, fm)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        same = None
+        if base is None:
+            base = got
+        else:
+            same = all(all(torch.equal(a, b) for a, b in
+                           zip(got[name][0], base[name][0])) for name in got)
+        log(f"[phase 15] {dev}: every library against its plain version ok "
+            f"(max abs errors " + ", ".join(
+                f"{k} {v[1]:.3g}" for k, v in got.items())
+            + f"); launches {counts}"
+            + ("" if same is None else
+               f"; every output bit-equal to cuda:0's = {same}"))
+        if same is False:
+            fail(f"the kernels on {dev} give other bits than on cuda:0")
+
+
+def nccl_cards_rank(tmp: str, cfg_dict: dict, solver_cfgs: dict,
+                    full: bool, kmeans_names: list) -> dict:
+    """Phase 15 on one rank of an NCCL world, one rank a card: the fp32 mesh
+    fit, this shard's counts and degrees, the all_reduce of the (D, K)
+    payload; with ``full`` also chunks within the shards, the bf16 payload,
+    each other solver, predict and transform with the mesh; and the mesh's
+    k-means over each embedding in ``kmeans_names`` (in a world of 1)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import SCRBConfig
+    from repro_torch.core.distributed import (
+        all_gather_rows, distributed_kmeans, make_degree_pass,
+    )
+    from repro_torch.launch import mesh as lm
+    from repro_torch.utils import fold_seed
+
+    require_built()
+    x = np.load(Path(tmp) / "x.npy")
+    cfg = SCRBConfig.from_dict(cfg_dict)
+    mesh = lm.make_host_mesh()
+    rank, world = lm.data_rank(mesh), dist.get_world_size()
+    group = lm.data_group(mesh)
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "card": torch.cuda.current_device(), "fits": {}}
+
+    def save(name, emb):
+        if rank == 0:
+            np.save(Path(tmp) / f"emb_{world}_{name}.npy", emb)
+
+    fits = [("fp32", None, False)]
+    if full:
+        fits += [("chunked", MESH_CHUNK, False), ("bf16", None, True)]
+    for tag, chunk, compress in fits:
+        model, wall, counts = mesh_fit(x, cfg, mesh, chunk, compress)
+        out["fits"][tag] = fit_summary(model, wall, counts)
+        save(tag, model.fit_result.embedding)
+        if tag == "fp32":
+            first = model
+        else:
+            del model
+    n = x.shape[0]
+    rows = n // lm.data_shards(mesh)
+    lo = rank * rows
+    fm = first.feature_map
+    idx = fm.transform(torch.as_tensor(x[lo:lo + rows], device="cuda"))
+    deg, counts = make_degree_pass(mesh, idx, fm.n_features, fm.d_g)()
+    out["counts"] = counts.cpu().numpy()
+    out["deg"] = all_gather_rows(deg, group).cpu().numpy()
+    del idx, deg
+    out["all_reduce_ms"] = time_all_reduce(group, fm.n_features)
+    if full:
+        prow = x[:MESH_PREDICT_ROWS]
+        pred = first.predict(prow, mesh=mesh)
+        out["predict_equal"] = bool(np.array_equal(pred, first.predict(prow)))
+        out["predict_agree"] = float(np.mean(
+            pred == first.fit_result.labels[:MESH_PREDICT_ROWS]))
+        out["transform_equal"] = bool(np.array_equal(
+            first.transform(prow[:4096], mesh=mesh),
+            first.transform(prow[:4096])))
+        del first
+        out["solver_fits"] = mesh_solver_fits(x, solver_cfgs, mesh, save)
+    out["kmeans"] = {}
+    if world == 1:           # its own fit's embedding too
+        kmeans_names = kmeans_names + [f"emb_{world}_fp32.npy"]
+    for name in kmeans_names:
+        u = torch.as_tensor(np.load(Path(tmp) / name), device="cuda")
+        res, _ = distributed_kmeans(
+            fold_seed(cfg.seed, "kmeans"), u, cfg.n_clusters, mesh,
+            n=u.shape[0], n_iters=cfg.kmeans_iters,
+            n_replicates=cfg.kmeans_replicates)
+        out["kmeans"][name] = res.labels.numpy()
+    return out
+
+
+def phase15b_nccl(n_cards: int, x_np, cfg, single: dict, singles: dict,
+                  solver_cfgs: dict) -> dict:
+    """The mesh over NCCL, one rank a card, at 1, 2 and ``n_cards`` ranks,
+    against the single fit on cuda:0 (``single``: its Ritz values, counts,
+    degrees and labels)."""
+    import numpy as np
+
+    from repro_torch.launch.world import run_world
+
+    n = x_np.shape[0]
+    d = single["counts"].shape[0]
+    worlds = sorted({2, n_cards}) + [1]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "x.npy", x_np)
+        for w in worlds:
+            full = w == n_cards
+            names = []
+            if w == 1:        # the same k-means in one process, each fit's
+                names = sorted(p.name for p in Path(tmp).glob("emb_*.npy")
+                               if not p.name.endswith("_compressive.npy"))
+            t0 = time.perf_counter()
+            ranks = run_world(nccl_cards_rank, w, backend="nccl",
+                              device="cuda",
+                              args=(tmp, cfg.to_dict(), solver_cfgs, full,
+                                    names),
+                              timeout_s=60.0, join_timeout_s=CARDS_JOIN_S)
+            log(f"[phase 15] NCCL world of {w}, one rank a card (cards "
+                f"{[r['card'] for r in ranks]}): {time.perf_counter() - t0:.1f}"
+                "s, spawn included")
+            if [r["rank"] for r in ranks] != list(range(w)) or \
+                    {r["backend"] for r in ranks} != {"nccl"} or \
+                    [r["card"] for r in ranks] != list(range(w)):
+                fail(f"the NCCL world of {w} is not one rank a card")
+            results[w] = ranks
+        embs = {p.name: np.load(p) for p in Path(tmp).glob("emb_*.npy")}
+    one = results[1][0]["kmeans"]
+    theta1 = np.asarray(single["sig"], np.float64) ** 2
+    out = {}
+    for w in worlds:
+        ranks = results[w]
+        r0 = ranks[0]
+        for tag, f in r0["fits"].items():
+            fits = [r["fits"][tag] for r in ranks]
+            iters = [g["iterations"] for g in fits]
+            theta = np.asarray(f["sig"], np.float64) ** 2
+            ritz = float(np.max(np.abs(theta - theta1)))
+            name = f"emb_{w}_{tag}.npy"
+            ari1 = adjusted_rand_index(f["labels"], one[name])
+            ari_single = adjusted_rand_index(f["labels"], single["labels"])
+            log(f"[phase 15] nccl x{w} {tag}: fit {f['wall']:.3f}s; stages "
+                "(s) " + ", ".join(f"{s}={v:.3f}"
+                                   for s, v in f["stages"].items())
+                + f"; iterations {iters} on the ranks (single "
+                f"{single['iterations']}), resnorm max {f['resmax']:.3g}; "
+                f"Ritz values within {ritz:.3g} of the single fit's; labels "
+                f"ARI {ari1:.4f} against the same k-means in one process, "
+                f"{ari_single:.4f} against the single fit's; launches "
+                f"{f['counts']}")
+            limit = MESH_BF16_RITZ_ATOL if tag == "bf16" \
+                else MESH_NCCL_RITZ_ATOL
+            if len(set(iters)) != 1:
+                fail(f"nccl x{w} {tag}: the ranks took {iters} iterations")
+            if not all(np.array_equal(g["labels"], f["labels"])
+                       for g in fits):
+                fail(f"nccl x{w} {tag}: the ranks' labels differ")
+            if not np.all(np.isfinite(theta)) or ritz > limit:
+                fail(f"nccl x{w} {tag}: Ritz values {ritz:.3g} off the "
+                     f"single fit's (limit {limit:g})")
+            if ari1 < MESH_ARI:
+                fail(f"nccl x{w} {tag}: labels agree with the same k-means "
+                     f"in one process at ARI {ari1:.4f} < {MESH_ARI}")
+            if f["labels"].shape != (n,):
+                fail(f"nccl x{w} {tag}: labels of shape {f['labels'].shape}")
+        same_counts = all(np.array_equal(r["counts"], single["counts"])
+                          for r in ranks)
+        same_deg = all(np.array_equal(r["deg"], single["deg"])
+                       for r in ranks)
+        ar = r0["all_reduce_ms"]
+        mb = d * EIG_BLOCK * 4 / 1e6
+        ring = 2 * (w - 1) / w * d * EIG_BLOCK * 4 / NVLINK_BYTES_PER_S * 1e3
+        log(f"[phase 15] nccl x{w}: counts bit-equal to the single card's = "
+            f"{same_counts}, degrees bit-equal = {same_deg}; all_reduce of "
+            f"the ({d}, {EIG_BLOCK}) payload {ar['float32']:.4f} ms float32 "
+            f"({mb:.1f} MB; a ring all-reduce's bound over NVLink at "
+            f"{NVLINK_BYTES_PER_S / 1e9:.0f} GB/s each way {ring:.4f} ms), "
+            f"{ar['bfloat16']:.4f} ms bf16")
+        if not (same_counts and same_deg):
+            fail(f"nccl x{w}: counts or degrees differ from the single "
+                 "card's")
+        out[w] = {"fits": r0["fits"], "all_reduce_ms": ar, "ring_ms": ring}
+        if w != n_cards:
+            continue
+        if not all(r["predict_equal"] and r["transform_equal"]
+                   for r in ranks):
+            fail(f"nccl x{w}: predict(mesh=) or transform(mesh=) differs "
+                 "from the one-process call")
+        agree = min(r["predict_agree"] for r in ranks)
+        log(f"[phase 15] nccl x{w}: predict(mesh=) on {MESH_PREDICT_ROWS} "
+            f"rows agrees with the fit's labels at {agree:.6f}, equal to "
+            "predict() and transform(mesh=) to transform() = True")
+        if agree < 0.99:
+            fail(f"nccl x{w}: predict(mesh=) agrees with the fit at "
+                 f"{agree:.6f} < 0.99")
+        for name in MESH_SOLVERS:
+            emb = embs[f"emb_{w}_{name}.npy"]
+            labels = one_process_subset_labels(emb, solver_cfgs[name]) \
+                if name == "compressive" else one[f"emb_{w}_{name}.npy"]
+            hold_mesh_solver(f"nccl x{w} {name}",
+                             [r["solver_fits"][name] for r in ranks],
+                             singles[name], emb, labels)
+    return out
+
+
+def adjusted_rand_index(a, b) -> float:
+    from repro_torch.core import metrics
+    return metrics.adjusted_rand_index(a, b)
+
+
+def busy_by_card(fn, n_cards: int) -> dict:
+    """Each card's busy share over ``fn()`` (phase 9's method, the trace's
+    device events split by card): {card: (busy ms, wall ms)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def sync():
+        for c in range(n_cards):
+            torch.cuda.synchronize(c)
+
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    out = {}
+    for c in range(n_cards):
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.device_index == c)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[c] = (busy / 1e3, wall)
+    return out
+
+
+def phase15c_partitioned(n_cards: int, x_np, cfg) -> None:
+    """The partitioned fit with partition i on card i mod ``n_cards``
+    (device="cuda"), at one worker and a worker a card, against the same
+    fit on cuda:0 alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PartitionOptions, SCRBModel
+    from repro_torch.serve.cluster_engine import ClusterEngine, EngineConfig
+
+    def pcfg(workers):
+        return dataclasses.replace(cfg, partition=PartitionOptions(
+            n_partitions=PART_N, workers=workers))
+
+    fits = {}
+    for device, workers in (("cuda:0", 1), ("cuda", 1),
+                            ("cuda", n_cards)):
+        for c in range(n_cards):
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        model = SCRBModel.fit(x_np, pcfg(workers), device=device)
+        for c in range(n_cards):
+            torch.cuda.synchronize(c)
+        wall = time.perf_counter() - t0
+        res = model.fit_result
+        d = res.diagnostics["partitioned"]
+        fits[(device, workers)] = model
+        log(f"[phase 15] partitioned fit, device={device!r}, {d['devices']} "
+            f"card(s), {PART_N} partitions, workers={d['workers']}: "
+            f"{wall:.3f}s; stages (s) " + ", ".join(
+                f"{k}={v:.3f}" for k, v in res.timer.times.items())
+            + f"; sub-fits (s) {[round(t, 3) for t in d['partition_fit_s']]}")
+    base = fits[("cuda:0", 1)].fit_result
+    for key, model in fits.items():
+        res = model.fit_result
+        same = bool(np.array_equal(res.labels, base.labels)
+                    and np.array_equal(res.singular_values,
+                                       base.singular_values))
+        if not same:
+            fail(f"the partitioned fit {key} differs from the fit on cuda:0 "
+                 "alone")
+    log(f"[phase 15] partitioned labels and merged singular values "
+        f"bit-identical on cuda:0 alone, on {n_cards} cards at one worker "
+        f"and at {n_cards} = True")
+    m = fits[("cuda", n_cards)]
+    pred = m.predict(x_np)
+    agree = float(np.mean(pred == m.fit_result.labels))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "partitioned.npz")
+        m.save(path)
+        loaded = bool(np.array_equal(SCRBModel.load(path).predict(x_np),
+                                     pred))
+    eng = ClusterEngine(EngineConfig(buckets=(PART_ENGINE_BUCKET,)))
+    eng.load_model("partitioned", m)
+    rows = x_np[:PART_ENGINE_BUCKET]
+    served = bool(np.array_equal(eng.predict("partitioned", rows),
+                                 m.predict(rows)))
+    del eng
+    log(f"[phase 15] the {n_cards}-card model: predict on the training rows "
+        f"agrees at {agree:.6f}; save -> load -> predict bit-identical = "
+        f"{loaded}; engine equal to model.predict = {served}")
+    if agree != 1.0 or not loaded or not served:
+        fail("the multi-card partitioned model does not serve its fit")
+    for workers in (1, n_cards):
+        busy = busy_by_card(lambda: SCRBModel.fit(x_np, pcfg(workers),
+                                                  device="cuda"), n_cards)
+        log(f"[phase 15] partitioned fit on {n_cards} cards, workers="
+            f"{workers}: idle share by card " + ", ".join(
+                f"cuda:{c} {1 - b / w:.3f} ({b:.1f} ms busy of {w:.1f})"
+                for c, (b, w) in busy.items()))
+
+
+def phase15_cards(n_cards: int) -> None:
+    """More than one card: the kernels on every card, the mesh over NCCL at
+    1, 2 and ``n_cards`` ranks, the partitioned fit across the cards, and
+    what the cards and their links are."""
+    import torch
+
+    from repro_torch.core import RBMap, SCRBConfig, SCRBModel, graph
+    from repro_torch.core.rb import suggest_sigma
+    from repro_torch.data.synthetic import SuiteSpec, generate
+    from repro_torch.kernels import ops
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    for line in smi:
+        log(f"[phase 15] card {line}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    for line in topo.rstrip().splitlines():
+        log(f"[phase 15] topo | {line}")
+
+    x_np, _ = generate(SuiteSpec(*COVTYPE), scale=1.0, seed=0)
+    sigma = suggest_sigma(x_np)
+    cfg = SCRBConfig(n_clusters=COVTYPE[1], n_grids=N_GRIDS, sigma=sigma)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    fm = RBMap(n_grids=N_GRIDS, sigma=sigma).fit(cfg.seed, x_np)
+    phase15a_cards(n_cards, x_np[:Z_STRIP_ROWS_15], fm)
+    log(f"[phase 15] (a) {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = SCRBModel.fit(x_np, cfg, device="cuda:0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    res = model.fit_result
+    f = model.feature_map
+    idx = f.transform(torch.as_tensor(x_np, device="cuda:0"))
+    counts = ops.bin_counts(idx, d=f.n_features, d_g=f.d_g)
+    deg = graph.degrees_from_counts(idx, counts)
+    single = {"sig": res.singular_values, "labels": res.labels,
+              "iterations": res.diagnostics["solver_iterations"],
+              "counts": counts.cpu().numpy(), "deg": deg.cpu().numpy()}
+    del idx, deg, counts, model, res
+    log(f"[phase 15] single fit on cuda:0: {wall:.3f}s, "
+        f"{single['iterations']} iterations")
+    singles, solver_cfgs = single_solver_fits(x_np, cfg, {})
+    for c in range(n_cards):
+        with torch.cuda.device(c):
+            torch.cuda.empty_cache()
+    phase15b_nccl(n_cards, x_np, cfg, single, singles, solver_cfgs)
+    log(f"[phase 15] (b) {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    phase15c_partitioned(n_cards, x_np, cfg)
+    log(f"[phase 15] (c) {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> None:
@@ -3216,12 +3926,29 @@ def main() -> None:
     parser.add_argument("--kmeans-baseline", type=Path, default=None,
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
+    parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
+                        help="run phases 0, 1 and 15 (more than one card) "
+                             "on this many cards instead of phases 0-14")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the repro_torch package is not beside {Path(__file__).name}")
     sys.path.insert(0, str(SRC))
     card = phase0_card()
+    if args.cards is not None:
+        if card["device"]["count"] < args.cards:
+            fail(f"--cards {args.cards} needs {args.cards} cards; "
+                 f"{card['device']['count']} present")
+        t0 = time.perf_counter()
+        phase1_build()
+        log(f"[phase 1] {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase15_cards(args.cards)
+        log(f"[phase 15] {time.perf_counter() - t0:.1f}s")
+        log(f"[total] {time.perf_counter() - t_start:.1f}s")
+        print(card["smi"])
+        print(json.dumps({"ok": True, "device": card["device"]}), flush=True)
+        return
 
     import torch
 
@@ -3292,7 +4019,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    phase9_solvers(x_np, cfg, device_fit)
+    solver_fits = phase9_solvers(x_np, cfg, device_fit)["fits"]
     torch.cuda.empty_cache()
     log(f"[phase 9] {time.perf_counter() - t0:.1f}s")
 
@@ -3338,7 +4065,9 @@ def main() -> None:
     log(f"[phase 13] {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    mesh = phase14_mesh(x_np, cfg, device_fit, model.feature_map)
+    mesh = phase14_mesh(x_np, cfg, device_fit, model.feature_map,
+                        solver_fits)
+    del solver_fits
     for row in kernels:          # launches per mesh fit, on one rank
         row["launches_mesh"] = mesh["launches"][row["name"]]
     log(f"[phase 14] {time.perf_counter() - t0:.1f}s")

@@ -113,13 +113,19 @@ def _tall_axpby(a: float, x, b: float, y):
     return a * x + b * y
 
 
-def _tall_inner(x, y) -> float:
+def _tall_inner(z, x, y) -> float:
     """Σ_ij x_ij·y_ij over the whole tall block: host float64 over chunks,
-    one float32 dot product (read to the host) on the device."""
+    one float32 dot product (read to the host) on the device; under a mesh
+    the rank's own dot product summed over the ranks (``z.reduce``), so
+    every rank reads the same value."""
     if isinstance(x, streaming.ChunkedDense):
         return float(sum(float(torch.dot(cx.reshape(-1).double(),
                                          cy.reshape(-1).double()))
                          for cx, cy in zip(x.chunks, y.chunks)))
+    if z.kind == "mesh":
+        return float(z.reduce(
+            lambda acc, a, b: acc + torch.dot(a.reshape(-1), b.reshape(-1)),
+            torch.zeros((), dtype=torch.float32, device=x.device), x, y))
     return float(torch.dot(x.reshape(-1), y.reshape(-1)))
 
 
@@ -140,7 +146,7 @@ def chebyshev_sweep(z, r, degree: int, *, coeffs: Optional[np.ndarray] = None,
     acc = _tall_scale(float(coeffs[0]), r) if coeffs is not None else None
     mu = np.zeros(degree + 1, np.float64) if moments else None
     if moments:
-        mu[0] = _tall_inner(r, r)
+        mu[0] = _tall_inner(z, r, r)
     if degree == 0:
         return acc, mu, 0
     t_prev, t_cur = r, _tall_axpby(2.0, z.gram(r), -1.0, r)   # T_0 r, T_1 r
@@ -149,7 +155,7 @@ def chebyshev_sweep(z, r, degree: int, *, coeffs: Optional[np.ndarray] = None,
         if coeffs is not None:
             acc = _tall_axpby(1.0, acc, float(coeffs[j]), t_cur)
         if moments:
-            mu[j] = _tall_inner(r, t_cur)
+            mu[j] = _tall_inner(z, r, t_cur)
         if j < degree:
             # T_{j+1} = 2(2Â − I)T_j − T_{j-1}
             nxt = _tall_axpby(4.0, z.gram(t_cur), -2.0, t_cur)
@@ -193,10 +199,12 @@ def _bisect_count(moments, probes, target: float, *, iters: int = 48) -> float:
 
 def _as_tall(z, block):
     """An injected (N, w) array or tensor in ``z``'s tall type: host chunks
-    aligned with a host-chunked ``z``, else a float32 tensor on ``z``'s
-    device."""
+    aligned with a host-chunked ``z``, this rank's rows under a mesh, else
+    a float32 tensor on ``z``'s device."""
     if z.kind == "host_chunked":
         return streaming.ChunkedDense.from_array(block, z.store.chunk_sizes)
+    if z.kind == "mesh":
+        block = torch.as_tensor(block)[z.rows]
     return torch.as_tensor(block, dtype=torch.float32, device=z.device)
 
 
@@ -344,8 +352,20 @@ def _compressive_embed_impl(z, k: int, seed: int, cfg, *,
 # random-subset k-means + full-N assignment sweep
 # ---------------------------------------------------------------------------
 
-def _gather_rows(u_hat, idx: np.ndarray, device) -> torch.Tensor:
-    """An O(n_sub · d) device block of the requested (sorted) rows."""
+def _gather_rows(z, u_hat, idx: np.ndarray, device) -> torch.Tensor:
+    """An O(n_sub · d) device block of the requested (sorted) rows, by
+    global index. Under a mesh each rank fills the rows its shard holds
+    into a zero block and ``z.reduce`` sums the blocks over the ranks
+    (0 + x is exact): every rank gets the same block."""
+    if z.kind == "mesh":
+        sel = torch.as_tensor(idx)
+        mine = (sel >= z.row0) & (sel < z.row0 + z.n_local)
+        block = torch.zeros((idx.shape[0], u_hat.shape[1]),
+                            dtype=u_hat.dtype, device=u_hat.device)
+        block[mine.to(u_hat.device)] = u_hat[(sel[mine] - z.row0)
+                                             .to(u_hat.device)]
+        return z.reduce(lambda acc, b: acc + b, torch.zeros_like(block),
+                        block)
     if isinstance(u_hat, streaming.ChunkedDense):
         offsets = np.concatenate([[0], np.cumsum(u_hat.chunk_sizes)])
         parts = [c[torch.from_numpy(idx[(idx >= lo) & (idx < hi)] - lo)]
@@ -371,11 +391,12 @@ def subset_cluster(z, u_hat, seed: int, cfg, *, rows=None,
     ``rows`` (sorted row indices) and ``init`` (the k-means seeds, as
     ``kmeans.kmeans(init=...)``) replace the draws from ``seed``. The
     assignment sweep runs through ``z.map_row_chunks``, so host chunks are
-    uploaded one at a time; only the (N, 2) label/distance table leaves."""
+    uploaded one at a time; only the (N, 2) label/distance table leaves
+    (under a mesh, gathered from every rank: the global labels)."""
     n, k = z.n, cfg.n_clusters
     idx = subset_rows(n, k, seed, cfg) if rows is None \
         else np.sort(np.asarray(rows, np.int64))
-    sub = _gather_rows(u_hat, idx, z.device)
+    sub = _gather_rows(z, u_hat, idx, z.device)
     km = _kmeans(make_generator(fold_seed(seed, "centroids"), z.device), sub,
                  k, n_iters=cfg.kmeans_iters,
                  n_replicates=cfg.kmeans_replicates, impl=cfg.impl, init=init)
@@ -387,6 +408,8 @@ def subset_cluster(z, u_hat, seed: int, cfg, *, rows=None,
         return torch.stack([labels.to(torch.float32), d2], dim=1)
 
     out = z.map_row_chunks(assign, u_hat)
+    if z.kind == "mesh":
+        out = z.gather_rows(out)
     arr = out.to_array() if isinstance(out, streaming.ChunkedDense) \
         else out.cpu().numpy()
     res = KMeansResult(centroids=cents,

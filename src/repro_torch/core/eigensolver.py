@@ -653,7 +653,9 @@ def lobpcg_sharded(
                      it)
 
 
-#: Solvers of row-sharded operands (the mesh placement).
+#: Solvers that run on the row shards themselves under the mesh placement;
+#: the others run against the global mat-vec
+#: (:func:`top_k_eigenpairs_sharded`).
 SHARDED_SOLVERS = ("lobpcg", "lobpcg_host")
 
 
@@ -666,6 +668,7 @@ def top_k_eigenpairs_sharded(
     rows: slice,
     device,
     reduce: Callable[[torch.Tensor], torch.Tensor],
+    global_matvec: Matvec,
     solver: str = "lobpcg",
     max_iters: int = 200,
     tol: float = 1e-5,
@@ -674,23 +677,28 @@ def top_k_eigenpairs_sharded(
     precond: Optional[torch.Tensor] = None,
     stable_tol: Optional[float] = None,
 ) -> EigResult:
-    """Top-k eigenpairs of a row-sharded operator by :func:`lobpcg_sharded`
-    (``"lobpcg"`` and ``"lobpcg_host"`` alike), under an ``eigensolve``
-    span. The start block is the single placement's — the global (n, b)
-    Gaussian draw from ``generator`` on the CPU, or ``x0`` — cut to this
-    rank's ``rows``; ``precond`` is this rank's rows of the diagonal.
-    Returns this rank's rows of the vectors. The other solvers and the
-    n < 3k dense fallback need their own tall algebra sharded and raise
-    ``NotImplementedError``."""
-    if solver not in SHARDED_SOLVERS:
-        raise NotImplementedError(
-            f"solver={solver!r} under placement='mesh' is not yet ported to "
-            f"repro_torch (ROADMAP.md A8; ported: {SHARDED_SOLVERS})")
-    if 3 * k > n:
-        raise NotImplementedError(
-            f"the dense fallback for n < 3k (n={n}, k={k}) under "
-            "placement='mesh' is not yet ported to repro_torch "
-            "(ROADMAP.md A8)")
+    """Top-k eigenpairs of a row-sharded operator; returns this rank's
+    ``rows`` of the vectors. ``matvec`` maps this rank's rows of u to its
+    rows of Âu and ``reduce`` sums a tensor over the ranks;
+    ``global_matvec`` maps the global (n, b) block, the same on every rank,
+    to the global Âv; ``precond`` is the global (n,) diagonal.
+
+    ``"lobpcg"`` and ``"lobpcg_host"`` (at 3k ≤ n) run
+    :func:`lobpcg_sharded` on the shard, under an ``eigensolve`` span. Every
+    other solver, and the n < 3k dense fallback, run
+    :func:`top_k_eigenpairs` against ``global_matvec``, as the JAX package
+    drives them against its global arrays: every rank holds the (n, b)
+    block and runs the same algebra on the same bits, so every host
+    decision (a stop, a restart, ``auto``'s switch) is the same on every
+    rank. The start block is the single placement's either way — the
+    global (n, b) Gaussian draw from ``generator`` on the CPU, or ``x0``."""
+    if solver not in SHARDED_SOLVERS or 3 * k > n:
+        out = top_k_eigenpairs(
+            global_matvec, n, k, generator, device=device, solver=solver,
+            max_iters=max_iters, tol=tol, buffer=buffer, x0=x0,
+            precond=precond, stable_tol=stable_tol)
+        return EigResult(out.theta, out.vectors[rows].contiguous(),
+                         out.resnorms, out.iterations)
     b = lobpcg_block_width(n, k, buffer)
     with obs_trace.span("eigensolve", solver=solver, n=n, k=k,
                         streaming=False, sharded=True) as sp:
@@ -703,7 +711,9 @@ def top_k_eigenpairs_sharded(
         x0_local = start[rows].to(device).contiguous()
         del start
         out = lobpcg_sharded(matvec, x0_local, reduce=reduce,
-                             max_iters=max_iters, tol=tol, precond=precond,
+                             max_iters=max_iters, tol=tol,
+                             precond=None if precond is None
+                             else precond[rows],
                              stable_tol=stable_tol, stable_k=k, conv_k=k)
         out = EigResult(out.theta[:k], out.vectors[:, :k].contiguous(),
                         out.resnorms[:k], out.iterations)

@@ -16,8 +16,7 @@ packages. Every plan of the JAX package runs:
   placement  ``single``       one device;
              ``mesh``         SPMD row shards over ``torch.distributed``
                               (``SCRBModel.fit(..., mesh=...)``; every rank
-                              calls with the same x; ELL maps, the LOBPCG
-                              solvers);
+                              calls with the same x; ELL maps);
              ``partitioned``  the divide-and-conquer fit
                               (``SCRBConfig(partition=PartitionOptions(
                               n_partitions>1))``, ``core.partitioned``),
@@ -28,7 +27,7 @@ packages. Every plan of the JAX package runs:
                               uploaded at a time; under a mesh, the
                               within-shard chunking of every sweep;
 
-with every solver (single placement) and every registered feature map
+with every solver and every registered feature map
 (``ExecutionPlan(feature_map=...)``: the Table-2 baselines).
 """
 from __future__ import annotations
@@ -251,12 +250,7 @@ def representation(plan: ExecutionPlan):
     return _REPRESENTATIONS[(plan.placement, plan.residency)]
 
 
-def _check_ported(plan: ExecutionPlan, cfg: SCRBConfig) -> None:
-    solver = cfg.solver_options.solver
-    if plan.placement == "mesh" and solver not in ("lobpcg", "lobpcg_host"):
-        raise NotImplementedError(
-            f"solver={solver!r} under placement='mesh' is not yet ported to "
-            "repro_torch (ROADMAP.md A8; ported: 'lobpcg', 'lobpcg_host')")
+def _check_feature_map(plan: ExecutionPlan) -> None:
     if plan.feature_map is not None and not isinstance(
             plan.feature_map, tuple(featuremap.FEATURE_MAPS.values())):
         raise ValueError(
@@ -308,7 +302,7 @@ def execute(
         plan = plan_from_config(cfg)
     if final_stage not in ("normalize", "kmeans"):
         raise ValueError(f"unknown final_stage {final_stage!r}")
-    _check_ported(plan, cfg)
+    _check_feature_map(plan)
     configure_device(dev)
     with obs_trace.tracing(cfg.trace):
         with obs_memory.Watermark() as wm:

@@ -31,6 +31,7 @@ divide-and-conquer SC line, Li et al., arXiv:2104.15042):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -227,6 +228,14 @@ def _record_on(obj, stream: "torch.cuda.Stream") -> None:
             _record_on(getattr(obj, f.name), stream)
 
 
+def _on_device(dev: torch.device):
+    """``dev`` as the current CUDA device for the block (nothing on the
+    CPU)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 class _WorkerStreams:
     """One CUDA stream per (worker thread, device), made on first use."""
 
@@ -308,9 +317,14 @@ def execute_partitioned(x, cfg, plan, dev: torch.device, *,
         part_dev = lambda i: devices[i % len(devices)]
         workers = popts.workers or max(1, min(n_parts, len(devices)))
     streams = _WorkerStreams() if workers > 1 else None
+    # the shared map on each partition's device, copied here: a copy to
+    # another card is queued on both cards' current streams of this thread
+    part_devs = {part_dev(i) for i in mine}
+    sub_plans = {d: dataclasses.replace(sub_plan, feature_map=fitted.to(d))
+                 for d in part_devs}
     # this thread's streams: the shared map's tensors were made on them
-    made_on = {d: torch.cuda.current_stream(d) for d in
-               {part_dev(i) for i in mine} if d.type == "cuda"}
+    made_on = {d: torch.cuda.current_stream(d) for d in part_devs
+               if d.type == "cuda"}
 
     def fit_one(i: int):
         pdev = part_dev(i)
@@ -323,9 +337,13 @@ def execute_partitioned(x, cfg, plan, dev: torch.device, *,
         with obs_trace.span("partition_fit", partition=i, device=str(pdev),
                             rows=rows[i]):
             if stream is None:
-                return _fit_partition(parts[i], sub_cfg, sub_plan, pdev), None
+                # the partition's card current, so that its stage timer
+                # waits on that card's work
+                with _on_device(pdev):
+                    return _fit_partition(parts[i], sub_cfg,
+                                          sub_plans[pdev], pdev), None
             with torch.cuda.stream(stream), obs_trace.stream_scoped_sync():
-                return _fit_partition(parts[i], sub_cfg, sub_plan,
+                return _fit_partition(parts[i], sub_cfg, sub_plans[pdev],
                                       pdev), stream
 
     with timer.stage("partition_fits"):

@@ -481,6 +481,25 @@ class MeshRows:
     def gram(self, u):
         return self._gram_fn()(u)
 
+    def global_gram(self, v: torch.Tensor) -> torch.Tensor:
+        """Âv for the global (N, b) block ``v``, which every rank holds:
+        this rank's rows through the sharded Gram product, then one
+        ``all_gather`` of them and of the rank's float32 column sums of
+        ``v``. The sums must agree bit for bit: a rank whose replicated
+        algebra drifted would take another branch and leave the others
+        waiting in a collective, so every rank raises at once instead."""
+        from repro_torch.core.distributed import all_gather_rows
+        y = self.gram(v[self.rows].contiguous())
+        mine = torch.cat([y, v.sum(dim=0, keepdim=True).to(y.dtype)])
+        parts = all_gather_rows(mine, self.group).reshape(
+            self.n_shards, self.n_local + 1, -1)
+        sums = parts[:, -1]
+        if not bool(torch.equal(sums, sums[:1].expand_as(sums))):
+            raise RuntimeError(
+                "the ranks' replicated mat-vec inputs differ (column sums "
+                f"{sums.tolist()}): the replicated algebra diverged")
+        return parts[:, :-1].reshape(self.n, -1)
+
     def random_tall(self, generator: torch.Generator, width: int,
                     dist: str = "normal") -> torch.Tensor:
         """This rank's rows of the global (N, width) draw from
@@ -504,16 +523,16 @@ class MeshRows:
 
     def eigenpairs(self, k: int, seed: int, cfg,
                    x0=None) -> eigensolver.EigResult:
-        """Top-k eigenpairs by the sharded LOBPCG (``lobpcg`` and
-        ``lobpcg_host``); the start block is the single placement's global
-        draw from ``seed``, cut to this shard. The degree preconditioner
-        needs the global degrees (its clip is at their median): one
-        gather of the (N,) vector."""
+        """Top-k eigenpairs of this rank's rows
+        (``eigensolver.top_k_eigenpairs_sharded``): the sharded LOBPCG for
+        ``lobpcg`` and ``lobpcg_host``, every other solver and the n < 3k
+        dense fallback against :meth:`global_gram`. The start block is the
+        single placement's global draw from ``seed``. The degree
+        preconditioner needs the global degrees (its clip is at their
+        median): one gather of the (N,) vector."""
         so = cfg.solver_options
         precond = _solver_precond(
             cfg, self.deg if so.precond == "degree" else None)
-        if precond is not None:
-            precond = precond[self.rows]
         group = self.group
 
         def reduce(t: torch.Tensor) -> torch.Tensor:
@@ -523,7 +542,7 @@ class MeshRows:
         return eigensolver.top_k_eigenpairs_sharded(
             self._gram_fn(), self.n, k, make_generator(seed),
             rows=self.rows, device=self.device, reduce=reduce,
-            solver=so.solver, max_iters=so.iters, tol=so.tol,
+            global_matvec=self.global_gram, solver=so.solver, max_iters=so.iters, tol=so.tol,
             buffer=so.buffer, x0=x0, precond=precond,
             stable_tol=so.stable_tol)
 

@@ -122,6 +122,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <utility>
 
 namespace {
@@ -762,18 +763,34 @@ EncodeTiledFn encode_tiled() {
 
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
+// Launch setup is per device: cudaFuncSetAttribute acts on the calling
+// thread's current device alone, so a limit lifted on one card is still the
+// default on the next. The flags below are kept per device ordinal.
+constexpr int kMaxDevices = 64;
+
+// The calling thread's device, or -1 if it has none or an ordinal past
+// kMaxDevices.
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static std::atomic<int> sms[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev].store(n, std::memory_order_relaxed);
   }
-  return sms;
+  return n;
 }
 
 // A strip launch's geometry and its idx tensor map; plan_strip also lifts
-// the strip kernel's shared-memory limit, once per instantiation.
+// the strip kernel's shared-memory limit, once per instantiation and device.
 struct StripPlan {
   CUtensorMap map;
   int stage_stride, smem, groups, tile_rows, n_items;
@@ -789,13 +806,17 @@ cudaError_t plan_strip(const void* idx, int n, int r, int d_g, int k,
   if (stages < 2 || stages > kMaxStages || p.smem > kSmemMax ||
       r % kIdxGrids)
     return cudaErrorInvalidValue;
-  static bool smem_set = false;  // once per instantiation of the kernel
-  if (!smem_set) {
+  // once per instantiation of the kernel and device; two threads that
+  // both see false set the same value twice, which is harmless
+  static std::atomic<bool> smem_set[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
     const cudaError_t e = cudaFuncSetAttribute(
         z_strip_kernel<T, KC, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemMax);
     if (e != cudaSuccess) return e;
-    smem_set = true;
+    smem_set[dev].store(true, std::memory_order_release);
   }
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;

@@ -80,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kMasked = -1e30f;
@@ -813,13 +815,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       !make_map(encode, &mk, k, HD, hkv, t, b, C::W, C::kBC) ||
       !make_map(encode, &mv, v, HD, hkv, t, b, C::W, C::kBC))
     return cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
+  // cudaFuncSetAttribute acts on the calling thread's current device
+  // alone: lift the limit once per head dim and device
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> smem_set[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::kSmem);
     if (e != cudaSuccess) return e;
-    smem_set = true;
+    smem_set[dev].store(true, std::memory_order_release);
   }
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   const dim3 grid((unsigned)(b * h), (unsigned)((s + kBR - 1) / kBR));

@@ -57,6 +57,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -362,27 +363,41 @@ template <int D, bool STATS>
 cudaError_t plan(int n, int d, int k, int& blocks, size_t& smem) {
   auto kernel = kmeans_assign_kernel<D, STATS>;
   smem = smem_bytes<D>(d, k, STATS);
-  static int sms = 0;
-  static size_t attr_smem = 48 * 1024;
-  static size_t occ_smem = (size_t)-1;
-  static int occ = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (smem > attr_smem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    attr_smem = smem;
-  }
-  if (smem != occ_smem) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, kernel, kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (occ < 1) return cudaErrorInvalidConfiguration;
-    occ_smem = smem;
+  // The cached setup is per device: cudaFuncSetAttribute acts on the
+  // calling thread's current device alone. One lock an instantiation keeps
+  // the raised limit and the occupancy that goes with it consistent when
+  // threads launch at once.
+  constexpr int kMaxDevices = 64;
+  struct Setup {
+    int sms = 0, occ = 0;
+    size_t attr_smem = 48 * 1024, occ_smem = (size_t)-1;
+  };
+  static Setup setup[kMaxDevices];
+  static std::mutex lock;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  int sms, occ;
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    Setup& s = setup[dev];
+    if (s.sms == 0)
+      cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (smem > s.attr_smem) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      s.attr_smem = smem;
+    }
+    if (smem != s.occ_smem) {
+      const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &s.occ, kernel, kThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (s.occ < 1) return cudaErrorInvalidConfiguration;
+      s.occ_smem = smem;
+    }
+    sms = s.sms;
+    occ = s.occ;
   }
   const long long tiles = ((long long)n + Shape<D>::kRows - 1) /
                           Shape<D>::kRows;

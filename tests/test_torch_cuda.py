@@ -33,6 +33,12 @@ device allocation at steady state. The placements: a partitioned fit
 against the CPU by ARI ≥ 0.99, one worker against a stream a partition
 bit for bit with equal launch counts, and a gloo world of 2 ranks on the
 card holding its Gram product within 1e-5 relative of the fused one.
+More than one card (skipped below two): each library's kernels on every
+card after card 0 in one process, against the plain version and bit-equal
+to card 0's output (the kernels' launch setup is per device); a
+partitioned fit spread over every card bit-identical to the same fit on
+card 0 alone; an NCCL world of 2, one rank a card, holding its Gram
+product within 1e-5 relative of the fused one.
 """
 import dataclasses
 
@@ -83,6 +89,93 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def cards():
+    """The card count, at least two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.cuda.device_count()
+
+
+def _library_run(lib: str, dev):
+    """One library's entry points on card ``dev``, each output held against
+    its plain version on the same card; the outputs on the host. The
+    shapes lift each kernel's shared-memory limit above 48 KB where it has
+    one: the strip route of z_matmul, kmeans_assign_stats at d 16, K 64,
+    the bf16 flash kernel."""
+    gen = torch.Generator().manual_seed(21)
+    with torch.cuda.device(dev):
+        if lib == "rb_binning":
+            t = [a.to(dev) for a in _rb_inputs(7, 4096, 54, 64)]
+            got = ops.rb_binning(*t, d_g=2048)
+            assert torch.equal(got, ref.rb_binning_ref(*t, 2048))
+            outs = (got,)
+        elif lib == "bin_counts":
+            idx = torch.from_numpy(_ell(3, 50_000, 32, 512)).to(dev)
+            got = ops.bin_counts(idx, d=32 * 512, d_g=512)
+            assert torch.equal(got, ref.bin_counts_ref(idx, 32 * 512))
+            outs = (got,)
+        elif lib == "ell_spmm":
+            n, r, d_g, k = ops.Z_STRIP_MIN_ROWS, 32, 512, 11
+            idx = torch.from_numpy(_ell(5, n, r, d_g)).to(dev)
+            v = torch.randn((r * d_g, k), generator=gen).to(dev)
+            u = torch.randn((n, k), generator=gen).to(dev)
+            s = (torch.rand((n,), generator=gen) + 0.5).to(dev)
+            y = ops.z_matmul(idx, v, s, d_g=d_g)
+            assert torch.equal(y, ops.z_matmul_gather(idx, v, s, d_g=d_g))
+            _assert_sum_close(y, ref.z_matmul_ref(idx, v, s),
+                              ref.z_matmul_ref(idx, v.abs(), s))
+            q = ops.zt_matmul(idx, u, s, d=r * d_g, d_g=d_g)
+            _assert_sum_close(q, ref.zt_matmul_ref(idx, u, s, r * d_g),
+                              ref.zt_matmul_ref(idx, u.abs(), s, r * d_g))
+            g = ops.gram_matmul(idx, u, s, r * d_g, d_g=d_g)
+            assert torch.equal(g, ops.z_matmul(idx, q, s, d_g=d_g))
+            outs = (y, q, g)
+        elif lib == "kmeans_assign":
+            rng = np.random.default_rng(9)
+            x = torch.from_numpy(rng.integers(-8, 8, size=(20_000, 16))
+                                 .astype(np.float32)).to(dev)
+            c = torch.from_numpy(rng.integers(-8, 8, size=(64, 16))
+                                 .astype(np.float32)).to(dev)
+            lab, dist = ops.kmeans_assign(x, c)
+            want_l, want_d = ref.kmeans_assign_ref(x, c)
+            assert torch.equal(lab, want_l) and torch.equal(dist, want_d)
+            st = ops.kmeans_assign_stats(x, c)
+            onehot = torch.nn.functional.one_hot(lab.long(), 64).float()
+            assert torch.equal(st[0], lab)
+            assert torch.equal(st[1], onehot.sum(0))
+            assert torch.equal(st[2], onehot.T @ x)
+            outs = (lab, dist, *st)
+        else:
+            q = torch.randn((1, 300, 4, 128), generator=gen).to(
+                dev, torch.bfloat16)
+            k = torch.randn((1, 300, 2, 128), generator=gen).to(
+                dev, torch.bfloat16)
+            v = torch.randn((1, 300, 2, 128), generator=gen).to(
+                dev, torch.bfloat16)
+            got = ops.flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention_bshd_ref(q, k, v, causal=True)
+            assert float((got.float() - want.float()).abs().max()) <= 3e-2
+            outs = (got,)
+        torch.cuda.synchronize(dev)
+    return [o.cpu() for o in outs]
+
+
+@pytest.mark.parametrize("lib", ["rb_binning", "ell_spmm", "bin_counts",
+                                 "kmeans_assign", "flash_attention"])
+def test_cuda_every_library_on_every_card(cards, lib):
+    """Each library's kernels on card 0 and then on every other card, in one
+    process: each against its plain version, and every card's output the
+    bits of card 0's. A kernel whose shared-memory limit was lifted on card
+    0 alone would fail to launch on the next card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first = _library_run(lib, torch.device("cuda", 0))
+    for c in range(1, cards):
+        got = _library_run(lib, torch.device("cuda", c))
+        for a, b in zip(got, first):
+            assert torch.equal(a, b), (lib, c)
 
 
 @pytest.mark.parametrize("n,d,r,d_g", RB_SHAPES + [(1, 54, 33, 2048)])
@@ -1175,6 +1268,60 @@ def test_cuda_gloo_world_gram_matches_the_single_card(cuda):
     fmap = tfm.RBMap(n_grids=32, sigma=1.5, d_g=512).fit(0, x)
     params = (fmap.meta_dict(), fmap.state_dict())
     ranks = run_world(_gloo_gram, 2, backend="gloo", device="cuda:0",
+                      args=(x, params, u, n // 2), timeout_s=60.0,
+                      join_timeout_s=300.0)
+    fmap = fmap.to("cuda")
+    idx = fmap.transform(torch.as_tensor(x, device="cuda"))
+    counts = ops.bin_counts(idx, d=fmap.n_features, d_g=fmap.d_g)
+    deg = graph.degrees_from_counts(idx, counts)
+    scale = 1.0 / torch.sqrt(float(fmap.n_grids) * deg)
+    want = ops.gram_matmul(idx, torch.as_tensor(u, device="cuda"), scale,
+                           fmap.n_features, d_g=fmap.d_g).cpu().numpy()
+    got = np.concatenate([r[0] for r in ranks])
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    for _, c in ranks:
+        np.testing.assert_array_equal(c, counts.cpu().numpy())
+
+
+def test_cuda_partitioned_fit_on_every_card_matches_one_card(cards):
+    """A partitioned fit with device="cuda" puts partition i on card i mod
+    the cards: at one worker and at a worker a card, the same labels, merged
+    singular values and embedding bit for bit as the same fit on card 0
+    alone (the kernels are deterministic, and each partition's sub-fit
+    reads the shared map from its own card)."""
+    from repro_torch.core import PartitionOptions, SCRBModel
+    from repro_torch.data.synthetic import make_blobs
+    x, _ = make_blobs(cards * 140_000, 6, 4, seed=5)   # the strip route
+
+    def fit(device, workers):
+        cfg = _blob_fit_cfg("lobpcg", partition=PartitionOptions(
+            n_partitions=cards, workers=workers))
+        return SCRBModel.fit(x, cfg, device=device).fit_result
+
+    alone = fit("cuda:0", 1)
+    for workers in (1, cards):
+        spread = fit("cuda", workers)
+        assert spread.diagnostics["partitioned"]["devices"] == cards
+        np.testing.assert_array_equal(spread.labels, alone.labels)
+        np.testing.assert_array_equal(spread.singular_values,
+                                      alone.singular_values)
+        np.testing.assert_array_equal(spread.embedding, alone.embedding)
+
+
+def test_cuda_nccl_world_gram_matches_the_single_card(cards):
+    """An NCCL world of 2, rank r on card r: the all_reduced counts equal
+    the single card's bin counts, and the sharded Gram product is within
+    1e-5 relative of the fused product on one card."""
+    from repro_torch.core import featuremap as tfm
+    from repro_torch.core import graph
+    from repro_torch.launch.world import run_world
+    n = 2 * 140_000
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    u = rng.normal(size=(n, 11)).astype(np.float32)
+    fmap = tfm.RBMap(n_grids=32, sigma=1.5, d_g=512).fit(0, x)
+    params = (fmap.meta_dict(), fmap.state_dict())
+    ranks = run_world(_gloo_gram, 2, backend="nccl", device="cuda",
                       args=(x, params, u, n // 2), timeout_s=60.0,
                       join_timeout_s=300.0)
     fmap = fmap.to("cuda")

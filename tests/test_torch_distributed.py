@@ -13,6 +13,21 @@ degrees bit for bit; the mesh fit's accuracy ≥ the reference's − 0.01 and
 ARI ≥ 0.99 against the port's single fit, the same labels on both ranks;
 ``predict(mesh=)`` and a partitioned fit on the mesh bit for bit.
 
+Every solver under the mesh, in the same world: the reference's scenario
+of ``tests/test_executor.py`` (``make_rings(512, 2)``, R = 64, d_g =
+1,024, tol 1e-3, 60 iterations; compressive at filter degree 32) for
+``subspace``, ``lanczos``, ``compressive``, ``randomized`` and ``auto``
+(routed to the compressive cell by ``compressive_auto_n=256``), on the
+reference's RB grids and start block (the compressive cell also on its
+probe, signal, subset and seed draws): ARI ≥ 0.97 against the reference's
+single fit of the same solver (the reference's own bar; ``auto``, on the
+port's draws, against the port's), Ritz values within 1e-3 of the port's
+single fit, the same iteration count on both ranks; and the n < 3k dense
+fallback (4 rows, K = 2) within 1e-5 of the port's single fit. A second
+world, of 4 CPU ranks, runs LOBPCG and the randomized sketch on the same
+512 rows against the world of 2. The solver fits run at one thread a
+process: the ranks share the host's cores with each other.
+
 The module's top level imports no JAX: the ranks import it by name.
 """
 import numpy as np
@@ -26,6 +41,22 @@ CFG = dict(n_clusters=2, n_grids=128, sigma=0.15, d_g=4096,
            kmeans_replicates=2, seed=0)
 N = 1024
 
+# the reference's mesh-solver scenario (tests/test_executor.py)
+SOLVER_CFG = dict(n_clusters=2, n_grids=64, sigma=0.15, d_g=1024,
+                  kmeans_replicates=2, solver_tol=1e-3, seed=0)
+SOLVER_N = 512
+SOLVER_CASES = {
+    "subspace": dict(solver="subspace", solver_iters=60),
+    "lanczos": dict(solver="lanczos", solver_iters=60),
+    "compressive": dict(solver="compressive", solver_iters=60,
+                        compressive_degree=32),
+    "randomized": dict(solver="randomized", solver_iters=60),
+    "auto": dict(solver="auto", solver_iters=60, compressive_degree=32,
+                 compressive_auto_n=256),
+}
+WORLD4_CASES = ("lobpcg", "randomized")
+DENSE_ROWS = 4
+
 
 def _catch(fn, *args, **kw):
     """The exception type and message of ``fn(*args, **kw)``, or None."""
@@ -36,7 +67,80 @@ def _catch(fn, *args, **kw):
     return None
 
 
-def _scenarios(x, params, u):
+def _solver_config(name: str):
+    """The scenario's config for one solver (flat kwargs, as the
+    reference's test spells them)."""
+    import warnings
+    case = SOLVER_CASES.get(name, {"solver": name, "solver_iters": 60})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return SCRBConfig(**SOLVER_CFG, **case)
+
+
+def _injected_cell(x, cfg, plan, draws):
+    """The compressive cell on the plan's rows (this rank's, under a mesh)
+    with the reference's probe and signal blocks, subset rows and k-means
+    seeds injected: the global labels, the Ritz values and the Gram
+    products."""
+    from repro_torch.core import compressive, executor
+    from repro_torch.core.kmeans import row_normalize
+    from repro_torch.utils import fold_seed
+    probes, signals, rows, init = draws
+    rep = executor.representation(plan)
+    feats = rep.fit_transform(torch.from_numpy(x), plan.feature_map, cfg,
+                              plan, cfg.seed, torch.device("cpu"))
+    z = rep.from_features(feats, cfg, plan, torch.device("cpu"))
+    comp = compressive.compressive_embed(
+        z, cfg.n_clusters, fold_seed(cfg.seed, "eig"), cfg,
+        probe_block=probes, signal_block=signals)
+    km, _ = compressive.subset_cluster(z, row_normalize(comp.embedding),
+                                       cfg.seed, cfg, rows=rows,
+                                       init=torch.from_numpy(init))
+    return {"labels": km.labels.numpy(), "theta": comp.theta,
+            "solver": "compressive", "iterations": comp.iterations}
+
+
+def _solver_fits(sc, names, dense=False):
+    """On this rank, at one thread (the ranks share the host's cores): a
+    mesh fit of each solver in ``names`` on the scenario's rows, with the
+    reference's RB grids and start block injected — for a solver the
+    scenario has draws of (compressive), the cell with those draws
+    instead; with ``dense``, the n < 3k fallback too."""
+    import torch.distributed as dist
+
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core import featuremap as tfm
+    from repro_torch.launch import mesh as lm
+
+    torch.set_num_threads(1)
+    mesh = lm.make_host_mesh(device_type="cpu")
+    plan = ExecutionPlan(placement="mesh", mesh=mesh,
+                         feature_map=tfm.RBMap.from_state(*sc["params"]))
+    out = {"rank": dist.get_rank()}
+    for name in names:
+        cfg = _solver_config(name)
+        if name in sc["draws"]:
+            out[name] = _injected_cell(sc["x"], cfg, plan, sc["draws"][name])
+            continue
+        res = SCRBModel.fit(sc["x"], cfg, plan=plan, x0=sc["x0"],
+                            device="cpu").fit_result
+        out[name] = {"labels": res.labels, "sig": res.singular_values,
+                     "solver": res.diagnostics["solver"],
+                     "iterations": res.diagnostics["solver_iterations"]}
+    if dense:
+        res = SCRBModel.fit(sc["x"][:DENSE_ROWS], _solver_config("lobpcg"),
+                            plan=plan, device="cpu").fit_result
+        out["dense"] = {"labels": res.labels, "sig": res.singular_values,
+                        "iterations": res.diagnostics["solver_iterations"]}
+    return out
+
+
+def _world4(sc):
+    """The world of 4 ranks: LOBPCG and the randomized sketch."""
+    return _solver_fits(sc, WORLD4_CASES)
+
+
+def _scenarios(x, params, u, sc):
     """Every scenario, on each rank of the world; returns this rank's
     results as host arrays."""
     import torch.distributed as dist
@@ -114,12 +218,6 @@ def _scenarios(x, params, u):
     out["errors"] = {
         "rows": _catch(SCRBModel.fit, x[:1023], SCRBConfig(**CFG),
                        mesh=mesh, device="cpu"),
-        "lanczos": _catch(SCRBModel.fit, x, SCRBConfig(
-            **CFG, solver_options=SolverOptions(solver="lanczos")),
-            mesh=mesh, device="cpu"),
-        "compressive": _catch(SCRBModel.fit, x, SCRBConfig(
-            **CFG, solver_options=SolverOptions(solver="compressive")),
-            mesh=mesh, device="cpu"),
     }
     from repro_torch.core import ExecutionPlan, make_feature_map
     dense = ExecutionPlan(placement="mesh", mesh=mesh,
@@ -134,11 +232,107 @@ def _scenarios(x, params, u):
     out["part_labels"] = pres.labels
     out["part_sig"] = pres.singular_values
     out["part_diag"] = pres.diagnostics["partitioned"]
+
+    # every other solver, and the dense fallback, on the reference's
+    # scenario
+    out["solvers"] = _solver_fits(sc, ("lobpcg", *SOLVER_CASES),
+                                  dense=True)
     return out
 
 
+def _reference_params(cfg: dict):
+    """The reference's RB grids for ``cfg`` (the draw its own single fit
+    makes from ``cfg["seed"]``), as the port's map state."""
+    import jax
+
+    from repro.core import featuremap as jfm
+    from repro.core import rb as jrb
+    from repro.utils import fold_key
+    params = jrb.make_rb_params(
+        fold_key(jax.random.PRNGKey(cfg["seed"]), "rb"), cfg["n_grids"], 2,
+        cfg["sigma"], cfg["d_g"])
+    jmap = jfm.RBMap(n_grids=cfg["n_grids"], sigma=cfg["sigma"],
+                     d_g=cfg["d_g"], params=params)
+    return jmap.meta_dict(), jmap.state_dict()
+
+
 @pytest.fixture(scope="module")
-def world():
+def solver_refs():
+    """The reference's scenario: its rows, RB grids and start block, its
+    single fit of each solver case but ``auto`` (and the compressive
+    cell's draws), and the port's single fits with the same injections."""
+    import warnings
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import SCRBConfig as JConfig
+    from repro.core import compressive as jcomp
+    from repro.core import executor as jexec
+    from repro.core.kmeans import _plusplus_init as j_plusplus_init
+    from repro.utils import fold_key
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core import featuremap as tfm
+    from repro_torch.core.eigensolver import lobpcg_block_width
+
+    x, y = make_rings(SOLVER_N, 2, seed=0)
+    k = SOLVER_CFG["n_clusters"]
+    params = _reference_params(SOLVER_CFG)
+    key = jax.random.PRNGKey(SOLVER_CFG["seed"])
+    ekey, kkey = fold_key(key, "eig"), fold_key(key, "kmeans")
+    x0 = np.asarray(jax.random.normal(
+        ekey, (SOLVER_N, lobpcg_block_width(SOLVER_N, k, 4)), jnp.float32))
+    ref, draws = {}, {}
+    for name, case in SOLVER_CASES.items():
+        if name == "auto":     # held to the port's compressive cell only
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            jcfg = JConfig(**SOLVER_CFG, **case)
+        ref[name] = jexec.execute(jnp.asarray(x), jcfg, keep_state=True)
+        if name != "compressive":     # auto runs the same cell
+            continue
+        jz, co = ref[name].state["z"], jcfg.compressive_options
+        probes = np.array(jz.random_tall(fold_key(ekey, "count"),
+                                         co.probes, dist="rademacher"))
+        signals = np.array(jz.random_tall(
+            fold_key(ekey, "signals"), jcomp.default_signals(k)))
+        n_sub = int(min(SOLVER_N, max(k, jcomp.default_subset(SOLVER_N, k))))
+        sub_seed = int(jax.random.randint(fold_key(kkey, "subset"), (), 0,
+                                          np.iinfo(np.int32).max))
+        rows = np.sort(np.random.default_rng(sub_seed).choice(
+            SOLVER_N, size=n_sub, replace=False))
+        sub = jnp.asarray(np.asarray(ref[name].state["u_hat"])[rows])
+        init = np.stack([np.asarray(j_plusplus_init(kk, sub, k)) for kk in
+                         jax.random.split(fold_key(kkey, "centroids"),
+                                          SOLVER_CFG["kmeans_replicates"])])
+        draws[name] = (probes, signals, rows, init)
+    sc = dict(x=x, params=params, x0=x0, draws=draws)
+    plan = ExecutionPlan(feature_map=tfm.RBMap.from_state(*params))
+    port = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # small shapes: no gain from threads
+    try:
+        for name in ("lobpcg", *SOLVER_CASES):
+            cfg = _solver_config(name)
+            if name in draws:
+                port[name] = _injected_cell(x, cfg, plan, draws[name])
+                continue
+            res = SCRBModel.fit(x, cfg, plan=plan, x0=x0,
+                                device="cpu").fit_result
+            port[name] = {"labels": res.labels, "sig": res.singular_values,
+                          "solver": res.diagnostics["solver"],
+                          "iterations": res.diagnostics["solver_iterations"]}
+        res = SCRBModel.fit(x[:DENSE_ROWS], _solver_config("lobpcg"),
+                            plan=plan, device="cpu").fit_result
+        port["dense"] = {"sig": res.singular_values}
+    finally:
+        torch.set_num_threads(threads)
+    return dict(sc=sc, y=y, ref=ref, port=port)
+
+
+@pytest.fixture(scope="module")
+def world(solver_refs):
     """The reference's inputs, the port's single-process fits, and the
     ranks' results."""
     import jax
@@ -164,13 +358,22 @@ def world():
     u = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (N, 4)),
                    np.float32)
     ranks = run_world(_scenarios, 2, backend="gloo",
-                      args=(x, (jmap.meta_dict(), jmap.state_dict()), u),
+                      args=(x, (jmap.meta_dict(), jmap.state_dict()), u,
+                            solver_refs["sc"]),
                       timeout_s=60.0, join_timeout_s=600.0)
     ref = jsc_rb(jnp.asarray(x), JConfig(**CFG))
     single = SCRBModel.fit(x, SCRBConfig(**CFG), device="cpu")
     return dict(x=x, y=y, u=u, want=np.asarray(adj.gram_matvec(u)),
                 idx=np.asarray(idx), ranks=ranks,
                 ref_acc=metrics.accuracy(ref.labels, y), single=single)
+
+
+@pytest.fixture(scope="module")
+def world4(solver_refs):
+    """The 4-rank world's results, the 2-rank world's beside them."""
+    from repro_torch.launch.world import run_world
+    return run_world(_world4, 4, backend="gloo", args=(solver_refs["sc"],),
+                     timeout_s=60.0, join_timeout_s=600.0)
 
 
 def test_world_of_two_ranks(world):
@@ -262,11 +465,75 @@ def test_sc_rb_distributed_returns_labels_and_timer(world):
 
 def test_mesh_errors(world):
     errs = world["ranks"][0]["errors"]
+    assert set(errs) == {"rows", "dense"}
     assert errs["rows"][0] == "ValueError" and "divisible" in errs["rows"][1]
-    for solver in ("lanczos", "compressive"):
-        assert errs[solver][0] == "NotImplementedError"
-        assert "ROADMAP.md A8" in errs[solver][1]
     assert errs["dense"][0] == "ValueError" and "ELL" in errs["dense"][1]
+
+
+def _ritz(sig) -> np.ndarray:
+    return np.asarray(sig, np.float64) ** 2
+
+
+@pytest.mark.parametrize("solver", list(SOLVER_CASES))
+def test_every_solver_under_the_mesh(world, solver_refs, solver):
+    """The reference's mesh-solver scenario. Each solver's mesh fit, with
+    the reference's RB grids and start block: the ranks in step, Ritz
+    values within 1e-3 of the port's single fit with the same injections,
+    labels at ARI ≥ 0.97 against the reference's single fit of the same
+    solver. The compressive cell runs on the mesh rows with the
+    reference's probe, signal, subset and seed draws injected; ``auto``
+    is a whole mesh fit routed to that cell (``compressive_auto_n``),
+    with the port's own draws, held to the port's single fit."""
+    fits = [r["solvers"][solver] for r in world["ranks"]]
+    single = solver_refs["port"][solver]
+    assert fits[0]["iterations"] == fits[1]["iterations"]
+    assert fits[0]["iterations"] >= 1
+    np.testing.assert_array_equal(fits[0]["labels"], fits[1]["labels"])
+    assert fits[0]["solver"] == single["solver"]
+    assert fits[0]["labels"].shape == (SOLVER_N,)
+    if solver == "compressive":
+        np.testing.assert_allclose(fits[0]["theta"], single["theta"],
+                                   atol=1e-3)
+    else:
+        np.testing.assert_allclose(_ritz(fits[0]["sig"]),
+                                   _ritz(single["sig"]), atol=1e-3)
+    want = single["labels"] if solver == "auto" \
+        else solver_refs["ref"][solver].labels
+    ari = metrics.adjusted_rand_index(fits[0]["labels"], want)
+    assert ari >= 0.97, (solver, ari)
+
+
+def test_auto_routes_to_the_compressive_cell_under_the_mesh(world):
+    fits = world["ranks"][0]["solvers"]
+    assert fits["auto"]["solver"] == "compressive"
+    assert fits["lobpcg"]["solver"] == "lobpcg"
+
+
+def test_dense_fallback_under_the_mesh(world, solver_refs):
+    """n < 3k: 4 rows, K = 2, the exact dense solve on the global
+    mat-vec."""
+    fits = [r["solvers"]["dense"] for r in world["ranks"]]
+    single = solver_refs["port"]["dense"]
+    assert fits[0]["iterations"] == fits[1]["iterations"] == 1
+    np.testing.assert_allclose(_ritz(fits[0]["sig"]), _ritz(single["sig"]),
+                               atol=1e-5)
+    np.testing.assert_array_equal(fits[0]["labels"], fits[1]["labels"])
+    assert fits[0]["labels"].shape == (DENSE_ROWS,)
+
+
+@pytest.mark.parametrize("solver", WORLD4_CASES)
+def test_a_world_of_four_ranks_matches_two(world, world4, solver):
+    """The 4-shard code on the CPU: the same solve as the world of 2."""
+    two = world["ranks"][0]["solvers"][solver]
+    assert [r["rank"] for r in world4] == [0, 1, 2, 3]
+    fits = [r[solver] for r in world4]
+    assert {f["iterations"] for f in fits} == {fits[0]["iterations"]}
+    for f in fits[1:]:
+        np.testing.assert_array_equal(f["labels"], fits[0]["labels"])
+    np.testing.assert_allclose(_ritz(fits[0]["sig"]), _ritz(two["sig"]),
+                               atol=1e-3)
+    assert metrics.adjusted_rand_index(fits[0]["labels"],
+                                       two["labels"]) >= 0.97
 
 
 def test_partitioned_fit_on_a_mesh_matches_one_process(world):
