@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # phases 0-14, on card 0
+    python3 chip_smoke.py              # phases 0-14 and 16, on card 0
     python3 chip_smoke.py --cards 4    # phases 0, 1 and 15, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -207,6 +207,28 @@ from a seed):
            on cuda:0 alone, predict at 1.000000, save/load and the engine
            bit-identical, and each card's idle share; (d) every card's name
            and power limit and `nvidia-smi topo -m`
+  phase 16 the DeepSeek models, one after the other (the card freed
+           between them), at full width, bf16, weights drawn on the card
+           from --seed: deepseek-v2-lite-16b (27 layers: MLA, the MoE FFN)
+           and deepseek-moe-16b (28 layers: GQA through the flash kernel,
+           the MoE FFN). Each: the parameter count equal to the config's;
+           a layer-by-layer float32 check of one prefill of 4 x 4,096
+           tokens (each layer's mixer and FFN output against a float32
+           version written out apart from the port, on the same input, one
+           layer's weights upcast at a time: MLA with its keys and values
+           decompressed per head, the MoE by a loop over experts at the
+           bf16 run's routing and capacity drops; rows within the bf16 row
+           limit, MoE rows on the tokens whose float32 top-k set agrees,
+           the disagreeing share printed) and, on deepseek-moe-16b, each
+           layer's flash output against its plain version; planted faults
+           (MLA scores without the rope term, MoE gates not renormalised)
+           must fail the check; 32 new tokens each, greedy twice
+           (identical tokens) and at temperature 0.8 twice (same seed,
+           same tokens); prefill s, TTFT, decode ms/step beside the bound
+           of reading every routed expert's weights, one decode step's
+           device busy ms (torch.profiler) and one layer's mixer and FFN
+           ms on the prefill's inputs, peak memory; flash launches per
+           generate: 0 and 28 (one per GQA layer)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -224,7 +246,9 @@ chunk), per generate for the flash kernel; ``launches_compressive``:
 per device compressive fit of phase 10; ``launches_engine``: launched by
 the engine's graph replays in phase 12, which no wrapper counts;
 ``launches_partitioned``: per partitioned fit of phase 13;
-``launches_mesh``: per mesh fit of phase 14, on one of its two ranks).
+``launches_mesh``: per mesh fit of phase 14, on one of its two ranks;
+``launches_v2_lite`` and ``launches_moe_16b``: per generate of phase 16's
+deepseek-v2-lite-16b and deepseek-moe-16b).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -396,6 +420,15 @@ MESH_GATHER_WIDTHS = (1, EIG_BLOCK)   # lanczos; the block solvers
 MESH_NCCL_RITZ_ATOL = 1e-5
 NVLINK_BYTES_PER_S = 450e9        # NVLink on an HGX H100, each way
 CARDS_JOIN_S = 600.0
+# phase 16: the DeepSeek models at full width (configs/deepseek_*.py),
+# served the requests of phase 7 (LM_BATCH x LM_PROMPT tokens, LM_NEW new)
+DS_ARCHS = ("deepseek-v2-lite-16b", "deepseek-moe-16b")
+# each layer's bf16 mixer and FFN rows against float32 on the same input
+# and weights: a row passes through ~9 bf16 roundings of its activations
+# (each a relative error of at most 2^-9, ~1.1e-3 RMS), ~3.5e-3 together;
+# a dropped rope term or unnormalised gates move a row by 1e-1 and more
+DS_ROW_REL = FLASH_ROW_REL
+DS_TRUTH_CHUNK = 256      # query rows a chunk in the float32 attention
 
 
 def log(msg: str) -> None:
@@ -1154,10 +1187,29 @@ def phase5_determinism(x_np, cfg):
         fail(f"two fits differ in {int((a != b).sum())} labels")
 
 
+def row_errors(got, want):
+    """Relative L2 error of each row (last axis) of ``got``."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    return err / want.float().norm(dim=-1).clamp_min(1e-30)
+
+
 def row_error(got, want) -> float:
     """Largest relative L2 error over the rows (last axis) of ``got``."""
-    err = (got.float() - want.float()).norm(dim=-1)
-    return float((err / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+    return float(row_errors(got, want).max())
+
+
+def checked_attention(attn, rows: list):
+    """``attn`` (``ops.flash_attention``'s signature), with each call's row
+    error against the plain version on the same inputs appended to
+    ``rows``."""
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
+
+    def run(q, k, v, *, causal=True, window=None):
+        out = attn(q, k, v, causal=causal, window=window)
+        rows.append(row_error(out, plain(q, k, v, causal=causal,
+                                          window=window)))
+        return out
+    return run
 
 
 def planted_faults() -> dict:
@@ -1312,7 +1364,6 @@ def phase7_lm(seed: int) -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
     from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import Engine, ServeConfig
 
     cfg = configs.get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -1335,21 +1386,12 @@ def phase7_lm(seed: int) -> int:
             return T.prefill(cfg_, params_, batch,
                              T.init_cache(cfg_, LM_BATCH, LM_CACHE))[0]
 
-    def checked(attn, rows: list):
-        """``attn``, with each layer's row error against the plain version
-        on the same inputs appended to ``rows``."""
-        def run(q, k, v, *, causal=True, window=None):
-            out = attn(q, k, v, causal=causal, window=window)
-            rows.append(row_error(out, plain(q, k, v, causal=causal,
-                                              window=window)))
-            return out
-        return run
-
     # every layer's kernel output against the plain version on its inputs;
     # the prefill logits through the kernel and through the plain
     # attention, both against the float32 truth
     rows: list = []
-    logits = prefill_logits(checked(ops.flash_attention, rows), cfg, params)
+    logits = prefill_logits(checked_attention(ops.flash_attention, rows),
+                            cfg, params)
     plain_logits = prefill_logits(plain, cfg, params)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = copy.deepcopy(params).float()
@@ -1379,8 +1421,8 @@ def phase7_lm(seed: int) -> int:
              f"attention's {err_p:.4g}")
     for name, fault in planted_faults().items():
         rows_f: list = []
-        err_f = rel(prefill_logits(checked(fault, rows_f), cfg, params),
-                    truth)
+        err_f = rel(prefill_logits(checked_attention(fault, rows_f), cfg,
+                                   params), truth)
         log(f"[phase 7] planted fault, {name}: layer row error max "
             f"{max(rows_f):.3g}, layer 0 {rows_f[0]:.3g} (limit "
             f"{FLASH_ROW_REL}); logits {err_f:.4g} off the truth, "
@@ -1390,36 +1432,57 @@ def phase7_lm(seed: int) -> int:
             fail(f"the per-layer check passes a planted fault ({name})")
     del logits, plain_logits, truth
 
+    launches = serve_requests("[phase 7]", cfg, params, prompts, seed,
+                              flash_layers=cfg.n_layers)["launches"]
+    return launches["flash_attention"]
+
+
+def serve_requests(tag: str, cfg, params, prompts, seed: int, *,
+                   flash_layers: int) -> dict:
+    """Phase 7's and 16's requests through ``Engine.generate``: greedy
+    twice (the same tokens) and at LM_TEMPERATURE twice from one seed (the
+    same tokens), with prefill s, TTFT, decode ms/step, peak memory and
+    the kernel launches of one generate (the flash kernel's must be
+    ``flash_layers``). Returns those launches, the greedy run's stats and
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine, ServeConfig
+
     engine = Engine(cfg, params, ServeConfig(cache_len=LM_CACHE,
                                              batch_size=LM_BATCH))
     engine.generate(prompts[:, :256], 2)                    # warm up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     greedy = engine.generate(prompts, LM_NEW, seed=seed)
-    launches = ops.launch_counts()["flash_attention"]
-    st = engine.last_stats
+    launches = ops.launch_counts()
+    flash = launches["flash_attention"]
+    stats = st = engine.last_stats
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode_tok = LM_BATCH * st["decode_steps"]
-    log(f"[phase 7] generate greedy: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+    log(f"{tag} generate greedy: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
         f"{LM_NEW} new each: prefill {st['prefill_s']:.4f}s "
         f"({st['prompt_tokens'] / st['prefill_s']:.0f} prompt tokens/s), "
         f"time to first token {st['ttft_s']:.4f}s, decode "
         f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step over "
         f"{st['decode_steps']} steps ({decode_tok / st['decode_s']:.1f} "
         f"tokens/s), peak device memory {peak:.3f} GiB")
-    log(f"[phase 7] flash_attention launches in one generate: {launches} "
-        f"(layers: {cfg.n_layers}); all launches {ops.launch_counts()}")
-    if launches != cfg.n_layers:
-        fail(f"one generate launched the flash kernel {launches} times, "
-             f"not once per layer ({cfg.n_layers})")
+    log(f"{tag} flash_attention launches in one generate: {flash} "
+        f"(layers through it: {flash_layers}); all launches {launches}")
+    if flash != flash_layers:
+        fail(f"{cfg.name}: one generate launched the flash kernel {flash} "
+             f"times, not once per layer through it ({flash_layers})")
     if greedy.shape != (LM_BATCH, LM_NEW) or greedy.min() < 0 \
             or greedy.max() >= cfg.vocab_size:
-        fail(f"greedy tokens of shape {greedy.shape} out of the vocabulary")
+        fail(f"{cfg.name}: greedy tokens of shape {greedy.shape} out of "
+             "the vocabulary")
     again = engine.generate(prompts, LM_NEW, seed=seed)
     if not np.array_equal(greedy, again):
-        fail(f"two greedy generates differ in {int((greedy != again).sum())}"
-             " tokens")
-    log(f"[phase 7] two greedy generates: identical tokens "
+        fail(f"{cfg.name}: two greedy generates differ in "
+             f"{int((greedy != again).sum())} tokens")
+    log(f"{tag} two greedy generates: identical tokens "
         f"(first request: {greedy[0, :8].tolist()} ...)")
 
     sampler = Engine(cfg, params, ServeConfig(
@@ -1427,14 +1490,15 @@ def phase7_lm(seed: int) -> int:
     hot = sampler.generate(prompts, LM_NEW, seed=seed)
     st = sampler.last_stats
     same = np.array_equal(hot, sampler.generate(prompts, LM_NEW, seed=seed))
-    log(f"[phase 7] generate at temperature {LM_TEMPERATURE}: ttft "
+    log(f"{tag} generate at temperature {LM_TEMPERATURE}: ttft "
         f"{st['ttft_s']:.4f}s, decode "
         f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step; tokens "
         f"differ from greedy in {int((hot != greedy).sum())} of {hot.size}; "
         f"same seed, same tokens = {same}")
     if not same or hot.min() < 0 or hot.max() >= cfg.vocab_size:
-        fail("sampling at a temperature is not reproducible from its seed")
-    return launches
+        fail(f"{cfg.name}: sampling at a temperature is not reproducible "
+             "from its seed")
+    return {"launches": launches, "stats": stats, "greedy": greedy}
 
 
 def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
@@ -3919,6 +3983,377 @@ def phase15_cards(n_cards: int) -> None:
     log(f"[phase 15] (c) {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------------------
+# phase 16: the DeepSeek models (MLA, MoE)
+# --------------------------------------------------------------------------
+
+def plain_attention_f32(q, k, v, scale: float):
+    """Causal float32 attention, (B, S, H, dq) x (B, T, H, dq) x (B, T, H,
+    dv) -> (B, S, H, dv), a chunk of query rows at a time."""
+    import torch
+    b, s, h, _ = q.shape
+    out = q.new_empty((b, s, h, v.shape[-1]))
+    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))
+    for c0 in range(0, s, DS_TRUTH_CHUNK):
+        hi = min(s, c0 + DS_TRUTH_CHUNK)
+        sc = torch.matmul(qh[:, :, c0:hi], kh[:, :, :hi].transpose(-1, -2))
+        later = torch.arange(hi, device=q.device)[None, :] \
+            > torch.arange(c0, hi, device=q.device)[:, None]
+        p = torch.softmax((sc * scale).masked_fill_(later, float("-inf")),
+                          dim=-1)
+        out[:, c0:hi] = torch.matmul(p, vh[:, :, :hi]).transpose(1, 2)
+    return out
+
+
+def swiglu_f32(x, wg, wu, wd):
+    import torch.nn.functional as F
+    return (F.silu(x @ wg.float()) * (x @ wu.float())) @ wd.float()
+
+
+def mla_truth(cfg, mod, h, cos, sin):
+    """The MLA mixer in float32 on the bf16 input ``h``, written out apart
+    from the port: each head's keys and values decompressed from the latent
+    (no absorption), the rotary key shared by the heads, plain causal
+    attention."""
+    import math
+
+    import torch
+
+    from repro_torch.models import layers as L
+    m, heads = cfg.mla, cfg.n_heads
+    dn, dr, dv, lo = m.qk_nope_dim, m.qk_rope_dim, m.v_dim, m.kv_lora_rank
+    b, s, _ = h.shape
+    w = {n: p.detach().float() for n, p in mod.named_parameters()}
+    x = h.float()
+    q = (x @ w["wq"]).view(b, s, heads, dn + dr)
+    q = torch.cat([q[..., :dn], L.apply_rope(q[..., dn:], cos, sin)], -1)
+    dkv = x @ w["w_dkv"]
+    ckv = L.rmsnorm(dkv[..., :lo], w["kv_ln"], cfg.norm_eps)
+    kr = L.apply_rope(dkv[..., lo:][:, :, None], cos, sin)
+    k = torch.cat([(ckv @ w["w_uk"]).view(b, s, heads, dn),
+                   kr.expand(b, s, heads, dr)], -1)
+    v = (ckv @ w["w_uv"]).view(b, s, heads, dv)
+    o = plain_attention_f32(q, k, v, 1.0 / math.sqrt(dn + dr))
+    return o.reshape(b, s, heads * dv) @ w["wo"]
+
+
+def moe_truth(cfg, mod, h):
+    """The MoE FFN in float32 on the bf16 input ``h``, written out apart
+    from the port, at the bf16 run's routing: its top-k experts (the
+    router product in bf16, as served), gates from the float32
+    probabilities there, renormalised, and its capacity drops (a slot's
+    rank among its expert's slots in (token, choice) order). Returns the
+    output, each token's agreement of its float32 top-k set with the bf16
+    one, and both routings."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    mo = cfg.moe
+    e, k = mo.n_routed, mo.top_k
+    b, s, d = h.shape
+    x = h.float()
+    idx = torch.softmax((h @ mod.router).float(), -1).topk(k, -1).indices
+    probs = torch.softmax(x @ mod.router.float(), -1)
+    idx32 = probs.topk(k, -1).indices
+    agree = (idx.sort(-1).values == idx32.sort(-1).values).all(-1)
+    g = probs.gather(-1, idx)
+    g = g / g.sum(-1, keepdim=True)
+    cap = max(math.ceil(s * k * mo.capacity_factor / e), 1)
+    flat = idx.reshape(b, s * k, 1)
+    rank = (F.one_hot(flat[..., 0], e).cumsum(1) - 1).gather(-1, flat)
+    wgt = (g * (rank.view(b, s, k) < cap)).view(b * s, k)
+    sh = mod.shared
+    out = swiglu_f32(x, sh.wg, sh.wu, sh.wd).view(b * s, d)
+    xf, idf = x.view(b * s, d), idx.view(b * s, k)
+    ex = mod.experts
+    for j in range(e):
+        tok, slot = (idf == j).nonzero(as_tuple=True)
+        if tok.numel():
+            y = swiglu_f32(xf[tok], ex.wg[j], ex.wu[j], ex.wd[j])
+            out.index_add_(0, tok, y * wgt[tok, slot, None])
+    return out.view(b, s, d), agree, idx, idx32
+
+
+class _CheckDone(Exception):
+    """Ends a prefill early, once its hooks have what they need."""
+
+
+def deepseek_layer_check(cfg, params, batch, stop_at=None) -> dict:
+    """One bf16 prefill, each layer's mixer and FFN output held against
+    its float32 truth on the same input (module hooks); on GQA layers the
+    flash kernel's output against its plain version too. With
+    ``stop_at`` (a layer kind) the prefill stops after the first layer of
+    that kind is measured. Returns {kind: [row error max per layer]}, the
+    MoE layers' disagreeing shares and their row errors on every token,
+    and the flash rows."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    out = {"mla": [], "gqa": [], "mlp": [], "moe": [], "moe_all": [],
+           "disagree": [], "flash": []}
+
+    def done(kind):
+        if kind == stop_at:
+            raise _CheckDone
+
+    def mixer_hook(kind):
+        def hook(mod, args, kwargs, res):
+            h, cos, sin = args
+            if kind == "mla":
+                want = mla_truth(cfg, mod, h, cos, sin)
+            else:
+                # the port's GQA in float32, through the plain attention
+                g32 = L.GQA(cfg, device=h.device, dtype=torch.float32)
+                g32.load_state_dict(mod.state_dict())
+                with mock.patch.object(ops, "flash_attention", plain):
+                    want = g32(h.float(), cos, sin,
+                               window=kwargs["window"])[0]
+            out[kind].append(float(row_errors(res[0], want).max()))
+            done(kind)
+        return hook
+
+    def ffn_hook(kind):
+        def hook(mod, args, res):
+            (h,) = args
+            if kind == "moe":
+                want, agree, _, _ = moe_truth(cfg, mod, h)
+                err = row_errors(res[0], want)
+                out["moe"].append(float(err[agree].max()))
+                out["moe_all"].append(float(err.max()))
+                out["disagree"].append(float(1.0 - agree.float().mean()))
+            else:
+                want = swiglu_f32(h.float(), mod.wg, mod.wu, mod.wd)
+                out["mlp"].append(float(row_errors(res, want).max()))
+            done(kind)
+        return hook
+
+    handles = []
+    for seg, layers in zip(cfg.segments, params.segments):
+        for layer in layers:
+            handles.append(layer.mixer.register_forward_hook(
+                mixer_hook(seg.mixer), with_kwargs=True))
+            handles.append(layer.ffn.register_forward_hook(
+                ffn_hook(seg.ffn)))
+    try:
+        with mock.patch.object(ops, "flash_attention", checked_attention(
+                ops.flash_attention, out["flash"])):
+            T.prefill(cfg, params, batch,
+                      T.init_cache(cfg, LM_BATCH, LM_CACHE))
+    except _CheckDone:
+        pass
+    finally:
+        for hd in handles:
+            hd.remove()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ds_planted_faults() -> dict:
+    """(layer kind, a fault in the port's code: the function it replaces
+    in ``repro_torch.models.layers`` and what a bug there returns)."""
+    from repro_torch.models import layers as L
+
+    def scores_without_rope(q_lat, q_rope, ckv, kr):
+        b, h, c, lo = q_lat.shape
+        return L.bmm_f32(q_lat.reshape(b, h * c, lo),
+                         ckv.transpose(1, 2)).view(b, h, c, ckv.shape[1])
+
+    def gates_not_renormalised(cfg, p, x):
+        probs = (x @ p.router).float().softmax(-1)
+        gates, eidx = probs.topk(cfg.moe.top_k, dim=-1)
+        return probs, gates, eidx
+
+    return {"MLA scores without the rope term":
+            ("mla", "mla_scores", scores_without_rope),
+            "MoE gates not renormalised":
+            ("moe", "moe_route", gates_not_renormalised)}
+
+
+def deepseek_layer_times(cfg, params, batch) -> dict:
+    """Device ms of the first layer of the model's last segment on its
+    prefill inputs: its mixer (uncached, the prompt's attention) and its
+    FFN, each timed alone with CUDA events."""
+    from repro_torch.models import transformer as T
+
+    layer = params.segments[-1][0]
+    seen = {}
+
+    def grab_mixer(mod, args, kwargs, res):
+        seen["mixer"] = (args, kwargs["window"])
+
+    def grab_ffn(mod, args, res):
+        seen["ffn"] = args[0]
+        raise _CheckDone
+
+    hooks = [layer.mixer.register_forward_hook(grab_mixer, with_kwargs=True),
+             layer.ffn.register_forward_hook(grab_ffn)]
+    try:
+        T.forward_hidden(cfg, params, batch)
+    except _CheckDone:
+        pass
+    finally:
+        for hd in hooks:
+            hd.remove()
+    (h, cos, sin), window = seen["mixer"]
+    return {"mixer": time_ms(lambda: layer.mixer(h, cos, sin,
+                                                 window=window), iters=5),
+            "ffn": time_ms(lambda: layer.ffn(seen["ffn"]), iters=5)}
+
+
+def deepseek_model(arch: str, seed: int) -> dict:
+    """Phase 16 for one model; returns its kernel launches per generate."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    tag = f"[phase 16] {arch}"
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != cfg.param_count():
+        fail(f"{arch}: {n_params} parameters, the config counts "
+             f"{cfg.param_count()}")
+    kinds = [(seg.mixer, seg.ffn, seg.count) for seg in cfg.segments]
+    log(f"{tag}: {cfg.n_layers} layers {kinds}, d={cfg.d_model}, "
+        f"H={cfg.n_heads}, mla={cfg.mla}, moe={cfg.moe}, "
+        f"vocab={cfg.vocab_size}, {cfg.dtype}: {n_params} parameters "
+        f"({n_params * 2 / 2**30:.2f} GiB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+
+    # the layer-by-layer float32 check, then the planted faults against it
+    t0 = time.perf_counter()
+    chk = deepseek_layer_check(cfg, params, batch)
+    n_mixer = {"mla": 0, "gqa": 0}
+    n_ffn = {"mlp": 0, "moe": 0}
+    for mixer, ffn, count in kinds:
+        n_mixer[mixer] += count
+        n_ffn[ffn] += count
+    for kind, n in {**n_mixer, **n_ffn}.items():
+        rows = chk[kind]
+        if len(rows) != n:
+            fail(f"{arch}: the check measured {len(rows)} {kind} layers "
+                 f"of {n}")
+        if rows:
+            log(f"{tag} {kind} layers vs float32 on the same input: row "
+                f"error max {max(rows):.3g} (limit {DS_ROW_REL}), median "
+                f"{sorted(rows)[len(rows) // 2]:.3g}, layer by layer "
+                f"{[round(r, 5) for r in rows]}")
+        if rows and max(rows) > DS_ROW_REL:
+            fail(f"{arch}: {kind} layers differ from float32: {rows}")
+    if chk["moe"]:
+        dis = chk["disagree"]
+        log(f"{tag} MoE routing: tokens whose top-{cfg.moe.top_k} set "
+            f"differs between bf16 and float32: {min(dis):.5f}-"
+            f"{max(dis):.5f} a layer (mean {sum(dis) / len(dis):.5f}); row "
+            f"error max over every token, at the bf16 routing "
+            f"{max(chk['moe_all']):.3g}")
+    if n_mixer["gqa"]:
+        fl = chk["flash"]
+        log(f"{tag} flash kernel vs plain attention on each layer's "
+            f"prefill inputs (H={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+            f"hd={cfg.head_dim}): row error max {max(fl):.3g} over "
+            f"{len(fl)} layers (limit {FLASH_ROW_REL})")
+        if len(fl) != n_mixer["gqa"] or max(fl) > FLASH_ROW_REL:
+            fail(f"{arch}: the flash kernel's attention in prefill differs "
+                 f"from the plain version: {fl}")
+    log(f"{tag} layer check {time.perf_counter() - t0:.1f}s")
+    for name, (kind, fn, fault) in ds_planted_faults().items():
+        if not n_mixer.get(kind, n_ffn.get(kind)):
+            continue
+        with mock.patch.object(L, fn, fault):
+            got = deepseek_layer_check(cfg, params, batch, stop_at=kind)
+        err = got[kind][0]
+        log(f"{tag} planted fault, {name}: first {kind} layer's row error "
+            f"{err:.3g} (limit {DS_ROW_REL}) -> fails the check")
+        if err <= DS_ROW_REL:
+            fail(f"{arch}: the float32 layer check passes a planted fault "
+                 f"({name})")
+
+    served = serve_requests(tag, cfg, params, prompts, seed,
+                            flash_layers=n_mixer["gqa"])
+    st, greedy = served["stats"], served["greedy"]
+    n_moe = n_ffn["moe"]
+    mo = cfg.moe
+    expert_bytes = n_moe * 3 * mo.n_routed * cfg.d_model * mo.d_expert * 2
+    step_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    last = cfg.segments[-1]
+    lt = deepseek_layer_times(cfg, params, batch)
+    log(f"{tag} one {last.mixer}+{last.ffn} layer on the prefill's inputs "
+        f"(device, CUDA events): mixer {lt['mixer']:.3f} ms, FFN "
+        f"{lt['ffn']:.3f} ms; x {last.count} layers "
+        f"{(lt['mixer'] + lt['ffn']) * last.count / 1e3:.4f} s of the "
+        f"prefill's {st['prefill_s']:.4f} s")
+    # one decode step's device busy time (torch.profiler; a spin cannot
+    # time it: its thousands of launches fill the launch queue behind one)
+    caches = T.init_cache(cfg, LM_BATCH, LM_CACHE)
+    T.prefill(cfg, params, batch, caches)
+    tok = torch.as_tensor(greedy[:, 0], device="cuda")
+    for _ in range(2):         # the second trace: the first pays set-up
+        busy = device_busy(
+            lambda: T.decode_step(cfg, params, tok, caches, LM_PROMPT))
+    del caches
+    log(f"{tag} one decode step at position {LM_PROMPT}: "
+        f"{busy['device_events']} device events, the device busy "
+        f"{busy['busy_us'] / 1e3:.3f} ms of {busy['wall_us'] / 1e3:.3f} ms "
+        f"wall (busy share {busy['busy_us'] / busy['wall_us']:.3f})")
+    log(f"{tag} decode reads every routed expert's weights each step (the "
+        f"dense (G, E, C, D) products at C = 1): {expert_bytes / 1e9:.2f} "
+        f"GB over {n_moe} MoE layers, a bound of "
+        f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms/step at 3.35 TB/s; "
+        f"all {n_params * 2 / 1e9:.2f} GB of weights "
+        f"{n_params * 2 / PEAK_BYTES_PER_S * 1e3:.3f} ms; measured "
+        f"{step_ms:.3f} ms/step")
+    del params
+    return served["launches"]
+
+
+def phase16_deepseek(seed: int) -> dict:
+    """Phase 16: both DeepSeek models, the card freed between them;
+    returns each one's kernel launches per generate."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    # the float32 score product of bf16 operands (aten::bmm.dtype)
+    g = torch.Generator("cuda").manual_seed(seed)
+    a = torch.randn((4, 256, 512), generator=g, device="cuda").bfloat16()
+    b = torch.randn((4, 512, 300), generator=g, device="cuda").bfloat16()
+    got = L.bmm_f32(a, b)
+    want = torch.bmm(a.double(), b.double())
+    err = float((got.double() - want).abs().max())
+    log(f"[phase 16] bmm_f32 of bf16 operands: {got.dtype}, max abs error "
+        f"against float64 {err:.3g} (|want| max "
+        f"{float(want.abs().max()):.3g})")
+    if got.dtype != torch.float32 or err > 1e-3:
+        fail(f"bmm_f32 of bf16 operands is {err:.3g} off float64")
+    out = {}
+    for arch in DS_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = deepseek_model(arch, seed)
+        torch.cuda.empty_cache()
+        log(f"[phase 16] {arch} {time.perf_counter() - t0:.1f}s, device "
+            f"memory in use after freeing it "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3928,7 +4363,8 @@ def main() -> None:
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
                         help="run phases 0, 1 and 15 (more than one card) "
-                             "on this many cards instead of phases 0-14")
+                             "on this many cards instead of phases 0-14 "
+                             "and 16")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4071,12 +4507,21 @@ def main() -> None:
     for row in kernels:          # launches per mesh fit, on one rank
         row["launches_mesh"] = mesh["launches"][row["name"]]
     log(f"[phase 14] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    deepseek = phase16_deepseek(args.seed)
+    for row in kernels:          # launches per generate
+        row["launches_v2_lite"] = deepseek[DS_ARCHS[0]].get(row["name"], 0)
+        row["launches_moe_16b"] = deepseek[DS_ARCHS[1]].get(row["name"], 0)
+    log(f"[phase 16] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_compressive", "launches_engine",
-            "launches_partitioned", "launches_mesh", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_partitioned", "launches_mesh", "launches_v2_lite",
+            "launches_moe_16b", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

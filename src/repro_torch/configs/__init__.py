@@ -1,9 +1,10 @@
 """Architecture registry: the JAX package's ten backbones and its input-shape
-grid, with the four dense GQA configurations ported.
+grid, with six ported: the four dense GQA configurations and the two
+DeepSeek ones (the MLA mixer, the MoE FFN).
 
 Each ported ``<arch>.py`` exposes ``config()`` (the exact published
 configuration, copied from the JAX package); the registry adds reduced
-smoke variants and the shape table. The other six architectures need a
+smoke variants and the shape table. The other four architectures need a
 mixer or an input path that this port does not have yet, and
 ``get_config`` raises ``NotImplementedError`` for them, naming the
 ``ROADMAP.md`` item that ports them.
@@ -14,7 +15,7 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 
 ARCH_IDS = (
     "qwen3-32b",
@@ -36,8 +37,6 @@ UNPORTED: Dict[str, str] = {
     "mamba2-370m": "the Mamba2 SSD mixer (ssm)",
     "qwen2-vl-7b": "M-RoPE and the embeds input path",
     "musicgen-large": "the embeds input path",
-    "deepseek-v2-lite-16b": "the MLA mixer and the MoE FFN",
-    "deepseek-moe-16b": "the MoE FFN",
     "hymba-1.5b": "the hybrid attention ∥ SSM mixer",
 }
 
@@ -77,8 +76,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Family-faithful reduced configuration for CPU smoke tests: the JAX
-    package's reduction, field for field, for the ported (dense)
-    architectures, which carry no MLA, MoE, SSM or M-RoPE sub-config."""
+    package's reduction, field for field, for the ported architectures
+    (which carry no SSM or M-RoPE sub-config)."""
     cfg = get_config(arch)
     # shrink segment stack: keep the structural pattern, 1-2 layers each
     segs = tuple(
@@ -102,4 +101,10 @@ def smoke_config(arch: str) -> ModelConfig:
         attn_chunk=64,
         loss_chunk=256,
     )
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                              v_dim=16)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_routed=8, n_shared=1,
+                                        top_k=2, d_expert=32)
     return dataclasses.replace(cfg, **kw)

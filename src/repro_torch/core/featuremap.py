@@ -44,7 +44,7 @@ from repro_torch.core.nystrom import kernel_tile_rows, pairwise_kernel
 from repro_torch.kernels import ops
 from repro_torch.utils import (
     ROW_TILE, DeviceLike, fold_seed, map_row_tiles, prefetch_to_device,
-    to_host,
+    resolve_device, to_host,
 )
 
 
@@ -147,9 +147,10 @@ class RBMap:
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict,
-                   device="cpu") -> "RBMap":
+                   device: DeviceLike = "cuda") -> "RBMap":
         """A fitted map from the artifact's numpy arrays (or the JAX
         package's ``state_dict``), with its tensors on ``device``."""
+        device = resolve_device(device)
         as_bits = lambda a: torch.from_numpy(
             np.array(a, np.uint32).view(np.int32))
         params = rb.RBParams(
@@ -232,7 +233,8 @@ class RFFMap(_DenseOOS):
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict,
-                   device="cpu") -> "RFFMap":
+                   device: DeviceLike = "cuda") -> "RFFMap":
+        device = resolve_device(device)
         params = rff.RFFParams(_as_t(arrays["w"], device),
                                _as_t(arrays["b"], device))
         return cls(rank=int(meta["rank"]), sigma=float(meta["sigma"]),
@@ -310,7 +312,8 @@ class NystromMap(_DenseOOS):
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict,
-                   device="cpu") -> "NystromMap":
+                   device: DeviceLike = "cuda") -> "NystromMap":
+        device = resolve_device(device)
         return cls(rank=int(meta["rank"]), sigma=float(meta["sigma"]),
                    kernel=meta["kernel"],
                    landmarks=_as_t(arrays["landmarks"], device),
@@ -405,7 +408,8 @@ class LSCMap(_DenseOOS):
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict,
-                   device="cpu") -> "LSCMap":
+                   device: DeviceLike = "cuda") -> "LSCMap":
+        device = resolve_device(device)
         return cls(rank=int(meta["rank"]), sigma=float(meta["sigma"]),
                    kernel=meta["kernel"], n_nearest=int(meta["n_nearest"]),
                    anchors=_as_t(arrays["anchors"], device))
@@ -439,7 +443,7 @@ def from_config(cfg, impl: str = "auto") -> RBMap:
     return RBMap(n_grids=cfg.n_grids, sigma=cfg.sigma, d_g=cfg.d_g, impl=impl)
 
 
-def load_fitted(meta: dict, arrays: dict, device="cpu"):
+def load_fitted(meta: dict, arrays: dict, device: DeviceLike = "cuda"):
     """A fitted map from an artifact's metadata and arrays (written by
     either package), with its tensors on ``device``."""
     name = meta["name"]
@@ -629,11 +633,12 @@ class ChunkedDenseFeatures:
 
 def build_chunked_dense(phi_chunks: Sequence, *, laplacian: bool = True,
                         prefetch: bool = True, eps: float = 1e-8,
-                        device: DeviceLike = "cpu") -> ChunkedDenseFeatures:
+                        device: DeviceLike = "cuda"
+                        ) -> ChunkedDenseFeatures:
     """The streaming degree pass of a dense map (two sweeps): Φᵀ1 over
     row tiles, then the degrees and row scales chunk by chunk, row-locally.
     The chunks stay on the host (pinned on the card)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     pin = dev.type == "cuda"
     phi_chunks = tuple(
         streaming._pinned(streaming._as_host(c).to(torch.float32)

@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.utils import DeviceLike, prefetch_to_device, to_host
+from repro_torch.utils import (
+    DeviceLike, prefetch_to_device, resolve_device, to_host,
+)
 
 
 class KMeansResult(NamedTuple):
@@ -166,11 +168,12 @@ def _as_chunk_list(chunks) -> list[torch.Tensor]:
             else torch.from_numpy(np.asarray(c, np.float32)) for c in chunks]
 
 
-def row_normalize_chunks(chunks, *, device: DeviceLike = "cpu",
+def row_normalize_chunks(chunks, *, device: DeviceLike = "cuda",
                          prefetch: bool = True,
                          measure: Optional[dict] = None):
     """Chunked Alg. 2 step 4: unit-ℓ₂ rows, one chunk on the device at a
     time. Row-local: the same bits as ``row_normalize`` on each chunk."""
+    device = resolve_device(device)
     from repro_torch.core.streaming import ChunkedDense
     return ChunkedDense(tuple(
         to_host(row_normalize(c))
@@ -214,7 +217,7 @@ def streaming_kmeans(
     impl: str = "auto",
     prefetch: bool = True,
     measure: Optional[dict] = None,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = "cuda",
     init: Optional[torch.Tensor] = None,
 ) -> KMeansResult:
     """k-means over host row chunks, with no O(N) device array.
@@ -232,12 +235,12 @@ def streaming_kmeans(
          CPU tensor).
 
     Device residency: one chunk (two in flight) and the centroids."""
+    dev = resolve_device(device)
     chunk_list = _as_chunk_list(chunks)
     n = sum(c.shape[0] for c in chunk_list)
     dim = chunk_list[0].shape[1]
     if k > n:
         raise ValueError(f"k={k} exceeds row count n={n}")
-    dev = torch.device(device)
     if init is not None:
         stack = _init_stack(init, k, dim, dev)
         cents = [stack[i].contiguous() for i in range(stack.shape[0])]

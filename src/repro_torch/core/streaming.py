@@ -43,7 +43,7 @@ import torch
 from repro_torch.core import graph, rb
 from repro_torch.kernels import ops
 from repro_torch.utils import (
-    DeviceLike, prefetch_to_device, to_host, tree_map,
+    DeviceLike, prefetch_to_device, resolve_device, to_host, tree_map,
 )
 
 
@@ -254,9 +254,9 @@ class ChunkedELL:
     @classmethod
     def from_dense(cls, idx, rowscale, chunk_size: Optional[int], *, d: int,
                    d_g: int, impl: str = "auto", prefetch: bool = True,
-                   device: DeviceLike = "cpu") -> "ChunkedELL":
+                   device: DeviceLike = "cuda") -> "ChunkedELL":
         """Chunk an existing (N, R) ELL matrix and its row scales (tests)."""
-        dev = torch.device(device)
+        dev = resolve_device(device)
         pin = dev.type == "cuda"
         ics = tuple(_pinned(c.contiguous(), pin)
                     for c in as_row_chunks(idx, chunk_size))
@@ -277,13 +277,14 @@ def _csc_chunks(idx_chunks, d: int, dev: torch.device, prefetch: bool,
                                               measure=measure))
 
 
-def chunked_transform(transform, x_chunks, *, device: DeviceLike = "cpu",
+def chunked_transform(transform, x_chunks, *, device: DeviceLike = "cuda",
                       prefetch: bool = True, measure: Optional[dict] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """A row-local feature ``transform`` over host row chunks: each chunk
     uploaded, transformed on ``device`` and brought back (pinned on the
     card), so the result is the single-shot transform's for any
     chunking."""
+    device = resolve_device(device)
     rows = (_as_host(c).to(torch.float32).contiguous() for c in x_chunks)
     return tuple(
         to_host(transform(xc))
@@ -292,11 +293,12 @@ def chunked_transform(transform, x_chunks, *, device: DeviceLike = "cpu",
 
 
 def chunked_rb_transform(x_chunks, params: rb.RBParams, *,
-                         impl: str = "auto", device: DeviceLike = "cpu",
+                         impl: str = "auto", device: DeviceLike = "cuda",
                          prefetch: bool = True,
                          measure: Optional[dict] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """Alg. 1 over row chunks: the ELL indices of each chunk."""
+    device = resolve_device(device)
     params = params.to(device)
     return chunked_transform(
         lambda xc: rb.rb_transform(xc, params, impl=impl), x_chunks,
@@ -304,11 +306,12 @@ def chunked_rb_transform(x_chunks, params: rb.RBParams, *,
 
 
 def chunked_bin_counts(idx_chunks, *, d: int, d_g: int, impl: str = "auto",
-                       device: DeviceLike = "cpu", prefetch: bool = True,
+                       device: DeviceLike = "cuda", prefetch: bool = True,
                        measure: Optional[dict] = None) -> torch.Tensor:
     """Global int32 bin occupancies Σ_c Z_cᵀ1, on ``device``: one
     ``ops.bin_counts`` launch per chunk, each adding into the same (D,)
     buffer. Exact for any chunking."""
+    device = resolve_device(device)
     counts = torch.zeros((d,), dtype=torch.int32, device=device)
     for ic in prefetch_to_device(idx_chunks, device=device, enabled=prefetch,
                                  measure=measure):
@@ -317,11 +320,12 @@ def chunked_bin_counts(idx_chunks, *, d: int, d_g: int, impl: str = "auto",
 
 
 def chunked_degrees(idx_chunks, *, d: int, d_g: int, impl: str = "auto",
-                    device: DeviceLike = "cpu",
+                    device: DeviceLike = "cuda",
                     prefetch: bool = True) -> torch.Tensor:
     """Streaming two-pass degrees (Eq. 6), (N,) float32 on the host: the
     same bits for any chunking. Pass 1 adds integer bin counts; pass 2
     reduces each row against them, row-locally."""
+    device = resolve_device(device)
     counts = chunked_bin_counts(idx_chunks, d=d, d_g=d_g, impl=impl,
                                 device=device, prefetch=prefetch)
     return torch.cat([
@@ -333,11 +337,11 @@ def chunked_degrees(idx_chunks, *, d: int, d_g: int, impl: str = "auto",
 def build_chunked_adjacency(idx_chunks, *, d: int, d_g: int,
                             impl: str = "auto", eps: float = 1e-8,
                             prefetch: bool = True, normalize: bool = True,
-                            device: DeviceLike = "cpu") -> ChunkedELL:
+                            device: DeviceLike = "cuda") -> ChunkedELL:
     """Streaming counterpart of ``graph.build_normalized_adjacency``: the
     degree pass over host chunks. On the card it also builds each chunk's
     CSC copy for the zt sweeps."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     pin = dev.type == "cuda"
     idx_chunks = tuple(_pinned(_as_host(ic).contiguous(), pin)
                        for ic in idx_chunks)

@@ -1,11 +1,13 @@
 """LM assembly for serving: embeddings, segments of layers, the head.
 
 Public entry points (the JAX package's ``repro.models.transformer``, for
-the dense GQA architectures):
+layers of a GQA or MLA mixer and an MLP or MoE FFN):
   - ``init_params``          weights drawn from a ``torch.Generator``
   - ``params_from_reference`` the JAX package's parameter tree (numpy) as
                              this port's modules
-  - ``forward_hidden``       (B, S, D) final hidden states (+ aux loss 0)
+  - ``empty_params``         the modules, uninitialised (on ``"meta"``: the
+                             shapes alone, no memory)
+  - ``forward_hidden``       (B, S, D) final hidden states (+ MoE aux loss)
   - ``init_cache``           decode caches for all segments
   - ``prefill``              fill the caches from a prompt, last logits
   - ``decode_step``          one token against the caches
@@ -21,7 +23,7 @@ they raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,23 +40,33 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+#: (mixer, ffn) layer kinds this port runs.
+PORTED_LAYERS = frozenset({("gqa", "mlp"), ("gqa", "moe"), ("mla", "mlp"),
+                           ("mla", "moe")})
+
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a layer kind or input path that
     this port does not have yet."""
     kinds = {(s.mixer, s.ffn) for s in cfg.segments}
-    if kinds - {("gqa", "mlp")} or cfg.input_mode != "tokens" \
+    if kinds - PORTED_LAYERS or cfg.input_mode != "tokens" \
             or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: layers {sorted(kinds)}, input {cfg.input_mode!r}, "
-            f"M-RoPE {cfg.mrope_sections}: only dense GQA + MLP layers on "
-            "token input are ported (ROADMAP.md A10)")
+            f"M-RoPE {cfg.mrope_sections}: only GQA or MLA mixers with MLP "
+            "or MoE FFNs on token input are ported (ROADMAP.md A10)")
+
+
+Mixer = Union[L.GQA, L.MLA]
+FFN = Union[L.MLP, L.MoE]
 
 
 class Layer(nn.Module):
-    """Pre-norm residual layer: x + mixer(norm(x)), then x + ffn(norm(x))."""
+    """Pre-norm residual layer: x + mixer(norm(x)), then x + ffn(norm(x)).
+    Returns the new x and the FFN's MoE aux loss (None for an MLP)."""
 
-    def __init__(self, cfg: ModelConfig, seg: Segment, mixer: L.GQA,
-                 ffn: L.MLP) -> None:
+    def __init__(self, cfg: ModelConfig, seg: Segment, mixer: Mixer,
+                 ffn: FFN) -> None:
         super().__init__()
         self.cfg, self.window = cfg, seg.window
         dev, dt = mixer.wq.device, mixer.wq.dtype
@@ -63,13 +75,18 @@ class Layer(nn.Module):
         self.ln2 = L.param(cfg.d_model, device=dev, dtype=dt, fill=1.0)
         self.ffn = ffn
 
-    def forward(self, x: torch.Tensor, rope, cache=None, pos=None):
+    def forward(self, x: torch.Tensor, rope, cache=None, pos=None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cos, sin = rope
         eps = self.cfg.norm_eps
         mix, _ = self.mixer(L.rmsnorm(x, self.ln1, eps), cos, sin,
                             window=self.window, cache=cache, pos=pos)
         x = x + mix
-        return x + self.ffn(L.rmsnorm(x, self.ln2, eps))
+        y = self.ffn(L.rmsnorm(x, self.ln2, eps))
+        if isinstance(self.ffn, L.MoE):
+            y, aux = y
+            return x + y, aux
+        return x + y, None
 
 
 class TransformerLM(nn.Module):
@@ -100,11 +117,46 @@ class TransformerLM(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
+def _layer(cfg: ModelConfig, seg: Segment, dev: torch.device,
+           dtype: torch.dtype, generator: Optional[torch.Generator]
+           ) -> Layer:
+    """One layer of ``seg``: drawn from ``generator`` (mixer, then FFN, as
+    the JAX package splits its key), or uninitialised without one."""
+    kw = dict(dtype=dtype)
+    if generator is not None:
+        mixer = {"gqa": L.init_gqa, "mla": L.init_mla}[seg.mixer](
+            cfg, generator, **kw)
+        ffn = L.init_moe(cfg, generator, **kw) if seg.ffn == "moe" \
+            else L.init_mlp(cfg, generator, seg.d_ff, **kw)
+    else:
+        mixer = {"gqa": L.GQA, "mla": L.MLA}[seg.mixer](cfg, device=dev,
+                                                        **kw)
+        ffn = L.MoE(cfg, device=dev, **kw) if seg.ffn == "moe" \
+            else L.MLP(cfg, seg.d_ff, device=dev, **kw)
+    return Layer(cfg, seg, mixer, ffn)
+
+
+def empty_params(cfg: ModelConfig, *,
+                 device: DeviceLike = "cuda") -> TransformerLM:
+    """The modules of ``cfg`` in ``cfg.dtype`` on ``device``, their weights
+    uninitialised (norms 1). ``device="meta"`` gives the shapes alone, with
+    no memory: ``sum(p.numel() for p in model.parameters())`` counts a
+    full-width model."""
+    check_ported(cfg)
+    dev = torch.device(device) if str(device) == "meta" \
+        else resolve_device(device)
+    dtype = _dtype(cfg)
+    segments = nn.ModuleList(
+        nn.ModuleList(_layer(cfg, seg, dev, dtype, None)
+                      for _ in range(seg.count)) for seg in cfg.segments)
+    return TransformerLM(cfg, segments, device=dev, dtype=dtype)
+
+
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
                 device: DeviceLike = "cuda") -> TransformerLM:
     """Weights of ``cfg`` in ``cfg.dtype`` on ``device``: N(0, 0.02²) (the
-    output projections scaled by 1/√(2·n_layers)), norms 1, biases 0, as
-    the JAX package's ``init_params``. ``generator`` is a
+    output projections scaled by 1/√(2·n_layers), a MoE router N(0,
+    0.006²)), norms 1, biases 0, as the JAX package's ``init_params``. ``generator`` is a
     ``torch.Generator`` on ``device`` or an int seed for one; it cannot
     replay ``jax.random``, so the two packages draw different weights from
     the same seed (the tests carry weights across with
@@ -123,8 +175,7 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
         L.normal_(model.head, generator)
     for seg in cfg.segments:
         segments.append(nn.ModuleList(
-            Layer(cfg, seg, L.init_gqa(cfg, generator, dtype=dtype),
-                  L.init_mlp(cfg, generator, seg.d_ff, dtype=dtype))
+            _layer(cfg, seg, dev, dtype, generator)
             for _ in range(seg.count)))
     return model
 
@@ -136,12 +187,11 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
     ``tree`` is ``repro.models.transformer.init_params``'s output with its
     leaves as numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``):
     ``embed``, ``head``, ``final_ln`` and ``segments.seg<i>.{ln1, mixer,
-    ln2, ffn}``, each stacked along the segment's layer axis. Leaves are
-    rounded to ``cfg.dtype``, as the JAX package casts them at the forward
-    boundary."""
-    check_ported(cfg)
-    dev = resolve_device(device)
-    dtype = _dtype(cfg)
+    ln2, ffn}``, each stacked along the segment's layer axis (the MoE's
+    ``experts`` and ``shared`` are nested dicts there, submodules here).
+    Leaves are rounded to ``cfg.dtype``, as the JAX package casts them at
+    the forward boundary."""
+    model = empty_params(cfg, device=device)
 
     def put(w: torch.Tensor, a) -> None:
         a = torch.tensor(np.asarray(a))
@@ -151,26 +201,23 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
         with torch.no_grad():
             w.copy_(a)
 
-    segments = nn.ModuleList()
-    model = TransformerLM(cfg, segments, device=dev, dtype=dtype)
+    def leaf(sub: Mapping[str, Any], name: str):
+        for part in name.split("."):        # "experts.wg" → ["experts"]["wg"]
+            sub = sub[part]
+        return sub
+
     put(model.embed, tree["embed"])
     if not cfg.tie_embeddings:
         put(model.head, tree["head"])
     put(model.final_ln, tree["final_ln"])
-    for i, seg in enumerate(cfg.segments):
+    for i, layers in enumerate(model.segments):
         st = tree["segments"][f"seg{i}"]
-        layers = nn.ModuleList()
-        for j in range(seg.count):
-            layer = Layer(cfg, seg, L.GQA(cfg, device=dev, dtype=dtype),
-                          L.MLP(cfg, seg.d_ff, device=dev, dtype=dtype))
+        for j, layer in enumerate(layers):
             put(layer.ln1, st["ln1"][j])
             put(layer.ln2, st["ln2"][j])
-            for name, w in layer.mixer.named_parameters():
-                put(w, st["mixer"][name][j])
-            for name, w in layer.ffn.named_parameters():
-                put(w, st["ffn"][name][j])
-            layers.append(layer)
-        segments.append(layers)
+            for part in ("mixer", "ffn"):
+                for name, w in getattr(layer, part).named_parameters():
+                    put(w, leaf(st[part], name)[j])
     return model
 
 
@@ -193,39 +240,53 @@ def _prompt_rope(cfg: ModelConfig, x: torch.Tensor):
 
 
 def _run(params: TransformerLM, x: torch.Tensor, rope,
-         caches: Optional[Caches], pos: Optional[int]) -> torch.Tensor:
+         caches: Optional[Caches], pos: Optional[int]
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x through every layer, and the summed MoE aux loss (float32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(params.segments):
         c = caches[f"seg{i}"] if caches is not None else None
         for j, layer in enumerate(seg):
-            cache = {"k": c["k"][j], "v": c["v"][j]} if c is not None \
-                else None
-            x = layer(x, rope, cache, pos)   # writes into c in place
-    return x
+            # layer j's own cache layout: {"k","v"} or {"ckv","kr"}
+            cache = {name: buf[j] for name, buf in c.items()} \
+                if c is not None else None
+            x, aux = layer(x, rope, cache, pos)   # writes into c in place
+            if aux is not None:
+                aux_total = aux_total + aux
+    return x, aux_total
 
 
 @torch.no_grad()
 def forward_hidden(cfg: ModelConfig, params: TransformerLM,
                    batch: Mapping[str, Any]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Final hidden states (B, S, D) and the summed MoE aux loss (0 here:
-    no MoE layer is ported)."""
+    """Final hidden states (B, S, D) and the summed MoE aux loss (0 for a
+    model without MoE layers)."""
     x = _embed(params, batch["tokens"])
-    x = _run(params, x, _prompt_rope(cfg, x), None, None)
-    aux = torch.zeros((), dtype=torch.float32, device=params.device)
+    x, aux = _run(params, x, _prompt_rope(cfg, x), None, None)
     return L.rmsnorm(x, params.final_ln, cfg.norm_eps), aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
                device: DeviceLike = "cuda") -> Caches:
     """Zeroed caches for every segment, stacked along the layer count:
-    ``{"seg<i>": {"k", "v"}}`` of (count, B, cache_len, Hkv·hd)."""
+    ``{"seg<i>": {"k", "v"}}`` of (count, B, cache_len, Hkv·hd) for a GQA
+    segment, ``{"ckv", "kr"}`` of (count, B, cache_len, kv_lora_rank) and
+    (count, B, cache_len, qk_rope_dim) for an MLA one."""
     check_ported(cfg)
     dev = resolve_device(device)
-    kv = cfg.n_kv_heads * cfg.head_dim
-    return {f"seg{i}": {
-        name: torch.zeros((seg.count, batch_size, cache_len, kv),
-                          dtype=_dtype(cfg), device=dev)
-        for name in ("k", "v")} for i, seg in enumerate(cfg.segments)}
+    caches: Caches = {}
+    for i, seg in enumerate(cfg.segments):
+        if seg.mixer == "mla":
+            widths = {"ckv": cfg.mla.kv_lora_rank, "kr": cfg.mla.qk_rope_dim}
+        else:
+            kv = cfg.n_kv_heads * cfg.head_dim
+            widths = {"k": kv, "v": kv}
+        caches[f"seg{i}"] = {
+            name: torch.zeros((seg.count, batch_size, cache_len, w),
+                              dtype=_dtype(cfg), device=dev)
+            for name, w in widths.items()}
+    return caches
 
 
 def _logits(cfg: ModelConfig, params: TransformerLM,
@@ -240,9 +301,10 @@ def prefill(cfg: ModelConfig, params: TransformerLM,
             ) -> Tuple[torch.Tensor, Caches]:
     """Consume a prompt, fill the caches, return last-position logits
     (B, V) float32. The attention of the prompt runs through the flash
-    kernel, once per layer."""
+    kernel, once per GQA layer (an MLA layer's absorbed attention is plain
+    PyTorch, as the JAX package computes it outside any kernel)."""
     x = _embed(params, batch["tokens"])
-    x = _run(params, x, _prompt_rope(cfg, x), caches, 0)
+    x, _ = _run(params, x, _prompt_rope(cfg, x), caches, 0)
     return _logits(cfg, params, x[:, -1]), caches
 
 
@@ -253,5 +315,5 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, token,
     x = _embed(params, token)[:, None]
     b = x.shape[0]
     positions = torch.full((b, 1), int(pos), device=params.device)
-    x = _run(params, x, _rope_for(cfg, positions), caches, int(pos))
+    x, _ = _run(params, x, _rope_for(cfg, positions), caches, int(pos))
     return _logits(cfg, params, x[:, 0]), caches

@@ -234,7 +234,8 @@ def test_chunked_dense_bit_identical_across_chunkings(blobs, monkeypatch):
     monkeypatch.setattr(tfm, "ROW_TILE", 64)
     out = {}
     for chunk in (None, 100, 128, 77):
-        store = tfm.build_chunked_dense(tstream.as_row_chunks(phi, chunk))
+        store = tfm.build_chunked_dense(tstream.as_row_chunks(phi, chunk),
+                                        device="cpu")
         uc = tstream.ChunkedDense.from_array(u, store.chunk_sizes)
         out[chunk] = [store.colsum, store.deg,
                       torch.cat(store.rowscale_chunks),
@@ -277,7 +278,8 @@ def _reference_map(name: str, cfg: dict, x):
         jmap = jfm.make_feature_map(fm_name, rank=cfg["rank"],
                                     sigma=cfg["sigma"]).fit(
             jax.random.PRNGKey(cfg["seed"]), jnp.asarray(x))
-    return jmap, tfm.load_fitted(jmap.meta_dict(), jmap.state_dict())
+    return jmap, tfm.load_fitted(jmap.meta_dict(), jmap.state_dict(),
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("name", ["sc_rf", "sv_rf", "sc_nys", "sc_lsc",

@@ -68,7 +68,7 @@ def _rows(x, chunk_size=None, cfg=None):
                                 jplan, key)
     jz = jrep.from_features(jfeats, jcfg, jplan)
     tmap = tfm.RBMap.from_state(jfeats.fmap.meta_dict(),
-                                jfeats.fmap.state_dict())
+                                jfeats.fmap.state_dict(), device="cpu")
     tplan = dataclasses.replace(texec.plan_from_config(tcfg),
                                 feature_map=tmap)
     trep = texec.representation(tplan)

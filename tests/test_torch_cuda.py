@@ -898,7 +898,8 @@ def test_cuda_streaming_kmeans_matches_the_cpu(cuda):
     chunks = streaming.ChunkedDense.from_array(x, 131_072)
     init = torch.stack([x[torch.randperm(300_000, generator=g)[:7]]
                         for _ in range(3)])
-    want = km.streaming_kmeans(None, chunks, 7, n_steps=25, init=init)
+    want = km.streaming_kmeans(None, chunks, 7, n_steps=25, init=init,
+                               device="cpu")
     ops.reset_launch_counts()
     got = km.streaming_kmeans(None, chunks, 7, n_steps=25, init=init,
                               device=cuda)

@@ -115,7 +115,8 @@ def _solver_fits(sc, names, dense=False):
     torch.set_num_threads(1)
     mesh = lm.make_host_mesh(device_type="cpu")
     plan = ExecutionPlan(placement="mesh", mesh=mesh,
-                         feature_map=tfm.RBMap.from_state(*sc["params"]))
+                         feature_map=tfm.RBMap.from_state(*sc["params"],
+                                                          device="cpu"))
     out = {"rank": dist.get_rank()}
     for name in names:
         cfg = _solver_config(name)
@@ -157,7 +158,7 @@ def _scenarios(x, params, u, sc):
     out = {"rank": dist.get_rank()}
     mesh = lm.make_host_mesh(device_type="cpu")
     lo, rows = N // 2 * lm.data_rank(mesh), N // 2
-    fmap = tfm.RBMap.from_state(*params)
+    fmap = tfm.RBMap.from_state(*params, device="cpu")
     d, d_g = fmap.n_features, fmap.d_g
     idx = fmap.transform(torch.from_numpy(x[lo:lo + rows]))
     group = lm.data_group(mesh)
@@ -308,7 +309,8 @@ def solver_refs():
                                           SOLVER_CFG["kmeans_replicates"])])
         draws[name] = (probes, signals, rows, init)
     sc = dict(x=x, params=params, x0=x0, draws=draws)
-    plan = ExecutionPlan(feature_map=tfm.RBMap.from_state(*params))
+    plan = ExecutionPlan(feature_map=tfm.RBMap.from_state(*params,
+                                                          device="cpu"))
     port = {}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)        # small shapes: no gain from threads
@@ -396,7 +398,8 @@ def test_degree_pass_bit_equal_to_the_single_path(world):
     from repro_torch.core import graph, streaming
     idx = torch.from_numpy(np.array(world["idx"]))
     d = CFG["n_grids"] * CFG["d_g"]
-    counts = streaming.chunked_bin_counts([idx], d=d, d_g=CFG["d_g"])
+    counts = streaming.chunked_bin_counts([idx], d=d, d_g=CFG["d_g"],
+                                          device="cpu")
     deg = graph.rb_degrees_exact(idx, d=d, d_g=CFG["d_g"])
     for r in world["ranks"]:
         np.testing.assert_array_equal(r["counts"], counts.numpy())

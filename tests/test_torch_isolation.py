@@ -39,12 +39,13 @@ import numpy as np
 from repro_torch import configs
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Engine, ServeConfig
-cfg = configs.smoke_config("internlm2-1.8b")
-model = T.init_params(cfg, 0, device="cpu")
-engine = Engine(cfg, model, ServeConfig(cache_len=16, batch_size=2),
-                device="cpu")
-out = engine.generate(np.arange(16).reshape(2, 8) % cfg.vocab_size, 4)
-assert out.shape == (2, 4)
+for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):   # + MLA, MoE
+    cfg = configs.smoke_config(arch)
+    model = T.init_params(cfg, 0, device="cpu")
+    engine = Engine(cfg, model, ServeConfig(cache_len=16, batch_size=2),
+                    device="cpu")
+    out = engine.generate(np.arange(16).reshape(2, 8) % cfg.vocab_size, 4)
+    assert out.shape == (2, 4)
 loaded = [name for name in sys.modules
           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
 print("LOADED", loaded)
@@ -244,3 +245,62 @@ def test_partitioned_fit_raises_without_a_card():
                      partition=PartitionOptions(n_partitions=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SCRBModel.fit(x, cfg)
+
+
+def _fitted_state(name: str):
+    from repro_torch.core import make_feature_map
+    x = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    kw = {"d_g": 16} if name == "rb" else {}
+    fm = make_feature_map(name, rank=8, sigma=1.0, **kw).fit(0, x)
+    return fm.meta_dict(), fm.state_dict()
+
+
+def _exported_calls():
+    """Each exported streaming, k-means and map-loading entry point, called
+    as the JAX package's counterpart is called: with no ``device``."""
+    import importlib
+    from repro_torch.core import featuremap as fm
+    from repro_torch.core import streaming as st
+    # the package exports a function ``kmeans`` that hides the module
+    km = importlib.import_module("repro_torch.core.kmeans")
+    x = [np.ones((8, 2), np.float32)]
+    idx = [np.zeros((8, 2), np.int32)]
+    return {
+        "streaming_kmeans": lambda: km.streaming_kmeans(None, x, 2),
+        "row_normalize_chunks": lambda: km.row_normalize_chunks(x),
+        "chunked_transform": lambda: st.chunked_transform(lambda c: c, x),
+        "chunked_rb_transform": lambda: st.chunked_rb_transform(
+            x, fm.RBMap.from_state(*_fitted_state("rb"),
+                                   device="cpu").params),
+        "chunked_bin_counts": lambda: st.chunked_bin_counts(idx, d=8,
+                                                            d_g=4),
+        "chunked_degrees": lambda: st.chunked_degrees(idx, d=8, d_g=4),
+        "build_chunked_adjacency": lambda: st.build_chunked_adjacency(
+            idx, d=8, d_g=4),
+        "ChunkedELL.from_dense": lambda: st.ChunkedELL.from_dense(
+            idx[0], np.ones(8, np.float32), 4, d=8, d_g=4),
+        "build_chunked_dense": lambda: fm.build_chunked_dense(x),
+        "load_fitted": lambda: fm.load_fitted(*_fitted_state("rb")),
+        "RBMap.from_state": lambda: fm.RBMap.from_state(
+            *_fitted_state("rb")),
+        "RFFMap.from_state": lambda: fm.RFFMap.from_state(
+            *_fitted_state("rff")),
+        "NystromMap.from_state": lambda: fm.NystromMap.from_state(
+            *_fitted_state("nystrom")),
+        "LSCMap.from_state": lambda: fm.LSCMap.from_state(
+            *_fitted_state("lsc")),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "streaming_kmeans", "row_normalize_chunks", "chunked_transform",
+    "chunked_rb_transform", "chunked_bin_counts", "chunked_degrees",
+    "build_chunked_adjacency", "ChunkedELL.from_dense",
+    "build_chunked_dense", "load_fitted", "RBMap.from_state",
+    "RFFMap.from_state", "NystromMap.from_state", "LSCMap.from_state"])
+def test_exported_entry_points_raise_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    call = _exported_calls()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

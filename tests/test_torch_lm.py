@@ -28,9 +28,11 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import Segment
 from repro_torch.serve import engine as E
 
-DENSE = ("qwen3-32b", "internlm2-1.8b", "qwen2.5-32b", "stablelm-12b")
-UNPORTED = ("mamba2-370m", "qwen2-vl-7b", "musicgen-large",
-            "deepseek-v2-lite-16b", "deepseek-moe-16b", "hymba-1.5b")
+PORTED = ("qwen3-32b", "internlm2-1.8b", "qwen2.5-32b", "stablelm-12b",
+          "deepseek-v2-lite-16b", "deepseek-moe-16b")
+#: the ported architectures whose layers all use the GQA mixer
+GQA = tuple(a for a in PORTED if a != "deepseek-v2-lite-16b")
+UNPORTED = ("mamba2-370m", "qwen2-vl-7b", "musicgen-large", "hymba-1.5b")
 TOL = 1e-5
 MODEL_TOL = 1e-4
 
@@ -59,7 +61,7 @@ def _tokens(cfg, seed, b, s):
 # configs
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_equal_reference(arch):
     got, want = configs.get_config(arch), jget_config(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -78,12 +80,12 @@ def test_unknown_arch_and_unported_layers_raise():
     with pytest.raises(KeyError):
         configs.get_config("gpt-5")
     cfg = dataclasses.replace(configs.smoke_config("internlm2-1.8b"),
-                              segments=(Segment("mla", "moe", 1),))
+                              segments=(Segment("ssm", "none", 1),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         T.init_params(cfg, 0, device="cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_count_matches_modules(arch):
     cfg = configs.smoke_config(arch)
     model = T.init_params(cfg, 0, device="cpu")
@@ -124,7 +126,7 @@ def test_rmsnorm_matches_reference():
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_rope_matches_reference(arch):
     cfg = configs.smoke_config(arch)        # stablelm: 25% partial rotary
     pos = np.broadcast_to(np.arange(40, dtype=np.int32)[None] + 3, (2, 40))
@@ -184,7 +186,7 @@ def test_causal_attention_cached_matches_reference(s, pos, window):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", GQA)
 def test_apply_gqa_matches_reference(arch):
     cfg, tree, model = _reference_model(arch, seed=1)
     jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
@@ -242,19 +244,23 @@ def test_apply_mlp_matches_reference(arch):
 # the slice as a whole
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_forward_hidden_matches_reference(arch):
     cfg, tree, model = _reference_model(arch, seed=3)
     toks = _tokens(cfg, 4, 2, 32)
-    want, _ = JT.forward_hidden(jsmoke_config(arch), tree,
-                                {"tokens": jnp.asarray(toks)})
+    want, want_aux = JT.forward_hidden(jsmoke_config(arch), tree,
+                                       {"tokens": jnp.asarray(toks)})
     got, aux = T.forward_hidden(cfg, model, {"tokens": toks})
-    assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=MODEL_TOL,
                                atol=MODEL_TOL)
+    # the summed MoE aux loss: 0 without MoE layers
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=TOL,
+                               atol=TOL)
+    assert (float(aux) > 0) == (cfg.moe is not None)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_match_reference(arch):
     cfg, tree, model = _reference_model(arch, seed=5)
     jcfg = jsmoke_config(arch)
@@ -273,16 +279,25 @@ def test_prefill_and_decode_match_reference(arch):
         got, caches = T.decode_step(cfg, model, toks[:, i], caches, i)
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=MODEL_TOL,
                                    atol=MODEL_TOL, err_msg=f"decode {i}")
-    for name in ("k", "v"):
-        np.testing.assert_allclose(caches["seg0"][name].numpy(),
-                                   _np(jcaches["seg0"][name]),
-                                   rtol=MODEL_TOL, atol=MODEL_TOL)
+    for seg, c in caches.items():       # {"k","v"} or MLA's {"ckv","kr"}
+        assert set(c) == set(jcaches[seg])
+        for name in c:
+            np.testing.assert_allclose(c[name].numpy(),
+                                       _np(jcaches[seg][name]),
+                                       rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_forward(arch):
-    """Teacher-forced decode reproduces the port's own full forward."""
+    """Teacher-forced decode reproduces the port's own full forward. A
+    prompt's MoE may drop slots past its capacity where a decode step
+    (capacity 1 of top_k distinct experts) never does, so for the MoE
+    configs the capacity factor is raised to E/k: no forward drops a slot,
+    and the two must agree."""
     cfg = configs.smoke_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
     model = T.init_params(cfg, 7, device="cpu")
     b, s = 2, 32
     toks = _tokens(cfg, 8, b, s)
@@ -300,7 +315,9 @@ def test_decode_matches_forward(arch):
                                    err_msg=f"{arch} decode step {i}")
 
 
-@pytest.mark.parametrize("arch", ("internlm2-1.8b", "qwen3-32b"))
+@pytest.mark.parametrize("arch", ("internlm2-1.8b", "qwen3-32b",
+                                  "deepseek-v2-lite-16b",
+                                  "deepseek-moe-16b"))
 def test_engine_greedy_matches_reference(arch):
     cfg, tree, model = _reference_model(arch, seed=9)
     prompts = _tokens(cfg, 10, 2, 12)

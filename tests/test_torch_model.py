@@ -72,7 +72,8 @@ def parity(request):
                            jcfg.solver_options.buffer)
     x0 = np.asarray(jax.random.normal(fold_key(key, "eig"),
                                       (x.shape[0], b), jnp.float32))
-    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict())
+    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict(),
+                                device="cpu")
     tres = texec.execute(x, tcfg,
                          texec.ExecutionPlan(feature_map=tmap, eig_x0=x0),
                          keep_state=True, device="cpu")

@@ -69,7 +69,8 @@ def maps(data):
                                 x.shape[1], BASE["sigma"], BASE["d_g"])
     jmap = jfm.RBMap(n_grids=BASE["n_grids"], sigma=BASE["sigma"],
                      d_g=BASE["d_g"], params=params)
-    return jmap, tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict())
+    return jmap, tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict(),
+                                      device="cpu")
 
 
 def _reference_start_blocks(monkeypatch):

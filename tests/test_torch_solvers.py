@@ -477,7 +477,8 @@ def test_fit_with_each_solver_matches_reference(fit_data, solver, chunk_size):
     else:
         sizes = jres.state["z"].store.chunk_sizes
         x0 = JChunkedDense.random_normal(ekey, sizes, b).to_array()
-    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict())
+    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict(),
+                                device="cpu")
     tplan = dataclasses.replace(texec.plan_from_config(tcfg),
                                 feature_map=tmap, eig_x0=x0)
     tres = texec.execute(x, tcfg, tplan, keep_state=True, device="cpu")

@@ -104,7 +104,8 @@ def test_bin_counts_chunked_sum_equals_single_shot(chunk):
     want = jst.chunked_bin_counts(_chunks(idx, chunk), d=d, d_g=d_g)
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
     got = tst.chunked_bin_counts([torch.from_numpy(c) for c in
-                                  _chunks(idx, chunk)], d=d, d_g=d_g)
+                                  _chunks(idx, chunk)], d=d, d_g=d_g,
+                                  device="cpu")
     assert torch.equal(got, single)
 
 
@@ -151,9 +152,10 @@ def test_rb_degrees_exact_matches_reference(ell):
 def test_chunked_degrees_bit_identical_and_equal_to_reference(ell,
                                                               chunk_size):
     idx, d, d_g = ell
-    single = tst.chunked_degrees([torch.from_numpy(idx)], d=d, d_g=d_g)
+    single = tst.chunked_degrees([torch.from_numpy(idx)], d=d, d_g=d_g,
+                                 device="cpu")
     got = tst.chunked_degrees(tst.as_row_chunks(idx, chunk_size), d=d,
-                              d_g=d_g)
+                              d_g=d_g, device="cpu")
     assert torch.equal(got, single)
     want = jst.chunked_degrees(_chunks(idx, chunk_size), d=d, d_g=d_g)
     np.testing.assert_allclose(got.numpy(), want, rtol=1.2e-7, atol=0)
@@ -166,7 +168,8 @@ def _chunked_pair(ell, chunk_size):
     scale = np.asarray(adj.rowscale)
     jc = jst.ChunkedELL.from_dense(idx, scale, chunk_size, d=d, d_g=d_g,
                                    impl="xla")
-    tc = tst.ChunkedELL.from_dense(idx, scale, chunk_size, d=d, d_g=d_g)
+    tc = tst.ChunkedELL.from_dense(idx, scale, chunk_size, d=d, d_g=d_g,
+                                   device="cpu")
     return jc, tc
 
 
@@ -201,7 +204,8 @@ def test_chunked_products_match_the_device_representation(ell):
     idx, d, d_g = ell
     adj = tgraph.build_normalized_adjacency(torch.from_numpy(idx), d=d,
                                             d_g=d_g)
-    tc = tst.ChunkedELL.from_dense(idx, adj.rowscale, 96, d=d, d_g=d_g)
+    tc = tst.ChunkedELL.from_dense(idx, adj.rowscale, 96, d=d, d_g=d_g,
+                                   device="cpu")
     g = torch.Generator().manual_seed(0)
     u = torch.randn((idx.shape[0], 3), generator=g)
     v = torch.randn((d, 3), generator=g)
@@ -220,8 +224,10 @@ def test_chunked_rb_transform_matches_reference():
     params = jrb.make_rb_params(jax.random.PRNGKey(4), 16, 2, 0.15, d_g=512)
     want = np.asarray(jrb.rb_transform(jnp.asarray(x), params))
     jmap = jfm.RBMap(n_grids=16, sigma=0.15, d_g=512, params=params)
-    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict())
-    got = tst.chunked_rb_transform(tst.as_row_chunks(x, 90), tmap.params)
+    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict(),
+                                device="cpu")
+    got = tst.chunked_rb_transform(tst.as_row_chunks(x, 90), tmap.params,
+                                   device="cpu")
     assert [c.shape[0] for c in got] == [90, 90, 90, 30]
     np.testing.assert_array_equal(torch.cat(got).numpy(), want)
 
@@ -230,7 +236,7 @@ def test_build_chunked_adjacency_matches_reference(ell):
     idx, d, d_g = ell
     want = jst.build_chunked_adjacency(_chunks(idx, 128), d=d, d_g=d_g)
     got = tst.build_chunked_adjacency(tst.as_row_chunks(idx, 128), d=d,
-                                      d_g=d_g)
+                                      d_g=d_g, device="cpu")
     np.testing.assert_allclose(got.deg.numpy(), want.deg, rtol=1.2e-7,
                                atol=0)
     np.testing.assert_array_equal(got.counts.numpy(), want.counts)
@@ -338,7 +344,7 @@ def test_row_normalize_chunks(sizes, prefetch):
     u = np.random.default_rng(0).normal(size=(503, 6)).astype(np.float32)
     single = tkm.row_normalize(torch.from_numpy(u)).numpy()
     cd = tst.ChunkedDense.from_array(u, sizes)
-    got = tkm.row_normalize_chunks(cd, prefetch=prefetch)
+    got = tkm.row_normalize_chunks(cd, prefetch=prefetch, device="cpu")
     assert got.chunk_sizes == cd.chunk_sizes
     np.testing.assert_array_equal(got.to_array(), single)
     want = jkm.row_normalize_chunks(jst.ChunkedDense.from_array(u, sizes),
@@ -384,7 +390,8 @@ def test_streaming_kmeans_with_reference_seeds():
                                 n_steps=11, n_replicates=3, impl="xla")
     seeds = _reference_seeds(key, chunks, 4, 3)
     got = tkm.streaming_kmeans(None, tst.ChunkedDense.from_array(x, 256), 4,
-                               n_steps=11, init=torch.from_numpy(seeds))
+                               n_steps=11, init=torch.from_numpy(seeds),
+                               device="cpu")
     np.testing.assert_allclose(got.centroids.numpy(),
                                np.asarray(want.centroids), atol=1e-5)
     np.testing.assert_array_equal(got.labels.numpy(),
@@ -397,11 +404,12 @@ def test_streaming_kmeans_draws_its_own_seeds():
     x, y = make_blobs(600, 4, 3, seed=1, spread=0.05)
     g = torch.Generator().manual_seed(2)
     res = tkm.streaming_kmeans(g, [x[:250], x[250:]], 3, n_steps=20,
-                               n_replicates=2)
+                               n_replicates=2, device="cpu")
     assert res.labels.dtype == torch.int32 and res.labels.shape == (600,)
     assert metrics.adjusted_rand_index(res.labels.numpy(), y) >= 0.95
     with pytest.raises(ValueError, match="exceeds"):
-        tkm.streaming_kmeans(g, [np.zeros((4, 2), np.float32)], 9)
+        tkm.streaming_kmeans(g, [np.zeros((4, 2), np.float32)], 9,
+                             device="cpu")
 
 
 def test_minibatch_kmeans_on_blobs_and_tiny_input():
@@ -477,7 +485,8 @@ def chunked_parity(request):
         residency="host_chunked", chunk_size=chunk, feature_map=jmap,
         eig_x0=x0), keep_state=True)
     assert jplan.residency == "host_chunked"
-    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict())
+    tmap = tfm.RBMap.from_state(jmap.meta_dict(), jmap.state_dict(),
+                                device="cpu")
     seeds = {}
 
     def inject(g, u, k, **kw):
