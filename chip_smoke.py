@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # phases 0-14 and 16, on card 0
+    python3 chip_smoke.py              # phases 0-14, 16 and 17, on card 0
     python3 chip_smoke.py --cards 4    # phases 0, 1 and 15, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -229,6 +229,35 @@ from a seed):
            device busy ms (torch.profiler) and one layer's mixer and FFN
            ms on the prefill's inputs, peak memory; flash launches per
            generate: 0 and 28 (one per GQA layer)
+  phase 17 the last four architectures, one after the other (the card
+           freed between them), at full width and depth, bf16, weights
+           drawn on the card from --seed, served phase 7's requests:
+           mamba2-370m (48 SSD layers), hymba-1.5b (32 hybrid layers:
+           attention and an SSM on one input, 29 with a window of 1,024),
+           qwen2-vl-7b (28 GQA layers, M-RoPE, embeds input) and
+           musicgen-large (48 GQA layers, H = Hkv = 32, embeds input); the
+           embeds models' prompts are (4, 4,096, D) drawn from the seed.
+           Each: the parameter count equal to the config's (less the
+           vocab x d embedding that param_count counts and an embeds model
+           lacks); a layer-by-layer float32 check of one prefill written
+           apart from the port (attention over every position with its
+           own RoPE tables and the segment's window; each SSM mixer against
+           a recurrence run one position at a time over the first 1,024
+           positions, all 4,096 and the final state on the first SSM
+           layer; Hymba's fused output; MLP rows; each flash output
+           against its plain version), rows within the bf16 row limit;
+           planted faults (the SSD scan not carrying its state between
+           chunks, a windowed hybrid layer ignoring its window, M-RoPE's h
+           and w sections swapped) must fail it; on qwen2-vl-7b a prefill
+           with positions (3, 4, 4,096) laid out as an image of 32 x 32
+           patches among text, its logits apart from plain RoPE's and the
+           same bits twice; the flash kernel at the model's prefill shape
+           beside SDPA (a boolean window mask for hymba) and its bound;
+           greedy twice and at temperature 0.8 twice (same tokens); prefill
+           s, TTFT, decode ms/step beside the bound of reading the weights
+           once a step, one decode step's device busy ms, one layer's mixer
+           and FFN ms, peak memory; flash launches per generate 0, 32, 28,
+           48
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -248,7 +277,9 @@ the engine's graph replays in phase 12, which no wrapper counts;
 ``launches_partitioned``: per partitioned fit of phase 13;
 ``launches_mesh``: per mesh fit of phase 14, on one of its two ranks;
 ``launches_v2_lite`` and ``launches_moe_16b``: per generate of phase 16's
-deepseek-v2-lite-16b and deepseek-moe-16b).
+deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
+``launches_hymba``, ``launches_qwen2_vl`` and ``launches_musicgen``: per
+generate of phase 17's models).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -429,6 +460,30 @@ DS_ARCHS = ("deepseek-v2-lite-16b", "deepseek-moe-16b")
 # a dropped rope term or unnormalised gates move a row by 1e-1 and more
 DS_ROW_REL = FLASH_ROW_REL
 DS_TRUTH_CHUNK = 256      # query rows a chunk in the float32 attention
+# phase 17: the last four architectures at full width (configs/
+# {mamba2_370m,hymba_1p5b,qwen2_vl_7b,musicgen_large}.py), served the
+# requests of phase 7, each beside its key in the kernels line (flash
+# launches per generate)
+NEW_ARCHS = {"mamba2-370m": "launches_mamba2", "hymba-1.5b": "launches_hymba",
+             "qwen2-vl-7b": "launches_qwen2_vl",
+             "musicgen-large": "launches_musicgen"}
+# qwen2-vl-7b and musicgen-large read (B, S, D) embeds drawn from the seed
+# at a token embedding row's scale (the port's embedding init)
+EMBED_STD = 0.02
+# each SSM mixer's rows (mamba2's, hymba's SSM branch) and hymba's fused
+# rows against a float32 recurrence run one position at a time over the
+# first SSM_CHECK positions (the chunk boundaries at 256, 512 and 768
+# inside), and over all LM_PROMPT positions of each model's first SSM
+# layer; attention rows cover every position (hymba's window of 1,024
+# matters only past the first 1,024)
+SSM_CHECK = 1_024
+# qwen2-vl-7b's M-RoPE prefill: MROPE_TEXT text positions, an image of
+# MROPE_GRID x MROPE_GRID patches (t fixed, h the row, w the column), then
+# text again from the image's largest position + 1 (Qwen2-VL's layout);
+# its logits must move from the plain-RoPE prefill's by MROPE_MIN_REL
+MROPE_TEXT = 1_000
+MROPE_GRID = 32
+MROPE_MIN_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -3987,9 +4042,10 @@ def phase15_cards(n_cards: int) -> None:
 # phase 16: the DeepSeek models (MLA, MoE)
 # --------------------------------------------------------------------------
 
-def plain_attention_f32(q, k, v, scale: float):
+def plain_attention_f32(q, k, v, scale: float, window=None):
     """Causal float32 attention, (B, S, H, dq) x (B, T, H, dq) x (B, T, H,
-    dv) -> (B, S, H, dv), a chunk of query rows at a time."""
+    dv) -> (B, S, H, dv), a chunk of query rows at a time; with ``window``
+    key j is visible from query i only if i - window < j <= i."""
     import torch
     b, s, h, _ = q.shape
     out = q.new_empty((b, s, h, v.shape[-1]))
@@ -3997,8 +4053,11 @@ def plain_attention_f32(q, k, v, scale: float):
     for c0 in range(0, s, DS_TRUTH_CHUNK):
         hi = min(s, c0 + DS_TRUTH_CHUNK)
         sc = torch.matmul(qh[:, :, c0:hi], kh[:, :, :hi].transpose(-1, -2))
-        later = torch.arange(hi, device=q.device)[None, :] \
-            > torch.arange(c0, hi, device=q.device)[:, None]
+        kpos = torch.arange(hi, device=q.device)[None, :]
+        qpos = torch.arange(c0, hi, device=q.device)[:, None]
+        later = kpos > qpos
+        if window is not None:
+            later |= kpos <= qpos - window
         p = torch.softmax((sc * scale).masked_fill_(later, float("-inf")),
                           dim=-1)
         out[:, c0:hi] = torch.matmul(p, vh[:, :, :hi]).transpose(1, 2)
@@ -4176,10 +4235,10 @@ def ds_planted_faults() -> dict:
             ("moe", "moe_route", gates_not_renormalised)}
 
 
-def deepseek_layer_times(cfg, params, batch) -> dict:
+def layer_times(cfg, params, batch) -> dict:
     """Device ms of the first layer of the model's last segment on its
-    prefill inputs: its mixer (uncached, the prompt's attention) and its
-    FFN, each timed alone with CUDA events."""
+    prefill inputs: its mixer (uncached, the prompt's attention or scan)
+    and its FFN (where it has one), each timed alone with CUDA events."""
     from repro_torch.models import transformer as T
 
     layer = params.segments[-1][0]
@@ -4187,13 +4246,16 @@ def deepseek_layer_times(cfg, params, batch) -> dict:
 
     def grab_mixer(mod, args, kwargs, res):
         seen["mixer"] = (args, kwargs["window"])
+        if layer.ffn is None:
+            raise _CheckDone
 
     def grab_ffn(mod, args, res):
         seen["ffn"] = args[0]
         raise _CheckDone
 
-    hooks = [layer.mixer.register_forward_hook(grab_mixer, with_kwargs=True),
-             layer.ffn.register_forward_hook(grab_ffn)]
+    hooks = [layer.mixer.register_forward_hook(grab_mixer, with_kwargs=True)]
+    if layer.ffn is not None:
+        hooks.append(layer.ffn.register_forward_hook(grab_ffn))
     try:
         T.forward_hidden(cfg, params, batch)
     except _CheckDone:
@@ -4202,9 +4264,11 @@ def deepseek_layer_times(cfg, params, batch) -> dict:
         for hd in hooks:
             hd.remove()
     (h, cos, sin), window = seen["mixer"]
-    return {"mixer": time_ms(lambda: layer.mixer(h, cos, sin,
-                                                 window=window), iters=5),
-            "ffn": time_ms(lambda: layer.ffn(seen["ffn"]), iters=5)}
+    times = {"mixer": time_ms(lambda: layer.mixer(h, cos, sin,
+                                                  window=window), iters=5)}
+    if layer.ffn is not None:
+        times["ffn"] = time_ms(lambda: layer.ffn(seen["ffn"]), iters=5)
+    return times
 
 
 def deepseek_model(arch: str, seed: int) -> dict:
@@ -4294,7 +4358,7 @@ def deepseek_model(arch: str, seed: int) -> dict:
     expert_bytes = n_moe * 3 * mo.n_routed * cfg.d_model * mo.d_expert * 2
     step_ms = st["decode_s"] / st["decode_steps"] * 1e3
     last = cfg.segments[-1]
-    lt = deepseek_layer_times(cfg, params, batch)
+    lt = layer_times(cfg, params, batch)
     log(f"{tag} one {last.mixer}+{last.ffn} layer on the prefill's inputs "
         f"(device, CUDA events): mixer {lt['mixer']:.3f} ms, FFN "
         f"{lt['ffn']:.3f} ms; x {last.count} layers "
@@ -4354,6 +4418,448 @@ def phase16_deepseek(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: Mamba2, Hymba, Qwen2-VL, MusicGen (SSM, hybrid, M-RoPE, embeds)
+# --------------------------------------------------------------------------
+
+def mrope_positions(b: int, s: int):
+    """(3, B, S) positions on the card, Qwen2-VL's layout of an image among
+    text: MROPE_TEXT text positions (the three streams equal), a
+    MROPE_GRID² patch grid at t = MROPE_TEXT with h and w its row and
+    column, then text from MROPE_TEXT + MROPE_GRID on."""
+    import torch
+    g, t0 = MROPE_GRID, MROPE_TEXT
+    text = torch.arange(t0)
+    tail = t0 + g + torch.arange(s - t0 - g * g)
+    grid = (torch.full((g * g,), t0),
+            t0 + torch.arange(g).repeat_interleave(g),
+            t0 + torch.arange(g).repeat(g))
+    pos = torch.stack([torch.cat([text, st, tail]) for st in grid])
+    return pos[:, None].expand(3, b, s).contiguous().to("cuda")
+
+
+def rope_truth(cfg, positions):
+    """cos, sin (B, S, rotary_dim/2) float32, written apart from the port:
+    each frequency's angle in float64, from the position stream that its
+    M-RoPE section names for (3, B, S) positions, else from (B, S)."""
+    import torch
+    half = cfg.rotary_dim // 2
+    dev = positions.device
+    inv = cfg.rope_theta ** (-torch.arange(half, device=dev,
+                                           dtype=torch.float64) / half)
+    if positions.dim() == 3:
+        stream = torch.repeat_interleave(
+            torch.arange(3, device=dev),
+            torch.tensor(cfg.mrope_sections, device=dev))
+        pos = positions.permute(1, 2, 0)[..., stream]
+    else:
+        pos = positions[..., None]
+    ang = pos.double() * inv
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def rms_f32(x, scale, eps: float):
+    import torch
+    x = x.float()
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) \
+        * scale.float()
+
+
+def gqa_truth(cfg, mod, h, cos, sin, window):
+    """The GQA mixer in float32 on the bf16 input ``h``, written apart from
+    the port: the projections (and biases), RoPE of ``rope_truth``'s
+    tables, each kv head repeated for its query heads, plain causal
+    attention in the segment's window."""
+    import math
+
+    from repro_torch.models import layers as L
+    b, s, _ = h.shape
+    heads, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = {n: p.detach().float() for n, p in mod.named_parameters()}
+    x = h.float()
+    q, k, v = (x @ w[f"w{n}"] + (w[f"b{n}"] if cfg.qkv_bias else 0)
+               for n in "qkv")
+    q, k, v = (t.view(b, s, -1, hd) for t in (q, k, v))
+    if cfg.qk_norm:
+        q, k = rms_f32(q, w["q_norm"], cfg.norm_eps), \
+            rms_f32(k, w["k_norm"], cfg.norm_eps)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    k, v = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
+    o = plain_attention_f32(q, k, v, 1.0 / math.sqrt(hd), window)
+    return o.reshape(b, s, heads * hd) @ w["wo"]
+
+
+def ssm_truth(cfg, mod, h):
+    """The Mamba2 mixer in float32 on the bf16 input ``h`` (B, n, D),
+    written apart from the port: the in-projection, the causal conv by its
+    K taps, then the recurrence one position at a time, state ←
+    exp(dt·A)·state + B ⊗ (dt·x) and y = C·state + D·x, gated by silu(z),
+    normed and out-projected. Returns the output and the final state."""
+    import torch
+    import torch.nn.functional as F
+    sc, d = cfg.ssm, cfg.d_model
+    di, nh, n, hp = sc.d_inner(d), sc.n_heads(d), sc.d_state, sc.head_dim
+    gn = sc.n_groups * n
+    w = {name: p.detach().float() for name, p in mod.named_parameters()}
+    x = h.float()
+    b, s, _ = x.shape
+    proj = x @ w["w_in"]
+    z, xbc, dt = proj[..., :di], proj[..., di:2 * di + 2 * gn], \
+        proj[..., 2 * di + 2 * gn:]
+    kk = sc.conv_kernel
+    xpad = F.pad(xbc, (0, 0, kk - 1, 0))
+    conv = w["conv_b"] + sum(xpad[:, i:i + s] * w["conv_w"][i]
+                             for i in range(kk))
+    conv = F.silu(conv)
+    xs = conv[..., :di].reshape(b, s, nh, hp)
+    bm, cm = conv[..., di:di + n], conv[..., di + gn:di + gn + n]
+    dt = F.softplus(dt + w["dt_bias"])
+    decay = torch.exp(dt * -torch.exp(w["a_log"]))
+    xdt = xs * dt[..., None]
+    state = x.new_zeros((b, nh, n, hp))
+    y = torch.empty_like(xs)
+    for t in range(s):
+        state = decay[:, t, :, None, None] * state \
+            + bm[:, t, None, :, None] * xdt[:, t, :, None, :]
+        y[:, t] = torch.einsum("bn,bhnp->bhp", cm[:, t], state)
+    y = (y + xs * w["d_skip"][:, None]).reshape(b, s, di) * F.silu(z)
+    return rms_f32(y, w["out_ln"], cfg.norm_eps) @ w["w_out"], state
+
+
+def lm_layer_check(cfg, params, batch, stop_after=None) -> dict:
+    """One bf16 prefill with module hooks: each layer's mixer output (for
+    Hymba each branch and the fused output) and FFN output held against
+    its float32 truth on the same input, and each flash output against its
+    plain version. Attention rows cover all S positions; SSM and fused
+    rows the first SSM_CHECK (``ssm_full``: all S of the first SSM layer,
+    and ``state``: its final state in the cache, each (batch, head)'s N x
+    P block a row). With ``stop_after`` (a layer index) the prefill stops
+    once that layer's mixer is measured. Returns {kind: [row error max
+    per layer]}."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    out = {"attn": [], "ssm": [], "ssm_full": [], "state": [], "hybrid": [],
+           "mlp": [], "flash": []}
+    b, s = LM_BATCH, LM_PROMPT
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(s, device="cuda")[None].expand(b, s)
+    cos, sin = rope_truth(cfg, pos)
+    eps = cfg.norm_eps
+    pending = {}
+
+    def attn_hook(window):
+        def hook(mod, args, kwargs, res):
+            want = gqa_truth(cfg, mod, args[0], cos, sin, window)
+            out["attn"].append(float(row_errors(res[0], want).max()))
+            pending["attn"] = want[:, :SSM_CHECK]
+        return hook
+
+    def ssm_hook(mod, args, kwargs, res):
+        n = SSM_CHECK if out["ssm"] else s
+        want, state = ssm_truth(cfg, mod, args[0][:, :n])
+        err = row_errors(res[0][:, :n], want)
+        if n == s:
+            out["ssm_full"].append(float(err.max()))
+            out["state"].append(float(row_errors(
+                kwargs["cache"]["state"].flatten(2),
+                state.flatten(2)).max()))
+        out["ssm"].append(float(err[:, :SSM_CHECK].max()))
+        pending["ssm"] = want[:, :SSM_CHECK]
+
+    def mixer_hook(index, kind):
+        def hook(mod, args, kwargs, res):
+            if kind == "hybrid":
+                want = 0.5 * (rms_f32(pending.pop("attn"), mod.attn_out_ln,
+                                      eps)
+                              + rms_f32(pending.pop("ssm"), mod.ssm_out_ln,
+                                        eps))
+                out["hybrid"].append(float(row_errors(
+                    res[0][:, :SSM_CHECK], want).max()))
+            if index == stop_after:
+                raise _CheckDone
+        return hook
+
+    def ffn_hook(mod, args, res):
+        want = swiglu_f32(args[0].float(), mod.wg, mod.wu, mod.wd)
+        out["mlp"].append(float(row_errors(res, want).max()))
+
+    handles = []
+
+    def hook(mod, fn):
+        handles.append(mod.register_forward_hook(fn, with_kwargs=True))
+
+    index = 0
+    for seg, layers in zip(cfg.segments, params.segments):
+        for layer in layers:
+            mixer = layer.mixer
+            if seg.mixer == "gqa":
+                hook(mixer, attn_hook(seg.window))
+            elif seg.mixer == "ssm":
+                hook(mixer, ssm_hook)
+            else:
+                hook(mixer.attn, attn_hook(seg.window))
+                hook(mixer.ssm, ssm_hook)
+            hook(mixer, mixer_hook(index, seg.mixer))
+            if layer.ffn is not None:
+                handles.append(layer.ffn.register_forward_hook(ffn_hook))
+            index += 1
+    try:
+        with mock.patch.object(ops, "flash_attention", checked_attention(
+                ops.flash_attention, out["flash"])):
+            T.prefill(cfg, params, batch,
+                      T.init_cache(cfg, LM_BATCH, LM_CACHE))
+    except _CheckDone:
+        pass
+    finally:
+        for hd in handles:
+            hd.remove()
+        torch.cuda.empty_cache()
+    return out
+
+
+def new_planted_faults() -> dict:
+    """name -> (model, the layer its check stops after, (object, attribute,
+    the fault that replaces it), the row kind that must fail)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    chunk, gqa_forward, rope = L.ssd_chunk, L.GQA.forward, L.rope_tables
+
+    def state_not_carried(state, *rest):
+        # every chunk starts from state 0: y_inter is dropped, and the
+        # final state holds the last chunk alone
+        return chunk(torch.zeros_like(state), *rest)
+
+    def window_ignored(self, x, cos, sin, *, window=None, cache=None,
+                       pos=None):
+        return gqa_forward(self, x, cos, sin, window=None, cache=cache,
+                           pos=pos)
+
+    def h_w_swapped(positions, *args, **kwargs):
+        if positions.dim() == 3:
+            positions = positions[[0, 2, 1]]
+        return rope(positions, *args, **kwargs)
+
+    return {"SSD scan not carrying the state between chunks (y_inter "
+            "dropped)":
+            ("mamba2-370m", 0, (L, "ssd_chunk", state_not_carried),
+             "state"),
+            "a windowed hybrid layer ignoring its window":
+            ("hymba-1.5b", 1, (L.GQA, "forward", window_ignored), "attn"),
+            "M-RoPE h and w sections swapped":
+            ("qwen2-vl-7b", 0, (L, "rope_tables", h_w_swapped), "attn")}
+
+
+def flash_at_model_shape(tag: str, cfg) -> None:
+    """The flash kernel at the model's prefill shape (its windowed layers'
+    window, if any), timed beside SDPA (a windowed one with an explicit
+    boolean mask, K and V repeated to H heads: SDPA's masked route takes
+    no grouped K/V) and its bound over the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    windows = {seg.window for seg in cfg.segments} - {None}
+    window = max(windows) if windows else None
+    b, s, h, hkv, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    g = torch.Generator(device="cuda").manual_seed(h * hd)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g,
+                           device="cuda").bfloat16() for n in (h, hkv, hkv))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, window=window),
+                 iters=20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    else:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) \
+            & (i[None, :] > i[:, None] - window)
+        kt, vt = (x.repeat_interleave(h // hkv, dim=1) for x in (kt, vt))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=20)
+    pairs = visible_pairs(s, s, True, window)
+    ops_n = 4.0 * hd * pairs * b * h
+    b_ms, b_by = bound(2 * (2 * b * s * h * hd + 2 * b * s * hkv * hd),
+                       ops_n, PEAK_BF16_OPS_PER_S)
+    log(f"{tag} flash_attention at the prefill's shape B={b} S=T={s} H={h} "
+        f"Hkv={hkv} hd={hd} bf16 causal window={window}: ms={ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {pairs} visible pairs a head) SDPA "
+        f"ms={sdpa_ms:.4f}; {ops_n / ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / ms:.1%} of the bound")
+
+
+def new_model(arch: str, seed: int) -> dict:
+    """Phase 17 for one model; returns its kernel launches per generate."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    tag = f"[phase 17] {arch}"
+    cfg = configs.get_config(arch)
+    embeds = cfg.input_mode == "embeds"
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    # param_count counts an embedding that an embeds model does not have
+    gap = cfg.vocab_size * cfg.d_model if embeds else 0
+    if n_params != cfg.param_count() - gap:
+        fail(f"{arch}: {n_params} parameters, the config counts "
+             f"{cfg.param_count()} (less {gap} for no embedding)")
+    kinds = [(seg.mixer, seg.ffn, seg.count, seg.window)
+             for seg in cfg.segments]
+    log(f"{tag}: {cfg.n_layers} layers {kinds}, d={cfg.d_model}, "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, "
+        f"ssm={cfg.ssm}, M-RoPE {cfg.mrope_sections}, input "
+        f"{cfg.input_mode}, vocab={cfg.vocab_size}, {cfg.dtype}: {n_params} "
+        f"parameters ({n_params * 2 / 2**30:.2f} GiB; param_count "
+        f"{cfg.param_count()} less the embedding it counts, {gap}) drawn "
+        f"on the card in {time.perf_counter() - t0:.2f}s")
+    if embeds:
+        g = torch.Generator("cuda").manual_seed(seed)
+        prompts = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model),
+                              generator=g, device="cuda") * EMBED_STD
+        batch = {"embeds": prompts}
+    else:
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
+        batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    check_batch = batch
+    if cfg.mrope_sections is not None:
+        check_batch = dict(batch, positions=mrope_positions(LM_BATCH,
+                                                            LM_PROMPT))
+
+    # the layer-by-layer float32 check, then the planted faults against it
+    t0 = time.perf_counter()
+    chk = lm_layer_check(cfg, params, check_batch)
+
+    def count(*mixers):
+        return sum(seg.count for seg in cfg.segments if seg.mixer in mixers)
+
+    attending = count("gqa", "hybrid")
+    want = {"attn": attending, "ssm": count("ssm", "hybrid"),
+            "hybrid": count("hybrid"),
+            "ssm_full": min(count("ssm", "hybrid"), 1),
+            "state": min(count("ssm", "hybrid"), 1),
+            "mlp": sum(seg.count for seg in cfg.segments
+                       if seg.ffn == "mlp"),
+            "flash": attending}
+    what = {"attn": "attention vs float32 (all positions)",
+            "ssm": f"SSM vs the float32 recurrence (first {SSM_CHECK} "
+                   "positions)",
+            "ssm_full": "the first SSM layer vs the float32 recurrence "
+                        f"(all {LM_PROMPT} positions)",
+            "state": "the first SSM layer's final state vs the float32 "
+                     "recurrence's (a row per batch and head)",
+            "hybrid": f"fused hybrid output vs float32 (first {SSM_CHECK} "
+                      "positions)",
+            "mlp": "MLP vs float32",
+            "flash": "flash kernel vs its plain version"}
+    for kind, n in want.items():
+        rows = chk[kind]
+        if len(rows) != n:
+            fail(f"{arch}: the check measured {len(rows)} {kind} rows of "
+                 f"{n} layers")
+        if rows:
+            log(f"{tag} {what[kind]}: row error max {max(rows):.3g} (limit "
+                f"{FLASH_ROW_REL}), median {sorted(rows)[len(rows) // 2]:.3g}"
+                f", layer by layer {[round(r, 5) for r in rows]}")
+        if rows and max(rows) > FLASH_ROW_REL:
+            fail(f"{arch}: {kind} rows differ: {rows}")
+    log(f"{tag} layer check {time.perf_counter() - t0:.1f}s")
+    for name, (model, stop, (obj, attr, fault), kind) in \
+            new_planted_faults().items():
+        if model != arch:
+            continue
+        with mock.patch.object(obj, attr, fault):
+            got = lm_layer_check(cfg, params, check_batch, stop_after=stop)
+        err = got[kind][-1]
+        seen = {k: round(v[-1], 5) for k, v in got.items() if v}
+        log(f"{tag} planted fault, {name}: layer {stop}'s {kind} row error "
+            f"{err:.3g} (limit {FLASH_ROW_REL}) -> fails the check; every "
+            f"kind at that layer {seen}")
+        if err <= FLASH_ROW_REL:
+            fail(f"{arch}: the float32 layer check passes a planted fault "
+                 f"({name})")
+
+    if cfg.mrope_sections is not None:
+        def run(b_):
+            return T.prefill(cfg, params, b_,
+                             T.init_cache(cfg, LM_BATCH, LM_CACHE))[0]
+        mrope, again, flat = run(check_batch), run(check_batch), run(batch)
+        rel = float((mrope - flat).norm() / flat.norm())
+        same = torch.equal(mrope, again)
+        finite = bool(torch.isfinite(mrope).all())
+        log(f"{tag} M-RoPE prefill (positions (3, {LM_BATCH}, {LM_PROMPT}):"
+            f" {MROPE_TEXT} text, a {MROPE_GRID}x{MROPE_GRID} patch grid, "
+            f"text): logits finite {finite}, {rel:.4g} (rel L2) from the "
+            f"plain-RoPE prefill of the same embeds (at least "
+            f"{MROPE_MIN_REL}); two runs the same bits = {same}")
+        if not (same and finite) or rel < MROPE_MIN_REL:
+            fail(f"{arch}: the M-RoPE prefill repeats {same}, is finite "
+                 f"{finite}, moves {rel:.4g} from plain RoPE")
+        del mrope, again, flat
+    if attending:
+        flash_at_model_shape(tag, cfg)
+
+    served = serve_requests(tag, cfg, params, prompts, seed,
+                            flash_layers=attending)
+    st, greedy = served["stats"], served["greedy"]
+    step_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    last = cfg.segments[-1]
+    lt = layer_times(cfg, params, batch)
+    ffn = f", FFN {lt['ffn']:.3f} ms" if "ffn" in lt else ""
+    log(f"{tag} one {last.mixer}+{last.ffn} layer (window {last.window}) "
+        f"on the prefill's inputs (device, CUDA events): mixer "
+        f"{lt['mixer']:.3f} ms{ffn}; x {cfg.n_layers} layers "
+        f"{sum(lt.values()) * cfg.n_layers / 1e3:.4f} s of the prefill's "
+        f"{st['prefill_s']:.4f} s")
+    caches = T.init_cache(cfg, LM_BATCH, LM_CACHE)
+    T.prefill(cfg, params, batch, caches)
+    tok = torch.zeros((LM_BATCH, cfg.d_model), device="cuda") if embeds \
+        else torch.as_tensor(greedy[:, 0], device="cuda")
+    for _ in range(2):         # the second trace: the first pays set-up
+        busy = device_busy(
+            lambda: T.decode_step(cfg, params, tok, caches, LM_PROMPT))
+    del caches
+    log(f"{tag} one decode step at position {LM_PROMPT}: "
+        f"{busy['device_events']} device events, the device busy "
+        f"{busy['busy_us'] / 1e3:.3f} ms of {busy['wall_us'] / 1e3:.3f} ms "
+        f"wall (busy share {busy['busy_us'] / busy['wall_us']:.3f}); "
+        f"reading the {n_params * 2 / 1e9:.3f} GB of weights once a step "
+        f"bounds it at {n_params * 2 / PEAK_BYTES_PER_S * 1e3:.3f} ms at "
+        f"3.35 TB/s; measured {step_ms:.3f} ms/step")
+    del params
+    return served["launches"]
+
+
+def phase17_new_models(seed: int) -> dict:
+    """Phase 17: the four models one after the other, the card freed
+    between them; returns each one's kernel launches per generate."""
+    import torch
+    out = {}
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = new_model(arch, seed)
+        torch.cuda.empty_cache()
+        log(f"[phase 17] {arch} {time.perf_counter() - t0:.1f}s, device "
+            f"memory in use after freeing it "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4363,8 +4869,8 @@ def main() -> None:
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
                         help="run phases 0, 1 and 15 (more than one card) "
-                             "on this many cards instead of phases 0-14 "
-                             "and 16")
+                             "on this many cards instead of phases 0-14, "
+                             "16 and 17")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4515,13 +5021,21 @@ def main() -> None:
         row["launches_v2_lite"] = deepseek[DS_ARCHS[0]].get(row["name"], 0)
         row["launches_moe_16b"] = deepseek[DS_ARCHS[1]].get(row["name"], 0)
     log(f"[phase 16] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    new = phase17_new_models(args.seed)
+    for row in kernels:          # launches per generate
+        for arch, key in NEW_ARCHS.items():
+            row[key] = new[arch].get(row["name"], 0)
+    log(f"[phase 17] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_compressive", "launches_engine",
             "launches_partitioned", "launches_mesh", "launches_v2_lite",
-            "launches_moe_16b", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_moe_16b", *NEW_ARCHS.values(), "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

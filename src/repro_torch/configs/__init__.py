@@ -1,13 +1,9 @@
 """Architecture registry: the JAX package's ten backbones and its input-shape
-grid, with six ported: the four dense GQA configurations and the two
-DeepSeek ones (the MLA mixer, the MoE FFN).
+grid.
 
-Each ported ``<arch>.py`` exposes ``config()`` (the exact published
-configuration, copied from the JAX package); the registry adds reduced
-smoke variants and the shape table. The other four architectures need a
-mixer or an input path that this port does not have yet, and
-``get_config`` raises ``NotImplementedError`` for them, naming the
-``ROADMAP.md`` item that ports them.
+Each ``<arch>.py`` exposes ``config()`` (the exact published configuration,
+copied from the JAX package); the registry adds reduced smoke variants and
+the shape table.
 """
 from __future__ import annotations
 
@@ -15,7 +11,7 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig, SSMConfig
 
 ARCH_IDS = (
     "qwen3-32b",
@@ -31,16 +27,6 @@ ARCH_IDS = (
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
-
-#: Architectures whose layers the port cannot run yet → what they need.
-UNPORTED: Dict[str, str] = {
-    "mamba2-370m": "the Mamba2 SSD mixer (ssm)",
-    "qwen2-vl-7b": "M-RoPE and the embeds input path",
-    "musicgen-large": "the embeds input path",
-    "hymba-1.5b": "the hybrid attention ∥ SSM mixer",
-}
-
-PORTED_ARCHS = tuple(a for a in ARCH_IDS if a not in UNPORTED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +52,13 @@ SHAPES: Dict[str, ShapeSpec] = {
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; options: {list(_MODULES)}")
-    if arch in UNPORTED:
-        raise NotImplementedError(
-            f"{arch} needs {UNPORTED[arch]}, which repro_torch does not have "
-            "yet (ROADMAP.md A10); ported: " + ", ".join(PORTED_ARCHS))
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.config()
 
 
 def smoke_config(arch: str) -> ModelConfig:
     """Family-faithful reduced configuration for CPU smoke tests: the JAX
-    package's reduction, field for field, for the ported architectures
-    (which carry no SSM or M-RoPE sub-config)."""
+    package's reduction, field for field."""
     cfg = get_config(arch)
     # shrink segment stack: keep the structural pattern, 1-2 layers each
     segs = tuple(
@@ -107,4 +88,9 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(cfg.moe, n_routed=8, n_shared=1,
                                         top_k=2, d_expert=32)
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=16, expand=2, head_dim=16, chunk=32,
+                              conv_kernel=4, n_groups=1)
+    if cfg.mrope_sections is not None:
+        kw["mrope_sections"] = (2, 3, 3)
     return dataclasses.replace(cfg, **kw)

@@ -1,26 +1,26 @@
 """Layer pieces of the LM stack: RMSNorm, SwiGLU, RoPE (with partial
-rotary), causal attention, the GQA and MLA attention blocks, the MLP block
-and the MoE FFN.
+rotary and M-RoPE), causal attention, the GQA and MLA attention blocks, the
+MLP block, the MoE FFN, the Mamba2 SSD mixer and the Hymba hybrid mixer.
 
 Conventions (the JAX package's, ``repro.models.layers``):
   - projections are stored flat (D, H·hd) and applied as ``x @ w``;
   - weights are held in the config's compute dtype (this is a serving port:
     the trainer's float32 masters come with the training slice);
   - KV caches are flat (B, T, Hkv·hd), MLA's compressed ones (B, T,
-    kv_lora_rank) and (B, T, qk_rope_dim). This port writes them in place
-    (JAX returns updated copies), which saves a cache-sized copy per layer.
+    kv_lora_rank) and (B, T, qk_rope_dim), an SSM's ``state`` (B, H, N, P)
+    float32 and ``conv`` (B, K−1, C). This port writes them in place (JAX
+    returns updated copies), which saves a cache-sized copy per layer.
 
 Attention: the uncached case (no cache, T == S, no offset) — the attention
 of a prompt — goes to ``kernels.ops.flash_attention``, the hand-written
 kernel on a CUDA tensor and its plain version on a CPU tensor. The cached
 case (decode: queries against the cache, masked to its valid prefix) is
 plain PyTorch, the grouped einsum of the JAX package, which computes it
-outside any Pallas kernel too. MLA (DeepSeek-V2) and the MoE FFN
-(DeepSeekMoE) reach no Pallas kernel in the JAX package either (einsums, a
-sort and scatters), and are plain PyTorch here too.
-
-Not ported yet (ROADMAP.md A10): the SSM and hybrid mixers, M-RoPE, and
-the sharding hints.
+outside any Pallas kernel too. MLA (DeepSeek-V2), the MoE FFN
+(DeepSeekMoE) and the Mamba2 SSD scan reach no Pallas kernel in the JAX
+package either (einsums, a sort and scatters, a chunked scan), and are
+plain PyTorch here too. The sharding hints are not ported: this port runs
+a model on one card.
 """
 from __future__ import annotations
 
@@ -77,19 +77,34 @@ def param(*shape: int, device, dtype, fill: Optional[float] = None
 # ---------------------------------------------------------------------------
 
 def rope_tables(
-    positions: torch.Tensor,         # (B, S) integer
+    positions: torch.Tensor,         # (B, S), or (3, B, S) for M-RoPE
     rotary_dim: int,
     theta: float,
     mrope_sections: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (B, S, rotary_dim/2), float32."""
-    if mrope_sections is not None or positions.dim() != 2:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md A10.4)")
+    """cos/sin tables (B, S, rotary_dim/2), float32.
+
+    M-RoPE (Qwen2-VL): positions (3, B, S) hold the temporal, height and
+    width streams, and stream i owns the i-th run of ``mrope_sections``
+    frequencies. (B, S) positions take the plain path whatever
+    ``mrope_sections`` is, as in the JAX package."""
     half = rotary_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
-    ang = positions[..., None].float() * freqs
+    ang = positions[..., None].float() * freqs          # (..., B, S, half)
+    if positions.dim() == 3:
+        if mrope_sections is None or sum(mrope_sections) != half \
+                or positions.shape[0] != len(mrope_sections):
+            raise ValueError(f"positions {tuple(positions.shape)} need M-RoPE "
+                             f"sections summing to {half}, got "
+                             f"{mrope_sections}")
+        ang = torch.cat([a[..., i0:i0 + n] for a, i0, n in zip(
+            ang, (0, mrope_sections[0], sum(mrope_sections[:2])),
+            mrope_sections)], dim=-1)
+    elif positions.dim() != 2:
+        raise ValueError(f"positions must be (B, S) or (3, B, S), got "
+                         f"{tuple(positions.shape)}")
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -537,3 +552,253 @@ def apply_moe(cfg: ModelConfig, p: MoE, x: torch.Tensor
     """(output (B, S, D), aux load-balance loss scalar), as the JAX
     package's ``apply_moe``."""
     return p(x)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD mixer
+# ---------------------------------------------------------------------------
+
+def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv1d by shifted adds: xc (B, S, C), w (K, C),
+    out[t] = b + Σ_i w[i]·x[t − K + 1 + i], the K − 1 inputs before the
+    sequence read from ``state`` (B, K−1, C), zeros without one. Returns
+    the output in float32 (the scan's precision; the JAX package rounds it
+    to xc's dtype) and, with a state, the new state (the last K − 1 inputs,
+    in xc's dtype)."""
+    kk, s = w.shape[0], xc.shape[1]
+    if state is None:
+        pad = xc.new_zeros((xc.shape[0], kk - 1, xc.shape[2]))
+    else:
+        pad = state.to(xc.dtype)
+    full = torch.cat([pad, xc], dim=1)
+    out = full[:, :s].float() * w[0].float()
+    for i in range(1, kk):
+        out += full[:, i:i + s].float() * w[i].float()
+    out += b.float()
+    new_state = None if state is None else full[:, full.shape[1] - kk + 1:]
+    return out, new_state
+
+
+def ssd_chunk(state: torch.Tensor, da: torch.Tensor, xdt: torch.Tensor,
+              bm: torch.Tensor, cm: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the SSD scan, float32: the state (B, H, N, P) before the
+    chunk, da (B, Q, H) = dt·A ≤ 0, xdt (B, Q, H, P) = dt·x, bm, cm (B, Q,
+    N). Returns the state after the chunk and y (B, Q, H, P): the
+    intra-chunk term (C·B weighted by the decay from j to i, i ≥ j) plus
+    the inter-chunk term (C times the carried state, decayed to i)."""
+    q = da.shape[1]
+    cum = torch.cumsum(da, dim=1).transpose(1, 2)            # (B, H, Q)
+    seg = cum[..., :, None] - cum[..., None, :]              # (B, H, Qi, Qj)
+    tri = torch.ones((q, q), dtype=torch.bool, device=da.device).tril()
+    # above the diagonal seg ≥ 0 and exp(seg) may be inf: where() drops it
+    # (a 0/1 mask would multiply inf by 0)
+    lmat = torch.where(tri, torch.exp(seg), 0.0)
+    cb = cm @ bm.transpose(1, 2)                             # (B, Qi, Qj)
+    xh = xdt.transpose(1, 2)                                 # (B, H, Q, P)
+    y = (cb[:, None] * lmat) @ xh
+    y += (cm[:, None] @ state) * torch.exp(cum)[..., None]
+    decay_in = torch.exp(cum[..., -1:] - cum)                # (B, H, Q)
+    contrib = bm.transpose(1, 2)[:, None] @ (xh * decay_in[..., None])
+    state = torch.exp(cum[..., -1])[..., None, None] * state + contrib
+    return state, y.transpose(1, 2)
+
+
+def ssd_scan(da: torch.Tensor, xdt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, state: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's chunked state-space-duality scan over S positions, chunk
+    by chunk (``ssd_chunk``), float32. S must be a multiple of min(chunk,
+    S). Returns y (B, S, H, P), without the skip term, and the final
+    state."""
+    s = da.shape[1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"sequence length {s} is not a multiple of the SSD "
+                         f"chunk {q}")
+    bm, cm = bm.float(), cm.float()
+    ys = []
+    for c0 in range(0, s, q):
+        sl = slice(c0, c0 + q)
+        state, y = ssd_chunk(state, da[:, sl], xdt[:, sl], bm[:, sl],
+                             cm[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def ssd_step(state: torch.Tensor, da: torch.Tensor, xdt: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """One decode step, the scan at Q = 1, on a float32 ``state`` (B, H, N,
+    P) in place: state ← exp(da)·state + B ⊗ xdt; returns y = C·state (B,
+    H, P). da (B, H), xdt (B, H, P), bm, cm (B, N)."""
+    state.mul_(torch.exp(da)[..., None, None])
+    state.add_(bm.float()[:, None, :, None] * xdt[:, :, None, :])
+    return (cm.float()[:, None, None, :] @ state)[:, :, 0]
+
+
+class SSM(nn.Module):
+    """Mamba2's SSD mixer: ``w_in`` (D, 2·di + 2·G·N + H) projects to the
+    gate z, the conv input (x, B, C) and dt; a depthwise causal conv
+    ``conv_w`` (K, C) plus ``conv_b``; the scan's ``a_log``, ``dt_bias``
+    and skip ``d_skip`` (H,); the gated output's norm ``out_ln`` (di,) and
+    ``w_out`` (di, D). Groups broadcast over heads: group 0's B and C serve
+    every head (G = 1 in every config), as in the JAX package. From the
+    conv to the output norm the activations stay float32 and are rounded
+    to the weights' dtype once, before ``w_out`` (the JAX package rounds
+    the conv output, its silu, y and the gated product to the compute
+    dtype; in float32 the two agree)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, sc = cfg.d_model, cfg.ssm
+        di, nh, cc = sc.d_inner(d), sc.n_heads(d), sc.conv_channels(d)
+        kw = dict(device=device, dtype=dtype)
+        self.w_in = param(d, 2 * di + 2 * sc.n_groups * sc.d_state + nh, **kw)
+        self.conv_w = param(sc.conv_kernel, cc, **kw)
+        self.conv_b = param(cc, fill=0.0, **kw)
+        self.a_log = param(nh, **kw)
+        self.d_skip = param(nh, fill=1.0, **kw)
+        self.dt_bias = param(nh, **kw)
+        self.out_ln = param(di, fill=1.0, **kw)
+        self.w_out = param(di, d, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,                 # (B, S, D)
+        cos: Optional[torch.Tensor] = None,
+        sin: Optional[torch.Tensor] = None,
+        *,
+        window: Optional[int] = None,
+        cache: Optional[Cache] = None,   # {"state", "conv"}
+        pos: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """RoPE, ``window`` and ``pos`` do not apply (the arguments are the
+        attention mixers'). With a cache, its state and conv inputs start
+        the sequence and are overwritten with the ones after it; one
+        position (decode) takes the one-step recurrence."""
+        cfg, sc = self.cfg, self.cfg.ssm
+        b, s, d = x.shape
+        di, nh, n = sc.d_inner(d), sc.n_heads(d), sc.d_state
+        gn = sc.n_groups * n
+        z, xbc, dt = (x @ self.w_in).split([di, di + 2 * gn, nh], dim=-1)
+        conv_out, new_conv = _causal_conv(
+            xbc, self.conv_w, self.conv_b,
+            cache["conv"] if cache is not None else None)
+        conv_out = F.silu(conv_out)
+        xc = conv_out[..., :di].reshape(b, s, nh, sc.head_dim)
+        bm = conv_out[..., di:di + n]
+        cm = conv_out[..., di + gn:di + gn + n]
+
+        dt = F.softplus(dt.float() + self.dt_bias.float())     # (B, S, H)
+        da = dt * -torch.exp(self.a_log.float())               # ≤ 0
+        xdt = xc * dt[..., None]                               # (B, S, H, P)
+        if cache is not None and s == 1:
+            state = cache["state"].float()       # the cache itself if float32
+            y = ssd_step(state, da[:, 0], xdt[:, 0], bm[:, 0],
+                         cm[:, 0])[:, None]
+        else:
+            state = cache["state"].float() if cache is not None else \
+                x.new_zeros((b, nh, n, sc.head_dim), dtype=torch.float32)
+            y, state = ssd_scan(da, xdt, bm, cm, state, sc.chunk)
+        y = (y + xc * self.d_skip.float()[:, None]).reshape(b, s, di)
+        y = rmsnorm(y * F.silu(z.float()), self.out_ln, cfg.norm_eps)
+        out = y.to(x.dtype) @ self.w_out
+        if cache is not None:
+            if state is not cache["state"]:
+                cache["state"].copy_(state)
+            cache["conv"].copy_(new_conv)
+        return out, cache
+
+
+def init_ssm(cfg: ModelConfig, generator: torch.Generator, *,
+             dtype: torch.dtype = torch.float32) -> SSM:
+    """The JAX package's ``init_ssm``: ``w_in`` N(0, 0.02²), ``conv_w`` N(0,
+    0.2²), ``a_log`` = log(linspace(1, 16, H)), ``dt_bias`` the inverse
+    softplus of dt log-uniform in [1e-3, 1e-1], ``w_out`` N(0, 0.02²)
+    scaled by 1/√(2·n_layers), conv bias 0, skip and norm 1."""
+    dev = generator.device
+    p = SSM(cfg, device=dev, dtype=dtype)
+    nh = p.a_log.shape[0]
+    normal_(p.w_in, generator)
+    normal_(p.conv_w, generator, 0.2)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((nh,), generator=generator, device=dev,
+                   dtype=torch.float32)
+    dt = torch.exp(lo + (hi - lo) * u)
+    with torch.no_grad():
+        p.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, nh, device=dev,
+                                               dtype=torch.float32)))
+        p.dt_bias.copy_(torch.log(torch.expm1(dt)))
+    normal_(p.w_out, generator, 0.02 / math.sqrt(2 * cfg.n_layers))
+    return p
+
+
+def apply_ssm(cfg: ModelConfig, p: SSM, x: torch.Tensor, *,
+              cache: Optional[Cache] = None
+              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    return p(x, cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# Hymba hybrid mixer: attention ∥ SSM on the same normed input
+# ---------------------------------------------------------------------------
+
+class Hybrid(nn.Module):
+    """Hymba's mixer: attention ``attn`` (a GQA) and an SSM ``ssm`` read the
+    same input; each output is normed (``attn_out_ln``, ``ssm_out_ln``)
+    and the two are fused by their mean, in float32 and rounded once (the
+    JAX package rounds each norm and the sum). Its cache is {"k", "v",
+    "state", "conv"}."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.attn = GQA(cfg, **kw)
+        self.ssm = SSM(cfg, **kw)
+        self.attn_out_ln = param(cfg.d_model, fill=1.0, **kw)
+        self.ssm_out_ln = param(cfg.d_model, fill=1.0, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cos: torch.Tensor, sin: torch.Tensor,
+        *,
+        window: Optional[int] = None,
+        cache: Optional[Cache] = None,
+        pos: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        attn_cache = ssm_cache = None
+        if cache is not None:
+            attn_cache = {"k": cache["k"], "v": cache["v"]}
+            ssm_cache = {"state": cache["state"], "conv": cache["conv"]}
+        a, _ = self.attn(x, cos, sin, window=window, cache=attn_cache,
+                         pos=pos)
+        s, _ = self.ssm(x, cache=ssm_cache)
+        eps = self.cfg.norm_eps
+        out = 0.5 * (rmsnorm(a.float(), self.attn_out_ln, eps)
+                     + rmsnorm(s.float(), self.ssm_out_ln, eps))
+        return out.to(x.dtype), cache
+
+
+def init_hybrid(cfg: ModelConfig, generator: torch.Generator, *,
+                dtype: torch.dtype = torch.float32) -> Hybrid:
+    """The attention's weights drawn first, then the SSM's (the JAX
+    package's key split)."""
+    p = Hybrid(cfg, device=generator.device, dtype=dtype)
+    p.attn = init_gqa(cfg, generator, dtype=dtype)
+    p.ssm = init_ssm(cfg, generator, dtype=dtype)
+    return p
+
+
+def apply_hybrid(cfg: ModelConfig, p: Hybrid, x: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor, *,
+                 window: Optional[int] = None, cache: Optional[Cache] = None,
+                 pos: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    return p(x, cos, sin, window=window, cache=cache, pos=pos)

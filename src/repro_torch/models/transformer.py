@@ -1,7 +1,8 @@
 """LM assembly for serving: embeddings, segments of layers, the head.
 
 Public entry points (the JAX package's ``repro.models.transformer``, for
-layers of a GQA or MLA mixer and an MLP or MoE FFN):
+layers of a GQA, MLA, SSM or hybrid mixer and an MLP, MoE or no FFN, on
+token or embedding input):
   - ``init_params``          weights drawn from a ``torch.Generator``
   - ``params_from_reference`` the JAX package's parameter tree (numpy) as
                              this port's modules
@@ -40,39 +41,44 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-#: (mixer, ffn) layer kinds this port runs.
-PORTED_LAYERS = frozenset({("gqa", "mlp"), ("gqa", "moe"), ("mla", "mlp"),
-                           ("mla", "moe")})
+#: the mixers, FFNs and input modes of the JAX package's layers
+MIXERS = {"gqa": (L.GQA, L.init_gqa), "mla": (L.MLA, L.init_mla),
+          "ssm": (L.SSM, L.init_ssm), "hybrid": (L.Hybrid, L.init_hybrid)}
+FFNS = ("mlp", "moe", "none")
+INPUT_MODES = ("tokens", "embeds")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a layer kind or input path that
-    this port does not have yet."""
-    kinds = {(s.mixer, s.ffn) for s in cfg.segments}
-    if kinds - PORTED_LAYERS or cfg.input_mode != "tokens" \
-            or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: layers {sorted(kinds)}, input {cfg.input_mode!r}, "
-            f"M-RoPE {cfg.mrope_sections}: only GQA or MLA mixers with MLP "
-            "or MoE FFNs on token input are ported (ROADMAP.md A10)")
+def check_layers(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a mixer, FFN or input mode that the JAX
+    package does not have either."""
+    bad = sorted({(s.mixer, s.ffn) for s in cfg.segments
+                  if s.mixer not in MIXERS or s.ffn not in FFNS})
+    if bad or cfg.input_mode not in INPUT_MODES:
+        raise ValueError(
+            f"{cfg.name}: unknown layers {bad} or input "
+            f"{cfg.input_mode!r}; mixers {sorted(MIXERS)}, FFNs {FFNS}, "
+            f"inputs {INPUT_MODES}")
 
 
-Mixer = Union[L.GQA, L.MLA]
+Mixer = Union[L.GQA, L.MLA, L.SSM, L.Hybrid]
 FFN = Union[L.MLP, L.MoE]
 
 
 class Layer(nn.Module):
     """Pre-norm residual layer: x + mixer(norm(x)), then x + ffn(norm(x)).
-    Returns the new x and the FFN's MoE aux loss (None for an MLP)."""
+    Returns the new x and the FFN's MoE aux loss (None for an MLP). A
+    layer without an FFN (Mamba2's) has no ``ln2`` and ``ffn`` is None."""
 
     def __init__(self, cfg: ModelConfig, seg: Segment, mixer: Mixer,
-                 ffn: FFN) -> None:
+                 ffn: Optional[FFN]) -> None:
         super().__init__()
         self.cfg, self.window = cfg, seg.window
-        dev, dt = mixer.wq.device, mixer.wq.dtype
-        self.ln1 = L.param(cfg.d_model, device=dev, dtype=dt, fill=1.0)
+        w = next(mixer.parameters())
+        kw = dict(device=w.device, dtype=w.dtype, fill=1.0)
+        self.ln1 = L.param(cfg.d_model, **kw)
         self.mixer = mixer
-        self.ln2 = L.param(cfg.d_model, device=dev, dtype=dt, fill=1.0)
+        if ffn is not None:
+            self.ln2 = L.param(cfg.d_model, **kw)
         self.ffn = ffn
 
     def forward(self, x: torch.Tensor, rope, cache=None, pos=None
@@ -82,6 +88,8 @@ class Layer(nn.Module):
         mix, _ = self.mixer(L.rmsnorm(x, self.ln1, eps), cos, sin,
                             window=self.window, cache=cache, pos=pos)
         x = x + mix
+        if self.ffn is None:
+            return x, None
         y = self.ffn(L.rmsnorm(x, self.ln2, eps))
         if isinstance(self.ffn, L.MoE):
             y, aux = y
@@ -90,16 +98,19 @@ class Layer(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The parameters of one model: ``embed`` (V, D), ``head`` (D, V) unless
-    tied, ``final_ln`` (D,), and ``segments[i][j]`` the ``Layer`` j of
-    segment i."""
+    """The parameters of one model: ``embed`` (V, D) for token input,
+    ``head`` (D, V) unless tied, ``final_ln`` (D,), and ``segments[i][j]``
+    the ``Layer`` j of segment i. A model on embedding input
+    (``input_mode="embeds"``) has no ``embed``, as in the JAX package
+    (whose ``param_count`` counts one all the same)."""
 
     def __init__(self, cfg: ModelConfig, segments: nn.ModuleList, *,
                  device, dtype: torch.dtype) -> None:
         super().__init__()
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
-        self.embed = L.param(v, d, device=device, dtype=dtype)
+        if cfg.input_mode == "tokens":
+            self.embed = L.param(v, d, device=device, dtype=dtype)
         if not cfg.tie_embeddings:
             self.head = L.param(d, v, device=device, dtype=dtype)
         self.final_ln = L.param(d, device=device, dtype=dtype, fill=1.0)
@@ -107,7 +118,7 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_ln.device
 
     def head_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.head
@@ -123,16 +134,20 @@ def _layer(cfg: ModelConfig, seg: Segment, dev: torch.device,
     """One layer of ``seg``: drawn from ``generator`` (mixer, then FFN, as
     the JAX package splits its key), or uninitialised without one."""
     kw = dict(dtype=dtype)
+    empty, init = MIXERS[seg.mixer]
+    ffn = None
     if generator is not None:
-        mixer = {"gqa": L.init_gqa, "mla": L.init_mla}[seg.mixer](
-            cfg, generator, **kw)
-        ffn = L.init_moe(cfg, generator, **kw) if seg.ffn == "moe" \
-            else L.init_mlp(cfg, generator, seg.d_ff, **kw)
+        mixer = init(cfg, generator, **kw)
+        if seg.ffn == "moe":
+            ffn = L.init_moe(cfg, generator, **kw)
+        elif seg.ffn == "mlp":
+            ffn = L.init_mlp(cfg, generator, seg.d_ff, **kw)
     else:
-        mixer = {"gqa": L.GQA, "mla": L.MLA}[seg.mixer](cfg, device=dev,
-                                                        **kw)
-        ffn = L.MoE(cfg, device=dev, **kw) if seg.ffn == "moe" \
-            else L.MLP(cfg, seg.d_ff, device=dev, **kw)
+        mixer = empty(cfg, device=dev, **kw)
+        if seg.ffn == "moe":
+            ffn = L.MoE(cfg, device=dev, **kw)
+        elif seg.ffn == "mlp":
+            ffn = L.MLP(cfg, seg.d_ff, device=dev, **kw)
     return Layer(cfg, seg, mixer, ffn)
 
 
@@ -142,7 +157,7 @@ def empty_params(cfg: ModelConfig, *,
     uninitialised (norms 1). ``device="meta"`` gives the shapes alone, with
     no memory: ``sum(p.numel() for p in model.parameters())`` counts a
     full-width model."""
-    check_ported(cfg)
+    check_layers(cfg)
     dev = torch.device(device) if str(device) == "meta" \
         else resolve_device(device)
     dtype = _dtype(cfg)
@@ -156,12 +171,13 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
                 device: DeviceLike = "cuda") -> TransformerLM:
     """Weights of ``cfg`` in ``cfg.dtype`` on ``device``: N(0, 0.02²) (the
     output projections scaled by 1/√(2·n_layers), a MoE router N(0,
-    0.006²)), norms 1, biases 0, as the JAX package's ``init_params``. ``generator`` is a
+    0.006²), an SSM's as ``layers.init_ssm``), norms 1, biases 0, as the
+    JAX package's ``init_params``. ``generator`` is a
     ``torch.Generator`` on ``device`` or an int seed for one; it cannot
     replay ``jax.random``, so the two packages draw different weights from
     the same seed (the tests carry weights across with
     ``params_from_reference``)."""
-    check_ported(cfg)
+    check_layers(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -170,7 +186,8 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
     dtype = _dtype(cfg)
     segments = nn.ModuleList()
     model = TransformerLM(cfg, segments, device=dev, dtype=dtype)
-    L.normal_(model.embed, generator)
+    if cfg.input_mode == "tokens":
+        L.normal_(model.embed, generator)
     if not cfg.tie_embeddings:
         L.normal_(model.head, generator)
     for seg in cfg.segments:
@@ -186,9 +203,11 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
 
     ``tree`` is ``repro.models.transformer.init_params``'s output with its
     leaves as numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``):
-    ``embed``, ``head``, ``final_ln`` and ``segments.seg<i>.{ln1, mixer,
-    ln2, ffn}``, each stacked along the segment's layer axis (the MoE's
-    ``experts`` and ``shared`` are nested dicts there, submodules here).
+    ``embed`` (token input), ``head``, ``final_ln`` and
+    ``segments.seg<i>.{ln1, mixer, ln2, ffn}`` (no ``ln2`` and ``ffn``
+    without an FFN), each stacked along the segment's layer axis (the
+    MoE's ``experts`` and ``shared`` and the hybrid's ``attn`` and ``ssm``
+    are nested dicts there, submodules here).
     Leaves are rounded to ``cfg.dtype``, as the JAX package casts them at
     the forward boundary."""
     model = empty_params(cfg, device=device)
@@ -206,7 +225,8 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
             sub = sub[part]
         return sub
 
-    put(model.embed, tree["embed"])
+    if cfg.input_mode == "tokens":
+        put(model.embed, tree["embed"])
     if not cfg.tie_embeddings:
         put(model.head, tree["head"])
     put(model.final_ln, tree["final_ln"])
@@ -214,8 +234,11 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
         st = tree["segments"][f"seg{i}"]
         for j, layer in enumerate(layers):
             put(layer.ln1, st["ln1"][j])
-            put(layer.ln2, st["ln2"][j])
-            for part in ("mixer", "ffn"):
+            parts = ["mixer"]
+            if layer.ffn is not None:
+                put(layer.ln2, st["ln2"][j])
+                parts.append("ffn")
+            for part in parts:
                 for name, w in getattr(layer, part).named_parameters():
                     put(w, leaf(st[part], name)[j])
     return model
@@ -229,12 +252,28 @@ def _embed(params: TransformerLM, tokens) -> torch.Tensor:
     return params.embed[torch.as_tensor(tokens, device=params.device).long()]
 
 
+def _embed_inputs(cfg: ModelConfig, params: TransformerLM,
+                  batch: Mapping[str, Any]) -> torch.Tensor:
+    """(B, S, D) in ``cfg.dtype``: the embedded ``batch["tokens"]``, or
+    ``batch["embeds"]`` for a model on embedding input."""
+    if cfg.input_mode == "tokens":
+        return _embed(params, batch["tokens"])
+    return torch.as_tensor(batch["embeds"], device=params.device).to(
+        _dtype(cfg))
+
+
 def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
     return L.rope_tables(positions, cfg.rotary_dim, cfg.rope_theta,
                          cfg.mrope_sections)
 
 
-def _prompt_rope(cfg: ModelConfig, x: torch.Tensor):
+def _prompt_rope(cfg: ModelConfig, batch: Mapping[str, Any],
+                 x: torch.Tensor):
+    """RoPE tables of ``batch["positions"]`` ((B, S), or (3, B, S) under
+    M-RoPE) where given, else of 0..S−1 (plain RoPE, M-RoPE or not)."""
+    if "positions" in batch:
+        return _rope_for(cfg, torch.as_tensor(batch["positions"],
+                                              device=x.device).long())
     b, s, _ = x.shape
     return _rope_for(cfg, torch.arange(s, device=x.device)[None].expand(b, s))
 
@@ -247,7 +286,8 @@ def _run(params: TransformerLM, x: torch.Tensor, rope,
     for i, seg in enumerate(params.segments):
         c = caches[f"seg{i}"] if caches is not None else None
         for j, layer in enumerate(seg):
-            # layer j's own cache layout: {"k","v"} or {"ckv","kr"}
+            # layer j's own cache: {"k","v"}, {"ckv","kr"}, {"state",
+            # "conv"} or all four (hybrid)
             cache = {name: buf[j] for name, buf in c.items()} \
                 if c is not None else None
             x, aux = layer(x, rope, cache, pos)   # writes into c in place
@@ -262,8 +302,8 @@ def forward_hidden(cfg: ModelConfig, params: TransformerLM,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final hidden states (B, S, D) and the summed MoE aux loss (0 for a
     model without MoE layers)."""
-    x = _embed(params, batch["tokens"])
-    x, aux = _run(params, x, _prompt_rope(cfg, x), None, None)
+    x = _embed_inputs(cfg, params, batch)
+    x, aux = _run(params, x, _prompt_rope(cfg, batch, x), None, None)
     return L.rmsnorm(x, params.final_ln, cfg.norm_eps), aux
 
 
@@ -272,20 +312,30 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
     """Zeroed caches for every segment, stacked along the layer count:
     ``{"seg<i>": {"k", "v"}}`` of (count, B, cache_len, Hkv·hd) for a GQA
     segment, ``{"ckv", "kr"}`` of (count, B, cache_len, kv_lora_rank) and
-    (count, B, cache_len, qk_rope_dim) for an MLA one."""
-    check_ported(cfg)
+    (count, B, cache_len, qk_rope_dim) for an MLA one, ``{"state",
+    "conv"}`` of (count, B, H, N, P) float32 and (count, B, K−1, C) for an
+    SSM one, all four for a hybrid one."""
+    check_layers(cfg)
     dev = resolve_device(device)
+    dtype = _dtype(cfg)
     caches: Caches = {}
     for i, seg in enumerate(cfg.segments):
+        shapes = {}
+        if seg.mixer in ("gqa", "hybrid"):
+            kv = (cache_len, cfg.n_kv_heads * cfg.head_dim)
+            shapes.update(k=(kv, dtype), v=(kv, dtype))
         if seg.mixer == "mla":
-            widths = {"ckv": cfg.mla.kv_lora_rank, "kr": cfg.mla.qk_rope_dim}
-        else:
-            kv = cfg.n_kv_heads * cfg.head_dim
-            widths = {"k": kv, "v": kv}
+            shapes.update(ckv=((cache_len, cfg.mla.kv_lora_rank), dtype),
+                          kr=((cache_len, cfg.mla.qk_rope_dim), dtype))
+        if seg.mixer in ("ssm", "hybrid"):
+            s, d = cfg.ssm, cfg.d_model
+            shapes.update(
+                state=((s.n_heads(d), s.d_state, s.head_dim), torch.float32),
+                conv=((s.conv_kernel - 1, s.conv_channels(d)), dtype))
         caches[f"seg{i}"] = {
-            name: torch.zeros((seg.count, batch_size, cache_len, w),
-                              dtype=_dtype(cfg), device=dev)
-            for name, w in widths.items()}
+            name: torch.zeros((seg.count, batch_size) + shape, dtype=dt,
+                              device=dev)
+            for name, (shape, dt) in shapes.items()}
     return caches
 
 
@@ -299,21 +349,30 @@ def _logits(cfg: ModelConfig, params: TransformerLM,
 def prefill(cfg: ModelConfig, params: TransformerLM,
             batch: Mapping[str, Any], caches: Caches
             ) -> Tuple[torch.Tensor, Caches]:
-    """Consume a prompt, fill the caches, return last-position logits
-    (B, V) float32. The attention of the prompt runs through the flash
-    kernel, once per GQA layer (an MLA layer's absorbed attention is plain
-    PyTorch, as the JAX package computes it outside any kernel)."""
-    x = _embed(params, batch["tokens"])
-    x, _ = _run(params, x, _prompt_rope(cfg, x), caches, 0)
+    """Consume a prompt (``batch``: ``tokens`` (B, S), or ``embeds`` (B, S,
+    D) for a model on embedding input; optional ``positions``), fill the
+    caches, return last-position logits (B, V) float32. The attention of
+    the prompt runs through the flash kernel, once per GQA or hybrid layer
+    (an MLA layer's absorbed attention and the SSM scan are plain PyTorch,
+    as the JAX package computes them outside any kernel)."""
+    x = _embed_inputs(cfg, params, batch)
+    x, _ = _run(params, x, _prompt_rope(cfg, batch, x), caches, 0)
     return _logits(cfg, params, x[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: TransformerLM, token,
                 caches: Caches, pos: int) -> Tuple[torch.Tensor, Caches]:
-    """One decode step. token: (B,) integer; pos: its position."""
-    x = _embed(params, token)[:, None]
+    """One decode step. token: (B,) integer, or (B, D) embeds for a model on
+    embedding input; pos: its position (every M-RoPE stream's)."""
+    if cfg.input_mode == "tokens":
+        x = _embed(params, token)[:, None]
+    else:
+        x = torch.as_tensor(token, device=params.device).to(
+            _dtype(cfg))[:, None]
     b = x.shape[0]
     positions = torch.full((b, 1), int(pos), device=params.device)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, b, 1)
     x, _ = _run(params, x, _rope_for(cfg, positions), caches, int(pos))
     return _logits(cfg, params, x[:, 0]), caches

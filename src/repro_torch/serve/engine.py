@@ -66,19 +66,23 @@ class Engine:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def generate(self, prompts: np.ndarray, max_new: int, *,
+    def generate(self, prompts, max_new: int, *,
                  seed: int = 0) -> np.ndarray:
-        """prompts: (B, P) integer tokens. Returns (B, max_new) int32."""
+        """prompts: (B, P) integer tokens, or (B, P, D) float embeds for a
+        model on embedding input (an array or a tensor). Each decode step
+        of an embeds model feeds zeros (B, D), as the JAX package's engine
+        does (its frontend is a stub). Returns (B, max_new) int32."""
         cfg, scfg = self.cfg, self.scfg
-        prompts = np.asarray(prompts)
-        b, p = prompts.shape
+        prompts = torch.as_tensor(prompts, device=self.device)
+        b, p = prompts.shape[:2]
         if b != scfg.batch_size:
             raise ValueError(f"{b} prompts for {scfg.batch_size} slots")
         if p + max_new - 1 > scfg.cache_len:
             raise ValueError(f"{p} prompt + {max_new} new tokens do not fit "
                              f"a cache of {scfg.cache_len}")
         caches = T.init_cache(cfg, b, scfg.cache_len, device=self.device)
-        batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        embeds = cfg.input_mode != "tokens"
+        batch = {"embeds" if embeds else "tokens": prompts}
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = self._sync()
         logits, caches = T.prefill(cfg, self.params, batch, caches)
@@ -97,7 +101,9 @@ class Engine:
                     break
             if i + 1 == max_new:
                 break           # the JAX loop's last decode feeds no token
-            logits, caches = T.decode_step(cfg, self.params, tok, caches,
+            feed = torch.zeros((b, cfg.d_model), device=self.device) \
+                if embeds else tok
+            logits, caches = T.decode_step(cfg, self.params, feed, caches,
                                            p + i)
             tok = sample(logits, gen, scfg.temperature)
             tok_host = tok.cpu().numpy()

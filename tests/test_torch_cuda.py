@@ -24,7 +24,8 @@ bits (no float atomics). Flash attention: float32 within 2e-5, bfloat16
 within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
 before normalising, the plain version after). The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
-1e-4 of the same model on the CPU. Dense feature maps: features within
+1e-4 of the same model on the CPU (the SSM mixer's outputs and caches
+too), greedy tokens equal. Dense feature maps: features within
 1e-5 of the CPU's and the same bits in any batch; every Table-2 method's
 labels against the CPU's by ARI ≥ 0.99. The serving engine: each CUDA
 graph's replay the bits of the same cell run eagerly, every answer the
@@ -706,6 +707,86 @@ def test_cuda_prefill_and_decode_match_cpu(cuda, arch):
         logits.append((first.cpu(), nxt.cpu()))
     for want, got in zip(*logits):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 2048, 25, 5, 64, 1024),     # hymba-1.5b: rep 5, its sliding window
+    (2, 2048, 32, 32, 64, None),    # musicgen-large: H = Hkv
+], ids=str)
+def test_cuda_flash_bf16_at_the_new_models_layouts(cuda, case):
+    b, s, h, hkv, hd, window = case
+    g = torch.Generator(device=cuda).manual_seed(h * hd)
+    q = torch.randn((b, s, h, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, s, hkv, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, s, hkv, hd), generator=g, device=cuda).bfloat16()
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bshd_ref(q, k, v, causal=True,
+                                        window=window).float()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    row_err = (got.float() - want).norm(dim=-1) \
+        / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= 1e-2
+
+
+def _cpu_and_card(cuda, arch):
+    cfg = configs.smoke_config(arch)
+    cpu = T.init_params(cfg, 0, device="cpu")
+    return cfg, cpu, T.init_params(cfg, 0, device="cpu").to(cuda)
+
+
+def test_cuda_ssm_mixer_matches_cpu(cuda):
+    """The Mamba2 mixer in float32 on the card against the CPU: a prefill
+    of two chunks into a cache (output, state, conv), then decode steps."""
+    cfg, cpu, gpu = _cpu_and_card(cuda, "mamba2-370m")
+    x = torch.randn((2, 67, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    got = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        dev = model.device
+        mixer = model.segments[0][0].mixer
+        cache = {k: v[0] for k, v in
+                 T.init_cache(cfg, 2, 8, device=dev)["seg0"].items()}
+        outs = [mixer(x[:, :64].to(dev), cache=cache)[0]]
+        for i in range(64, 67):
+            outs.append(mixer(x[:, i:i + 1].to(dev), cache=cache)[0])
+        got[name] = [o.cpu() for o in outs] + [cache["state"].cpu(),
+                                               cache["conv"].cpu()]
+    for want, have in zip(got["cpu"], got["card"]):
+        torch.testing.assert_close(have, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m",
+                                  "musicgen-large"])
+def test_cuda_new_models_prefill_decode_and_greedy_match_cpu(cuda, arch):
+    """A smoke model on the card in float32 against the CPU: prefill
+    logits, a decode step, greedy tokens; the flash kernel once per layer
+    that attends (hymba's windowed layers through its window)."""
+    cfg, cpu, gpu = _cpu_and_card(cuda, arch)
+    rng = np.random.default_rng(0)
+    if cfg.input_mode == "embeds":
+        x = rng.normal(size=(2, 33, cfg.d_model)).astype(np.float32)
+        key = "embeds"
+    else:
+        x = rng.integers(0, cfg.vocab_size, (2, 33))
+        key = "tokens"
+    logits, tokens = [], []
+    for model in (cpu, gpu):
+        caches = T.init_cache(cfg, 2, 40, device=model.device)
+        first, caches = T.prefill(cfg, model, {key: x[:, :32]}, caches)
+        nxt, _ = T.decode_step(cfg, model, x[:, 32], caches, 32)
+        logits.append((first.cpu(), nxt.cpu()))
+        engine = E.Engine(cfg, model, E.ServeConfig(cache_len=40,
+                                                    batch_size=2),
+                          device=model.device)
+        ops.reset_launch_counts()
+        tokens.append(engine.generate(x[:, :32], 6))
+    for want, got in zip(*logits):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(tokens[0], tokens[1])
+    attending = sum(s.count for s in cfg.segments
+                    if s.mixer in ("gqa", "hybrid"))
+    assert ops.launch_counts()["flash_attention"] == attending
 
 
 # --------------------------------------------------------------------------

@@ -39,13 +39,26 @@ import numpy as np
 from repro_torch import configs
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Engine, ServeConfig
-for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b"):   # + MLA, MoE
+# + MLA, MoE; the SSM, hybrid, M-RoPE and embeds paths
+for arch in ("internlm2-1.8b", "deepseek-v2-lite-16b", "mamba2-370m",
+             "hymba-1.5b", "qwen2-vl-7b", "musicgen-large"):
     cfg = configs.smoke_config(arch)
     model = T.init_params(cfg, 0, device="cpu")
     engine = Engine(cfg, model, ServeConfig(cache_len=16, batch_size=2),
                     device="cpu")
-    out = engine.generate(np.arange(16).reshape(2, 8) % cfg.vocab_size, 4)
+    if cfg.input_mode == "embeds":
+        prompts = np.ones((2, 8, cfg.d_model), np.float32)
+    else:
+        prompts = np.arange(16).reshape(2, 8) % cfg.vocab_size
+    out = engine.generate(prompts, 4)
     assert out.shape == (2, 4)
+cfg = configs.smoke_config("qwen2-vl-7b")
+model = T.init_params(cfg, 0, device="cpu")
+pos = np.broadcast_to(np.arange(8)[None, None], (3, 2, 8)).copy()
+pos[1:, :, 4:] += np.arange(4)            # h, w streams part ways
+T.prefill(cfg, model, {"embeds": np.ones((2, 8, cfg.d_model), np.float32),
+                       "positions": pos}, T.init_cache(cfg, 2, 8,
+                                                       device="cpu"))
 loaded = [name for name in sys.modules
           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
 print("LOADED", loaded)
@@ -135,14 +148,18 @@ def test_entry_points_raise_without_a_card():
     from repro_torch import configs
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine, ServeConfig
-    lm = configs.smoke_config("internlm2-1.8b")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        T.init_params(lm, 0)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        T.init_cache(lm, 1, 8)
-    model = T.init_params(lm, 0, device="cpu")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        Engine(lm, model, ServeConfig(cache_len=8, batch_size=1))
+    for arch in ("internlm2-1.8b", "mamba2-370m", "hymba-1.5b",
+                 "musicgen-large"):
+        lm = configs.smoke_config(arch)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.init_params(lm, 0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.init_cache(lm, 1, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.empty_params(lm)
+        model = T.init_params(lm, 0, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(lm, model, ServeConfig(cache_len=8, batch_size=1))
 
 
 BASELINES_SCRIPT = """
@@ -224,6 +241,20 @@ loaded = [name for name in sys.modules
 print("LOADED", loaded)
 sys.exit(1 if loaded else 0)
 """
+
+
+#: the LM serving slice's modules, the SSM, hybrid, M-RoPE and embeds
+#: paths and the four configurations that need them included
+LM_MODULES = ("configs/__init__.py", "configs/mamba2_370m.py",
+              "configs/hymba_1p5b.py", "configs/qwen2_vl_7b.py",
+              "configs/musicgen_large.py", "models/config.py",
+              "models/layers.py", "models/transformer.py", "serve/engine.py")
+
+
+def test_source_check_covers_the_lm_modules():
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(LM_MODULES) <= checked
 
 
 def test_source_check_covers_the_placements():
