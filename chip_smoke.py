@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # phases 0-14, 16 and 17, on card 0
+    python3 chip_smoke.py              # phases 0-14 and 16-18, on card 0
     python3 chip_smoke.py --cards 4    # phases 0, 1 and 15, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -252,12 +252,38 @@ from a seed):
            with positions (3, 4, 4,096) laid out as an image of 32 x 32
            patches among text, its logits apart from plain RoPE's and the
            same bits twice; the flash kernel at the model's prefill shape
-           beside SDPA (a boolean window mask for hymba) and its bound;
+           beside SDPA (a boolean window mask for hymba), its plain
+           version and its bound;
            greedy twice and at temperature 0.8 twice (same tokens); prefill
            s, TTFT, decode ms/step beside the bound of reading the weights
            once a step, one decode step's device busy ms, one layer's mixer
            and FFN ms, peak memory; flash launches per generate 0, 32, 28,
            48
+  phase 18 LM training: internlm2-1.8b at full width and depth (24 layers,
+           float32 masters drawn on the card from --seed, bf16 compute,
+           remat "full"), Trainer over 10 steps of SyntheticTokens (4 x
+           4,096 tokens, AdamW lr 3e-4, 2 warm-up steps): every step's
+           loss, grad norm and flash launches (48: each layer's forward and
+           its recompute in the backward), finite values and the last loss
+           below the first; the median step of steps 3-10 beside its bound
+           (6 x the parameters less the embedding x the tokens, plus the
+           causal attention, at 989 TFLOP/s), tokens/s, peak memory, and
+           one more step split into forward, backward and optimizer. A
+           float32 check of one step at internlm2's width, 2 layers, 2 x
+           1,024 tokens: the port's bf16 loss and every float32 master
+           gradient against a float32 model written apart from the port
+           (RMSNorm, RoPE, GQA with a full softmax, SwiGLU, full-vocab CE)
+           by autograd, relative L2 a leaf within 5e-2; planted faults (the
+           flash backward without its causal mask, dk and dv not summed
+           over the GQA group, the CE's labels one position off) must fail
+           it. AdamW on those gradients on the card against the CPU within
+           1e-6. The flash Function alone at (4, 4,096, 16/8, 128) bf16:
+           dq, dk, dv against autograd through the float32 plain version
+           (rows within 1e-2), the plain backward's ms beside its bound
+           (five causal products at 989 TFLOP/s) and SDPA's forward +
+           backward ms. A restart at smoke size (bf16, remat "full"): 3
+           steps, a checkpoint, 2 more; a fresh Trainer restores and
+           repeats the 2 steps' losses
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -279,7 +305,8 @@ the engine's graph replays in phase 12, which no wrapper counts;
 ``launches_v2_lite`` and ``launches_moe_16b``: per generate of phase 16's
 deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 ``launches_hymba``, ``launches_qwen2_vl`` and ``launches_musicgen``: per
-generate of phase 17's models).
+generate of phase 17's models; ``launches_train``: per training step of
+phase 18).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -484,6 +511,22 @@ SSM_CHECK = 1_024
 MROPE_TEXT = 1_000
 MROPE_GRID = 32
 MROPE_MIN_REL = 1e-3
+
+# phase 18: LM training of internlm2-1.8b at full width and depth
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4_096          # 16,384 tokens a step
+TRAIN_STEPS = 10
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+TRAIN_CHECK_LAYERS = 2     # the float32 check: full width, 2 layers,
+TRAIN_CHECK_BATCH = (2, 1_024)  # on 2 x 1,024 tokens
+# The check's limit on the loss and on every leaf's relative L2 error of
+# the bf16 gradients (stated before the first run on the card): bf16
+# operands round activations and gradients at 2^-9 relative each, through
+# 2 layers and the loss.
+TRAIN_GRAD_REL = 5e-2
+TRAIN_OPT_TOL = 1e-6       # AdamW on the card against the CPU (float32)
+TRAIN_RESTART_REL = 1e-6   # a restart's losses against the first run's
 
 
 def log(msg: str) -> None:
@@ -2023,13 +2066,15 @@ def phase10_kernels(x, fm) -> list:
         ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
                                              csc=csc))
         c_ms = time_ms(composed)
+        plain_ms = time_ms(lambda: ref.z_matmul_ref(
+            idx, ref.zt_matmul_ref(idx, u, s, big_d), s), iters=2, warmup=1)
         rows.append({"kernel": "gram_matmul", "k": kk, "ms": ms,
                      "composed_ms": c_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "max_abs_err": err})
+                     "max_abs_err": err, "plain_ms": plain_ms})
         log(f"[phase 10] gram_matmul K={kk}: fused {ms:.4f} ms, zt then z "
             f"{c_ms:.4f} ms (the same bits; within the sum tolerance of the "
             f"plain version, max abs {err:.3g}); bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}); plain version {plain_ms:.4f} ms")
         del u, got, want
     kd = KMEANS_D
     u = torch.randn((n, kd), generator=g, device=dev)
@@ -4660,11 +4705,13 @@ def flash_at_model_shape(tag: str, cfg) -> None:
     """The flash kernel at the model's prefill shape (its windowed layers'
     window, if any), timed beside SDPA (a windowed one with an explicit
     boolean mask, K and V repeated to H heads: SDPA's masked route takes
-    no grouped K/V) and its bound over the visible pairs."""
+    no grouped K/V), its plain version and its bound over the visible
+    pairs."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
     windows = {seg.window for seg in cfg.segments} - {None}
     window = max(windows) if windows else None
     b, s, h, hkv, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
@@ -4674,6 +4721,8 @@ def flash_at_model_shape(tag: str, cfg) -> None:
                            device="cuda").bfloat16() for n in (h, hkv, hkv))
     ms = time_ms(lambda: ops.flash_attention(q, k, v, window=window),
                  iters=20)
+    plain_ms = time_ms(lambda: plain(q, k, v, window=window), iters=2,
+                       warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -4692,7 +4741,8 @@ def flash_at_model_shape(tag: str, cfg) -> None:
     log(f"{tag} flash_attention at the prefill's shape B={b} S=T={s} H={h} "
         f"Hkv={hkv} hd={hd} bf16 causal window={window}: ms={ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}, {pairs} visible pairs a head) SDPA "
-        f"ms={sdpa_ms:.4f}; {ops_n / ms / 1e9:.1f} TFLOP/s, "
+        f"ms={sdpa_ms:.4f} plain_ms={plain_ms:.4f}; "
+        f"{ops_n / ms / 1e9:.1f} TFLOP/s, "
         f"{b_ms / ms:.1%} of the bound")
 
 
@@ -4860,6 +4910,417 @@ def phase17_new_models(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 18: LM training
+# --------------------------------------------------------------------------
+
+def train_truth_loss(cfg, w: dict, tokens, labels):
+    """The float32 loss of a dense GQA model with internlm2's layers,
+    written apart from the port, for autograd: the embedding row, then
+    each layer's RMSNorm, RoPE (float64 angles), GQA with a full causal
+    softmax over every position, SwiGLU, and the full-vocab cross-entropy
+    of the final norm's logits. ``w`` maps the port's parameter names to
+    float32 tensors."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    b, s = tokens.shape
+    dev = tokens.device
+    h_, kv, hd, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.norm_eps
+    half = cfg.rotary_dim // 2
+    inv = cfg.rope_theta ** (-torch.arange(half, device=dev,
+                                           dtype=torch.float64) / half)
+    ang = torch.arange(s, device=dev, dtype=torch.float64)[:, None] * inv
+    cos, sin = (f(ang).float()[None, :, None] for f in (torch.cos, torch.sin))
+
+    def rope(t):
+        t1, t2 = t[..., :half], t[..., half:2 * half]
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos,
+                          t[..., 2 * half:]], dim=-1)
+
+    later = ~torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    x = w["embed"][tokens]
+    for j in range(cfg.segments[0].count):
+        p = lambda n: w[f"segments.0.{j}.{n}"]
+        h = rms_f32(x, p("ln1"), eps)
+        q = rope((h @ p("mixer.wq")).view(b, s, h_, hd))
+        k = rope((h @ p("mixer.wk")).view(b, s, kv, hd))
+        v = (h @ p("mixer.wv")).view(b, s, kv, hd)
+        k, v = (t.repeat_interleave(h_ // kv, dim=2) for t in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        pr = torch.softmax(sc.masked_fill(later, float("-inf")), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(b, s, h_ * hd)
+        x = x + o @ p("mixer.wo")
+        x = x + swiglu_f32(rms_f32(x, p("ln2"), eps), p("ffn.wg"),
+                           p("ffn.wu"), p("ffn.wd"))
+    logits = rms_f32(x, w["final_ln"], eps).reshape(b * s, -1) @ w["head"]
+    return F.cross_entropy(logits, labels.reshape(-1))
+
+
+def train_check(cfg, model, batch, truth) -> tuple[float, float, str]:
+    """The port's bf16 ``lm_loss`` and float32 master gradients on
+    ``batch`` against ``truth`` = (loss, {name: gradient}): the loss's
+    relative error and the worst leaf's relative L2 error, and its name."""
+    from repro_torch.models import transformer as T
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = T.lm_loss(cfg, model, batch)
+    loss.backward()
+    loss_err = abs(float(loss.detach()) - truth[0]) / abs(truth[0])
+    errs = {n: float((p.grad - truth[1][n]).norm()
+                     / truth[1][n].norm().clamp_min(1e-30))
+            for n, p in model.named_parameters()}
+    worst = max(errs, key=errs.get)
+    return loss_err, errs[worst], worst
+
+
+def train_planted_faults() -> dict:
+    """Context managers that plant a fault in the training path: the
+    flash backward without its causal mask, dk and dv of each kv head
+    taken from its group's first query head only (not summed over the
+    group), and the cross-entropy against labels one position off."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+    bwd, nll = ref.flash_attention_bwd_ref, T._chunk_nll
+
+    def no_mask(q, k, v, do, **kw):
+        return bwd(q, k, v, do, **{**kw, "causal": False})
+
+    def first_head(q, k, v, do, **kw):
+        rep = q.shape[2] // k.shape[2]
+        dq, dk, dv = bwd(q, k.repeat_interleave(rep, dim=2),
+                         v.repeat_interleave(rep, dim=2), do, **kw)
+        return dq, dk[:, :, ::rep].contiguous(), dv[:, :, ::rep].contiguous()
+
+    def shifted(hc, lc, head):
+        return nll(hc, torch.roll(lc, 1), head)
+
+    return {
+        "flash backward without the causal mask":
+            lambda: mock.patch.object(ref, "flash_attention_bwd_ref",
+                                      no_mask),
+        "dk, dv not summed over the GQA group":
+            lambda: mock.patch.object(ref, "flash_attention_bwd_ref",
+                                      first_head),
+        "CE labels off by one position":
+            lambda: mock.patch.object(T, "_chunk_nll", shifted),
+        "none": contextlib.nullcontext,
+    }
+
+
+def train_full_depth(cfg, seed: int) -> dict:
+    """TRAIN_STEPS steps of ``Trainer`` at full width and depth; the
+    flash launches of every step; then one more step split into forward,
+    backward and optimizer."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig, apply_updates
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                          masters=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    log(f"[phase 18] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, d_ff="
+        f"{cfg.d_ff}, vocab={cfg.vocab_size}: {n_params} float32 masters "
+        f"drawn on the card in {time.perf_counter() - t0:.2f}s; compute "
+        f"{cfg.dtype}, remat {cfg.remat!r}, attn_chunk {cfg.attn_chunk}, "
+        f"loss_chunk {cfg.loss_chunk}")
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, seed=seed)
+    tcfg = TrainConfig(opt=OptConfig(**TRAIN_OPT), log_every=1000)
+    trainer = Trainer(cfg, tcfg, model, iter(data))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        m = trainer.run(1)
+        m["launches"] = ops.launch_counts()["flash_attention"]
+        steps.append(m)
+        log(f"[phase 18] step {i + 1}: loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f} lr {m['lr']:.3e} {m['step_time_s']:.4f}s "
+            f"flash launches {m['launches']}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in steps]
+    vals = losses + [m["grad_norm"] for m in steps]
+    if not all(map(math.isfinite, vals)):
+        fail(f"a training loss or grad norm is not finite: {vals}")
+    if not losses[-1] < losses[0]:
+        fail(f"step {TRAIN_STEPS}'s loss {losses[-1]} is not below step "
+             f"1's {losses[0]}")
+    want = 2 * cfg.n_layers if cfg.remat != "none" else cfg.n_layers
+    launches = {m["launches"] for m in steps}
+    if launches != {want}:
+        fail(f"flash launches a step {sorted(launches)}, expected {want} "
+             f"(a forward a layer, and its remat recompute)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(m["step_time_s"] for m in steps[2:])
+    embed = cfg.vocab_size * cfg.d_model
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    attn = 3 * 4.0 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.n_heads \
+        * cfg.n_layers
+    flops = 6.0 * (n_params - embed) * tokens + attn
+    bound_s = flops / PEAK_BF16_OPS_PER_S
+    log(f"[phase 18] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} = "
+        f"{tokens} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median "
+        f"step of steps 3-{TRAIN_STEPS} {step_s:.4f}s, {tokens / step_s:.0f}"
+        f" tokens/s; bound {bound_s:.4f}s (6 x {n_params - embed} "
+        f"parameters less the embedding x {tokens} tokens + causal "
+        f"attention {attn:.3g} FLOP at {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16; remat {cfg.remat!r} recomputes the forward, ~1/3 "
+        f"more), {bound_s / step_s:.1%} of it; peak device memory "
+        f"{peak:.3f} GiB; flash launches a step {want}")
+
+    # one more step, split by host clock around synchronised parts
+    named = dict(trainer.params.named_parameters())
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(TRAIN_STEPS).items()}
+    for p in named.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = T.lm_loss(cfg, trainer.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    apply_updates(named, {n: p.grad for n, p in named.items()},
+                  trainer.opt_state, tcfg.opt)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    split = {"forward_s": t1 - t0, "backward_s": t2 - t1,
+             "optimizer_s": t3 - t2}
+    log(f"[phase 18] one step split: forward {split['forward_s']:.4f}s, "
+        f"backward {split['backward_s']:.4f}s (with the remat recompute), "
+        f"optimizer {split['optimizer_s']:.4f}s")
+    del trainer, model, named, loss, batch
+    torch.cuda.empty_cache()
+    return {"launches": want, "step_s": step_s, "bound_s": bound_s,
+            "peak_gib": peak, "losses": losses, **split}
+
+
+def train_float32_check(cfg, seed: int) -> dict:
+    """One step at internlm2's width and TRAIN_CHECK_LAYERS layers on a
+    TRAIN_CHECK_BATCH batch: the port's bf16 loss and float32 master
+    gradients against ``train_truth_loss`` by autograd; then the planted
+    faults against the same check; then ``apply_updates`` on these
+    gradients on the card against the CPU."""
+    import torch
+
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import (OptConfig, apply_updates,
+                                             init_opt_state)
+
+    if cfg.qkv_bias or cfg.qk_norm or cfg.segments[0].window:
+        fail(f"{cfg.name}: the float32 truth has no QKV bias, QK norm or "
+             "window")
+    small = dataclasses.replace(cfg, segments=(dataclasses.replace(
+        cfg.segments[0], count=TRAIN_CHECK_LAYERS),))
+    model = T.init_params(small, torch.Generator("cuda").manual_seed(
+        seed + 1), masters=True)
+    b, s = TRAIN_CHECK_BATCH
+    raw = SyntheticTokens(vocab_size=cfg.vocab_size, batch=b, seq_len=s,
+                          seed=seed).batch_at(0)
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in raw.items()}
+    w = {n: p.detach().clone().requires_grad_()
+         for n, p in model.named_parameters()}
+    truth_loss = train_truth_loss(small, w, batch["tokens"], batch["labels"])
+    grads = torch.autograd.grad(truth_loss, list(w.values()))
+    truth = (float(truth_loss.detach()), dict(zip(w, grads)))
+    del grads
+    out = {}
+    for name, plant in train_planted_faults().items():
+        with plant():
+            loss_err, worst, leaf = train_check(small, model, batch, truth)
+        out[name] = worst
+        verdict = "passes" if max(worst, loss_err) <= TRAIN_GRAD_REL \
+            else "fails"
+        log(f"[phase 18] float32 check ({name}): loss {truth[0]:.6f}, rel "
+            f"error {loss_err:.3g}; worst leaf {leaf} rel L2 {worst:.4g} "
+            f"(limit {TRAIN_GRAD_REL}) -> {verdict}")
+        if name == "none" and verdict == "fails":
+            fail(f"the port's bf16 gradients are {worst:.4g} off the float32"
+                 f" truth at {leaf} (loss {loss_err:.3g})")
+        if name != "none" and verdict == "passes":
+            fail(f"the float32 check passes a planted fault ({name})")
+    grad_rows = {n: float((p.grad - truth[1][n]).norm()
+                          / truth[1][n].norm().clamp_min(1e-30))
+                 for n, p in model.named_parameters()}
+    log(f"[phase 18] rel L2 by leaf: " + ", ".join(
+        f"{n} {e:.3g}" for n, e in grad_rows.items()))
+
+    # AdamW on the card against the CPU, on the same float32 gradients
+    ocfg = OptConfig(**TRAIN_OPT)
+    named = dict(model.named_parameters())
+    grads = {n: p.grad for n, p in named.items()}
+    cpu = {n: p.detach().cpu() for n, p in named.items()}
+    cpu_grads = {n: g.cpu() for n, g in grads.items()}
+    dev_state, cpu_state = init_opt_state(named, ocfg), \
+        init_opt_state(cpu, ocfg)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _, dev_state, dev_stats = apply_updates(named, grads, dev_state, ocfg)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        _, cpu_state, cpu_stats = apply_updates(cpu, cpu_grads, cpu_state,
+                                                ocfg)
+    t_cpu = time.perf_counter() - t0
+    diff = max(max(float((named[n].detach().cpu() - cpu[n]).abs().max()),
+                   float((dev_state.m[n].cpu() - cpu_state.m[n]).abs().max()),
+                   float((dev_state.v[n].cpu() - cpu_state.v[n]).abs().max()))
+               for n in named)
+    log(f"[phase 18] apply_updates x 2 on the card ({t_dev:.3f}s) against "
+        f"the CPU ({t_cpu:.3f}s), {sum(p.numel() for p in cpu.values())} "
+        f"parameters: params, m, v max abs diff {diff:.3g} (limit "
+        f"{TRAIN_OPT_TOL}); grad_norm {float(dev_stats['grad_norm']):.6f} "
+        f"and {float(cpu_stats['grad_norm']):.6f}")
+    if not diff <= TRAIN_OPT_TOL:
+        fail(f"apply_updates on the card is {diff:.3g} off the CPU's")
+    del model, named, grads, w, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_flash_function() -> dict:
+    """The flash Function alone at the training shape: its dq, dk, dv
+    against autograd through the float32 plain version on the same inputs
+    (bf16 row limit), the plain backward's ms beside its bound, and SDPA's
+    forward + backward ms (a yardstick, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    b, s, t, h, hkv, hd = FLASH_PATH
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((b, s, h, hd), (b, t, hkv, hd),
+                                 (b, t, hkv, hd), (b, s, h, hd)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    chunk = ops.FLASH_BWD_CHUNK
+    got = torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
+    truth = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_bshd_ref(*truth), truth,
+                               do.float())
+    rows = {n: row_error(a, w) for n, a, w in zip(("dq", "dk", "dv"), got,
+                                                   want)}
+    err = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
+    del truth, want, got
+    torch.cuda.empty_cache()
+    log(f"[phase 18] flash Function gradients at {FLASH_PATH} bf16 against "
+        f"autograd through the float32 plain version: row errors "
+        + ", ".join(f"{n} {e:.3g}" for n, e in rows.items())
+        + f" (limit {FLASH_ROW_REL}), max abs {err:.3g}")
+    if max(rows.values()) > FLASH_ROW_REL:
+        fail(f"the flash Function's gradients differ: {rows}")
+    bwd_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, do, chunk=chunk), iters=10)
+    pairs = visible_pairs(s, t, True, None)
+    bwd_ops = 5 * 2.0 * hd * pairs * b * h
+    bwd_bytes = 2 * (2 * b * s * h * hd + 2 * b * t * hkv * hd) * 2
+    bound_ms, bound_by = bound(bwd_bytes, bwd_ops, PEAK_BF16_OPS_PER_S)
+    ours_ms = time_ms(lambda: torch.autograd.grad(ops.flash_attention(
+        *leaves), leaves, do), iters=10)
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True), (qt, kt, vt), dot),
+        iters=10)
+    log(f"[phase 18] flash backward (plain, chunk {chunk}): "
+        f"{bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: five causal "
+        f"products of {bwd_ops / 5:.3g} FLOP at "
+        f"{PEAK_BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / bwd_ms:.1%}"
+        f" of it; the kernel's forward + plain backward {ours_ms:.4f} ms; "
+        f"SDPA forward + backward {sdpa_ms:.4f} ms")
+    return {"bwd_ms": bwd_ms, "bwd_bound_ms": bound_ms, "fwd_bwd_ms": ours_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms}
+
+
+def train_restart(seed: int) -> None:
+    """Restart on the card at smoke size (bf16, remat "full", so the flash
+    Function runs): 3 steps, a checkpoint, 2 more; a fresh Trainer from
+    other weights restores and runs the same 2 steps."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(configs.smoke_config(TRAIN_ARCH),
+                              dtype="bfloat16", remat="full")
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=1),
+                           checkpoint_every=3, checkpoint_dir=tmp,
+                           log_every=1000)
+
+        def trainer(s: int):
+            data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=4,
+                                   seq_len=128, seed=seed)
+            return Trainer(cfg, tcfg, T.init_params(
+                cfg, torch.Generator("cuda").manual_seed(s), masters=True),
+                iter(data)), data
+        first, _ = trainer(seed)
+        first.run(3)
+        after = [first.run(1)["loss"] for _ in range(2)]
+        second, data = trainer(seed + 7)
+        if not second.restore() or second.step != 3:
+            fail("the restarted trainer did not restore step 3")
+        data.step = second.step
+        again = [second.run(1)["loss"] for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again, after))
+    log(f"[phase 18] restart at smoke size: steps 4-5 losses {after} "
+        f"before, {again} after restoring step 3: "
+        f"{'the same bits' if again == after else f'rel diff {rel:.3g}'} "
+        f"(limit {TRAIN_RESTART_REL}: the backward's sums on the card, "
+        f"cuBLAS's and the embedding's, keep their order between runs)")
+    if rel > TRAIN_RESTART_REL:
+        fail(f"the restarted losses {again} differ from {after}")
+
+
+def phase18_train(seed: int) -> dict:
+    """Phase 18: internlm2-1.8b trains at full width and depth; the float32
+    check of one step with its planted faults; the flash Function alone;
+    AdamW on the card against the CPU; a restart. Returns the flash
+    launches a training step and the measurements."""
+    import torch
+
+    from repro_torch import configs
+    cfg = configs.get_config(TRAIN_ARCH)
+    out = {}
+    for name, part in (("full", lambda: train_full_depth(cfg, seed)),
+                       ("check", lambda: train_float32_check(cfg, seed)),
+                       ("flash", train_flash_function),
+                       ("restart", lambda: train_restart(seed))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        torch.cuda.empty_cache()
+        log(f"[phase 18] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4869,8 +5330,8 @@ def main() -> None:
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
                         help="run phases 0, 1 and 15 (more than one card) "
-                             "on this many cards instead of phases 0-14, "
-                             "16 and 17")
+                             "on this many cards instead of phases 0-14 "
+                             "and 16-18")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5029,13 +5490,22 @@ def main() -> None:
         for arch, key in NEW_ARCHS.items():
             row[key] = new[arch].get(row["name"], 0)
     log(f"[phase 17] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train = phase18_train(args.seed)
+    for row in kernels:          # launches per training step
+        row["launches_train"] = train["full"]["launches"] \
+            if row["name"] == "flash_attention" else 0
+    log(f"[phase 18] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_compressive", "launches_engine",
             "launches_partitioned", "launches_mesh", "launches_v2_lite",
-            "launches_moe_16b", *NEW_ARCHS.values(), "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_moe_16b", *NEW_ARCHS.values(), "launches_train",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

@@ -713,13 +713,17 @@ def kmeans_assign_stats(
 
 
 # --------------------------------------------------------------------------
-# flash attention (forward): the LM stack's prefill
+# flash attention: the LM stack's prefill and training forward
 # --------------------------------------------------------------------------
 
 #: Head dims the kernel is instantiated for: those of the dense configs
 #: (128, 160) and of the tests.
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 160)
 _MAX_GRID_Y = 65535
+#: Query rows a step of the attention's plain backward recomputes: every
+#: config's ``attn_chunk`` (the JAX package's chunk of the same
+#: recompute); (B·H, 512, T) float32 scores are 512 MiB at (4, 16, 4,096).
+FLASH_BWD_CHUNK = 512
 
 
 def flash_attention(
@@ -735,7 +739,15 @@ def flash_attention(
 
     The JAX package's signature and layout. K and V may also hold fewer
     heads than Q (grouped-query attention: head ``h`` reads kv head
-    ``h // (H // Hkv)``), which saves the prefill a repeated copy."""
+    ``h // (H // Hkv)``), which saves the prefill a repeated copy.
+
+    Gradients: on a CUDA tensor that needs one, the call goes through
+    ``_FlashAttention``: the forward is the kernel's launch, the backward
+    ``ref.flash_attention_bwd_ref`` (plain PyTorch, recomputing the
+    probabilities ``FLASH_BWD_CHUNK`` query rows at a time, as the JAX
+    package's ``jax.checkpoint``-ed attention does by ``attn_chunk``; the
+    JAX package has no backward kernel). Without a gradient the kernel launches and nothing is saved.
+    On a CPU tensor the plain version is differentiable by autograd."""
     _check_impl(impl)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, T, Hkv, hd); "
@@ -764,6 +776,16 @@ def flash_attention(
         raise ValueError("attention over no keys")
     if -(-s // 32) > _MAX_GRID_Y or b * h > _I32_MAX:
         raise ValueError(f"S = {s} or B·H = {b * h} is too large")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_launch(q, k, v, causal, window)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The kernel's launch on checked CUDA tensors."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if b * s * h == 0:
         return out
@@ -775,6 +797,24 @@ def flash_attention(
     if window is not None and s >= t + window:
         _fill_keyless_rows(out, v, t + window - 1)
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with a plain PyTorch backward: dq, and dk
+    and dv summed over each kv head's group, from q, k, v and the output's
+    gradient (the probabilities are recomputed, never stored)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, chunk=FLASH_BWD_CHUNK)
+        return _flash_launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, dout, **ctx.opts)
+        return dq, dk, dv, None, None
 
 
 def _fill_keyless_rows(out: torch.Tensor, v: torch.Tensor, row0: int) -> None:

@@ -262,3 +262,117 @@ def flash_attention_bshd_ref(
     out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
                               window=window)
     return out.reshape(b, h, s, hd).transpose(1, 2).contiguous()
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (batched) accumulated and returned in float32: float32
+    operands as they are; bf16 ones on the card through cuBLAS's
+    float32-output product (``aten::bmm.dtype``: the tensor cores' rate, no
+    rounding of the result), on the CPU upcast first (that op has no CPU
+    kernel; the same products, exact in float32)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _split(x: torch.Tensor, dtype: torch.dtype):
+    """float32 ``x`` as operands of ``dtype``: itself in float32; else a
+    head hi = x rounded and a tail lo = (x − hi) rounded, whose products
+    sum to x's within ~2^-16 relative (a bf16 operand alone keeps 2^-8,
+    and dS sums to 0 along a row, so its rounding does not cancel in dQ).
+    ``x`` is overwritten."""
+    if dtype == torch.float32:
+        return (x,)
+    hi = x.to(dtype)
+    return hi, x.sub_(hi).to(dtype)        # hi read as float32 in place
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, Hkv, hd), Hkv divides H
+    v: torch.Tensor,          # (B, T, Hkv, hd)
+    dout: torch.Tensor,       # (B, S, H, hd): the output's gradient
+    *,
+    causal: bool = True,
+    window=None,
+    chunk: int = 512,
+):
+    """Gradients (dq, dk, dv) of ``flash_attention_bshd_ref``, in the
+    inputs' dtypes, recomputed ``chunk`` query rows at a time (the JAX
+    package's ``jax.checkpoint``-ed attention recomputes its probabilities
+    in the backward the same way; it has no backward kernel).
+
+    Per chunk, for each kv head with its group of query heads side by side
+    (so the products against K and V sum dk and dv over the group): scores
+    in float32, masked to -1e30, softmax P in float32; dV += P (in V's
+    dtype)ᵀ dO; dP = dO Vᵀ; dS = P ∘ (dP − rowsum(dP ∘ P)) in float32;
+    dQ = dS K · scale and dK += dSᵀ Q · scale. Every product takes the
+    inputs' dtype as operands and accumulates in float32 (bf16 on the
+    tensor cores); dS goes in as two such operands, its rounding and the
+    rest (``_split``: the reference's dS products take float32 dS), so dQ
+    and dK cost two products each; dK and dV sum over the chunks in
+    float32.
+    Only the keys a chunk can see ([lo, hi): causal and window) are read,
+    and without a window only the chunk's last keys need the mask."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rep, g = h // hkv, b * hkv
+    scale = 1.0 / math.sqrt(hd)
+    kg = k.permute(0, 2, 1, 3).reshape(g, t, hd)
+    vg = v.permute(0, 2, 1, 3).reshape(g, t, hd)
+
+    def grouped(x, c0, c):
+        # (B, c, H, hd) → (B·Hkv, rep·c, hd): row r·c + i is head
+        # kv·rep + r at query c0 + i
+        return x[:, c0:c0 + c].reshape(b, c, hkv, rep, hd).permute(
+            0, 2, 3, 1, 4).reshape(g, rep * c, hd)
+
+    dq = torch.empty_like(q)
+    dk = torch.zeros((g, t, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kpos = torch.arange(t, device=q.device)
+    # rows that see no key get the plain version's uniform softmax over all
+    # T keys: read them all
+    keyless = window is not None and s >= t + window
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        lo = max(0, c0 - window + 1) if window is not None else 0
+        hi = min(t, c0 + c) if causal else t
+        if keyless or lo >= hi:
+            lo, hi = 0, t
+        qc, doc = grouped(q, c0, c), grouped(dout, c0, c)
+        kc, vc = kg[:, lo:hi], vg[:, lo:hi]
+        sc = bmm_f32(qc, kc.transpose(1, 2)).mul_(scale)
+        qpos = c0 + torch.arange(c, device=q.device)[:, None]
+        # without a window the keys before c0 are seen by every row
+        m0 = c0 - lo if causal and window is None and not keyless \
+            and c0 >= lo else 0
+        kp = kpos[lo + m0:hi]
+        allow = torch.ones((c, hi - lo - m0), dtype=torch.bool,
+                           device=q.device)
+        if causal:
+            allow &= kp <= qpos
+        if window is not None:
+            allow &= kp > qpos - window
+        sc.view(g, rep, c, hi - lo)[..., m0:].masked_fill_(~allow, -1e30)
+        p = torch.softmax(sc, dim=-1)
+        del sc
+        dv[:, lo:hi] += bmm_f32(p.to(v.dtype).transpose(1, 2), doc)
+        ds = bmm_f32(doc, vc.transpose(1, 2))                  # dP
+        ds.sub_((ds * p).sum(-1, keepdim=True)).mul_(p)
+        del p
+        dqc = torch.zeros((g, rep * c, hd), dtype=torch.float32,
+                          device=q.device)
+        for part in _split(ds, q.dtype):
+            dk[:, lo:hi] += bmm_f32(part.transpose(1, 2), qc)
+            dqc += bmm_f32(part, kc)
+        del ds
+        dqc.mul_(scale)
+        dq[:, c0:c0 + c] = dqc.view(b, hkv, rep, c, hd).permute(
+            0, 3, 1, 2, 4).reshape(b, c, h, hd)
+    dk.mul_(scale)
+    back = lambda x: x.view(b, hkv, t, hd).permute(0, 2, 1, 3)
+    return dq, back(dk).to(k.dtype).contiguous(), \
+        back(dv).to(v.dtype).contiguous()

@@ -4,16 +4,20 @@ MLP block, the MoE FFN, the Mamba2 SSD mixer and the Hymba hybrid mixer.
 
 Conventions (the JAX package's, ``repro.models.layers``):
   - projections are stored flat (D, H·hd) and applied as ``x @ w``;
-  - weights are held in the config's compute dtype (this is a serving port:
-    the trainer's float32 masters come with the training slice);
+  - weights are held in the config's compute dtype for serving; training
+    holds float32 masters and casts them to that dtype under autograd
+    (``transformer.forward_hidden(training=True)``), so every piece here
+    is differentiable;
   - KV caches are flat (B, T, Hkv·hd), MLA's compressed ones (B, T,
     kv_lora_rank) and (B, T, qk_rope_dim), an SSM's ``state`` (B, H, N, P)
     float32 and ``conv`` (B, K−1, C). This port writes them in place (JAX
     returns updated copies), which saves a cache-sized copy per layer.
 
 Attention: the uncached case (no cache, T == S, no offset) — the attention
-of a prompt — goes to ``kernels.ops.flash_attention``, the hand-written
-kernel on a CUDA tensor and its plain version on a CPU tensor. The cached
+of a prompt, and of a training batch — goes to
+``kernels.ops.flash_attention``, the hand-written kernel on a CUDA tensor
+(with a plain PyTorch backward when a gradient is needed) and its plain
+version on a CPU tensor. The cached
 case (decode: queries against the cache, masked to its valid prefix) is
 plain PyTorch, the grouped einsum of the JAX package, which computes it
 outside any Pallas kernel too. MLA (DeepSeek-V2), the MoE FFN
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -286,21 +290,26 @@ def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     return p(x)
 
 
+def add_to(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b, written into a unless autograd records: under ``remat="dots"``
+    a matrix product's output is kept for the backward and must not
+    change, so a sum onto one goes out of place while training."""
+    return a + b if torch.is_grad_enabled() else a.add_(b)
+
+
 # ---------------------------------------------------------------------------
 # float32 products of low-precision operands
 # ---------------------------------------------------------------------------
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, m, k) @ (N, k, n) as float32: the JAX package's
-    ``preferred_element_type=float32``. Float32 operands multiply as they
-    are; lower-precision ones on the card through cuBLAS with a float32
-    output (``aten::bmm.dtype``: float32 accumulation, no rounding of the
-    result), elsewhere upcast first (that op has no CPU kernel)."""
-    if a.dtype == torch.float32:
-        return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    ``preferred_element_type=float32`` (``ref.bmm_f32``: bf16 operands on
+    the card through cuBLAS's float32-output product). Where a gradient is
+    needed the operands are upcast first, since that product has no
+    derivative: the same products, exact in float32."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return torch.bmm(a.float(), b.float())
+    return ref.bmm_f32(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +324,8 @@ def mla_scores(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
     b, h, c, lo = q_lat.shape
     dr, t = q_rope.shape[-1], ckv.shape[1]
     sc = bmm_f32(q_lat.reshape(b, h * c, lo), ckv.transpose(1, 2))
-    sc += bmm_f32(q_rope.reshape(b, h * c, dr), kr.transpose(1, 2))
+    sc = add_to(sc, bmm_f32(q_rope.reshape(b, h * c, dr),
+                            kr.transpose(1, 2)))
     return sc.view(b, h, c, t)
 
 
@@ -593,13 +603,15 @@ def ssd_chunk(state: torch.Tensor, da: torch.Tensor, xdt: torch.Tensor,
     cum = torch.cumsum(da, dim=1).transpose(1, 2)            # (B, H, Q)
     seg = cum[..., :, None] - cum[..., None, :]              # (B, H, Qi, Qj)
     tri = torch.ones((q, q), dtype=torch.bool, device=da.device).tril()
-    # above the diagonal seg ≥ 0 and exp(seg) may be inf: where() drops it
-    # (a 0/1 mask would multiply inf by 0)
-    lmat = torch.where(tri, torch.exp(seg), 0.0)
+    # above the diagonal seg ≥ 0 and exp(seg) may be inf: masked to -inf
+    # before the exp, which gives exact zeros there and a zero gradient (a
+    # where() after the exp, as the JAX package writes it, has the same
+    # values but a gradient of 0·inf = nan where exp overflows)
+    lmat = torch.exp(seg.masked_fill(~tri, float("-inf")))
     cb = cm @ bm.transpose(1, 2)                             # (B, Qi, Qj)
     xh = xdt.transpose(1, 2)                                 # (B, H, Q, P)
     y = (cb[:, None] * lmat) @ xh
-    y += (cm[:, None] @ state) * torch.exp(cum)[..., None]
+    y = add_to(y, (cm[:, None] @ state) * torch.exp(cum)[..., None])
     decay_in = torch.exp(cum[..., -1:] - cum)                # (B, H, Q)
     contrib = bm.transpose(1, 2)[:, None] @ (xh * decay_in[..., None])
     state = torch.exp(cum[..., -1])[..., None, None] * state + contrib

@@ -1,4 +1,4 @@
-"""LM assembly for serving: embeddings, segments of layers, the head.
+"""LM assembly: embeddings, segments of layers, the head, the loss.
 
 Public entry points (the JAX package's ``repro.models.transformer``, for
 layers of a GQA, MLA, SSM or hybrid mixer and an MLP, MoE or no FFN, on
@@ -6,29 +6,40 @@ token or embedding input):
   - ``init_params``          weights drawn from a ``torch.Generator``
   - ``params_from_reference`` the JAX package's parameter tree (numpy) as
                              this port's modules
+  - ``params_to_reference``  the inverse: a numpy tree in the JAX layout
   - ``empty_params``         the modules, uninitialised (on ``"meta"``: the
                              shapes alone, no memory)
   - ``forward_hidden``       (B, S, D) final hidden states (+ MoE aux loss)
+  - ``lm_loss``              token-chunked cross-entropy (+ aux), never all
+                             (T, V) logits at once
   - ``init_cache``           decode caches for all segments
   - ``prefill``              fill the caches from a prompt, last logits
   - ``decode_step``          one token against the caches
 
-This is a serving port. Weights are held in ``cfg.dtype`` on the device
-and carry no gradient; the trainer's float32 masters and ``lm_loss`` come
-with the training slice (ROADMAP.md A10.5). A layer is an ``nn.Module``, a
-segment a ``ModuleList``, and layers run in a Python loop (the JAX package
-scans them). Caches are updated in place and returned.
+Serving holds the weights in ``cfg.dtype`` without gradients and runs
+under ``torch.no_grad``. Training holds float32 masters that take a
+gradient (``masters=True``); ``forward_hidden(training=True)`` and
+``lm_loss`` cast each master to ``cfg.dtype`` under autograd, as the JAX
+package's ``_cast_params`` does, so the gradients arrive in float32,
+rounded through ``cfg.dtype``. Each layer then runs under ``cfg.remat``
+(``torch.utils.checkpoint``). A layer is an ``nn.Module``, a segment a
+``ModuleList``, and layers run in a Python loop (the JAX package scans
+them). Caches are updated in place and returned.
 
 Entry points run on the card unless given ``device="cpu"``; without a card
 they raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, Segment
@@ -151,39 +162,47 @@ def _layer(cfg: ModelConfig, seg: Segment, dev: torch.device,
     return Layer(cfg, seg, mixer, ffn)
 
 
-def empty_params(cfg: ModelConfig, *,
-                 device: DeviceLike = "cuda") -> TransformerLM:
-    """The modules of ``cfg`` in ``cfg.dtype`` on ``device``, their weights
+def _weights_dtype(cfg: ModelConfig, masters: bool) -> torch.dtype:
+    return torch.float32 if masters else _dtype(cfg)
+
+
+def empty_params(cfg: ModelConfig, *, device: DeviceLike = "cuda",
+                 masters: bool = False) -> TransformerLM:
+    """The modules of ``cfg`` in ``cfg.dtype`` on ``device`` (float32
+    masters that take a gradient with ``masters=True``), their weights
     uninitialised (norms 1). ``device="meta"`` gives the shapes alone, with
     no memory: ``sum(p.numel() for p in model.parameters())`` counts a
     full-width model."""
     check_layers(cfg)
     dev = torch.device(device) if str(device) == "meta" \
         else resolve_device(device)
-    dtype = _dtype(cfg)
+    dtype = _weights_dtype(cfg, masters)
     segments = nn.ModuleList(
         nn.ModuleList(_layer(cfg, seg, dev, dtype, None)
                       for _ in range(seg.count)) for seg in cfg.segments)
-    return TransformerLM(cfg, segments, device=dev, dtype=dtype)
+    return TransformerLM(cfg, segments, device=dev,
+                         dtype=dtype).requires_grad_(masters)
 
 
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
-                device: DeviceLike = "cuda") -> TransformerLM:
+                device: DeviceLike = "cuda",
+                masters: bool = False) -> TransformerLM:
     """Weights of ``cfg`` in ``cfg.dtype`` on ``device``: N(0, 0.02²) (the
     output projections scaled by 1/√(2·n_layers), a MoE router N(0,
     0.006²), an SSM's as ``layers.init_ssm``), norms 1, biases 0, as the
-    JAX package's ``init_params``. ``generator`` is a
-    ``torch.Generator`` on ``device`` or an int seed for one; it cannot
-    replay ``jax.random``, so the two packages draw different weights from
-    the same seed (the tests carry weights across with
-    ``params_from_reference``)."""
+    JAX package's ``init_params``. With ``masters=True`` they stay float32
+    (the draws unrounded) and take a gradient: the trainer's masters.
+    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed for
+    one; it cannot replay ``jax.random``, so the two packages draw
+    different weights from the same seed (the tests carry weights across
+    with ``params_from_reference``)."""
     check_layers(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, device {dev}")
-    dtype = _dtype(cfg)
+    dtype = _weights_dtype(cfg, masters)
     segments = nn.ModuleList()
     model = TransformerLM(cfg, segments, device=dev, dtype=dtype)
     if cfg.input_mode == "tokens":
@@ -194,11 +213,137 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
         segments.append(nn.ModuleList(
             _layer(cfg, seg, dev, dtype, generator)
             for _ in range(seg.count)))
-    return model
+    return model.requires_grad_(masters)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's parameter tree
+# ---------------------------------------------------------------------------
+
+Path = Tuple[str, ...]
+
+
+def reference_paths(names) -> Dict[Path, List[str]]:
+    """Each leaf of the JAX package's parameter tree (its path of dict
+    keys) and the port's parameter names that fill it, in the reference's
+    flatten order (keys sorted at every level). ``segments.<i>.<j>.<rest>``
+    is layer j of the stacked leaf ``("segments", "seg<i>", *rest)``
+    (``rest`` may nest: ``ffn.experts.wg``); any other name is its own
+    leaf. The same map serves the parameters and AdamW's moments."""
+    paths: Dict[Path, List[str]] = {}
+    stacked: Dict[Path, Dict[int, str]] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "segments":
+            path = ("segments", f"seg{parts[1]}", *parts[3:])
+            stacked.setdefault(path, {})[int(parts[2])] = name
+        else:
+            paths[tuple(parts)] = [name]
+    for path, layers in stacked.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"layers {sorted(layers)} of {path}")
+        paths[path] = [layers[j] for j in range(len(layers))]
+    return {p: paths[p] for p in sorted(paths)}
+
+
+def _is_stacked(path: Path) -> bool:
+    return path[0] == "segments"
+
+
+def _named(params: Union[TransformerLM, Mapping[str, torch.Tensor]]
+           ) -> Dict[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def params_to_reference(cfg: ModelConfig,
+                        params: Union[TransformerLM,
+                                      Mapping[str, torch.Tensor]]
+                        ) -> Dict[str, Any]:
+    """``params`` (the modules, or a ``{name: tensor}`` map such as AdamW's
+    moments) as the JAX package's tree of numpy arrays, each segment's
+    layers stacked along a leading axis (copies, never views of the
+    tensors): the inverse of ``params_from_reference`` (float32 masters
+    round-trip bit for bit; bf16 comes out as float32, which numpy can
+    hold)."""
+    named = _named(params)
+
+    def host(name: str) -> np.ndarray:
+        # a copy: a CPU tensor's .numpy() would share the live weights
+        t = named[name].detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return _reference_tree(named, lambda path, names: np.stack(
+        [host(n) for n in names]) if _is_stacked(path) else host(names[0]))
+
+
+def reference_like(params: Union[TransformerLM, Mapping[str, torch.Tensor]]
+                   ) -> Dict[str, Any]:
+    """``params_to_reference``'s tree with its shapes alone: each leaf an
+    empty tensor on ``"meta"`` (no memory, no copy), for a checkpoint's
+    ``restore(like=...)``."""
+    named = _named(params)
+
+    def shape(path: Path, names: List[str]) -> torch.Tensor:
+        lead = (len(names),) if _is_stacked(path) else ()
+        return torch.empty(lead + tuple(named[names[0]].shape),
+                           device="meta")
+    return _reference_tree(named, shape)
+
+
+def _reference_tree(named: Mapping[str, torch.Tensor], leaf
+                    ) -> Dict[str, Any]:
+    """The nested dict of ``leaf(path, names)`` at each reference path."""
+    tree: Dict[str, Any] = {}
+    for path, names in reference_paths(named).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(path, names)
+    return tree
+
+
+def _count_leaves(tree: Any) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def load_reference(params: Union[TransformerLM, Mapping[str, torch.Tensor]],
+                   tree: Mapping[str, Any]) -> None:
+    """Copy the JAX package's tree (numpy leaves, or anything
+    ``np.asarray`` reads) into ``params``' tensors in place, each rounded
+    to its tensor's dtype. Every leaf must have its tensor, and the shapes
+    must agree."""
+    named = _named(params)
+    paths = reference_paths(named)
+    if _count_leaves(tree) != len(paths):
+        raise ValueError(f"the tree holds {_count_leaves(tree)} leaves, the "
+                         f"parameters fill {len(paths)}")
+
+    def put(w: torch.Tensor, a) -> None:
+        a = torch.from_numpy(np.array(a))
+        if a.shape != w.shape:
+            raise ValueError(f"reference leaf of shape {tuple(a.shape)} for "
+                             f"a weight of shape {tuple(w.shape)}")
+        with torch.no_grad():
+            w.copy_(a)
+
+    for path, names in paths.items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if _is_stacked(path):
+            for j, name in enumerate(names):
+                put(named[name], np.asarray(leaf)[j])
+        else:
+            put(named[names[0]], leaf)
 
 
 def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
-                          device: DeviceLike = "cuda") -> TransformerLM:
+                          device: DeviceLike = "cuda",
+                          masters: bool = False) -> TransformerLM:
     """The JAX package's parameter tree as this port's modules.
 
     ``tree`` is ``repro.models.transformer.init_params``'s output with its
@@ -209,38 +354,10 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
     MoE's ``experts`` and ``shared`` and the hybrid's ``attn`` and ``ssm``
     are nested dicts there, submodules here).
     Leaves are rounded to ``cfg.dtype``, as the JAX package casts them at
-    the forward boundary."""
-    model = empty_params(cfg, device=device)
-
-    def put(w: torch.Tensor, a) -> None:
-        a = torch.tensor(np.asarray(a))
-        if a.shape != w.shape:
-            raise ValueError(f"reference leaf of shape {tuple(a.shape)} for "
-                             f"a weight of shape {tuple(w.shape)}")
-        with torch.no_grad():
-            w.copy_(a)
-
-    def leaf(sub: Mapping[str, Any], name: str):
-        for part in name.split("."):        # "experts.wg" → ["experts"]["wg"]
-            sub = sub[part]
-        return sub
-
-    if cfg.input_mode == "tokens":
-        put(model.embed, tree["embed"])
-    if not cfg.tie_embeddings:
-        put(model.head, tree["head"])
-    put(model.final_ln, tree["final_ln"])
-    for i, layers in enumerate(model.segments):
-        st = tree["segments"][f"seg{i}"]
-        for j, layer in enumerate(layers):
-            put(layer.ln1, st["ln1"][j])
-            parts = ["mixer"]
-            if layer.ffn is not None:
-                put(layer.ln2, st["ln2"][j])
-                parts.append("ffn")
-            for part in parts:
-                for name, w in getattr(layer, part).named_parameters():
-                    put(w, leaf(st[part], name)[j])
+    the forward boundary; with ``masters=True`` they load unrounded as
+    float32 masters that take a gradient."""
+    model = empty_params(cfg, device=device, masters=masters)
+    load_reference(model, tree)
     return model
 
 
@@ -296,15 +413,125 @@ def _run(params: TransformerLM, x: torch.Tensor, rope,
     return x, aux_total
 
 
-@torch.no_grad()
-def forward_hidden(cfg: ModelConfig, params: TransformerLM,
+#: The matrix products whose outputs ``remat="dots"`` saves (the JAX
+#: package's ``checkpoint_dots`` policy); everything else is recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``layer`` on x with gradients: each float32 master cast to
+    ``cfg.dtype`` inside the function that ``cfg.remat`` wraps, so
+    ``"full"`` recomputes the cast with the layer (the bf16 copies are not
+    kept between forward and backward) and the gradients reach the
+    masters through it. ``"dots"`` keeps the matrix products' outputs,
+    ``"none"`` keeps everything; the three give the same values."""
+    names, masters = zip(*layer.named_parameters())
+    dtype = _dtype(cfg)
+
+    def run(x_, *ws):
+        cast = {n: w.to(dtype) for n, w in zip(names, ws)}
+        return functional_call(layer, cast, (x_, rope))
+
+    if cfg.remat == "none":
+        return run(x, *masters)
+    if cfg.remat == "full":
+        return ckpt.checkpoint(run, x, *masters, use_reentrant=False)
+    if cfg.remat == "dots":
+        return ckpt.checkpoint(
+            run, x, *masters, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {cfg.remat!r}; options full, dots, none")
+
+
+def _forward_train(cfg: ModelConfig, params: TransformerLM,
                    batch: Mapping[str, Any]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dtype = _dtype(cfg)
+    if cfg.input_mode == "tokens":
+        # the gather as F.embedding: its backward on the card sums a
+        # token's rows in a fixed order (indexing's backward, index_put_
+        # with accumulate, adds with atomics in any order)
+        tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
+        x = F.embedding(tokens, params.embed.to(dtype))
+    else:
+        x = torch.as_tensor(batch["embeds"], device=params.device).to(dtype)
+    rope = _prompt_rope(cfg, batch, x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg in params.segments:
+        for layer in seg:
+            x, aux = _train_layer(cfg, layer, x, rope)
+            if aux is not None:
+                aux_total = aux_total + aux
+    return L.rmsnorm(x, params.final_ln.to(dtype), cfg.norm_eps), aux_total
+
+
+def forward_hidden(cfg: ModelConfig, params: TransformerLM,
+                   batch: Mapping[str, Any], *, training: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final hidden states (B, S, D) and the summed MoE aux loss (0 for a
-    model without MoE layers)."""
-    x = _embed_inputs(cfg, params, batch)
-    x, aux = _run(params, x, _prompt_rope(cfg, batch, x), None, None)
-    return L.rmsnorm(x, params.final_ln, cfg.norm_eps), aux
+    model without MoE layers). Serving (``training=False``) runs under
+    ``torch.no_grad``; ``training=True`` records the graph, casting float32
+    masters to ``cfg.dtype`` and wrapping each layer by ``cfg.remat``."""
+    if training:
+        return _forward_train(cfg, params, batch)
+    with torch.no_grad():
+        x = _embed_inputs(cfg, params, batch)
+        x, aux = _run(params, x, _prompt_rope(cfg, batch, x), None, None)
+        return L.rmsnorm(x, params.final_ln, cfg.norm_eps), aux
+
+
+def _pick_chunk(t: int, want: int) -> int:
+    c = min(want, t)
+    while t % c != 0:
+        c -= 1
+    return c
+
+
+def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor,
+               head: torch.Tensor) -> torch.Tensor:
+    """Σ −log p(label) over one chunk's tokens (C, D) → scalar float32;
+    labels < 0 count nothing. The (C, V) logits are formed in ``head``'s
+    dtype, then float32, as the JAX package's ``lm_loss`` body."""
+    logits = (hc @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, lc.clamp(min=0)[:, None])[:, 0]
+    valid = (lc >= 0).float()
+    return ((lse - gold) * valid).sum()
+
+
+def lm_loss(cfg: ModelConfig, params: TransformerLM,
+            batch: Mapping[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-chunked cross-entropy plus the MoE aux loss: ``(loss, {"ce",
+    "aux", "tokens"})``, float32 scalars. ``batch`` holds ``labels`` (B,
+    S) (< 0 masked) beside the inputs. The T = B·S tokens go in chunks of
+    ``_pick_chunk(T, cfg.loss_chunk)``; each chunk's logits are
+    recomputed in the backward (``torch.utils.checkpoint``), so the (T, V)
+    logits never exist at once."""
+    h, aux = forward_hidden(cfg, params, batch, training=True)
+    head = params.head_matrix().to(_dtype(cfg))
+    b, s, d = h.shape
+    t = b * s
+    hf = h.reshape(t, d)
+    labels = torch.as_tensor(batch["labels"],
+                             device=h.device).long().reshape(t)
+    chunk = _pick_chunk(t, cfg.loss_chunk)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, t, chunk):
+        nll_sum = nll_sum + ckpt.checkpoint(
+            _chunk_nll, hf[c0:c0 + chunk], labels[c0:c0 + chunk], head,
+            use_reentrant=False)
+    n_tok = (labels >= 0).sum().float()
+    ce = nll_sum / torch.clamp(n_tok, min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": n_tok}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,

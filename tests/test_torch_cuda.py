@@ -25,7 +25,12 @@ within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
 before normalising, the plain version after). The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
 1e-4 of the same model on the CPU (the SSM mixer's outputs and caches
-too), greedy tokens equal. Dense feature maps: features within
+too), greedy tokens equal. LM training on the card: the flash kernel's
+forward with the plain backward against autograd through the float32
+plain version (float32 within 1e-4, bf16 rows within 1e-2), a float32
+smoke-size loss and every gradient within 1e-4 of the CPU's, the kernel
+launched once a layer and once more under a recomputing remat, and a
+Trainer's restart repeating its losses. Dense feature maps: features within
 1e-5 of the CPU's and the same bits in any batch; every Table-2 method's
 labels against the CPU's by ARI ≥ 0.99. The serving engine: each CUDA
 graph's replay the bits of the same cell run eagerly, every answer the
@@ -787,6 +792,170 @@ def test_cuda_new_models_prefill_decode_and_greedy_match_cpu(cuda, arch):
     attending = sum(s.count for s in cfg.segments
                     if s.mixer in ("gqa", "hybrid"))
     assert ops.launch_counts()["flash_attention"] == attending
+
+
+# --------------------------------------------------------------------------
+# LM training: the flash Function's gradients, a step, a restart
+# --------------------------------------------------------------------------
+
+FLASH_GRAD_CASES = [  # b, s, h, hkv, hd, window
+    (2, 300, 4, 4, 64, None),       # rep 1, ragged edge
+    (2, 300, 4, 2, 128, None),      # rep 2
+    (1, 257, 5, 1, 64, 64),         # rep 5 (hymba's), a window
+    (2, 200, 4, 2, 128, 33),        # a window shorter than a chunk
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES, ids=str)
+def test_cuda_flash_function_gradients_match_plain(cuda, case, dtype,
+                                                  monkeypatch):
+    """The kernel's forward with the plain backward (recomputing 64 query
+    rows a step, so these shapes take several) against autograd through
+    the float32 plain version on the same inputs: float32 within 1e-4,
+    bf16 rows within the bf16 row limit 1e-2 (P is rounded to bf16 as the
+    dV product's operand, as the forward rounds it)."""
+    monkeypatch.setattr(ops, "FLASH_BWD_CHUNK", 64)
+    b, s, h, hkv, hd, window = case
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dt)
+                   for shape in ((b, s, h, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd), (b, s, h, hd)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=True, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    truth = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_bshd_ref(
+        *truth, causal=True, window=window), truth, do.float())
+    for a, w in zip(got, want):
+        assert a.dtype == dt and a.shape == w.shape
+        if dtype == "float32":
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+        else:
+            row = (a.float() - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(
+                1e-30)
+            assert float(row.max()) <= 1e-2
+
+
+def test_cuda_flash_without_a_gradient_saves_nothing(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).grad_fn is None
+    assert ops.flash_attention(q.detach(), q.detach(),
+                               q.detach()).grad_fn is None
+    assert ops.flash_attention(q, q.detach(), q.detach()).grad_fn is not None
+
+
+def _train_batch(cfg, b=2, s=64, seed=0):
+    rng = np.random.default_rng(seed)
+    key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+    x = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32) \
+        if key == "embeds" else rng.integers(0, cfg.vocab_size, (b, s))
+    return {key: x, "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-lite-16b",
+                                  "mamba2-370m", "hymba-1.5b"])
+def test_cuda_training_step_matches_cpu(cuda, arch):
+    """One float32 smoke-size loss and backward on the card against the
+    CPU: the loss and every gradient leaf within 1e-4 (relative L2); the
+    flash kernel once per attending layer (remat "none")."""
+    cfg = configs.smoke_config(arch)
+    batch = _train_batch(cfg)
+    out = []
+    for dev in ("cpu", cuda):
+        model = T.init_params(cfg, 0, device="cpu", masters=True).to(dev)
+        ops.reset_launch_counts()
+        loss, _ = T.lm_loss(cfg, model, batch)
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                           model.named_parameters()},
+                    ops.launch_counts()["flash_attention"]))
+    (want, gw, _), (got, gg, launches) = out
+    assert got == pytest.approx(want, rel=1e-4)
+    for n, w in gw.items():
+        err = float((gg[n] - w).norm() / w.norm().clamp_min(1e-30))
+        assert err < 1e-4, (n, err)
+    assert launches == sum(s.count for s in cfg.segments
+                           if s.mixer in ("gqa", "hybrid"))
+
+
+@pytest.mark.parametrize("remat,per_layer", [("none", 1), ("dots", 2),
+                                             ("full", 2)])
+def test_cuda_training_launches_flash_per_remat(cuda, remat, per_layer):
+    """A bf16 training step: the forward launches the kernel once a layer
+    and a recomputing remat once more in the backward; the three settings
+    give the same loss."""
+    cfg = dataclasses.replace(configs.smoke_config("internlm2-1.8b"),
+                              dtype="bfloat16", remat=remat)
+    model = T.init_params(cfg, 0, masters=True)
+    ops.reset_launch_counts()
+    loss, _ = T.lm_loss(cfg, model, _train_batch(cfg))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == per_layer * cfg.n_layers
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m",
+                                  "hymba-1.5b", "qwen2-vl-7b"])
+def test_cuda_bf16_training_step_every_mixer(cuda, arch):
+    """A bf16 step with remat "full" for MLA + MoE, the SSM, the hybrid
+    (windowed) and embeds input: a finite loss within 2e-2 of the float32
+    one, every master's gradient finite and float32, and the flash kernel
+    twice per attending layer."""
+    base = configs.smoke_config(arch)
+    batch = _train_batch(base)
+    losses = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype, remat="full")
+        model = T.init_params(cfg, 0, masters=True)
+        ops.reset_launch_counts()
+        loss, _ = T.lm_loss(cfg, model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+    assert losses[1] == pytest.approx(losses[0], rel=2e-2)
+    attending = sum(s.count for s in cfg.segments
+                    if s.mixer in ("gqa", "hybrid"))
+    assert ops.launch_counts()["flash_attention"] == 2 * attending
+
+
+def test_cuda_trainer_restart_resumes(cuda, tmp_path):
+    """3 steps, a checkpoint, 2 more; a fresh Trainer restores and runs the
+    same 2 steps. Losses equal within 1e-6 relative: the backward's
+    scatter-adds (the embedding's ``index_put_``) may add in another order
+    on the card."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = configs.smoke_config("internlm2-1.8b")
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-2, warmup_steps=1),
+                       checkpoint_every=3, checkpoint_dir=str(tmp_path),
+                       log_every=1000)
+
+    def trainer(seed):
+        data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=4,
+                               seq_len=32, seed=1)
+        return Trainer(cfg, tcfg, T.init_params(cfg, seed, masters=True),
+                       iter(data)), data
+    first, _ = trainer(0)
+    first.run(3)
+    after = [first.run(1)["loss"] for _ in range(2)]
+    second, data = trainer(5)
+    assert second.restore() and second.step == 3
+    data.step = 3
+    again = [second.run(1)["loss"] for _ in range(2)]
+    np.testing.assert_allclose(again, after, rtol=1e-6)
 
 
 # --------------------------------------------------------------------------

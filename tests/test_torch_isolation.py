@@ -335,3 +335,69 @@ def test_exported_entry_points_raise_without_a_card(name):
     call = _exported_calls()[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+#: the training slice's modules
+TRAIN_MODULES = ("train/__init__.py", "train/__main__.py",
+                 "train/optimizer.py", "train/checkpoint.py",
+                 "train/trainer.py", "data/tokens.py")
+
+TRAIN_SCRIPT = """
+import sys, tempfile
+import numpy as np
+from repro_torch import configs
+from repro_torch.data.tokens import SyntheticTokens
+from repro_torch.models import transformer as T
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.trainer import TrainConfig, Trainer
+cfg = configs.smoke_config("internlm2-1.8b")
+tmp = tempfile.mkdtemp()
+tcfg = TrainConfig(opt=OptConfig(warmup_steps=1), checkpoint_every=1,
+                   checkpoint_dir=tmp, log_every=1000)
+data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=2, seq_len=8)
+trainer = Trainer(cfg, tcfg, T.init_params(cfg, 0, device="cpu",
+                                           masters=True), iter(data),
+                  device="cpu")
+trainer.run(1)
+again = Trainer(cfg, tcfg, T.init_params(cfg, 1, device="cpu",
+                                         masters=True), iter(data),
+                device="cpu")
+assert again.restore() and again.step == 1
+for arch in ("deepseek-v2-lite-16b", "hymba-1.5b", "qwen2-vl-7b"):
+    c = configs.smoke_config(arch)
+    model = T.init_params(c, 0, device="cpu", masters=True)
+    x = (np.ones((2, 8, c.d_model), np.float32) if c.input_mode == "embeds"
+         else np.ones((2, 8), np.int32))
+    key = "embeds" if c.input_mode == "embeds" else "tokens"
+    loss, _ = T.lm_loss(c, model, {key: x, "labels": np.ones((2, 8),
+                                                             np.int32)})
+    loss.backward()
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_source_check_covers_the_train_modules():
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(TRAIN_MODULES) <= checked
+
+
+def test_training_in_a_fresh_process_loads_no_jax():
+    _run_alone(TRAIN_SCRIPT)
+
+
+def test_trainer_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = configs.smoke_config("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg, 0, masters=True)
+    model = T.init_params(cfg, 0, device="cpu", masters=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(), model, iter([]))
