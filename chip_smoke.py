@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # phases 0-14 and 16-18, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1 and 15, on 4 cards
+    python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -284,6 +284,35 @@ from a seed):
            backward ms. A restart at smoke size (bf16, remat "full"): 3
            steps, a checkpoint, 2 more; a fresh Trainer restores and
            repeats the 2 steps' losses
+  phase 19 the LM on a mesh (models/sharding.py, the reference's FSDP×TP
+           layout): a gloo world of 4 ranks sharing the card, mesh (data
+           2, model 2), at internlm2-1.8b's width with 2 layers (bf16,
+           remat "full", float32 masters drawn on the card from --seed by
+           every rank, each keeping its shard): one sharded train step
+           (launch.specs.build_cell's) against the unsharded step on the
+           same card (the sharded init the same bits as one card's draws;
+           the loss within 5e-3, every gradient leaf within 5e-2 and every
+           updated master within 1e-2 relative L2; each leaf's update
+           within 1e-5 of one card's AdamW on the step's own gathered
+           gradients), 4 flash
+           launches a step a rank (the attention on each rank's 8 of 16
+           heads, 4 of 8 KV heads); greedy prefill + decode of 2 x 1,024
+           tokens + 2 sharded against one card (tokens equal but at a
+           near-tie of one card's top two logits, within twice the row's
+           largest logit difference; each step's logits within 0.1
+           relative L2)
+  phase 20 only with --cards 4: stablelm-12b on an NCCL world of one rank
+           a card, mesh (data 2, model 2): the 2-layer check of phase 19 at
+           its width; greedy prefill + decode (2 x 1,024 tokens + 8) of the
+           full model sharded against the one-card model (same gates); then 10 steps of
+           Trainer at full width and depth (40 layers, 4 x 4,096 tokens of
+           SyntheticTokens a step, AdamW lr 3e-4 after 2 warm-up steps,
+           bf16 compute, remat "full"): a finite, falling loss, the same on
+           every rank, 80 flash launches a step a rank; the median step of
+           steps 3-10 (the slowest rank's) beside its bound (6 x the
+           parameters less the embedding x the tokens plus the causal
+           attention, at 4 x 989 TFLOP/s), tokens/s, each card's peak
+           memory and the collectives' bytes a step
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -306,7 +335,8 @@ the engine's graph replays in phase 12, which no wrapper counts;
 deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 ``launches_hymba``, ``launches_qwen2_vl`` and ``launches_musicgen``: per
 generate of phase 17's models; ``launches_train``: per training step of
-phase 18).
+phase 18; ``launches_lm_mesh``: per sharded train step of phase 19, on
+one of its ranks).
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -527,6 +557,48 @@ TRAIN_CHECK_BATCH = (2, 1_024)  # on 2 x 1,024 tokens
 TRAIN_GRAD_REL = 5e-2
 TRAIN_OPT_TOL = 1e-6       # AdamW on the card against the CPU (float32)
 TRAIN_RESTART_REL = 1e-6   # a restart's losses against the first run's
+
+# phases 19 and 20: the LM on a (data, model) mesh. Phase 19: a gloo world
+# of 4 ranks sharing card 0 at internlm2-1.8b's width with 2 layers; phase
+# 20 (--cards 4): an NCCL world of one rank a card, stablelm-12b
+MESH_LM_SHAPE = (2, 2)
+MESH_LM_WORLD = 4
+MESH_LM_BATCH = (4, 1_024)     # the 2-layer check's batch
+MESH_LM_PROMPT = (2, 1_024)    # greedy prefill + decode
+MESH_LM_NEW = 8
+MESH_LM_NEW_GLOO = 2           # phase 19: each decode step gathers the
+                               # embedding and head through the host (gloo
+                               # on one card): ~1.3 GB a step a rank
+MESH_LM_JOIN_S = 300.0
+MESH_TRAIN_ARCH = "stablelm-12b"
+MESH_TRAIN_JOIN_S = 900.0
+# Limits, bf16 compute (NVIDIA H100 80GB HBM3, 700 W). The mesh sums each
+# batch rank's bf16-rounded gradient in float32 (one card rounds the
+# batch's once) and the row-parallel products' bf16 partials over the
+# model axis, ~2^-9 relative an element, which the attention's key
+# gradients amplify: the loss within MESH_LOSS_REL; each gradient leaf
+# within MESH_GRAD_REL relative L2 (first stated as 2e-2; phase 19
+# measured 1.65e-2 on a wk, and phase 18 puts one bf16 step's wq and wk
+# gradients 2.27e-2 from float32, so two bf16 steps may differ by twice
+# that: phase 18's own 5e-2). AdamW's first step is lr·sign(g) where
+# |g| ≫ eps, so an entry whose gradient is below that noise may take the
+# other sign: each updated master (|w| ≈ 0.02, an update ≈ lr = 1.5e-4)
+# within MESH_MASTER_REL of the unsharded step's, and the sharded update
+# within MESH_OWN_REL of one card's AdamW on the same gathered gradients
+# (float32, the same operations; the global norm sums in another order).
+# Serving rounds the row-parallel sums once, in float32; each step's
+# logits within MESH_LOGIT_REL relative L2 of one card's (first stated as
+# 5e-2; stablelm-12b's 40 layers measured 5.43e-2 at the first decode
+# step, and phase 7 puts two bf16 paths of internlm2's 24 layers, the
+# kernel's attention and the plain one, 3.40e-2 apart). A greedy token may
+# part from one card's only where one card's top two logits are closer
+# than twice that row's largest logit difference (a near-tie inside the
+# measured noise); the row is not compared after it.
+MESH_LOSS_REL = 5e-3
+MESH_GRAD_REL = 5e-2
+MESH_MASTER_REL = 1e-2
+MESH_OWN_REL = 1e-5
+MESH_LOGIT_REL = 0.1
 
 
 def log(msg: str) -> None:
@@ -5321,6 +5393,403 @@ def phase18_train(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 19 and 20: the LM on a mesh (FSDP×TP, models/sharding.py)
+# --------------------------------------------------------------------------
+
+def lm_greedy(cfg, params, prompts, new: int):
+    """Greedy tokens (B, new) and each step's float32 logits (new, B, V)
+    on the card: the prefill, then ``new − 1`` decode steps (``Engine``'s
+    loop), on one card or on a mesh (DTensor logits made whole)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    layout = T.layout_of(params)
+    b, p = prompts.shape
+    caches = T.init_cache(cfg, b, p + new, device=prompts.device,
+                          mesh=None if layout is None else layout.mesh)
+
+    from repro_torch.models.sharding import whole
+    logits, caches = T.prefill(cfg, params, {"tokens": prompts}, caches)
+    steps = [whole(logits).float()]
+    toks = [steps[0].argmax(-1)]
+    for i in range(new - 1):
+        logits, caches = T.decode_step(cfg, params, toks[-1], caches, p + i)
+        steps.append(whole(logits).float())
+        toks.append(steps[-1].argmax(-1))
+    return torch.stack(toks, 1), torch.stack(steps)
+
+
+def hold_greedy(tag: str, got, want) -> dict:
+    """The mesh's greedy tokens and logits against one card's: equal tokens,
+    except that a row may part where one card's top two logits are closer
+    than twice that row's largest logit difference (a near-tie inside the
+    noise, printed), after which it is not compared; the logits of each
+    step the rows agree on within MESH_LOGIT_REL (relative L2)."""
+    import torch
+    toks, logits = got
+    want_toks, want_logits = want
+    worst, ties = 0.0, []
+    live = torch.ones(toks.shape[0], dtype=torch.bool, device=toks.device)
+    for i in range(toks.shape[1]):
+        rows = live.nonzero()[:, 0]
+        if rows.numel() == 0:
+            break
+        a, b = logits[i, rows], want_logits[i, rows]
+        rel = float((a - b).norm() / b.norm())
+        worst = max(worst, rel)
+        if rel > MESH_LOGIT_REL:
+            fail(f"{tag}: step {i}'s logits are {rel:.3g} from one card's "
+                 f"(limit {MESH_LOGIT_REL})")
+        for r in rows.tolist():
+            if int(toks[r, i]) == int(want_toks[r, i]):
+                continue
+            top2 = torch.topk(want_logits[i, r], 2).values
+            margin = float(top2[0] - top2[1])
+            noise = float((logits[i, r] - want_logits[i, r]).abs().max())
+            if margin > 2 * noise:
+                fail(f"{tag}: row {r} step {i}: token {int(toks[r, i])} "
+                     f"against one card's {int(want_toks[r, i])}, whose "
+                     f"top-2 margin {margin:.4g} is more than twice the "
+                     f"row's largest logit difference {noise:.4g}")
+            ties.append((r, i, margin))
+            live[r] = False
+    log(f"{tag}: greedy tokens {'equal' if not ties else 'equal up to '}"
+        f"{'' if not ties else ties} (row, step, one card's top-2 margin); "
+        f"worst step logits relative L2 {worst:.3g} (limit "
+        f"{MESH_LOGIT_REL})")
+    return {"logit_rel": worst, "ties": ties}
+
+
+def lm_mesh_rank(spec: dict) -> dict:
+    """One rank of an LM mesh world (phase 19: gloo, ranks sharing card 0;
+    phase 20: NCCL, a card each), on a (data, model) mesh:
+
+      check  a ``check_layers``-layer model at the architecture's width:
+             one sharded train step (``launch.specs.build_cell``'s step,
+             masters drawn on the card from the seed by every rank, each
+             keeping its shard) against the unsharded step that rank 0 runs
+             on its own card first: the loss, every gradient leaf and every
+             AdamW update, gathered leaf by leaf
+      serve  greedy prefill + decode of a ``serve_layers``-layer model (None:
+             full depth) sharded, against the one-card model (rank 0, its
+             card, before the sharded one)
+      train  with ``train_steps``: the full-depth model trains that many
+             steps through ``Trainer`` (float32 masters from the seed, the
+             sharded step by ``step_fn=``): each step's loss, grad norm,
+             seconds, flash launches and collective bytes; peak memory
+
+    Returns rank 0's comparisons and every rank's timings and memory."""
+    import dataclasses as dc
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import dense_segments
+    from repro_torch.train.optimizer import (OptConfig, apply_updates,
+                                             init_opt_state)
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    require_built()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(spec["mesh"], ("data", "model"), device_type="cuda")
+    full = configs.get_config(spec["arch"])
+    b, s_len = spec["batch"], spec["seq"]
+    tcfg = TrainConfig(opt=OptConfig(**TRAIN_OPT), log_every=1000)
+    shape = dc.replace(SHAPES["train_4k"], seq_len=s_len, global_batch=b)
+    out = {"rank": rank, "device": str(dev)}
+
+    def gen():
+        return torch.Generator(dev).manual_seed(spec["seed"])
+
+    # -- check: one step at full width, check_layers layers ----------------
+    cfg = dc.replace(full, segments=dense_segments(spec["check_layers"]))
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=b,
+                           seq_len=s_len, seed=spec["seed"])
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch_at(0).items()}
+    step, _, _ = specs.build_cell(cfg, shape, mesh, train=tcfg)
+    want = {}
+    if rank == 0:
+        one = T.init_params(cfg, gen(), masters=True, device=dev)
+        named = dict(one.named_parameters())
+        before = {n: p.detach().clone() for n, p in named.items()}
+        _, _, m = step(one, init_opt_state(named, tcfg.opt), batch)
+        want = {"loss": float(m["loss"]), "before": before,
+                "grad": {n: p.grad for n, p in named.items()},
+                "after": {n: p.detach() for n, p in named.items()}}
+        del one, named
+    model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
+                          batch_size=b, device=dev)
+    named = dict(model.named_parameters())
+    before = {n: p.to_local().detach().clone() for n, p in named.items()}
+    ops.reset_launch_counts()
+    _, _, m = step(model, init_opt_state(named, tcfg.opt), batch)
+    out["check_launches"] = ops.launch_counts()["flash_attention"]
+    grads, after, first = {}, {}, {}
+    for n, p in named.items():        # gathered leaf by leaf, every rank
+        g, a = sh.whole(p.grad), sh.whole(p.detach())
+        w = _whole_of(before[n], p)
+        if rank == 0:
+            grads[n], after[n], first[n] = g, a, w
+        del g, a, w
+    if rank == 0:
+        def rel(x, y):
+            return float((x - y).norm() / y.norm().clamp_min(1e-30))
+        # one card's AdamW on the sharded step's own gradients
+        own = {n: w.clone() for n, w in first.items()}
+        apply_updates(own, grads, init_opt_state(own, tcfg.opt), tcfg.opt)
+        out["check"] = {
+            "loss": float(m["loss"]), "want_loss": want["loss"],
+            "same_draws": max(float((first[n] - want["before"][n]).abs()
+                                    .max()) for n in first),
+            "grad_rel": {n: rel(grads[n], want["grad"][n]) for n in grads},
+            "master_rel": {n: rel(after[n], want["after"][n])
+                           for n in after},
+            "update_rel": {n: rel(after[n] - first[n],
+                                  want["after"][n] - want["before"][n])
+                           for n in after},
+            "own_rel": {n: rel(after[n] - first[n], own[n] - first[n])
+                        for n in after}}
+        del own
+    del grads, after, first
+    del model, named, before, want, batch
+    torch.cuda.empty_cache()
+
+    # -- serve: greedy prefill + decode, sharded against one card -----------
+    scfg = full if spec["serve_layers"] is None else dc.replace(
+        full, segments=dense_segments(spec["serve_layers"]))
+    prompts = torch.as_tensor(SyntheticTokens(
+        vocab_size=scfg.vocab_size, batch=spec["prompt"][0],
+        seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
+            "tokens"], device=dev)
+    one_card = None
+    if rank == 0:
+        served = T.init_params(scfg, gen(), device=dev)
+        one_card = lm_greedy(scfg, served, prompts, spec["new"])
+        del served
+        torch.cuda.empty_cache()
+    served = T.init_params(scfg, gen(), mesh=mesh, device=dev)
+    ops.reset_launch_counts()
+    sh.reset_collectives()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = lm_greedy(scfg, served, prompts, spec["new"])
+    torch.cuda.synchronize(dev)
+    out["serve_s"] = time.perf_counter() - t0
+    out["serve_launches"] = ops.launch_counts()["flash_attention"]
+    out["serve_collectives"] = sh.collective_counts()
+    if rank == 0:
+        out["serve"] = {"got": tuple(t.cpu() for t in got),
+                        "want": tuple(t.cpu() for t in one_card)}
+    del served, got, one_card
+    torch.cuda.empty_cache()
+
+    # -- train: full depth, train_steps steps ------------------------------
+    if spec["train_steps"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = T.init_params(full, gen(), masters=True, mesh=mesh,
+                              batch_size=b, device=dev)
+        torch.cuda.synchronize(dev)
+        out["init_s"] = time.perf_counter() - t0
+        out["n_params"] = sum(p.numel() for p in model.parameters())
+        out["local_bytes"] = sum(p.to_local().numel() * 4
+                                 for p in model.parameters())
+        step, _, _ = specs.build_cell(full, shape, mesh, train=tcfg)
+        trainer = Trainer(full, tcfg, model, iter(SyntheticTokens(
+            vocab_size=full.vocab_size, batch=b, seq_len=s_len,
+            seed=spec["seed"])), step_fn=step, device=dev)
+        steps = []
+        for _ in range(spec["train_steps"]):
+            ops.reset_launch_counts()
+            sh.reset_collectives()
+            m = trainer.run(1)
+            m["launches"] = ops.launch_counts()["flash_attention"]
+            m["collectives"] = sh.collective_counts()
+            steps.append(m)
+        out["steps"] = steps
+        out["step_s"] = statistics.median(m["step_time_s"]
+                                          for m in steps[2:])
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _whole_of(local, p):
+    """``local`` (this rank's shard of DTensor ``p``'s earlier value) made
+    whole, as ``p`` is (a collective every rank joins)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import whole
+    return whole(DTensor.from_local(local, p.device_mesh, p.placements,
+                                    run_check=False, shape=p.shape,
+                                    stride=p.stride()))
+
+
+def hold_mesh_check(tag: str, res: dict) -> None:
+    """Rank 0's check: the sharded init the bits of one card's draws; the
+    loss within MESH_LOSS_REL, every gradient leaf within MESH_GRAD_REL and
+    every updated master within MESH_MASTER_REL of the unsharded step's
+    (relative L2); every leaf's update within MESH_OWN_REL of one card's
+    AdamW on the sharded step's own gathered gradients. The update against
+    the unsharded step's is printed (AdamW's first step is lr·sign(g)
+    where |g| ≫ eps: an entry whose gradient is below the bf16 noise may
+    take the other sign)."""
+    c = res["check"]
+    loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
+
+    def worst(key):
+        return max(c[key].items(), key=lambda kv: kv[1])
+    g, mst, u, own = (worst(k) for k in ("grad_rel", "master_rel",
+                                          "update_rel", "own_rel"))
+    log(f"{tag}: sharded init against one card's draws: max |diff| "
+        f"{c['same_draws']}; loss {c['loss']:.6f} against one card's "
+        f"{c['want_loss']:.6f} (rel {loss_rel:.3g}, limit {MESH_LOSS_REL}); "
+        f"of {len(c['grad_rel'])} leaves the worst gradient {g[0]} "
+        f"{g[1]:.3g} (limit {MESH_GRAD_REL}), updated master {mst[0]} "
+        f"{mst[1]:.3g} (limit {MESH_MASTER_REL}), update against one "
+        f"card's AdamW on the same gradients {own[0]} {own[1]:.3g} (limit "
+        f"{MESH_OWN_REL}); update against the unsharded step's {u[0]} "
+        f"{u[1]:.3g} (printed)")
+    if c["same_draws"] != 0.0:
+        fail(f"{tag}: the sharded init is not the unsharded draws")
+    if loss_rel > MESH_LOSS_REL:
+        fail(f"{tag}: the sharded loss is {loss_rel:.3g} from one card's")
+    for key, limit in (("grad_rel", MESH_GRAD_REL),
+                       ("master_rel", MESH_MASTER_REL),
+                       ("own_rel", MESH_OWN_REL)):
+        bad = {n: r for n, r in c[key].items() if r > limit}
+        if bad:
+            fail(f"{tag}: {key} over {limit}: {bad}")
+
+
+def phase19_lm_mesh(seed: int) -> dict:
+    """Phase 19: the LM on a (data 2, model 2) mesh of gloo ranks sharing
+    card 0, at internlm2-1.8b's width with 2 layers: a sharded train step
+    and greedy prefill + decode, each against the unsharded model on the
+    same card. Returns the flash launches of a sharded step on one rank."""
+    from repro_torch.launch.world import run_world
+    spec = {"arch": LM_ARCH, "mesh": MESH_LM_SHAPE, "check_layers": 2,
+            "serve_layers": 2, "train_steps": 0, "seed": seed,
+            "batch": MESH_LM_BATCH[0], "seq": MESH_LM_BATCH[1],
+            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW_GLOO}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, MESH_LM_WORLD, backend="gloo",
+                      device="cuda:0", args=(spec,), timeout_s=120.0,
+                      join_timeout_s=MESH_LM_JOIN_S)
+    log(f"[phase 19] gloo world of {MESH_LM_WORLD} on one card, mesh "
+        f"{MESH_LM_SHAPE}: {time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    hold_mesh_check("[phase 19] 2 layers at internlm2's width", r0)
+    hold_greedy("[phase 19] prefill + decode", r0["serve"]["got"],
+                r0["serve"]["want"])
+    launches = {r["check_launches"] for r in ranks}
+    want = 2 * 2           # a forward a layer and its remat recompute
+    if launches != {want}:
+        fail(f"[phase 19] flash launches a sharded step {launches}, "
+             f"expected {want} on every rank")
+    log(f"[phase 19] flash launches: {want} a sharded step a rank, "
+        f"{r0['serve_launches']} a greedy generate a rank; the generate "
+        f"{r0['serve_s']:.3f}s, its collectives {r0['serve_collectives']}")
+    return {"launches": want}
+
+
+def phase20_lm_cards(n_cards: int, seed: int) -> dict:
+    """Phase 20 (--cards 4): stablelm-12b on an NCCL world of one rank a
+    card, mesh (data 2, model 2): the 2-layer check at full width, greedy
+    prefill + decode of the full model sharded against one card, then
+    TRAIN_STEPS steps at full width and depth."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.launch.world import run_world
+    cfg = configs.get_config(MESH_TRAIN_ARCH)
+    spec = {"arch": MESH_TRAIN_ARCH, "mesh": (2, n_cards // 2),
+            "check_layers": 2, "serve_layers": None,
+            "train_steps": TRAIN_STEPS, "seed": seed,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
+                      args=(spec,), timeout_s=300.0,
+                      join_timeout_s=MESH_TRAIN_JOIN_S)
+    log(f"[phase 20] NCCL world of {n_cards}, mesh {spec['mesh']}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    hold_mesh_check(f"[phase 20] 2 layers at {cfg.name}'s width", r0)
+    hold_greedy(f"[phase 20] {cfg.name} prefill + decode, "
+                f"{MESH_LM_PROMPT[0]} x {MESH_LM_PROMPT[1]} + "
+                f"{MESH_LM_NEW} tokens", r0["serve"]["got"],
+                r0["serve"]["want"])
+    if r0["n_params"] != cfg.param_count():
+        fail(f"{r0['n_params']} parameters, the config counts "
+             f"{cfg.param_count()}")
+    log(f"[phase 20] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, d_ff="
+        f"{cfg.d_ff}, vocab={cfg.vocab_size}: {r0['n_params']} float32 "
+        f"masters, {r0['local_bytes'] / 1e9:.3f} GB a card, drawn in "
+        f"{r0['init_s']:.2f}s; sharded serving greedy generate "
+        f"{r0['serve_s']:.3f}s with {r0['serve_launches']} flash launches")
+    for i, m in enumerate(r0["steps"]):
+        c = m["collectives"]
+        log(f"[phase 20] step {i + 1}: loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f} lr {m['lr']:.3e} {m['step_time_s']:.4f}s "
+            f"flash launches {m['launches']}; collectives "
+            + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                        for k, v in c.items() if v["count"]))
+    losses = [m["loss"] for m in r0["steps"]]
+    vals = losses + [m["grad_norm"] for m in r0["steps"]]
+    if not all(map(math.isfinite, vals)):
+        fail(f"[phase 20] a loss or grad norm is not finite: {vals}")
+    if not losses[-1] < losses[0]:
+        fail(f"[phase 20] step {TRAIN_STEPS}'s loss {losses[-1]} is not "
+             f"below step 1's {losses[0]}")
+    for r in ranks[1:]:
+        if [m["loss"] for m in r["steps"]] != losses:
+            fail(f"[phase 20] rank {r['rank']} reports other losses")
+    want = 2 * cfg.n_layers
+    launches = {m["launches"] for r in ranks for m in r["steps"]}
+    if launches != {want}:
+        fail(f"[phase 20] flash launches a step {sorted(launches)}, "
+             f"expected {want} on every rank")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = max(r["step_s"] for r in ranks)
+    embed = cfg.vocab_size * cfg.d_model
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
+    attn = 3 * 4.0 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.n_heads \
+        * cfg.n_layers
+    flops = 6.0 * (cfg.param_count() - embed) * tokens + attn
+    bound_s = flops / (n_cards * PEAK_BF16_OPS_PER_S)
+    coll = r0["steps"][-1]["collectives"]
+    coll_gb = sum(v["bytes"] for v in coll.values()) / 1e9
+    peaks = [r["peak_gib"] for r in ranks]
+    log(f"[phase 20] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} = "
+        f"{tokens} tokens on {n_cards} cards: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; median step of steps 3-{TRAIN_STEPS} "
+        f"{step_s:.4f}s (slowest rank's), {tokens / step_s:.0f} tokens/s; "
+        f"bound {bound_s:.4f}s (6 x {cfg.param_count() - embed} parameters "
+        f"less the embedding x {tokens} tokens + causal attention "
+        f"{attn:.3g} FLOP at {n_cards} x {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16), {bound_s / step_s:.1%} of it; peak device memory "
+        f"by card {[round(p, 3) for p in peaks]} GiB; collectives a step "
+        f"{coll_gb:.3f} GB of output a rank; flash launches a step {want}")
+    return {"launches": want, "step_s": step_s, "bound_s": bound_s,
+            "peaks": peaks, "collective_gb": coll_gb}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -5329,9 +5798,9 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (more than one card) "
-                             "on this many cards instead of phases 0-14 "
-                             "and 16-18")
+                        help="run phases 0, 1 and 15 (and 20 on 4: more "
+                             "than one card) on this many cards instead of "
+                             "phases 0-14 and 16-19")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5348,6 +5817,10 @@ def main() -> None:
         t0 = time.perf_counter()
         phase15_cards(args.cards)
         log(f"[phase 15] {time.perf_counter() - t0:.1f}s")
+        if args.cards == 4:
+            t0 = time.perf_counter()
+            phase20_lm_cards(args.cards, args.seed)
+            log(f"[phase 20] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)
@@ -5498,13 +5971,21 @@ def main() -> None:
         row["launches_train"] = train["full"]["launches"] \
             if row["name"] == "flash_attention" else 0
     log(f"[phase 18] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm_mesh = phase19_lm_mesh(args.seed)
+    for row in kernels:          # launches per sharded step, on one rank
+        row["launches_lm_mesh"] = lm_mesh["launches"] \
+            if row["name"] == "flash_attention" else 0
+    log(f"[phase 19] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_compressive", "launches_engine",
             "launches_partitioned", "launches_mesh", "launches_v2_lite",
             "launches_moe_16b", *NEW_ARCHS.values(), "launches_train",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_lm_mesh", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))

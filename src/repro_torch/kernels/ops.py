@@ -3,7 +3,10 @@
 Dispatch goes by the tensors' device, and by nothing else:
 
   - a CPU tensor takes the kernel's plain PyTorch version (``ref.py``);
-  - a CUDA tensor launches the kernel, or raises.
+  - a CUDA tensor launches the kernel, or raises;
+  - a tensor without data (on ``"meta"``, or a dry run's ``FakeTensor``)
+    takes the kernel's ``torch.library`` op (``repro_torch::<name>``),
+    whose fake gives the output's shape and launches nothing.
 
 There is no fallback from one to the other and no switch. ``impl`` is
 accepted for signature parity with the JAX package, whose values
@@ -20,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -79,6 +82,14 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return next(iter(devices)).type == "cuda"
 
 
+def _shape_only(t: torch.Tensor) -> bool:
+    """A tensor without data: on ``"meta"``, or a ``FakeTensor`` (the dry
+    run's, ``launch.dryrun``). A kernel's wrapper gives it the kernel's
+    shape-only implementation, a ``torch.library`` fake."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "meta" or is_fake(t)
+
+
 def _require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must have dtype in {dtypes}, got {t.dtype}")
@@ -129,6 +140,9 @@ def rb_binning(
     _check_impl(impl)
     if d_g < 1 or d_g & (d_g - 1):
         raise ValueError(f"d_g must be a power of two, got {d_g}")
+    if _shape_only(x):
+        return torch.ops.repro_torch.rb_binning(x, widths, biases, hash_a,
+                                                hash_c, d_g)
     if not _on_cuda(x, widths, biases, hash_a, hash_c):
         return ref.rb_binning_ref(x, widths, biases, hash_a, hash_c, d_g)
     _require(x, "x", (torch.float32,), 2)
@@ -411,6 +425,8 @@ def z_matmul(
     kernel, or else :func:`z_matmul_gather`'s. Both sum each output over
     the grids in order and scale it once, so they give the same bits."""
     _check_impl(impl)
+    if _shape_only(v):
+        return torch.ops.repro_torch.z_matmul(idx, v, rowscale, d_g)
     if not _z_args(idx, v, rowscale, d_g):
         return ref.z_matmul_ref(idx, v, rowscale)
     n, r = idx.shape
@@ -447,6 +463,8 @@ def z_matmul_gather(
     Safe inside
     a CUDA graph capture: the launch allocates nothing but ``out`` and sets
     no attribute."""
+    if _shape_only(v):
+        return torch.ops.repro_torch.z_matmul_gather(idx, v, rowscale, d_g)
     if not _z_args(idx, v, rowscale, d_g):
         return ref.z_matmul_ref(idx, v, rowscale)
     n, r = idx.shape
@@ -483,6 +501,8 @@ def zt_matmul(
     ``csc`` alone, so on CUDA ``idx`` may be None when ``csc`` is given (the
     streaming sweep uploads a chunk's CSC, not its idx)."""
     _check_impl(impl)
+    if _shape_only(u):
+        return torch.ops.repro_torch.zt_matmul(idx, u, rowscale, d, d_g)
     if idx is None and (csc is None or not u.is_cuda):
         raise ValueError("zt_matmul needs idx, or on CUDA its csc")
     if not _on_cuda(*(t for t in (idx, u, rowscale) if t is not None)):
@@ -535,6 +555,8 @@ def gram_matmul(
     repack pass. Any other shape takes that composition. ``csc`` as for
     :func:`zt_matmul`."""
     _check_impl(impl)
+    if _shape_only(u):
+        return torch.ops.repro_torch.gram_matmul(idx, u, rowscale, d, d_g)
     n, r = idx.shape
     if not _on_cuda(idx, u, rowscale) or d != r * d_g:
         # the plain versions; z_matmul raises on d ≠ R·d_g
@@ -599,6 +621,9 @@ def bin_counts(
     if out is not None and (out.dtype != torch.int32 or out.shape != (d,)):
         raise ValueError(f"out must be int32 ({d},), got {out.dtype} "
                          f"{tuple(out.shape)}")
+    if _shape_only(idx):
+        return out if out is not None else \
+            torch.ops.repro_torch.bin_counts(idx, d, d_g)
     if not _on_cuda(idx, *(() if out is None else (out,))):
         counts = ref.bin_counts_ref(idx, d)
         return counts if out is None else out.add_(counts)
@@ -650,6 +675,8 @@ def kmeans_assign(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(labels int32 (N,), squared distance to nearest centroid (N,))."""
     _check_impl(impl)
+    if _shape_only(x):
+        return torch.ops.repro_torch.kmeans_assign(x, centroids)
     if not _on_cuda(x, centroids):
         return ref.kmeans_assign_ref(x, centroids)
     n, d, k = _kmeans_args(x, centroids)
@@ -678,6 +705,8 @@ def kmeans_assign_stats(
     same on every run (the grid depends on the shape and the card
     alone)."""
     _check_impl(impl)
+    if _shape_only(x):
+        return torch.ops.repro_torch.kmeans_assign_stats(x, centroids)
     if not _on_cuda(x, centroids):
         return ref.kmeans_assign_stats_ref(x, centroids)
     n, d, k = _kmeans_args(x, centroids)
@@ -710,6 +739,113 @@ def kmeans_assign_stats(
             scratch.data_ptr(), nbytes, n, d, k)
     _count("kmeans_assign_stats")
     return labels, counts, sums, inertia
+
+
+# --------------------------------------------------------------------------
+# the kernels as torch.library ops: each op's CUDA implementation is its
+# wrapper above (the launch), its fake the output's shape alone. A wrapper
+# calls its op only for tensors without data (``_shape_only``: a dry run's
+# FakeTensors), so the launches on the card keep their direct path.
+# --------------------------------------------------------------------------
+
+_OP = dict(mutates_args=(), device_types="cuda")
+
+
+@torch.library.custom_op("repro_torch::rb_binning", **_OP)
+def _rb_binning_op(x: torch.Tensor, widths: torch.Tensor,
+                   biases: torch.Tensor, hash_a: torch.Tensor,
+                   hash_c: torch.Tensor, d_g: int) -> torch.Tensor:
+    return rb_binning(x, widths, biases, hash_a, hash_c, d_g=d_g)
+
+
+@_rb_binning_op.register_fake
+def _(x, widths, biases, hash_a, hash_c, d_g):
+    return x.new_empty((x.shape[0], widths.shape[0]), dtype=torch.int32)
+
+
+@torch.library.custom_op("repro_torch::z_matmul", **_OP)
+def _z_matmul_op(idx: torch.Tensor, v: torch.Tensor, rowscale: torch.Tensor,
+                 d_g: int) -> torch.Tensor:
+    return z_matmul(idx, v, rowscale, d_g=d_g)
+
+
+@_z_matmul_op.register_fake
+def _(idx, v, rowscale, d_g):
+    return v.new_empty((idx.shape[0], v.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::z_matmul_gather", **_OP)
+def _z_matmul_gather_op(idx: torch.Tensor, v: torch.Tensor,
+                        rowscale: torch.Tensor, d_g: int) -> torch.Tensor:
+    return z_matmul_gather(idx, v, rowscale, d_g=d_g)
+
+
+@_z_matmul_gather_op.register_fake
+def _(idx, v, rowscale, d_g):
+    return v.new_empty((idx.shape[0], v.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::zt_matmul", **_OP)
+def _zt_matmul_op(idx: Optional[torch.Tensor], u: torch.Tensor,
+                  rowscale: torch.Tensor, d: int, d_g: int) -> torch.Tensor:
+    return zt_matmul(idx, u, rowscale, d, d_g=d_g)
+
+
+@_zt_matmul_op.register_fake
+def _(idx, u, rowscale, d, d_g):
+    return u.new_empty((d, u.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::gram_matmul", **_OP)
+def _gram_matmul_op(idx: torch.Tensor, u: torch.Tensor,
+                    rowscale: torch.Tensor, d: int, d_g: int) -> torch.Tensor:
+    return gram_matmul(idx, u, rowscale, d, d_g=d_g)
+
+
+@_gram_matmul_op.register_fake
+def _(idx, u, rowscale, d, d_g):
+    return u.new_empty(u.shape, dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::bin_counts", **_OP)
+def _bin_counts_op(idx: torch.Tensor, d: int, d_g: int) -> torch.Tensor:
+    return bin_counts(idx, d=d, d_g=d_g)
+
+
+@_bin_counts_op.register_fake
+def _(idx, d, d_g):
+    return idx.new_empty((d,), dtype=torch.int32)
+
+
+@torch.library.custom_op("repro_torch::kmeans_assign", **_OP)
+def _kmeans_assign_op(x: torch.Tensor, centroids: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return kmeans_assign(x, centroids)
+
+
+@_kmeans_assign_op.register_fake
+def _(x, centroids):
+    n = x.shape[0]
+    return (x.new_empty((n,), dtype=torch.int32),
+            x.new_empty((n,), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::kmeans_assign_stats", **_OP)
+def _kmeans_assign_stats_op(x: torch.Tensor, centroids: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    # an op's outputs may not alias each other: the statistics are views
+    # of one buffer in the wrapper
+    labels, counts, sums, inertia = kmeans_assign_stats(x, centroids)
+    return labels, counts.clone(), sums.clone(), inertia.clone()
+
+
+@_kmeans_assign_stats_op.register_fake
+def _(x, centroids):
+    n, k, d = x.shape[0], centroids.shape[0], x.shape[1]
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((n,), dtype=torch.int32), x.new_empty((k,), **f32),
+            x.new_empty((k, d), **f32), x.new_empty((), **f32))
 
 
 # --------------------------------------------------------------------------
@@ -759,12 +895,13 @@ def flash_attention(
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if not _on_cuda(q, k, v):
+    shape_only = _shape_only(q)
+    if not shape_only and not _on_cuda(q, k, v):
         return ref.flash_attention_bshd_ref(q, k, v, causal=causal,
                                             window=window)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _require(x, name, (torch.float32, torch.bfloat16), 4)
-        if x.data_ptr() % 16:
+        if not shape_only and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
@@ -783,6 +920,16 @@ def flash_attention(
 
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The kernel on checked tensors, through the ``torch.library`` op
+    ``repro_torch::flash_attention``: the launch on CUDA tensors, the
+    op's fake (the output's shape) on tensors without data."""
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int]) -> torch.Tensor:
     """The kernel's launch on checked CUDA tensors."""
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -797,6 +944,23 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and s >= t + window:
         _fill_keyless_rows(out, v, t + window - 1)
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def flash_flops(b: int, s: int, t: int, h: int, hd: int, causal: bool,
+                window: Optional[int]) -> int:
+    """Multiply-adds × 2 of the kernel's two products (QKᵀ, PV) over the
+    (query, key) pairs its mask lets through: 4 · hd · pairs · B · H."""
+    import numpy as np     # host arithmetic: counted inside fake modes too
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    return 4 * hd * pairs * b * h
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -23,8 +23,13 @@ plain PyTorch, the grouped einsum of the JAX package, which computes it
 outside any Pallas kernel too. MLA (DeepSeek-V2), the MoE FFN
 (DeepSeekMoE) and the Mamba2 SSD scan reach no Pallas kernel in the JAX
 package either (einsums, a sort and scatters, a chunked scan), and are
-plain PyTorch here too. The sharding hints are not ported: this port runs
-a model on one card.
+plain PyTorch here too.
+
+On a mesh (``models.sharding.Layout``) the blocks read their head counts
+and widths from their weights' shapes, which are this rank's share when a
+block runs split over the model axis; such a block's ``tp`` (a
+``sharding.ModelSplit``) marks its entry and its partial output, which is
+all-reduced. The reference's ``shard_hint`` has no other counterpart.
 """
 from __future__ import annotations
 
@@ -56,6 +61,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """x @ w for a block split over the model axis (``tp``, a
+    ``sharding.ModelSplit``): each rank's partial product over its share
+    of the inner dim, all-reduced. Serving forms the partials in float32
+    (``ref.bmm_f32``) and rounds their sum once, as one card's product
+    rounds once; training keeps the compute dtype (that float32-output
+    product has no derivative)."""
+    if torch.is_grad_enabled():
+        return tp.exit(x @ w)
+    y = ref.bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None])
+    return tp.exit(y.reshape(*x.shape[:-1], w.shape[1])).to(x.dtype)
 
 
 def normal_(w: torch.Tensor, generator: torch.Generator,
@@ -191,6 +209,7 @@ class GQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = param(hd, fill=1.0, **kw)
             self.k_norm = param(hd, fill=1.0, **kw)
+        self.tp = None       # a sharding.ModelSplit when split over heads
 
     def forward(
         self,
@@ -203,7 +222,11 @@ class GQA(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
         b, s, _ = x.shape
-        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
+        # this rank's heads when the block runs split over the model axis
+        h, hkv = self.wq.shape[1] // hd, self.wk.shape[1] // hd
+        if self.tp is not None:
+            x = self.tp.enter(x)
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
@@ -236,7 +259,10 @@ class GQA(nn.Module):
                     q, cache["k"].view(b, t, hkv, hd),
                     cache["v"].view(b, t, hkv, hd), q_offset=pos,
                     window=window, chunk=cfg.attn_chunk, kv_len=pos + s)
-        return out.reshape(b, s, h * hd) @ self.wo, cache
+        out = out.reshape(b, s, h * hd)
+        if self.tp is not None:
+            return row_parallel(out, self.wo, self.tp), cache
+        return out @ self.wo, cache
 
 
 def init_gqa(cfg: ModelConfig, generator: torch.Generator, *,
@@ -271,9 +297,14 @@ class MLP(nn.Module):
         self.wg = param(d, f, **kw)
         self.wu = param(d, f, **kw)
         self.wd = param(f, d, **kw)
+        self.tp = None       # a sharding.ModelSplit when split over its width
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, self.wg, self.wu, self.wd)
+        if self.tp is None:
+            return swiglu(x, self.wg, self.wu, self.wd)
+        x = self.tp.enter(x)
+        return row_parallel(F.silu(x @ self.wg) * (x @ self.wu), self.wd,
+                            self.tp)
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,
@@ -449,11 +480,14 @@ class MoE(nn.Module):
         self.experts.wu = param(e, d, fe, **kw)
         self.experts.wd = param(e, fe, d, **kw)
         self.shared = MLP(cfg, mo.n_shared * fe, **kw)
+        # a sharding.BatchStats on a mesh: the aux loss's global statistics
+        self.batch_stats = None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         probs, gates, eidx = moe_route(self.cfg, self, x)
         out = moe_experts(self.cfg, self, x, gates, eidx)
-        return out + self.shared(x), moe_aux(self.cfg, probs, eidx)
+        return out + self.shared(x), moe_aux(self.cfg, probs, eidx,
+                                             self.batch_stats)
 
 
 def moe_capacity(cfg: ModelConfig, s: int) -> int:
@@ -528,16 +562,28 @@ def moe_experts(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     return (y[dest] * w[..., None]).sum(dim=2)
 
 
-def moe_aux(cfg: ModelConfig, probs: torch.Tensor,
-            eidx: torch.Tensor) -> torch.Tensor:
+def moe_aux(cfg: ModelConfig, probs: torch.Tensor, eidx: torch.Tensor,
+            stats=None) -> torch.Tensor:
     """Switch-style load-balance loss E · Σ_e f_e p̄_e · router_aux_weight,
-    f_e the share of all B·S·k slots routed to e (dropped ones too)."""
+    f_e the share of all B·S·k slots routed to e (dropped ones too).
+
+    With the batch split over ranks (``stats``, a ``sharding.BatchStats``)
+    and a gradient to take, f_e counts the global batch's slots and this
+    rank returns its share E · Σ_e f_e · (Σ of its probabilities)/N · w:
+    the shares sum to the global loss and their gradients to its gradient
+    (the mean of products is not the product of means). Serving, which
+    discards the aux loss, takes the local batch's."""
     mo = cfg.moe
     b, s, k = eidx.shape
     flat = eidx.reshape(-1)
     counts = torch.zeros((mo.n_routed,), dtype=torch.int64,
                          device=eidx.device)
     counts.scatter_add_(0, flat, torch.ones_like(flat))
+    if stats is not None and torch.is_grad_enabled():
+        n = b * s * stats.shards
+        frac = stats.sum(counts).float() / max(n * k, 1)
+        share = probs.sum(dim=(0, 1)) / n
+        return mo.n_routed * torch.sum(frac * share) * mo.router_aux_weight
     frac = counts.float() / max(b * s * k, 1)
     pbar = probs.mean(dim=(0, 1))
     return mo.n_routed * torch.sum(frac * pbar) * mo.router_aux_weight

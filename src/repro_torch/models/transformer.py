@@ -26,6 +26,16 @@ rounded through ``cfg.dtype``. Each layer then runs under ``cfg.remat``
 ``ModuleList``, and layers run in a Python loop (the JAX package scans
 them). Caches are updated in place and returned.
 
+On a ``torch.distributed`` mesh (``shard_params``, or ``init_params(...,
+mesh=)``) the parameters are DTensors in the reference's FSDP×TP layout
+(``models.sharding``) and the model carries its ``sharding.Layout``;
+every entry point below then runs this rank's share: ``lm_loss`` on the
+batch rows ``batch_specs`` gives it (the CE's token count and the MoE aux
+loss's statistics summed over the batch ranks), ``init_cache`` makes
+``cache_specs``' DTensor caches, and ``prefill`` and ``decode_step`` run
+the rows of the caches' batch split and return DTensor logits. Batches
+come whole (the global batch on every rank) or as DTensors.
+
 Entry points run on the card unless given ``device="cpu"``; without a card
 they raise.
 """
@@ -42,6 +52,7 @@ from torch.func import functional_call
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 from repro_torch.models.config import ModelConfig, Segment
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -185,8 +196,9 @@ def empty_params(cfg: ModelConfig, *, device: DeviceLike = "cuda",
 
 
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
-                device: DeviceLike = "cuda",
-                masters: bool = False) -> TransformerLM:
+                device: DeviceLike = "cuda", masters: bool = False,
+                mesh=None, batch_size: Optional[int] = None
+                ) -> TransformerLM:
     """Weights of ``cfg`` in ``cfg.dtype`` on ``device``: N(0, 0.02²) (the
     output projections scaled by 1/√(2·n_layers), a MoE router N(0,
     0.006²), an SSM's as ``layers.init_ssm``), norms 1, biases 0, as the
@@ -195,7 +207,13 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
     ``generator`` is a ``torch.Generator`` on ``device`` or an int seed for
     one; it cannot replay ``jax.random``, so the two packages draw
     different weights from the same seed (the tests carry weights across
-    with ``params_from_reference``)."""
+    with ``params_from_reference``).
+
+    With ``mesh`` (a ``DeviceMesh``; ``batch_size`` the training batch's,
+    see ``shard_params``) every rank draws each tensor whole, in the same
+    order, keeps its shard and frees the rest before the next layer: the
+    shards of the unsharded draws, with one layer (and ``embed``) whole
+    at a time."""
     check_layers(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
@@ -203,17 +221,30 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0, *,
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, device {dev}")
     dtype = _weights_dtype(cfg, masters)
+    layout = None if mesh is None else S.Layout(
+        cfg, mesh, empty_params(cfg, device="meta", masters=masters),
+        batch_size=batch_size)
     segments = nn.ModuleList()
     model = TransformerLM(cfg, segments, device=dev, dtype=dtype)
+    model.requires_grad_(masters)
     if cfg.input_mode == "tokens":
         L.normal_(model.embed, generator)
     if not cfg.tie_embeddings:
         L.normal_(model.head, generator)
-    for seg in cfg.segments:
-        segments.append(nn.ModuleList(
-            _layer(cfg, seg, dev, dtype, generator)
-            for _ in range(seg.count)))
-    return model.requires_grad_(masters)
+    if layout is not None:
+        _shard_module(model, "", layout, dev)
+    for i, seg in enumerate(cfg.segments):
+        layers = nn.ModuleList()
+        segments.append(layers)
+        for j in range(seg.count):
+            layer = _layer(cfg, seg, dev, dtype, generator)
+            layer.requires_grad_(masters)
+            if layout is not None:
+                _shard_module(layer, f"segments.{i}.{j}.", layout, dev)
+            layers.append(layer)
+    if layout is not None:
+        _attach(model, layout)
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -259,23 +290,32 @@ def _named(params: Union[TransformerLM, Mapping[str, torch.Tensor]]
 
 def params_to_reference(cfg: ModelConfig,
                         params: Union[TransformerLM,
-                                      Mapping[str, torch.Tensor]]
-                        ) -> Dict[str, Any]:
+                                      Mapping[str, torch.Tensor]], *,
+                        lazy: bool = False) -> Dict[str, Any]:
     """``params`` (the modules, or a ``{name: tensor}`` map such as AdamW's
     moments) as the JAX package's tree of numpy arrays, each segment's
     layers stacked along a leading axis (copies, never views of the
     tensors): the inverse of ``params_from_reference`` (float32 masters
     round-trip bit for bit; bf16 comes out as float32, which numpy can
-    hold)."""
+    hold). DTensors (a model on a mesh) are gathered whole, one tensor at
+    a time; with ``lazy`` each leaf is a function that builds it, for
+    ``checkpoint.save`` to call as it writes."""
     named = _named(params)
 
     def host(name: str) -> np.ndarray:
+        t = S.whole(named[name].detach())
         # a copy: a CPU tensor's .numpy() would share the live weights
-        t = named[name].detach().cpu()
+        t = t.cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
-    return _reference_tree(named, lambda path, names: np.stack(
-        [host(n) for n in names]) if _is_stacked(path) else host(names[0]))
+    def leaf(path: Path, names: List[str]) -> np.ndarray:
+        return np.stack([host(n) for n in names]) if _is_stacked(path) \
+            else host(names[0])
+
+    if lazy:
+        return _reference_tree(named, lambda path, names: functools.partial(
+            leaf, path, names))
+    return _reference_tree(named, leaf)
 
 
 def reference_like(params: Union[TransformerLM, Mapping[str, torch.Tensor]]
@@ -315,7 +355,8 @@ def load_reference(params: Union[TransformerLM, Mapping[str, torch.Tensor]],
     """Copy the JAX package's tree (numpy leaves, or anything
     ``np.asarray`` reads) into ``params``' tensors in place, each rounded
     to its tensor's dtype. Every leaf must have its tensor, and the shapes
-    must agree."""
+    must agree. A DTensor (a model on a mesh) takes its shard of the
+    leaf."""
     named = _named(params)
     paths = reference_paths(named)
     if _count_leaves(tree) != len(paths):
@@ -323,12 +364,15 @@ def load_reference(params: Union[TransformerLM, Mapping[str, torch.Tensor]],
                          f"parameters fill {len(paths)}")
 
     def put(w: torch.Tensor, a) -> None:
+        if tuple(np.shape(a)) != tuple(w.shape):
+            raise ValueError(f"reference leaf of shape {tuple(np.shape(a))} "
+                             f"for a weight of shape {tuple(w.shape)}")
+        if hasattr(w, "to_local"):
+            a = S.local_slice(a, w.device_mesh, w.placements,
+                              w.device_mesh.get_coordinate())
         a = torch.from_numpy(np.array(a))
-        if a.shape != w.shape:
-            raise ValueError(f"reference leaf of shape {tuple(a.shape)} for "
-                             f"a weight of shape {tuple(w.shape)}")
         with torch.no_grad():
-            w.copy_(a)
+            (w.to_local() if hasattr(w, "to_local") else w).copy_(a)
 
     for path, names in paths.items():
         leaf = tree
@@ -362,11 +406,113 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any], *,
 
 
 # ---------------------------------------------------------------------------
+# a mesh: the reference's FSDP×TP layout (models.sharding)
+# ---------------------------------------------------------------------------
+
+def layout_of(params: TransformerLM) -> Optional[S.Layout]:
+    """The ``sharding.Layout`` of a model on a mesh, None for one card."""
+    return getattr(params, "layout", None)
+
+
+def _shard_module(module: nn.Module, prefix: str, layout: S.Layout,
+                  device: Optional[torch.device]) -> None:
+    """Each parameter of ``module`` (named ``prefix`` + its name in the
+    model) replaced by a DTensor parameter holding this rank's shard, a
+    copy; the whole tensor is freed when nothing else holds it. A
+    parameter on ``"meta"`` gets an uninitialised shard on ``device``."""
+    from torch.distributed.tensor import DTensor
+    for name, p in list(module.named_parameters()):
+        pls = layout.plans[prefix + name].placements
+        if p.device.type == "meta":
+            local = torch.empty(S.local_shape(p.shape, layout.mesh, pls),
+                                dtype=p.dtype, device=device)
+        else:
+            local = S.local_slice(p.detach(), layout.mesh, pls,
+                                  layout.coord).clone()
+        dt = DTensor.from_local(local, layout.mesh, pls, run_check=False,
+                                shape=p.shape,
+                                stride=torch.empty(p.shape,
+                                                   device="meta").stride())
+        owner, leaf = (module.get_submodule(name.rsplit(".", 1)[0]),
+                       name.rsplit(".", 1)[1]) if "." in name \
+            else (module, name)
+        owner._parameters[leaf] = nn.Parameter(
+            dt, requires_grad=p.requires_grad)
+
+
+def _attach(model: TransformerLM, layout: S.Layout) -> None:
+    """The layout on the model, the model-axis split on each block that
+    runs split, the batch statistics on each MoE."""
+    for prefix in layout.split_blocks:
+        model.get_submodule(prefix[:-1]).tp = layout.split
+    for mod in model.modules():
+        if isinstance(mod, L.MoE):
+            mod.batch_stats = layout.batch_stats
+    model.layout = layout
+
+
+def shard_params(cfg: ModelConfig, params: TransformerLM, mesh, *,
+                 batch_size: Optional[int] = None,
+                 device: DeviceLike = "cuda") -> TransformerLM:
+    """``params`` on ``mesh``, in place: every parameter a DTensor with
+    ``sharding.param_specs``' placements (this rank's shard a copy, the
+    whole tensor freed as it goes), the model carrying its
+    ``sharding.Layout``. ``batch_size`` is the training batch's (the axes
+    ``batch_specs`` splits it over; None: all of FSDP's). A model on
+    ``"meta"`` gets uninitialised shards on ``device`` (the card unless
+    asked for the CPU); any other keeps its parameters' device."""
+    dev = resolve_device(device) \
+        if any(p.device.type == "meta" for p in params.parameters()) else None
+    layout = S.Layout(cfg, mesh, params, batch_size=batch_size)
+    _shard_module(params, "", layout, dev)
+    _attach(params, layout)
+    return params
+
+
+def _rows(layout: S.Layout, t, axes: Tuple[int, ...], dim: int = 0
+          ) -> torch.Tensor:
+    """This rank's rows (along ``dim``) of a whole batch entry split over
+    mesh dims ``axes``: a DTensor already split so is its local shard, any
+    other DTensor is made whole first (an all-gather)."""
+    if hasattr(t, "full_tensor"):
+        want = tuple(getattr(pl, "dim", None) == dim if i in axes
+                     else getattr(pl, "dim", None) is None
+                     for i, pl in enumerate(t.placements))
+        if all(want):
+            return t.to_local()
+        t = S.whole(t)
+    t = torch.as_tensor(t)
+    first, n = layout.rows(t.shape[dim], axes)
+    return t.narrow(dim, first, n)
+
+
+def _local_batch(layout: S.Layout, batch: Mapping[str, Any],
+                 axes: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every batch entry (``positions`` (3, B, S) along
+    its dim 1)."""
+    return {k: _rows(layout, v, axes,
+                     len(v.shape) - 2 if k == "positions" else 0)
+            for k, v in batch.items()}
+
+
+def _dtensor(layout: S.Layout, local: torch.Tensor, spec: S.Spec,
+             shape: Tuple[int, ...]):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        local, layout.mesh, S.placements(layout.mesh, spec), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 def _embed(params: TransformerLM, tokens) -> torch.Tensor:
-    return params.embed[torch.as_tensor(tokens, device=params.device).long()]
+    layout = layout_of(params)
+    table = params.embed if layout is None \
+        else layout.use("embed", params.embed, None)
+    return table[torch.as_tensor(tokens, device=params.device).long()]
 
 
 def _embed_inputs(cfg: ModelConfig, params: TransformerLM,
@@ -424,19 +570,31 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope
+def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope,
+                 layout: Optional[S.Layout] = None, prefix: str = ""
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``layer`` on x with gradients: each float32 master cast to
     ``cfg.dtype`` inside the function that ``cfg.remat`` wraps, so
     ``"full"`` recomputes the cast with the layer (the bf16 copies are not
     kept between forward and backward) and the gradients reach the
     masters through it. ``"dots"`` keeps the matrix products' outputs,
-    ``"none"`` keeps everything; the three give the same values."""
+    ``"none"`` keeps everything; the three give the same values.
+
+    On a mesh the function also all-gathers each cast shard
+    (``layout.use``, ``prefix`` the layer's name in the model), so under
+    ``"full"`` the gathered weights live only while the layer runs, in
+    the forward and again in its recompute, and their gradients are
+    reduce-scattered to the shards during the backward, layer by layer."""
     names, masters = zip(*layer.named_parameters())
     dtype = _dtype(cfg)
+    if layout is None:
+        cast_fn = lambda n, w: w.to(dtype)                    # noqa: E731
+    else:
+        masters = tuple(w.to_local() for w in masters)
+        cast_fn = lambda n, w: layout.use(prefix + n, w, dtype)  # noqa: E731
 
     def run(x_, *ws):
-        cast = {n: w.to(dtype) for n, w in zip(names, ws)}
+        cast = {n: cast_fn(n, w) for n, w in zip(names, ws)}
         return functional_call(layer, cast, (x_, rope))
 
     if cfg.remat == "none":
@@ -455,22 +613,30 @@ def _forward_train(cfg: ModelConfig, params: TransformerLM,
                    batch: Mapping[str, Any]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     dtype = _dtype(cfg)
+    layout = layout_of(params)
+    if layout is None:
+        cast = lambda n, w: w.to(dtype)                       # noqa: E731
+    else:
+        batch = _local_batch(layout, batch, layout.batch_axes)
+        cast = lambda n, w: layout.use(n, w, dtype)           # noqa: E731
     if cfg.input_mode == "tokens":
         # the gather as F.embedding: its backward on the card sums a
         # token's rows in a fixed order (indexing's backward, index_put_
         # with accumulate, adds with atomics in any order)
         tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
-        x = F.embedding(tokens, params.embed.to(dtype))
+        x = F.embedding(tokens, cast("embed", params.embed))
     else:
         x = torch.as_tensor(batch["embeds"], device=params.device).to(dtype)
     rope = _prompt_rope(cfg, batch, x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for seg in params.segments:
-        for layer in seg:
-            x, aux = _train_layer(cfg, layer, x, rope)
+    for i, seg in enumerate(params.segments):
+        for j, layer in enumerate(seg):
+            x, aux = _train_layer(cfg, layer, x, rope, layout,
+                                  f"segments.{i}.{j}.")
             if aux is not None:
                 aux_total = aux_total + aux
-    return L.rmsnorm(x, params.final_ln.to(dtype), cfg.norm_eps), aux_total
+    return L.rmsnorm(x, cast("final_ln", params.final_ln),
+                     cfg.norm_eps), aux_total
 
 
 def forward_hidden(cfg: ModelConfig, params: TransformerLM,
@@ -482,6 +648,16 @@ def forward_hidden(cfg: ModelConfig, params: TransformerLM,
     masters to ``cfg.dtype`` and wrapping each layer by ``cfg.remat``."""
     if training:
         return _forward_train(cfg, params, batch)
+    layout = layout_of(params)
+    if layout is not None:
+        with torch.no_grad():
+            b = len(next(iter(batch.values())))
+            batch = _local_batch(layout, batch, layout.cache_axes(b))
+            x = _embed_inputs(cfg, params, batch)
+            x, aux = _run_sharded(params, layout, x,
+                                  _prompt_rope(cfg, batch, x), None, None)
+            return L.rmsnorm(x, layout.use("final_ln", params.final_ln,
+                                           None), cfg.norm_eps), aux
     with torch.no_grad():
         x = _embed_inputs(cfg, params, batch)
         x, aux = _run(params, x, _prompt_rope(cfg, batch, x), None, None)
@@ -517,7 +693,14 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
     recomputed in the backward (``torch.utils.checkpoint``), so the (T, V)
     logits never exist at once."""
     h, aux = forward_hidden(cfg, params, batch, training=True)
-    head = params.head_matrix().to(_dtype(cfg))
+    layout = layout_of(params)
+    dtype = _dtype(cfg)
+    if layout is None:
+        head = params.head_matrix().to(dtype)
+    else:
+        batch = _local_batch(layout, batch, layout.batch_axes)
+        head = layout.use("embed", params.embed, dtype).T \
+            if cfg.tie_embeddings else layout.use("head", params.head, dtype)
     b, s, d = h.shape
     t = b * s
     hf = h.reshape(t, d)
@@ -530,20 +713,34 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
             _chunk_nll, hf[c0:c0 + chunk], labels[c0:c0 + chunk], head,
             use_reentrant=False)
     n_tok = (labels >= 0).sum().float()
+    if layout is None:
+        ce = nll_sum / torch.clamp(n_tok, min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": n_tok}
+    # this rank's share of the global mean: its tokens' NLL over the global
+    # token count; the shares (and their gradients) sum to the global loss
+    n_tok = layout.batch_stats.sum(n_tok)
     ce = nll_sum / torch.clamp(n_tok, min=1.0)
-    return ce + aux, {"ce": ce, "aux": aux, "tokens": n_tok}
+    share = ce + aux
+    ce_all = layout.batch_stats.sum(ce.detach().clone())
+    aux_all = layout.batch_stats.sum(aux.detach().clone())
+    return share, {"ce": ce_all, "aux": aux_all, "tokens": n_tok,
+                   "loss": ce_all + aux_all}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
-               device: DeviceLike = "cuda") -> Caches:
+               device: DeviceLike = "cuda", mesh=None) -> Caches:
     """Zeroed caches for every segment, stacked along the layer count:
     ``{"seg<i>": {"k", "v"}}`` of (count, B, cache_len, Hkv·hd) for a GQA
     segment, ``{"ckv", "kr"}`` of (count, B, cache_len, kv_lora_rank) and
     (count, B, cache_len, qk_rope_dim) for an MLA one, ``{"state",
     "conv"}`` of (count, B, H, N, P) float32 and (count, B, K−1, C) for an
-    SSM one, all four for a hybrid one."""
+    SSM one, all four for a hybrid one. With ``mesh`` each buffer is a
+    DTensor of zeros with ``sharding.cache_specs``' placements (this rank's
+    shard alone is allocated)."""
     check_layers(cfg)
     dev = resolve_device(device)
+    if mesh is not None:
+        return _sharded_cache(cfg, batch_size, cache_len, dev, mesh)
     dtype = _dtype(cfg)
     caches: Caches = {}
     for i, seg in enumerate(cfg.segments):
@@ -566,10 +763,122 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
     return caches
 
 
+def _sharded_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
+                   dev: torch.device, mesh) -> Caches:
+    from torch.distributed.tensor import DTensor
+    shapes = _cache_shapes(cfg, batch_size, cache_len)
+    specs = S.cache_specs(cfg, mesh, shapes)
+    out: Caches = {}
+    for seg, bufs in shapes.items():
+        out[seg] = {}
+        for name, meta in bufs.items():
+            pls = S.placements(mesh, specs[seg][name])
+            local = torch.zeros(S.local_shape(meta.shape, mesh, pls),
+                                dtype=meta.dtype, device=dev)
+            out[seg][name] = DTensor.from_local(
+                local, mesh, pls, run_check=False, shape=meta.shape,
+                stride=meta.stride())
+    return out
+
+
+def _cache_shapes(cfg: ModelConfig, batch_size: int, cache_len: int
+                  ) -> Caches:
+    """``init_cache``'s buffers on ``"meta"``: the shapes alone."""
+    dtype = _dtype(cfg)
+    out: Caches = {}
+    for i, seg in enumerate(cfg.segments):
+        shapes = {}
+        if seg.mixer in ("gqa", "hybrid"):
+            kv = (cache_len, cfg.n_kv_heads * cfg.head_dim)
+            shapes.update(k=(kv, dtype), v=(kv, dtype))
+        if seg.mixer == "mla":
+            shapes.update(ckv=((cache_len, cfg.mla.kv_lora_rank), dtype),
+                          kr=((cache_len, cfg.mla.qk_rope_dim), dtype))
+        if seg.mixer in ("ssm", "hybrid"):
+            sc, d = cfg.ssm, cfg.d_model
+            shapes.update(
+                state=((sc.n_heads(d), sc.d_state, sc.head_dim),
+                       torch.float32),
+                conv=((sc.conv_kernel - 1, sc.conv_channels(d)), dtype))
+        out[f"seg{i}"] = {
+            name: torch.empty((seg.count, batch_size) + shape, dtype=dt,
+                              device="meta")
+            for name, (shape, dt) in shapes.items()}
+    return out
+
+
+def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
+                 rope, caches: Optional[Caches], pos: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_run`` on a mesh, under ``torch.no_grad``: each layer's weights
+    gathered as its plan says (``layout.use``) for the layer alone. A
+    cache buffer whose model-axis split is not the layer's own (an
+    attention that runs whole, an SSM's state and conv inputs, MLA's
+    latents) is all-gathered over ``model`` for the layer and this rank's
+    part written back after it; a split attention's K/V shard holds its
+    own heads."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    tp = layout.model_dim
+    for i, seg in enumerate(params.segments):
+        c = caches[f"seg{i}"] if caches is not None else None
+        for j, layer in enumerate(seg):
+            prefix = f"segments.{i}.{j}."
+            used = {n: layout.use(prefix + n, w, None)
+                    for n, w in layer.named_parameters()}
+            cache, back = None, []
+            if c is not None:
+                split_attn = any(prefix + m in layout.split_blocks
+                                 for m in ("mixer.", "mixer.attn."))
+                cache = {}
+                for name, buf in c.items():
+                    local = buf.to_local()[j]
+                    dim = None if tp is None else \
+                        getattr(buf.placements[tp], "dim", None)
+                    if dim is None or (split_attn and name in ("k", "v")):
+                        cache[name] = local
+                        continue
+                    full = S.all_gather(local, layout.groups[tp],
+                                        layout.sizes[tp], dim - 1)
+                    cache[name] = full
+                    back.append((local, full, dim - 1))
+            x, aux = functional_call(layer, used, (x, rope, cache, pos))
+            for local, full, dim in back:
+                n = local.shape[dim]
+                local.copy_(full.narrow(dim, layout.coord[tp] * n, n))
+            if aux is not None:
+                aux_total = aux_total + aux
+    return x, aux_total
+
+
 def _logits(cfg: ModelConfig, params: TransformerLM,
             h: torch.Tensor) -> torch.Tensor:
-    h = L.rmsnorm(h, params.final_ln, cfg.norm_eps)
-    return (h @ params.head_matrix()).float()
+    layout = layout_of(params)
+    if layout is None:
+        h = L.rmsnorm(h, params.final_ln, cfg.norm_eps)
+        return (h @ params.head_matrix()).float()
+    h = L.rmsnorm(h, layout.use("final_ln", params.final_ln, None),
+                  cfg.norm_eps)
+    head = layout.use("embed", params.embed, None).T \
+        if cfg.tie_embeddings else layout.use("head", params.head, None)
+    return (h @ head).float()
+
+
+def _sharded_serve(cfg: ModelConfig, params: TransformerLM, x_fn, batch,
+                   caches: Caches, pos: int, positions_fn):
+    """Prefill or decode on a mesh: the rows of the caches' batch split,
+    DTensor logits (B, V) split the same way."""
+    layout = layout_of(params)
+    some = next(iter(next(iter(caches.values())).values()))
+    b = some.shape[1]
+    axes = layout.cache_axes(b)
+    batch = _local_batch(layout, batch, axes)
+    x = x_fn(batch)
+    x, _ = _run_sharded(params, layout, x, positions_fn(batch, x), caches,
+                        pos)
+    logits = _logits(cfg, params, x[:, -1])
+    names = layout.names
+    spec = (tuple(names[i] for i in axes) or None, None)
+    return _dtensor(layout, logits, spec, (b, logits.shape[1])), caches
 
 
 @torch.no_grad()
@@ -582,6 +891,10 @@ def prefill(cfg: ModelConfig, params: TransformerLM,
     the prompt runs through the flash kernel, once per GQA or hybrid layer
     (an MLA layer's absorbed attention and the SSM scan are plain PyTorch,
     as the JAX package computes them outside any kernel)."""
+    if layout_of(params) is not None:
+        return _sharded_serve(
+            cfg, params, lambda bt: _embed_inputs(cfg, params, bt), batch,
+            caches, 0, lambda bt, x: _prompt_rope(cfg, bt, x))
     x = _embed_inputs(cfg, params, batch)
     x, _ = _run(params, x, _prompt_rope(cfg, batch, x), caches, 0)
     return _logits(cfg, params, x[:, -1]), caches
@@ -592,14 +905,32 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, token,
                 caches: Caches, pos: int) -> Tuple[torch.Tensor, Caches]:
     """One decode step. token: (B,) integer, or (B, D) embeds for a model on
     embedding input; pos: its position (every M-RoPE stream's)."""
+    if layout_of(params) is not None:
+        return _sharded_serve(
+            cfg, params, lambda bt: _token_inputs(cfg, params, bt["token"]),
+            {"token": token}, caches, int(pos),
+            lambda bt, x: _decode_rope(cfg, x, pos))
+    x = _token_inputs(cfg, params, token)
+    return _decode_from(cfg, params, x, caches, pos)
+
+
+def _token_inputs(cfg: ModelConfig, params: TransformerLM, token
+                  ) -> torch.Tensor:
     if cfg.input_mode == "tokens":
-        x = _embed(params, token)[:, None]
-    else:
-        x = torch.as_tensor(token, device=params.device).to(
-            _dtype(cfg))[:, None]
+        return _embed(params, token)[:, None]
+    return torch.as_tensor(token, device=params.device).to(
+        _dtype(cfg))[:, None]
+
+
+def _decode_rope(cfg: ModelConfig, x: torch.Tensor, pos: int):
     b = x.shape[0]
-    positions = torch.full((b, 1), int(pos), device=params.device)
+    positions = torch.full((b, 1), int(pos), device=x.device)
     if cfg.mrope_sections is not None:
         positions = positions[None].expand(3, b, 1)
-    x, _ = _run(params, x, _rope_for(cfg, positions), caches, int(pos))
+    return _rope_for(cfg, positions)
+
+
+def _decode_from(cfg: ModelConfig, params: TransformerLM, x: torch.Tensor,
+                 caches: Caches, pos: int) -> Tuple[torch.Tensor, Caches]:
+    x, _ = _run(params, x, _decode_rope(cfg, x, pos), caches, int(pos))
     return _logits(cfg, params, x[:, 0]), caches

@@ -8,6 +8,13 @@ draws from a ``torch.Generator`` seeded with ``seed``; it cannot replay
 ``jax.random``, so at a temperature above 0 the two packages draw
 different tokens from the same seed (greedy decoding agrees).
 
+``make_prefill_step`` and ``make_serve_step`` are the reference's step
+functions (``launch.specs.build_cell`` returns them). With weights on a
+mesh (``transformer.shard_params``) they run this rank's share with
+``sharding.cache_specs``' caches (``init_cache(..., mesh=)``) and return
+DTensor logits; ``Engine`` then gathers each step's logits, so every rank
+samples the same tokens.
+
 ``Engine`` runs on the card unless given ``device="cpu"``, and raises
 without a card.
 """
@@ -20,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils import DeviceLike, resolve_device
@@ -31,6 +39,20 @@ class ServeConfig:
     batch_size: int
     temperature: float = 0.0      # 0 → greedy
     eos_token: Optional[int] = None
+
+
+def make_serve_step(cfg: ModelConfig):
+    """(params, token, caches, pos) → (logits, caches): one decode step."""
+    def serve_step(params, token, caches, pos):
+        return T.decode_step(cfg, params, token, caches, pos)
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(params, batch, caches) → (last logits, caches)."""
+    def prefill_step(params, batch, caches):
+        return T.prefill(cfg, params, batch, caches)
+    return prefill_step
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator,
@@ -80,12 +102,15 @@ class Engine:
         if p + max_new - 1 > scfg.cache_len:
             raise ValueError(f"{p} prompt + {max_new} new tokens do not fit "
                              f"a cache of {scfg.cache_len}")
-        caches = T.init_cache(cfg, b, scfg.cache_len, device=self.device)
+        layout = T.layout_of(self.params)
+        caches = T.init_cache(cfg, b, scfg.cache_len, device=self.device,
+                              mesh=None if layout is None else layout.mesh)
         embeds = cfg.input_mode != "tokens"
         batch = {"embeds" if embeds else "tokens": prompts}
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = self._sync()
         logits, caches = T.prefill(cfg, self.params, batch, caches)
+        logits = S.whole(logits)
         t_prefill = self._sync()
         tok = sample(logits, gen, scfg.temperature)
         tok_host = tok.cpu().numpy()
@@ -105,6 +130,7 @@ class Engine:
                 if embeds else tok
             logits, caches = T.decode_step(cfg, self.params, feed, caches,
                                            p + i)
+            logits = S.whole(logits)
             tok = sample(logits, gen, scfg.temperature)
             tok_host = tok.cpu().numpy()
             steps += 1

@@ -11,8 +11,14 @@ are numbered in the JAX package's flatten order (dict keys sorted,
 tuples in field order, ``None`` holds none), so either package restores
 the other's checkpoint: the trainer saves ``{"params", "opt_state"}`` in
 the reference's layout (``transformer.params_to_reference``), each
-segment's layers stacked. ``restore`` returns numpy leaves; the caller
-puts them on its device.
+segment's layers stacked. ``restore`` returns numpy leaves (memory-mapped:
+a rank that restores its shards reads only them); the caller puts them on
+its device.
+
+A leaf may also be a function of no arguments that returns the array: a
+sharded model's leaves are gathered one at a time as they are written, so
+the whole tree never sits on the host. Every rank of a mesh calls ``save``
+(each gather is a collective) and one writes (``write=True``).
 """
 from __future__ import annotations
 
@@ -58,14 +64,24 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
 
 
 def _host(leaf: Any) -> np.ndarray:
+    if callable(leaf):
+        leaf = leaf()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
-def save(directory: str, tree: Any, *, step: int, keep: int = 3) -> str:
-    os.makedirs(directory, exist_ok=True)
+def save(directory: str, tree: Any, *, step: int, keep: int = 3,
+         write: bool = True) -> str:
+    """Write ``tree`` as step ``step`` and keep the newest ``keep`` steps.
+    With ``write=False`` every leaf is evaluated (a gathered leaf's
+    collectives joined) and nothing is written."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if not write:
+        for leaf in tree_leaves(tree):
+            _host(leaf)
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -124,7 +140,7 @@ def restore(directory: str, step: int, *, like: Any) -> Any:
                          f"leaves, the tree {len(want)}")
     leaves = []
     for i, w in enumerate(want):
-        arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
+        arr = np.load(os.path.join(path, f"leaf_{i}.npy"), mmap_mode="r")
         if tuple(arr.shape) != tuple(w.shape):
             raise ValueError(f"leaf {i} of {path} has shape {arr.shape}, "
                              f"the tree {tuple(w.shape)}")

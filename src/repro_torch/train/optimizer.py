@@ -17,6 +17,11 @@ layer axis, so a layer's norm scale (D,) is a (count, D) leaf there and is
 decayed (``ndim >= 2``). A leaf named ``segments.*`` (the port's
 ``TransformerLM``: ``segments.<i>.<j>.<leaf>``) counts one more dimension;
 ``embed`` and ``head`` are matrices; ``final_ln`` is not decayed.
+
+On a mesh the parameters, gradients and moments are DTensors with the
+same placements (``models.sharding``): the update runs on the local
+shards, and ``global_norm`` all-reduces the local sums of squares over the
+mesh, each replicated shard counted once.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import math
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.models import sharding as S
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -84,13 +91,41 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step_f < cfg.warmup_steps, warm, decay)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _copies(t: torch.Tensor) -> int:
+    """How many ranks hold each element of a DTensor (1 for a tensor)."""
+    if not hasattr(t, "placements"):
+        return 1
+    sizes = tuple(t.device_mesh.mesh.shape)
+    return math.prod(n for n, pl in zip(sizes, t.placements)
+                     if getattr(pl, "dim", None) is None)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """√(Σ g²) over every tensor, float32: each tensor's sum of squares,
     as the reference writes it. (``torch._foreach_norm`` and
     ``linalg.vector_norm`` sum float32 in one running total on the CPU:
-    2% off at 95M elements, where ``torch.sum`` is within 1e-7.)"""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    2% off at 95M elements, where ``torch.sum`` is within 1e-7.) DTensors:
+    the local sums, each over the number of ranks holding its shard,
+    all-reduced over the mesh."""
+    tensors = list(tensors)
+    if not any(hasattr(t, "placements") for t in tensors):
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tensors))
+    return _mesh_norm([_local(t) for t in tensors],
+                      [_copies(t) for t in tensors], tensors[0].device_mesh)
+
+
+def _mesh_norm(locals_, copies, mesh) -> torch.Tensor:
+    total = sum(torch.sum(torch.square(t.float())) / c
+                for t, c in zip(locals_, copies))
+    sizes = tuple(mesh.mesh.shape)
+    for i, n in enumerate(sizes):
+        total = S.all_reduce(total, mesh.get_group(i), n)
+    return torch.sqrt(total)
 
 
 def compress_bf16(grads: Mapping[str, torch.Tensor], err: Tensors
@@ -131,13 +166,30 @@ def apply_updates(params: Mapping[str, torch.Tensor],
     "lr"}`` (0-d float32 tensors)."""
     step = state.step + 1
     lr = schedule(cfg, step)
+    names = list(params)
+    mesh = next((p.device_mesh for p in params.values()
+                 if hasattr(p, "device_mesh")), None)
+    copies = {n: _copies(params[n]) for n in names}
+    params = {n: _local(p) for n, p in params.items()}
+    grads = {n: _local(g) for n, g in grads.items()}
+    moments_m = {n: _local(t) for n, t in state.m.items()}
+    moments_v = {n: _local(t) for n, t in state.v.items()}
 
     err = state.err
     if cfg.compress_grads:
-        grads, err = compress_bf16(grads, err)
+        grads, new_err = compress_bf16(
+            grads, {n: _local(t) for n, t in err.items()})
+        if mesh is None:
+            err = new_err
+        else:                       # the residuals stay DTensors
+            for n, t in new_err.items():
+                _local(err[n]).copy_(t)
 
-    names = list(params)
-    gnorm = global_norm([grads[n] for n in names])
+    if mesh is None:
+        gnorm = global_norm([grads[n] for n in names])
+    else:
+        gnorm = _mesh_norm([grads[n] for n in names],
+                           [copies[n] for n in names], mesh)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     step_f = step.to(torch.float32)
@@ -148,8 +200,8 @@ def apply_updates(params: Mapping[str, torch.Tensor],
 
     for group in _groups(names, params):
         ps = [params[n] for n in group]
-        ms = [state.m[n] for n in group]
-        vs = [state.v[n] for n in group]
+        ms = [moments_m[n] for n in group]
+        vs = [moments_v[n] for n in group]
         g = torch._foreach_mul([grads[n].float() for n in group], clip)
         torch._foreach_mul_(ms, cfg.b1)
         torch._foreach_add_(ms, torch._foreach_mul(g, 1 - cfg.b1))

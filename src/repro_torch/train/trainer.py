@@ -10,6 +10,16 @@ JAX package's layout (either package restores the other's), SIGTERM and
 SIGINT handling, and the per-step wall-time EWMA, the time taken after
 ``torch.cuda.synchronize`` on the card. It runs on ``"cuda"`` unless given
 ``device="cpu"``, and raises without a card.
+
+On a mesh (masters from ``transformer.init_params(..., mesh=)`` or
+``shard_params``) the same step trains this rank's shards: every rank
+feeds the whole batch, ``lm_loss`` takes its rows, the gradients are
+reduce-scattered layer by layer during the backward (no rank holds the
+whole float32 gradient) and AdamW updates the local shards. The
+reference's ``build_cell`` returns this step (``launch.specs``), which
+``Trainer`` takes through ``step_fn=`` as the reference's does. A sharded
+checkpoint is the reference's tree, gathered leaf by leaf and written by
+rank 0; every rank restores its shards from it.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -72,12 +83,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
             loss, metrics = T.lm_loss(cfg, params, batch)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
+            # on a mesh the loss is this rank's share, "loss" the global one
+            loss = metrics.pop("loss", loss)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=params.device)
             for i in range(accum):
-                part, _ = T.lm_loss(cfg, params, _microbatch(batch, i, accum))
+                part, m = T.lm_loss(cfg, params, _microbatch(batch, i, accum))
                 part.backward()
-                loss = loss + part.detach()
+                loss = loss + m.get("loss", part).detach()
             for p in named.values():
                 if p.grad is not None:
                     p.grad.div_(accum)
@@ -114,7 +127,8 @@ class Trainer:
                for p in params.parameters()):
             raise ValueError("the trainer takes float32 masters that need a "
                              "gradient: init_params(..., masters=True)")
-        self.params = params.to(self.device)
+        self.sharded = T.layout_of(params) is not None
+        self.params = params if self.sharded else params.to(self.device)
         self.opt_state = init_opt_state(dict(self.params.named_parameters()),
                                         tcfg.opt)
         self.data = data
@@ -143,9 +157,12 @@ class Trainer:
     # -- fault tolerance ---------------------------------------------------
     def _state_tree(self, like: bool = False) -> Dict[str, Any]:
         """{"params", "opt_state"} in the JAX package's layout: numpy
-        leaves, or with ``like`` their shapes alone."""
+        leaves, or with ``like`` their shapes alone. On a mesh each leaf is
+        a function that gathers it (``checkpoint.save`` calls them one at a
+        time, on every rank)."""
         conv = T.reference_like if like else \
-            (lambda t: T.params_to_reference(self.cfg, t))
+            (lambda t: T.params_to_reference(self.cfg, t,
+                                             lazy=self.sharded))
         st = self.opt_state
         step = torch.empty((), device="meta") if like \
             else np.asarray(int(st.step), np.int32)
@@ -157,8 +174,13 @@ class Trainer:
     def save(self) -> Optional[str]:
         if self.tcfg.checkpoint_dir is None:
             return None
-        return ckpt_lib.save(self.tcfg.checkpoint_dir, self._state_tree(),
-                             step=self.step, keep=self.tcfg.keep_checkpoints)
+        writer = not self.sharded or dist.get_rank() == 0
+        path = ckpt_lib.save(self.tcfg.checkpoint_dir, self._state_tree(),
+                             step=self.step, keep=self.tcfg.keep_checkpoints,
+                             write=writer)
+        if self.sharded:
+            dist.barrier()          # published before any rank reads it
+        return path
 
     def restore(self) -> bool:
         if self.tcfg.checkpoint_dir is None:
@@ -175,7 +197,7 @@ class Trainer:
             if mine is not None:
                 T.load_reference(mine, theirs)
         self.opt_state = st._replace(step=torch.tensor(
-            int(saved.step), dtype=torch.int32, device=self.device))
+            int(saved.step), dtype=torch.int32, device=st.step.device))
         self.step = step
         logger.info("restored checkpoint at step %d", step)
         return True

@@ -22,7 +22,10 @@ exactly; its statistics form's counts equal ``bincount``'s, its sums and
 inertia are within 1e-6 + 1e-5·Σ|terms|, and two runs give the same
 bits (no float atomics). Flash attention: float32 within 2e-5, bfloat16
 within 3e-2 (the JAX package's tolerances; the kernel rounds P to bfloat16
-before normalising, the plain version after). The LM serving path on the
+before normalising, the plain version after); its ``torch.library`` fake
+(the dry run's shape-only implementation) gives the kernel output's shape,
+dtype, strides and device, and launches nothing; so do the SC_RB kernels'
+fakes. The LM serving path on the
 card: one flash launch per layer in a generate, and float32 logits within
 1e-4 of the same model on the CPU (the SSM mixer's outputs and caches
 too), greedy tokens equal. LM training on the card: the flash kernel's
@@ -636,6 +639,89 @@ def test_cuda_flash_attention(cuda, case, dtype):
         row_err = (got.float() - want).norm(dim=-1) \
             / want.norm(dim=-1).clamp_min(1e-30)
         assert float(row_err.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("case", [(2, 64, 64, 3, 3, 16, True, None),
+                                  (1, 200, 333, 4, 2, 128, True, None),
+                                  (2, 256, 256, 16, 4, 160, True, 64)],
+                         ids=str)
+@pytest.mark.parametrize("grad", [False, True])
+def test_cuda_flash_fake_matches_the_kernel_output(cuda, case, grad):
+    """The op's fake on FakeTensors made from the same CUDA inputs: the
+    kernel output's shape, dtype, strides and device (and the gradients'
+    under autograd), no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    b, s, t, h, hkv, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+               .requires_grad_(grad)
+               for shape in ((b, s, h, hd), (b, t, hkv, hd), (b, t, hkv, hd)))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    if grad:
+        got.float().sum().backward()
+    ops.reset_launch_counts()
+    inputs = [x.detach() for x in (q, k, v)]
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(x).requires_grad_(grad)
+                      for x in inputs)
+        fake = ops.flash_attention(fq, fk, fv, causal=causal, window=window)
+        if grad:
+            fake.float().sum().backward()
+    assert ops.launch_counts()["flash_attention"] == 0
+    for real, f in ((got, fake),) + (((q.grad, fq.grad), (k.grad, fk.grad))
+                                     if grad else ()):
+        assert f.shape == real.shape and f.dtype == real.dtype
+        assert f.stride() == real.stride() and f.device == real.device
+
+
+def _sc_rb_calls(dev):
+    """Each SC_RB kernel's wrapper on small inputs on ``dev``: name →
+    (inputs, call); the ELL pattern is the plain RB binning's."""
+    x, w, b, ha, hc = _rb_inputs(3, 50, 3, 4)
+    d_g, d = 16, 64
+    idx = ref.rb_binning_ref(x, w, b, ha, hc, d_g)
+    g = torch.Generator().manual_seed(0)
+    v, u = torch.randn((d, 5), generator=g), torch.randn((50, 5), generator=g)
+    rs, cents = torch.rand(50, generator=g), torch.randn(6, 3, generator=g)
+    x, w, b, ha, hc, idx, v, u, rs, cents = (
+        t.to(dev) for t in (x, w, b, ha, hc, idx, v, u, rs, cents))
+    return {
+        "rb_binning": ((x, w, b, ha, hc), lambda *t: ops.rb_binning(
+            *t, d_g=d_g)),
+        "z_matmul": ((idx, v, rs), lambda *t: ops.z_matmul(*t, d_g=d_g)),
+        "z_matmul_gather": ((idx, v, rs), lambda *t: ops.z_matmul_gather(
+            *t, d_g=d_g)),
+        "zt_matmul": ((idx, u, rs), lambda *t: ops.zt_matmul(
+            *t, d, d_g=d_g)),
+        "gram_matmul": ((idx, u, rs), lambda *t: ops.gram_matmul(
+            *t, d, d_g=d_g)),
+        "bin_counts": ((idx,), lambda i: ops.bin_counts(i, d=d, d_g=d_g)),
+        "kmeans_assign": ((x, cents), ops.kmeans_assign),
+        "kmeans_assign_stats": ((x, cents), ops.kmeans_assign_stats),
+    }
+
+
+@pytest.mark.parametrize("name", ["rb_binning", "z_matmul", "z_matmul_gather",
+                                  "zt_matmul", "gram_matmul", "bin_counts",
+                                  "kmeans_assign", "kmeans_assign_stats"])
+def test_cuda_sc_rb_fakes_match_the_kernel_outputs(cuda, name):
+    """Each SC_RB kernel's ``torch.library`` fake on FakeTensors made from
+    the same CUDA inputs: the kernel outputs' shapes, dtypes, strides and
+    device, and no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    inputs, call = _sc_rb_calls(cuda)[name]
+    real = call(*inputs)
+    real = real if isinstance(real, tuple) else (real,)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with FakeTensorMode() as mode:
+        fake = call(*(mode.from_tensor(t) for t in inputs))
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert sum(ops.launch_counts().values()) == 0
+    assert len(fake) == len(real)
+    for f, r in zip(fake, real):
+        assert f.shape == r.shape and f.dtype == r.dtype
+        assert f.stride() == r.stride() and f.device == r.device
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -401,3 +401,54 @@ def test_trainer_raises_without_a_card():
     model = T.init_params(cfg, 0, device="cpu", masters=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, TrainConfig(), model, iter([]))
+
+
+#: the LM sharding slice's modules
+SHARDING_MODULES = ("models/sharding.py", "launch/specs.py",
+                    "launch/dryrun.py")
+
+DRYRUN_SCRIPT = """
+import dataclasses, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import SHAPES, smoke_config
+from repro_torch.launch import dryrun
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+cfg = smoke_config("internlm2-1.8b")
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32, global_batch=4)
+r = dryrun.run_cell(cfg, shape, False, None,
+                    mesh_shape=((2, 2), ("data", "model")))
+assert r["status"] == "ok" and r["memory"]["argument_bytes"] > 0
+loaded = [name for name in sys.modules
+          if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_source_check_covers_the_sharding_modules():
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(SHARDING_MODULES) <= checked
+
+
+def test_dry_run_in_a_fresh_process_loads_no_jax():
+    _run_alone(DRYRUN_SCRIPT)
+
+
+def test_mesh_entry_points_raise_without_a_card():
+    """The sharded init, caches and shards of a model on "meta" ask for the
+    card unless given the CPU; without one they raise before touching the
+    mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.smoke_config("internlm2-1.8b")
+    no_mesh = object()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg, 0, masters=True, mesh=no_mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 2, 8, mesh=no_mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.shard_params(cfg, T.empty_params(cfg, device="meta"), no_mesh)

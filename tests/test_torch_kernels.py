@@ -598,3 +598,54 @@ def test_flash_keyless_fill_matches_the_plain_version(dtype, hkv):
     tol = 2e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=tol, atol=tol)
+
+
+def _wrapper_calls(dev):
+    """Each kernel wrapper on small inputs on ``dev``: name → (inputs,
+    call). The ELL pattern is the plain RB binning's."""
+    x, w, b, ha, hc = (t.to(dev) for t in _torch_rb(*_rb_inputs(3, 50, 3,
+                                                                 4)))
+    d_g, d = 16, 64
+    idx = ref.rb_binning_ref(x.cpu(), w.cpu(), b.cpu(), ha.cpu(), hc.cpu(),
+                             d_g).to(dev)
+    g = torch.Generator().manual_seed(0)
+    v, u = (torch.randn(shape, generator=g).to(dev)
+            for shape in ((d, 5), (50, 5)))
+    rs = torch.rand(50, generator=g).to(dev)
+    cents = torch.randn(6, 3, generator=g).to(dev)
+    q, k = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+            for shape in ((2, 40, 4, 16), (2, 40, 2, 16)))
+    return {
+        "rb_binning": ((x, w, b, ha, hc), lambda *t: ops.rb_binning(
+            *t, d_g=d_g)),
+        "z_matmul": ((idx, v, rs), lambda *t: ops.z_matmul(*t, d_g=d_g)),
+        "z_matmul_gather": ((idx, v, rs), lambda *t: ops.z_matmul_gather(
+            *t, d_g=d_g)),
+        "zt_matmul": ((idx, u, rs), lambda *t: ops.zt_matmul(
+            *t, d, d_g=d_g)),
+        "gram_matmul": ((idx, u, rs), lambda *t: ops.gram_matmul(
+            *t, d, d_g=d_g)),
+        "bin_counts": ((idx,), lambda i: ops.bin_counts(i, d=d, d_g=d_g)),
+        "kmeans_assign": ((x, cents), ops.kmeans_assign),
+        "kmeans_assign_stats": ((x, cents), ops.kmeans_assign_stats),
+        "flash_attention": ((q, k, k), ops.flash_attention),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_wrapper_calls("cpu")))
+def test_fake_implementation_gives_the_plain_output_shapes(name):
+    """Each wrapper given FakeTensors (a dry run's) takes its kernel's
+    ``torch.library`` op and its fake: the plain version's output shapes
+    and dtypes on the same inputs, with nothing computed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
+    inputs, call = _wrapper_calls("cpu")[name]
+    want = call(*inputs)
+    want = want if isinstance(want, tuple) else (want,)
+    with FakeTensorMode() as mode:
+        got = call(*(mode.from_tensor(t) for t in inputs))
+    got = got if isinstance(got, tuple) else (got,)
+    assert hasattr(torch.ops.repro_torch, name)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert is_fake(g)
+        assert (tuple(g.shape), g.dtype) == (tuple(w.shape), w.dtype)
