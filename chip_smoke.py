@@ -350,6 +350,7 @@ the pattern does not fit L2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -595,6 +596,14 @@ MESH_TRAIN_JOIN_S = 900.0
 # than twice that row's largest logit difference (a near-tie inside the
 # measured noise); the row is not compared after it.
 MESH_LOSS_REL = 5e-3
+# phase 20 before the residual was split over the sequence and the
+# embedding and loss over the vocab (four H100 80GB HBM3, 700 W each;
+# PERF.md section 5): step s (median of steps 3-10), peak GiB a card,
+# collective output a rank a step: {kind: (count, GB)}
+MESH_BEFORE = {"step_s": (1.9187, 1.9382), "peak_gib": 51.88,
+               "collectives": {"all-gather": (725, 25.314),
+                               "all-reduce": (286, 16.778),
+                               "reduce-scatter": (282, 13.170)}}
 MESH_GRAD_REL = 5e-2
 MESH_MASTER_REL = 1e-2
 MESH_OWN_REL = 1e-5
@@ -5520,51 +5529,79 @@ def lm_mesh_rank(spec: dict) -> dict:
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in data.batch_at(0).items()}
     step, _, _ = specs.build_cell(cfg, shape, mesh, train=tcfg)
-    want = {}
-    if rank == 0:
+
+    def one_card_step():
         one = T.init_params(cfg, gen(), masters=True, device=dev)
         named = dict(one.named_parameters())
         before = {n: p.detach().clone() for n, p in named.items()}
         _, _, m = step(one, init_opt_state(named, tcfg.opt), batch)
-        want = {"loss": float(m["loss"]), "before": before,
+        return {"loss": float(m["loss"]), "before": before,
                 "grad": {n: p.grad for n, p in named.items()},
                 "after": {n: p.detach() for n, p in named.items()}}
-        del one, named
-    model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
-                          batch_size=b, device=dev)
-    named = dict(model.named_parameters())
-    before = {n: p.to_local().detach().clone() for n, p in named.items()}
-    ops.reset_launch_counts()
-    _, _, m = step(model, init_opt_state(named, tcfg.opt), batch)
-    out["check_launches"] = ops.launch_counts()["flash_attention"]
-    grads, after, first = {}, {}, {}
-    for n, p in named.items():        # gathered leaf by leaf, every rank
-        g, a = sh.whole(p.grad), sh.whole(p.detach())
-        w = _whole_of(before[n], p)
+
+    # rank 0's unsharded step, on its own card first (freed with want)
+    want = one_card_step() if rank == 0 else {}
+
+    def sharded_check():
+        """The sharded step from the seed's draws, held against ``want``
+        (rank 0); the flash launches and whether the residual was split
+        over the sequence."""
+        model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
+                              batch_size=b, device=dev)
+        seq = T.layout_of(model).sequence(s_len) is not None
+        named = dict(model.named_parameters())
+        before = {n: p.to_local().detach().clone() for n, p in named.items()}
+        ops.reset_launch_counts()
+        _, _, m = step(model, init_opt_state(named, tcfg.opt), batch)
+        launches = ops.launch_counts()["flash_attention"]
+        losses = [None] * dist.get_world_size()
+        dist.all_gather_object(losses, float(m["loss"]))
+        grads, after, first = {}, {}, {}
+        for n, p in named.items():        # gathered leaf by leaf, every rank
+            g, a = sh.whole(p.grad), sh.whole(p.detach())
+            w = _whole_of(before[n], p)
+            if rank == 0:
+                grads[n], after[n], first[n] = g, a, w
+            del g, a, w
+        del model, named, before
+        check = None
         if rank == 0:
-            grads[n], after[n], first[n] = g, a, w
-        del g, a, w
-    if rank == 0:
-        def rel(x, y):
-            return float((x - y).norm() / y.norm().clamp_min(1e-30))
-        # one card's AdamW on the sharded step's own gradients
-        own = {n: w.clone() for n, w in first.items()}
-        apply_updates(own, grads, init_opt_state(own, tcfg.opt), tcfg.opt)
-        out["check"] = {
-            "loss": float(m["loss"]), "want_loss": want["loss"],
-            "same_draws": max(float((first[n] - want["before"][n]).abs()
-                                    .max()) for n in first),
-            "grad_rel": {n: rel(grads[n], want["grad"][n]) for n in grads},
-            "master_rel": {n: rel(after[n], want["after"][n])
-                           for n in after},
-            "update_rel": {n: rel(after[n] - first[n],
-                                  want["after"][n] - want["before"][n])
-                           for n in after},
-            "own_rel": {n: rel(after[n] - first[n], own[n] - first[n])
-                        for n in after}}
-        del own
-    del grads, after, first
-    del model, named, before, want, batch
+            def rel(x, y):
+                return float((x - y).norm() / y.norm().clamp_min(1e-30))
+            # one card's AdamW on the sharded step's own gradients
+            own = {n: w.clone() for n, w in first.items()}
+            apply_updates(own, grads, init_opt_state(own, tcfg.opt),
+                          tcfg.opt)
+            check = {
+                "loss": float(m["loss"]), "want_loss": want["loss"],
+                "rank_losses": losses,
+                "same_draws": max(float((first[n] - want["before"][n])
+                                        .abs().max()) for n in first),
+                "grad_rel": {n: rel(grads[n], want["grad"][n])
+                             for n in grads},
+                "master_rel": {n: rel(after[n], want["after"][n])
+                               for n in after},
+                "update_rel": {n: rel(after[n] - first[n],
+                                      want["after"][n] - want["before"][n])
+                               for n in after},
+                "own_rel": {n: rel(after[n] - first[n], own[n] - first[n])
+                            for n in after}}
+            del own
+        del grads, after, first
+        torch.cuda.empty_cache()
+        return check, launches, seq
+
+    out["check"], out["check_launches"], out["seq_split"] = sharded_check()
+    # the planted faults of the sharded step: each must fail the check
+    out["faults"] = {}
+    for name, (needs_seq, plant) in MESH_FAULTS.items():
+        if needs_seq and not out["seq_split"]:
+            continue
+        with plant(mesh):
+            check, _, _ = sharded_check()
+        if rank == 0:
+            out["faults"][name] = check
+    del want, batch
     torch.cuda.empty_cache()
 
     # -- serve: greedy prefill + decode, sharded against one card -----------
@@ -5639,6 +5676,152 @@ def _whole_of(local, p):
                                     stride=p.stride()))
 
 
+# planted faults of the sharded train step (phases 19-20), each patched in
+# for one sharded_check of lm_mesh_rank and held to fail mesh_check_over
+
+
+@contextlib.contextmanager
+def _patched(owner, name: str, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def fault_exit_twice(mesh):
+    """The row-parallel exit reduced twice: the partial product summed
+    over the model axis before the exit sums it again."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+    right = L.row_parallel
+
+    def twice(x, w, tp):
+        if not torch.is_grad_enabled():
+            return right(x, w, tp)
+        return tp.exit(sh._Exit.apply(x @ w, tp))
+    return _patched(L, "row_parallel", twice)
+
+
+def fault_drop_data_share(mesh):
+    """A gradient reduce-scatter over the data axis that drops one data
+    rank's share (data rank 1 contributes zeros)."""
+    from repro_torch.models import sharding as sh
+    right, data = sh.reduce_scatter, mesh.get_group(0).group_name
+
+    def dropping(t, group, n, dim, index):
+        if group.group_name == data and index == 1:
+            t = t.new_zeros(t.shape)
+        return right(t, group, n, dim, index)
+    return _patched(sh, "reduce_scatter", dropping)
+
+
+def fault_wrong_columns(mesh):
+    """Column shards mapped to the wrong model rank: each rank's attention
+    computes with its neighbour's wq, wk and wv columns (its own wo
+    rows)."""
+    import torch
+
+    from repro_torch.models import sharding as sh
+
+    class Roll(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w, group, n, index):
+            ctx.args = (group, n, index)
+            pieces = sh.all_gather(w[None], group, n, 0)
+            return pieces[(index + 1) % n].contiguous()
+
+        @staticmethod
+        def backward(ctx, g):
+            group, n, index = ctx.args
+            pieces = sh.all_gather(g.contiguous()[None], group, n, 0)
+            return pieces[(index - 1) % n].contiguous(), None, None, None
+
+    right = sh.Layout.use
+
+    def rolled(self, name, p, dtype, **kw):
+        w = right(self, name, p, dtype, **kw)
+        block = self.block_of(name)
+        if block is None or self.split_blocks[block] != "gqa" \
+                or name.rsplit(".", 1)[1] not in ("wq", "wk", "wv"):
+            return w
+        tp = self.tp_dim
+        return Roll.apply(w, self.groups[tp], self.sizes[tp], self.coord[tp])
+    return _patched(sh.Layout, "use", rolled)
+
+
+def fault_sequence_order(mesh):
+    """The sequence's parts gathered over the model axis in the wrong
+    order (reversed)."""
+    import torch
+
+    from repro_torch.models import sharding as sh
+    right = sh.ModelSplit.gather
+
+    def reversed_parts(self, x):
+        y = right(self, x)
+        return torch.cat(y.split(x.shape[1], dim=1)[::-1], dim=1)
+    return _patched(sh.ModelSplit, "gather", reversed_parts)
+
+
+def fault_norm_not_summed(mesh):
+    """The norms that run on this rank's part of the sequence take their
+    gradient from that part alone (not summed over the model axis)."""
+    from repro_torch.models import sharding as sh
+    return _patched(sh, "_on_sequence_part", lambda name: False)
+
+
+def fault_gold_not_summed(mesh):
+    """The vocab-parallel loss's label logit taken from this rank's
+    columns alone (not summed over the model axis)."""
+    import torch
+
+    from repro_torch.models import sharding as sh
+
+    def local_gold(self, logits, local, mine):
+        v = logits.shape[1]
+        own = torch.gather(logits, 1, local.clamp(0, v - 1)[:, None])[:, 0]
+        return torch.where(mine, own, 0.0)
+    return _patched(sh.VocabSplit, "gold", local_gold)
+
+
+#: name → (needs the residual split over the sequence, plant(mesh))
+MESH_FAULTS = {
+    "row-parallel exit reduced twice": (False, fault_exit_twice),
+    "gradient reduce-scatter drops data rank 1": (False,
+                                                   fault_drop_data_share),
+    "column shards on the wrong model rank": (False, fault_wrong_columns),
+    "sequence parts gathered in the wrong order": (True,
+                                                   fault_sequence_order),
+    "norm gradients not summed over model": (True, fault_norm_not_summed),
+    "vocab-parallel gold logit not summed": (False, fault_gold_not_summed),
+}
+
+
+def mesh_check_over(c: dict) -> list:
+    """The check's figures over their limits: (what, figure, limit)."""
+    over = []
+    loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
+    if c["same_draws"] != 0.0:
+        over.append(("init against one card's draws", c["same_draws"], 0.0))
+    if loss_rel > MESH_LOSS_REL:
+        over.append(("loss", loss_rel, MESH_LOSS_REL))
+    # every rank reports the global loss: the same all-reduced sums, the
+    # same bits (phase 20's training steps hold the same)
+    spread = max(c["rank_losses"]) - min(c["rank_losses"])
+    if spread != 0.0:
+        over.append(("loss spread over the ranks", spread, 0.0))
+    for key, limit in (("grad_rel", MESH_GRAD_REL),
+                       ("master_rel", MESH_MASTER_REL),
+                       ("own_rel", MESH_OWN_REL)):
+        over += [(f"{key} {n}", r, limit) for n, r in c[key].items()
+                 if r > limit]
+    return over
+
+
 def hold_mesh_check(tag: str, res: dict) -> None:
     """Rank 0's check: the sharded init the bits of one card's draws; the
     loss within MESH_LOSS_REL, every gradient leaf within MESH_GRAD_REL and
@@ -5647,7 +5830,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     AdamW on the sharded step's own gathered gradients. The update against
     the unsharded step's is printed (AdamW's first step is lr·sign(g)
     where |g| ≫ eps: an entry whose gradient is below the bf16 noise may
-    take the other sign)."""
+    take the other sign). Then each planted fault of the step
+    (``MESH_FAULTS``) must fail the same check, at the same limits."""
     c = res["check"]
     loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
 
@@ -5655,7 +5839,9 @@ def hold_mesh_check(tag: str, res: dict) -> None:
         return max(c[key].items(), key=lambda kv: kv[1])
     g, mst, u, own = (worst(k) for k in ("grad_rel", "master_rel",
                                           "update_rel", "own_rel"))
-    log(f"{tag}: sharded init against one card's draws: max |diff| "
+    log(f"{tag}: residual split over the sequence: {res['seq_split']}; "
+        f"loss by rank {c['rank_losses']}; "
+        f"sharded init against one card's draws: max |diff| "
         f"{c['same_draws']}; loss {c['loss']:.6f} against one card's "
         f"{c['want_loss']:.6f} (rel {loss_rel:.3g}, limit {MESH_LOSS_REL}); "
         f"of {len(c['grad_rel'])} leaves the worst gradient {g[0]} "
@@ -5664,16 +5850,28 @@ def hold_mesh_check(tag: str, res: dict) -> None:
         f"card's AdamW on the same gradients {own[0]} {own[1]:.3g} (limit "
         f"{MESH_OWN_REL}); update against the unsharded step's {u[0]} "
         f"{u[1]:.3g} (printed)")
-    if c["same_draws"] != 0.0:
-        fail(f"{tag}: the sharded init is not the unsharded draws")
-    if loss_rel > MESH_LOSS_REL:
-        fail(f"{tag}: the sharded loss is {loss_rel:.3g} from one card's")
-    for key, limit in (("grad_rel", MESH_GRAD_REL),
-                       ("master_rel", MESH_MASTER_REL),
-                       ("own_rel", MESH_OWN_REL)):
-        bad = {n: r for n, r in c[key].items() if r > limit}
-        if bad:
-            fail(f"{tag}: {key} over {limit}: {bad}")
+    over = mesh_check_over(c)
+    if over:
+        fail(f"{tag}: over the limits: {over}")
+    want = [n for n, (needs_seq, _) in MESH_FAULTS.items()
+            if res["seq_split"] or not needs_seq]
+    if sorted(res["faults"]) != sorted(want):
+        fail(f"{tag}: planted faults run {sorted(res['faults'])}, expected "
+             f"{sorted(want)}")
+    for name, fc in res["faults"].items():
+        over = mesh_check_over(fc)
+        if not over:
+            fail(f"{tag}: the planted fault '{name}' passes the check")
+        worst_over = max(over, key=lambda o: o[1] / max(o[2], 1e-30))
+        loss_rel = abs(fc["loss"] - fc["want_loss"]) / abs(fc["want_loss"])
+        g = max(fc["grad_rel"].items(), key=lambda kv: kv[1])
+        spread = max(fc["rank_losses"]) - min(fc["rank_losses"])
+        log(f"{tag}: planted fault '{name}' fails the check: {len(over)} "
+            f"figures over their limits, the worst {worst_over[0]} "
+            f"{worst_over[1]:.3g} (limit {worst_over[2]}); loss rel "
+            f"{loss_rel:.3g} (limit {MESH_LOSS_REL}), loss spread over the "
+            f"ranks {spread:.3g} (limit 0), worst gradient {g[0]} "
+            f"{g[1]:.3g} (limit {MESH_GRAD_REL})")
 
 
 def phase19_lm_mesh(seed: int) -> dict:
@@ -5786,6 +5984,17 @@ def phase20_lm_cards(n_cards: int, seed: int) -> dict:
         f"TFLOP/s bf16), {bound_s / step_s:.1%} of it; peak device memory "
         f"by card {[round(p, 3) for p in peaks]} GiB; collectives a step "
         f"{coll_gb:.3f} GB of output a rank; flash launches a step {want}")
+    before = MESH_BEFORE
+    log(f"[phase 20] against the residual whole over the sequence and the "
+        f"vocab gathered (before): step {step_s:.4f}s against "
+        f"{before['step_s'][0]}-{before['step_s'][1]}s; peak "
+        f"{max(peaks):.2f} GiB a card against {before['peak_gib']} GiB; "
+        "collectives a step "
+        + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                    for k, v in coll.items() if v["count"])
+        + " against "
+        + ", ".join(f"{k} {n} x {gb} GB"
+                    for k, (n, gb) in before["collectives"].items()))
     return {"launches": want, "step_s": step_s, "bound_s": bound_s,
             "peaks": peaks, "collective_gb": coll_gb}
 

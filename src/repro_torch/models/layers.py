@@ -29,7 +29,10 @@ On a mesh (``models.sharding.Layout``) the blocks read their head counts
 and widths from their weights' shapes, which are this rank's share when a
 block runs split over the model axis; such a block's ``tp`` (a
 ``sharding.ModelSplit``) marks its entry and its partial output, which is
-all-reduced. The reference's ``shard_hint`` has no other counterpart.
+all-reduced (or, on a training step whose residual is split over the
+sequence, the split passed as ``tp=``: the entry all-gathers the sequence
+and the partial output is reduce-scattered over it). The reference's
+``shard_hint`` has no other counterpart.
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 def row_parallel(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
     """x @ w for a block split over the model axis (``tp``, a
     ``sharding.ModelSplit``): each rank's partial product over its share
-    of the inner dim, all-reduced. Serving forms the partials in float32
+    of the inner dim, summed by ``tp.exit`` (an all-reduce, or a
+    reduce-scatter over the sequence). Serving forms the partials in float32
     (``ref.bmm_f32``) and rounds their sum once, as one card's product
     rounds once; training keeps the compute dtype (that float32-output
     product has no derivative)."""
@@ -219,14 +223,17 @@ class GQA(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,   # {"k","v"} flat (B, T, Hkv·hd)
         pos: Optional[int] = None,       # write offset into the cache
+        tp=None,                         # the split to run through, if
+                                         # not self.tp's (see MLP.forward)
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
-        b, s, _ = x.shape
+        tp = self.tp if tp is None else tp
         hd = cfg.head_dim
         # this rank's heads when the block runs split over the model axis
         h, hkv = self.wq.shape[1] // hd, self.wk.shape[1] // hd
-        if self.tp is not None:
-            x = self.tp.enter(x)
+        if tp is not None:
+            x = tp.enter(x)
+        b, s, _ = x.shape
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
@@ -260,8 +267,8 @@ class GQA(nn.Module):
                     cache["v"].view(b, t, hkv, hd), q_offset=pos,
                     window=window, chunk=cfg.attn_chunk, kv_len=pos + s)
         out = out.reshape(b, s, h * hd)
-        if self.tp is not None:
-            return row_parallel(out, self.wo, self.tp), cache
+        if tp is not None:
+            return row_parallel(out, self.wo, tp), cache
         return out @ self.wo, cache
 
 
@@ -299,12 +306,15 @@ class MLP(nn.Module):
         self.wd = param(f, d, **kw)
         self.tp = None       # a sharding.ModelSplit when split over its width
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp is None:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp``: the split to enter and exit through instead of
+        ``self.tp`` (a training step whose residual is split over the
+        sequence passes the layout's sequence split)."""
+        tp = self.tp if tp is None else tp
+        if tp is None:
             return swiglu(x, self.wg, self.wu, self.wd)
-        x = self.tp.enter(x)
-        return row_parallel(F.silu(x @ self.wg) * (x @ self.wu), self.wd,
-                            self.tp)
+        x = tp.enter(x)
+        return row_parallel(F.silu(x @ self.wg) * (x @ self.wu), self.wd, tp)
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,

@@ -28,6 +28,16 @@ product). Every other weight is gathered whole. A gathered weight's
 gradient is reduce-scattered back to its shard over the axes whose ranks
 computed different parts of it. Every collective the port issues is
 counted in ``COLLECTIVES`` (count and output bytes a rank).
+
+A training step also runs Megatron's sequence and vocab parallelism, the
+layouts GSPMD gives the reference from its ``shard_hint`` and rules: at a
+global sequence of ``SEQ_SPLIT_MIN`` or more that the model axis divides
+(``Layout.sequence``), the residual between blocks is split over the
+sequence as well as the batch, and a split block's entry and exit become
+an all-gather and a reduce-scatter over the sequence (``ModelSplit`` with
+``seq``); and where the model axis splits the vocab, the embedding and the
+head keep their vocab shard (``vocab_embedding``, ``VocabSplit``).
+Serving gathers them whole and keeps the residual whole.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 FSDP: Tuple[str, ...] = ("pod", "data")
 TP: Tuple[str, ...] = ("model",)
@@ -315,10 +326,11 @@ def reduce_scatter(t: torch.Tensor, group, n: int, dim: int,
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(t: torch.Tensor, group, n: int) -> torch.Tensor:
-    """Σ over the ranks of ``t``, in place."""
+def all_reduce(t: torch.Tensor, group, n: int,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Σ (or ``op``) over the ranks of ``t``, in place."""
     if n > 1:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
         _count("all-reduce", t)
     return t
 
@@ -357,20 +369,59 @@ class Plan:
     partial: Tuple[int, ...]
 
 
+#: The shortest global sequence whose residual is split over the model
+#: axis between blocks (the JAX package's ``transformer._apply_layer``).
+SEQ_SPLIT_MIN = 2048
+
+
 class ModelSplit:
     """Entry to and exit from a block that runs split over the model axis
     (Megatron's f and g): the input passes unchanged and its gradient is
     all-reduced over ``model``; the block's partial output is all-reduced
-    and its gradient passes unchanged."""
+    and its gradient passes unchanged.
 
-    def __init__(self, group, n: int) -> None:
-        self.group, self.n = group, n
+    With ``seq`` the residual between blocks is split over the sequence
+    (dim 1) as well, each model rank holding part ``index`` of ``n``
+    (Megatron's sequence parallelism): the entry all-gathers the sequence
+    and its backward reduce-scatters the gradient; the exit
+    reduce-scatters the partial output over the sequence and its backward
+    all-gathers the gradient. A block that runs whole on every model rank
+    crosses the same boundary by ``whole`` (the sequence all-gathered, the
+    gradient cut to this rank's part) and ``own`` (this rank's part of the
+    output, the gradient all-gathered), so the gradients inside it are
+    whole and equal on every model rank, as without the split."""
+
+    def __init__(self, group, n: int, index: int, *, seq: bool = False
+                 ) -> None:
+        self.group, self.n, self.index, self.seq = group, n, index, seq
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        return _Enter.apply(x, self)
+        return (_SeqEnter if self.seq else _Enter).apply(x, self)
 
     def exit(self, y: torch.Tensor) -> torch.Tensor:
-        return _Exit.apply(y, self)
+        return (_SeqExit if self.seq else _Exit).apply(y, self)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqWhole.apply(x, self)
+
+    def own(self, y: torch.Tensor) -> torch.Tensor:
+        return _SeqOwn.apply(y, self)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' parts of the sequence, in order (not
+        differentiable)."""
+        return all_gather(x, self.group, self.n, 1)
+
+    def scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """Σ over the ranks of ``y``, this rank's part of the sequence (not
+        differentiable)."""
+        return reduce_scatter(y, self.group, self.n, 1, self.index)
+
+    def part(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the sequence of ``x``, a copy."""
+        size = x.shape[1] // self.n
+        return x.narrow(1, self.index * size, size).clone(
+            memory_format=torch.contiguous_format)
 
 
 class _Enter(torch.autograd.Function):
@@ -396,6 +447,125 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SeqEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.scatter(g), None
+
+
+class _SeqExit(torch.autograd.Function):
+    # the reduce-scatter writes a new tensor: a product that remat "dots"
+    # keeps is not changed
+    @staticmethod
+    def forward(ctx, y, split):
+        ctx.split = split
+        return split.scatter(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.gather(g), None
+
+
+class _SeqWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.part(g), None
+
+
+class _SeqOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, split):
+        ctx.split = split
+        return split.part(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.gather(g), None
+
+
+def vocab_embedding(tokens: torch.Tensor, table: torch.Tensor,
+                    split: ModelSplit) -> torch.Tensor:
+    """The embedding of ``tokens`` (B, S) from this rank's rows of a
+    table whose vocab is split over the model axis (``table`` (V/m, D),
+    rows ``split.index``·V/m onward): each rank looks up the tokens in its
+    range (``F.embedding``, whose backward sums in a fixed order), zeroes
+    the others' rows, and ``split.exit`` sums the ranks' parts (an
+    all-reduce, or a reduce-scatter into this rank's part of the sequence
+    when ``split.seq``). One rank holds each token's row and the others add
+    zeros, so the result has the bits of the whole table's lookup; a row
+    gets a gradient only from the tokens it embeds."""
+    v = table.shape[0]
+    local = tokens - split.index * v
+    mine = (local >= 0) & (local < v)
+    rows = F.embedding(torch.where(mine, local, 0), table)
+    return split.exit(rows.masked_fill(~mine[..., None], 0))
+
+
+class VocabSplit:
+    """The cross-entropy of a head whose vocab is split over the model
+    axis (Megatron's vocab-parallel loss): each rank forms its columns'
+    logits, and three all-reduces of one float a token give the global
+    max, the sum of exponentials and the label's logit (from the rank
+    whose columns hold it)."""
+
+    def __init__(self, group, n: int, index: int) -> None:
+        self.group, self.n, self.index = group, n, index
+
+    def nll(self, hc: torch.Tensor, lc: torch.Tensor,
+            head: torch.Tensor) -> torch.Tensor:
+        """Σ −log p(label) over one chunk's tokens (C, D) with this rank's
+        head columns ``head`` (D, V/m) → scalar float32, equal on the model
+        ranks; labels < 0 count nothing. The backward is local: softmax −
+        one-hot on this rank's columns, so the gradient into ``hc`` is this
+        rank's part of the sum over ``model``."""
+        return _VocabNLL.apply(hc, lc, head, self)
+
+    def gold(self, logits: torch.Tensor, local: torch.Tensor,
+             mine: torch.Tensor) -> torch.Tensor:
+        """Each token's label logit, summed over the ranks (the one whose
+        columns hold the label gives it, the others 0)."""
+        v = logits.shape[1]
+        own = torch.gather(logits, 1, local.clamp(0, v - 1)[:, None])[:, 0]
+        return all_reduce(torch.where(mine, own, 0.0), self.group, self.n)
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hc, lc, head, vocab):
+        logits = (hc @ head).float()                       # (C, V/m)
+        v = logits.shape[1]
+        peak = all_reduce(logits.amax(dim=-1), vocab.group, vocab.n,
+                          op=dist.ReduceOp.MAX)
+        exp = torch.exp(logits - peak[:, None])
+        total = all_reduce(exp.sum(dim=-1), vocab.group, vocab.n)
+        local = lc - vocab.index * v
+        mine = (local >= 0) & (local < v)
+        gold = vocab.gold(logits, local, mine)
+        valid = (lc >= 0).float()
+        ctx.save_for_backward(hc, head, exp, total, local, mine, valid)
+        return ((peak + torch.log(total) - gold) * valid).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        hc, head, exp, total, local, mine, valid = ctx.saved_tensors
+        v = exp.shape[1]
+        d = exp / total[:, None]
+        d.scatter_add_(1, local.clamp(0, v - 1)[:, None],
+                       -mine.float()[:, None])
+        d = (d * (g * valid)[:, None]).to(hc.dtype)
+        return d @ head.T, None, hc.T @ d, None
 
 
 class BatchStats:
@@ -464,6 +634,16 @@ class _Use(torch.autograd.Function):
 _SPLIT_DIMS = {"gqa": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
                         "wo": 0},
                "mlp": {"wg": 1, "wu": 1, "wd": 0}}
+#: the vocab dim of the embedding (V, D) and the head (D, V)
+_VOCAB_DIMS = {"embed": 0, "head": 1}
+
+
+def _on_sequence_part(name: str) -> bool:
+    """A parameter that a step with the residual split over the sequence
+    uses on this rank's part of it: a layer's norms and the final one."""
+    parts = name.split(".")
+    return name == "final_ln" or (len(parts) == 4 and parts[0] == "segments"
+                                  and parts[3] in ("ln1", "ln2"))
 
 
 class Layout:
@@ -479,7 +659,14 @@ class Layout:
     split would cut a head (hymba's 25 heads, 8 KV heads on a 16-way
     axis) — runs whole on every model rank, its weights gathered whole.
     Under ``dp_over_tp`` the model axis is a data axis and nothing runs
-    split."""
+    split.
+
+    With blocks split over the model axis, a training step keeps the
+    embedding's and the head's vocab shard where the rule splits their
+    vocab over ``model`` (``vocab_parallel``; ``use(..., whole=True)``
+    gathers them whole for serving), and its norms that run on a
+    sequence part take a gradient partial over ``model``
+    (``use(..., seq=True)``)."""
 
     def __init__(self, cfg, mesh: Any, params: Any, *,
                  batch_size: Optional[int] = None) -> None:
@@ -503,11 +690,30 @@ class Layout:
         tp = self.model_dim is not None and not cfg.dp_over_tp \
             and self.sizes[self.model_dim] > 1
         self.tp_dim = self.names.index("model") if tp else None
-        self.split = ModelSplit(self.groups[self.tp_dim],
-                                self.sizes[self.tp_dim]) if tp else None
+        self.split = self.seq_split = self.vocab = None
+        if tp:
+            group, n = self.groups[self.tp_dim], self.sizes[self.tp_dim]
+            index = self.coord[self.tp_dim]
+            self.split = ModelSplit(group, n, index)
+            self.seq_split = ModelSplit(group, n, index, seq=True)
+            self.vocab = VocabSplit(group, n, index)
         shapes = _named_shapes(params)
         self.split_blocks = self._split_blocks(shapes)
+        #: the tables a training step keeps split over the vocab on the
+        #: model axis (the embedding and loss run vocab-parallel)
+        self.vocab_parallel = {n for n, d in _VOCAB_DIMS.items()
+                               if n in shapes and tp and self._on_model(n, d)}
         self.plans = {n: self._plan(n) for n in shapes}
+        # serving gathers the vocab-split tables whole
+        self.whole_plans = {n: self._plan(n, keep_vocab=False)
+                            for n in self.vocab_parallel}
+        # a step whose residual is split over the sequence: the norms that
+        # run on the sequence part take a gradient partial over the model
+        # axis
+        self.seq_plans = {n: dataclasses.replace(
+            self.plans[n], partial=tuple(sorted(
+                set(self.plans[n].partial) | {self.tp_dim})))
+            for n in shapes if _on_sequence_part(n)} if tp else {}
 
     # -- which blocks run split over the model axis -------------------------
     def _split_blocks(self, shapes: Mapping[str, Tuple[int, ...]]
@@ -541,13 +747,26 @@ class Layout:
         prefix = name.rsplit(".", 1)[0] + "." if "." in name else "."
         return prefix if prefix in self.split_blocks else None
 
-    def _plan(self, name: str) -> Plan:
+    def sequence(self, seq_len: int) -> Optional[ModelSplit]:
+        """The split of a training step's residual over the sequence: at
+        a global sequence of ``SEQ_SPLIT_MIN`` or more that the model axis
+        divides, when blocks run split over it; else None. GSPMD pads a
+        sequence the axis does not divide; the port keeps that residual
+        whole on the model ranks instead."""
+        if self.tp_dim is None or seq_len < SEQ_SPLIT_MIN \
+                or seq_len % self.sizes[self.tp_dim]:
+            return None
+        return self.seq_split
+
+    def _plan(self, name: str, keep_vocab: bool = True) -> Plan:
         spec = self.specs[name]
         pls = placements(self.mesh, spec)
         block = self.block_of(name)
         leaf = name.rsplit(".", 1)[-1]
         keep = None         # the tensor dim kept split over the model axis
         select = None
+        if keep_vocab and name in self.vocab_parallel:
+            keep = _VOCAB_DIMS[name]
         if block is not None:
             # the dim that holds the heads (the FFN width): columns of the
             # projections into them, rows of the one back to D
@@ -572,11 +791,17 @@ class Layout:
         return Plan(pls, tuple(gathers), select, tuple(sorted(partial)))
 
     # -- the parameters --------------------------------------------------------
-    def use(self, name: str, p, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    def use(self, name: str, p, dtype: Optional[torch.dtype], *,
+            seq: bool = False, whole: bool = False) -> torch.Tensor:
         """The tensor a layer computes with for parameter ``name`` (a
-        DTensor, or its local shard): see ``_Use``."""
+        DTensor, or its local shard): see ``_Use``. ``seq``: on a step
+        whose residual is split over the sequence; ``whole``: a
+        vocab-parallel table gathered whole (serving)."""
         local = p.to_local() if hasattr(p, "to_local") else p
-        return _Use.apply(local, dtype, self, self.plans[name])
+        plan = (self.whole_plans.get(name) if whole else None) \
+            or (self.seq_plans.get(name) if seq else None) \
+            or self.plans[name]
+        return _Use.apply(local, dtype, self, plan)
 
     def rows(self, n: int, axes: Sequence[int]) -> Tuple[int, int]:
         """(first, count) of the rows of ``n`` that this rank holds when

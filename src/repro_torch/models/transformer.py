@@ -31,7 +31,10 @@ mesh=)``) the parameters are DTensors in the reference's FSDP×TP layout
 (``models.sharding``) and the model carries its ``sharding.Layout``;
 every entry point below then runs this rank's share: ``lm_loss`` on the
 batch rows ``batch_specs`` gives it (the CE's token count and the MoE aux
-loss's statistics summed over the batch ranks), ``init_cache`` makes
+loss's statistics summed over the batch ranks; at a sequence of 2,048 or
+more that the model axis divides, the residual between layers split over
+the sequence too; the embedding and the loss on this rank's vocab shard
+where the model axis splits the vocab), ``init_cache`` makes
 ``cache_specs``' DTensor caches, and ``prefill`` and ``decode_step`` run
 the rows of the caches' batch split and return DTensor logits. Batches
 come whole (the global batch on every rank) or as DTensors.
@@ -89,7 +92,15 @@ FFN = Union[L.MLP, L.MoE]
 class Layer(nn.Module):
     """Pre-norm residual layer: x + mixer(norm(x)), then x + ffn(norm(x)).
     Returns the new x and the FFN's MoE aux loss (None for an MLP). A
-    layer without an FFN (Mamba2's) has no ``ln2`` and ``ffn`` is None."""
+    layer without an FFN (Mamba2's) has no ``ln2`` and ``ffn`` is None.
+
+    ``seq`` (a training step on a mesh whose residual is split over the
+    sequence: ``sharding.Layout.sequence``): x is this rank's part of the
+    sequence, and the norms and residual adds run on it. A block split
+    over the model axis enters and exits through ``seq``; any other runs
+    whole on the gathered sequence and keeps this rank's part of its
+    output (``ModelSplit.whole`` / ``own``). An MoE's aux loss so sees the
+    whole sequence, as without the split."""
 
     def __init__(self, cfg: ModelConfig, seg: Segment, mixer: Mixer,
                  ffn: Optional[FFN]) -> None:
@@ -103,20 +114,32 @@ class Layer(nn.Module):
             self.ln2 = L.param(cfg.d_model, **kw)
         self.ffn = ffn
 
-    def forward(self, x: torch.Tensor, rope, cache=None, pos=None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, rope, cache=None, pos=None,
+                seq=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cos, sin = rope
         eps = self.cfg.norm_eps
-        mix, _ = self.mixer(L.rmsnorm(x, self.ln1, eps), cos, sin,
-                            window=self.window, cache=cache, pos=pos)
+        mix = self._block(self.mixer, L.rmsnorm(x, self.ln1, eps), seq,
+                          cos, sin, window=self.window, cache=cache,
+                          pos=pos)[0]
         x = x + mix
         if self.ffn is None:
             return x, None
-        y = self.ffn(L.rmsnorm(x, self.ln2, eps))
+        y = self._block(self.ffn, L.rmsnorm(x, self.ln2, eps), seq)
         if isinstance(self.ffn, L.MoE):
             y, aux = y
             return x + y, aux
         return x + y, None
+
+    @staticmethod
+    def _block(block: nn.Module, h: torch.Tensor, seq, *args, **kwargs):
+        if seq is None:
+            return block(h, *args, **kwargs)
+        if getattr(block, "tp", None) is not None:
+            return block(h, *args, tp=seq, **kwargs)
+        out = block(seq.whole(h), *args, **kwargs)
+        if isinstance(out, tuple):            # (output, cache or aux)
+            return (seq.own(out[0]),) + out[1:]
+        return seq.own(out)
 
 
 class TransformerLM(nn.Module):
@@ -511,7 +534,7 @@ def _dtensor(layout: S.Layout, local: torch.Tensor, spec: S.Spec,
 def _embed(params: TransformerLM, tokens) -> torch.Tensor:
     layout = layout_of(params)
     table = params.embed if layout is None \
-        else layout.use("embed", params.embed, None)
+        else layout.use("embed", params.embed, None, whole=True)
     return table[torch.as_tensor(tokens, device=params.device).long()]
 
 
@@ -533,11 +556,12 @@ def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
 def _prompt_rope(cfg: ModelConfig, batch: Mapping[str, Any],
                  x: torch.Tensor):
     """RoPE tables of ``batch["positions"]`` ((B, S), or (3, B, S) under
-    M-RoPE) where given, else of 0..S−1 (plain RoPE, M-RoPE or not)."""
+    M-RoPE) where given, else of 0..S−1 (plain RoPE, M-RoPE or not), for
+    the (B, S) of x's first two dims."""
     if "positions" in batch:
         return _rope_for(cfg, torch.as_tensor(batch["positions"],
                                               device=x.device).long())
-    b, s, _ = x.shape
+    b, s = x.shape[:2]
     return _rope_for(cfg, torch.arange(s, device=x.device)[None].expand(b, s))
 
 
@@ -571,7 +595,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope,
-                 layout: Optional[S.Layout] = None, prefix: str = ""
+                 layout: Optional[S.Layout] = None, prefix: str = "",
+                 seq: Optional[S.ModelSplit] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``layer`` on x with gradients: each float32 master cast to
     ``cfg.dtype`` inside the function that ``cfg.remat`` wraps, so
@@ -584,18 +609,21 @@ def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope,
     (``layout.use``, ``prefix`` the layer's name in the model), so under
     ``"full"`` the gathered weights live only while the layer runs, in
     the forward and again in its recompute, and their gradients are
-    reduce-scattered to the shards during the backward, layer by layer."""
+    reduce-scattered to the shards during the backward, layer by layer.
+    With ``seq`` x is this rank's part of the sequence (``Layer``), the
+    carry each layer keeps for its recompute."""
     names, masters = zip(*layer.named_parameters())
     dtype = _dtype(cfg)
     if layout is None:
         cast_fn = lambda n, w: w.to(dtype)                    # noqa: E731
     else:
         masters = tuple(w.to_local() for w in masters)
-        cast_fn = lambda n, w: layout.use(prefix + n, w, dtype)  # noqa: E731
+        cast_fn = lambda n, w: layout.use(                    # noqa: E731
+            prefix + n, w, dtype, seq=seq is not None)
 
     def run(x_, *ws):
         cast = {n: cast_fn(n, w) for n, w in zip(names, ws)}
-        return functional_call(layer, cast, (x_, rope))
+        return functional_call(layer, cast, (x_, rope), {"seq": seq})
 
     if cfg.remat == "none":
         return run(x, *masters)
@@ -611,32 +639,47 @@ def _train_layer(cfg: ModelConfig, layer: Layer, x: torch.Tensor, rope,
 
 def _forward_train(cfg: ModelConfig, params: TransformerLM,
                    batch: Mapping[str, Any]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[S.ModelSplit]]:
+    """The final hidden states, the summed MoE aux loss, and the split of
+    the residual over the sequence (None: the hidden states are whole
+    over the sequence; else they are this rank's part of it)."""
     dtype = _dtype(cfg)
     layout = layout_of(params)
+    tokens = cfg.input_mode == "tokens"
+    if layout is not None:
+        batch = _local_batch(layout, batch, layout.batch_axes)
+    inputs = torch.as_tensor(batch["tokens" if tokens else "embeds"],
+                             device=params.device)
+    rope = _prompt_rope(cfg, batch, inputs)
+    seq = None if layout is None else layout.sequence(inputs.shape[1])
     if layout is None:
         cast = lambda n, w: w.to(dtype)                       # noqa: E731
     else:
-        batch = _local_batch(layout, batch, layout.batch_axes)
-        cast = lambda n, w: layout.use(n, w, dtype)           # noqa: E731
-    if cfg.input_mode == "tokens":
+        cast = lambda n, w: layout.use(                       # noqa: E731
+            n, w, dtype, seq=seq is not None)
+    if tokens and layout is not None and "embed" in layout.vocab_parallel:
+        # each model rank embeds the tokens of its vocab rows; the sum over
+        # the ranks lands split over the sequence when seq is
+        x = S.vocab_embedding(inputs.long(), cast("embed", params.embed),
+                              seq or layout.split)
+    else:
         # the gather as F.embedding: its backward on the card sums a
         # token's rows in a fixed order (indexing's backward, index_put_
         # with accumulate, adds with atomics in any order)
-        tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
-        x = F.embedding(tokens, cast("embed", params.embed))
-    else:
-        x = torch.as_tensor(batch["embeds"], device=params.device).to(dtype)
-    rope = _prompt_rope(cfg, batch, x)
+        x = F.embedding(inputs.long(), cast("embed", params.embed)) \
+            if tokens else inputs.to(dtype)
+        if seq is not None:
+            x = seq.own(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(params.segments):
         for j, layer in enumerate(seg):
             x, aux = _train_layer(cfg, layer, x, rope, layout,
-                                  f"segments.{i}.{j}.")
+                                  f"segments.{i}.{j}.", seq)
             if aux is not None:
                 aux_total = aux_total + aux
     return L.rmsnorm(x, cast("final_ln", params.final_ln),
-                     cfg.norm_eps), aux_total
+                     cfg.norm_eps), aux_total, seq
 
 
 def forward_hidden(cfg: ModelConfig, params: TransformerLM,
@@ -647,7 +690,8 @@ def forward_hidden(cfg: ModelConfig, params: TransformerLM,
     ``torch.no_grad``; ``training=True`` records the graph, casting float32
     masters to ``cfg.dtype`` and wrapping each layer by ``cfg.remat``."""
     if training:
-        return _forward_train(cfg, params, batch)
+        h, aux, seq = _forward_train(cfg, params, batch)
+        return (h if seq is None else seq.whole(h)), aux
     layout = layout_of(params)
     if layout is not None:
         with torch.no_grad():
@@ -691,16 +735,30 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
     S) (< 0 masked) beside the inputs. The T = B·S tokens go in chunks of
     ``_pick_chunk(T, cfg.loss_chunk)``; each chunk's logits are
     recomputed in the backward (``torch.utils.checkpoint``), so the (T, V)
-    logits never exist at once."""
-    h, aux = forward_hidden(cfg, params, batch, training=True)
+    logits never exist at once.
+
+    On a mesh whose model axis splits the head's vocab
+    (``Layout.vocab_parallel``) each model rank keeps its head columns and
+    forms only their logits (``sharding.VocabSplit.nll``); the hidden
+    states are all-gathered over the sequence first when the residual is
+    split over it, and the gradient into them is summed over the model
+    axis (by that gather's backward, or by ``ModelSplit.enter``'s)."""
+    h, aux, seq = _forward_train(cfg, params, batch)
     layout = layout_of(params)
     dtype = _dtype(cfg)
+    nll = _chunk_nll
     if layout is None:
         head = params.head_matrix().to(dtype)
     else:
         batch = _local_batch(layout, batch, layout.batch_axes)
-        head = layout.use("embed", params.embed, dtype).T \
-            if cfg.tie_embeddings else layout.use("head", params.head, dtype)
+        name = "embed" if cfg.tie_embeddings else "head"
+        head = layout.use(name, getattr(params, name), dtype)
+        head = head.T if cfg.tie_embeddings else head
+        if name in layout.vocab_parallel:
+            h = (seq or layout.split).enter(h)
+            nll = layout.vocab.nll
+        elif seq is not None:
+            h = seq.whole(h)
     b, s, d = h.shape
     t = b * s
     hf = h.reshape(t, d)
@@ -710,7 +768,7 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, t, chunk):
         nll_sum = nll_sum + ckpt.checkpoint(
-            _chunk_nll, hf[c0:c0 + chunk], labels[c0:c0 + chunk], head,
+            nll, hf[c0:c0 + chunk], labels[c0:c0 + chunk], head,
             use_reentrant=False)
     n_tok = (labels >= 0).sum().float()
     if layout is None:
@@ -718,6 +776,7 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
         return ce + aux, {"ce": ce, "aux": aux, "tokens": n_tok}
     # this rank's share of the global mean: its tokens' NLL over the global
     # token count; the shares (and their gradients) sum to the global loss
+    # over the batch ranks, and are equal on the model ranks
     n_tok = layout.batch_stats.sum(n_tok)
     ce = nll_sum / torch.clamp(n_tok, min=1.0)
     share = ce + aux
@@ -858,8 +917,9 @@ def _logits(cfg: ModelConfig, params: TransformerLM,
         return (h @ params.head_matrix()).float()
     h = L.rmsnorm(h, layout.use("final_ln", params.final_ln, None),
                   cfg.norm_eps)
-    head = layout.use("embed", params.embed, None).T \
-        if cfg.tie_embeddings else layout.use("head", params.head, None)
+    head = layout.use("embed", params.embed, None, whole=True).T \
+        if cfg.tie_embeddings \
+        else layout.use("head", params.head, None, whole=True)
     return (h @ head).float()
 
 

@@ -54,6 +54,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro_torch import configs
 from repro_torch.kernels import ops, ref

@@ -33,6 +33,7 @@ The module's top level imports no JAX: the ranks import it by name.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro_torch.core import SCRBConfig, SCRBModel, metrics
 from repro_torch.data.synthetic import make_rings

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

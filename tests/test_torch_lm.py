@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_config as jsmoke_config

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro.core import SCRBConfig as JConfig, SCRBModel as JModel
 from repro.core import executor as jexec

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro_torch import configs
 from repro_torch.launch.world import run_world

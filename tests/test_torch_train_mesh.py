@@ -33,6 +33,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro_torch import configs
 from repro_torch.launch.world import run_world

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one thread under xdist)
 
 from repro.configs import smoke_config as jsmoke_config
 from repro.models import transformer as JT
