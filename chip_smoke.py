@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20, on 4 cards
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15, 20 and 21, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -300,7 +300,16 @@ from a seed):
            tokens + 2 sharded against one card (tokens equal but at a
            near-tie of one card's top two logits, within twice the row's
            largest logit difference; each step's logits within 0.1
-           relative L2)
+           relative L2); four planted faults of the step (a row-parallel
+           exit reduced twice, a data rank's gradient share dropped, column
+           shards on the wrong model rank, the vocab-parallel gold logit
+           not summed) must each fail the check. The same world then runs
+           deepseek-moe-16b's first 2 layers (dense, then MoE, its 64
+           experts split over the model axis, 32 a rank) at full width:
+           the same check, every MoE call's expert ids the same bits on
+           the model ranks of a batch group, and two planted MoE faults
+           (experts on the wrong model rank, routed partials not summed
+           over the model axis) that must each fail it
   phase 20 only with --cards 4: stablelm-12b on an NCCL world of one rank
            a card, mesh (data 2, model 2): the 2-layer check of phase 19 at
            its width; greedy prefill + decode (2 x 1,024 tokens + 8) of the
@@ -312,7 +321,27 @@ from a seed):
            steps 3-10 (the slowest rank's) beside its bound (6 x the
            parameters less the embedding x the tokens plus the causal
            attention, at 4 x 989 TFLOP/s), tokens/s, each card's peak
-           memory and the collectives' bytes a step
+           memory and the collectives' bytes a step; six planted faults
+           (phase 19's four, the sequence parts gathered in the wrong order,
+           the norms' gradients not summed over the model axis) must fail
+           the 2-layer check
+  phase 21 only with --cards 4: deepseek-moe-16b on the same mesh, its 64
+           routed experts split over the model axis (expert parallelism,
+           32 a card): the 2-layer check (layer 0 dense, layer 1 MoE, 4 x
+           4,096 tokens, so the residual is split over the sequence) with
+           the routing digests and the two MoE faults; greedy prefill +
+           decode of the full model (2 x 1,024 + 8 tokens) sharded against
+           the one-card bf16 model, with the share of prompt tokens routed
+           to other experts than one card's; then 10 Trainer steps at full
+           width and depth (28 layers, 4 x 4,096 tokens, the same settings
+           as phase 20): a finite, falling loss, the same bits on every
+           rank, 56 flash launches a step a rank, the median step beside
+           its bound (6 x the active parameters, all but the embedding and
+           58 of the 64 routed experts of each MoE layer, x the tokens
+           plus the causal attention, at 4 x 989 TFLOP/s), tokens/s, each
+           card's peak memory and the collectives a step by kind, beside
+           why the same steps with the experts gathered whole have no time
+           (MOE_BEFORE_WHY)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -608,6 +637,31 @@ MESH_GRAD_REL = 5e-2
 MESH_MASTER_REL = 1e-2
 MESH_OWN_REL = 1e-5
 MESH_LOGIT_REL = 0.1
+# phase 21 (--cards 4): deepseek-moe-16b on the same mesh, its 64 routed
+# experts split over the model axis; phase 19 also runs its first 2 layers
+# (dense, MoE) with the MoE faults. Training at phase 20's 4 x 4,096 tokens
+MOE_MESH_ARCH = "deepseek-moe-16b"
+# phase 21's steps with the experts gathered whole and run on every model
+# rank (the tree before the split, driven through this script's
+# lm_mesh_rank on four H100 80GB HBM3 at 700 W; PERF.md section 5) have no
+# step time to stand beside them, as MESH_BEFORE does phase 20's
+MOE_BEFORE_WHY = ("out of memory in step 1's backward (the remat "
+                  "recompute of an MoE layer, 76.49 GiB allocated on a "
+                  "card of 79.18 GiB), so no step time")
+# A token the mesh routes to other experts than one card's own router does
+# (the 2-layer check's MoE calls; serving's first MoE layer, whose input
+# the two runs form alike) must sit on a near-tie of one card's bf16 router
+# logits: the logit of an expert one card picks and the mesh drops lies at
+# most ROUTE_TIE_ULPS bf16 ulps (at the pair's larger logit) above that of
+# an expert the mesh picks in its place. The mesh's training exits sum
+# bf16 partials, so an element of the residual it forms may lie an ulp
+# from one card's; through the RMSNorm and the router's 2,048-term sums
+# (weights N(0, 0.006^2)) that moves a top-k logit by ~0.5 ulp rms, and
+# the difference of a pair by ~0.7 ulp rms: 5 sigma over ~10^6 tokens x
+# experts, plus each logit's bf16 rounding on both runs (half an ulp
+# each), is ~5.5 ulps. (First stated as 4: phase 19 measured 6 on an
+# H100.)
+ROUTE_TIE_ULPS = 8
 
 
 def log(msg: str) -> None:
@@ -5470,19 +5524,113 @@ def hold_greedy(tag: str, got, want) -> dict:
     return {"logit_rel": worst, "ties": ties}
 
 
+def first_layers(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers, each segment keeping its
+    kind, width and window (deepseek-moe-16b's dense layer 0, then MoE
+    layers; a dense model's ``dense_segments(n)``)."""
+    import dataclasses as dc
+    segs, left = [], n
+    for seg in cfg.segments:
+        if left:
+            segs.append(dc.replace(seg, count=min(seg.count, left)))
+            left -= segs[-1].count
+    return dc.replace(cfg, segments=tuple(segs))
+
+
+@contextlib.contextmanager
+def routes_as(routes, keep: list):
+    """``layers.moe_route`` wrapped to append each call's (expert ids (B,
+    S, k) int16, router logits (B, S, E) in the compute dtype) to ``keep``
+    on the host, and, given ``routes`` (a list of expert ids, one a call),
+    to route call i to ``routes[i]``'s experts, with gates from its own
+    probabilities there, renormalised as ``moe_route`` does."""
+    import torch
+
+    from repro_torch.models import layers as L
+    right = L.moe_route
+
+    def routed(cfg, p, x):
+        probs, gates, eidx = right(cfg, p, x)
+        with torch.no_grad():
+            logits = x @ p.router      # moe_route's product, again
+        keep.append((eidx.to(torch.int16).cpu(), logits.cpu()))
+        if routes is not None:
+            eidx = routes[len(keep) - 1].to(eidx.device, torch.int64)
+            gates = probs.gather(-1, eidx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return probs, gates, eidx
+    with _patched(L, "moe_route", routed):
+        yield
+
+
+def batch_routes(all_routes: list) -> list:
+    """The mesh's routing of the whole batch, call by call: each batch
+    group's (model rank 0's) expert ids and router logits, concatenated
+    over the batch in data order, from every rank's (coord, digests,
+    [(expert ids, logits)])."""
+    import torch
+    groups = sorted((c[0], r) for c, _, r in all_routes if c[1] == 0)
+    return [tuple(torch.cat(parts) for parts in zip(*calls))
+            for calls in zip(*(r for _, r in groups))]
+
+
+def routing_against(mesh_routes: list, one_routes: list) -> dict:
+    """The mesh's routing against one card's own, over the MoE calls of
+    the two lists (each (expert ids, router logits) a call): the tokens
+    whose top-k set differs, the worst margin they cross in bf16 ulps
+    (one card's logit of an expert it picks and the mesh drops, less its
+    logit of an expert the mesh picks in its place, the largest such
+    difference, over the ulp at the pair's larger logit), and the ones off
+    a near-tie (that margin above ROUTE_TIE_ULPS)."""
+    import torch
+    moved = not_tie = total = 0
+    worst = 0.0
+    for (e, _), (e1, l1) in zip(mesh_routes, one_routes):
+        mine = torch.zeros(l1.shape, dtype=torch.bool).scatter_(
+            -1, e.long(), True)
+        one = torch.zeros(l1.shape, dtype=torch.bool).scatter_(
+            -1, e1.long(), True)
+        l1 = l1.float()
+        diff = (one & ~mine).any(-1)
+        dropped = torch.where(one & ~mine, l1, -torch.inf).amax(-1)[diff]
+        taken = torch.where(mine & ~one, l1, torch.inf).amin(-1)[diff]
+        size = torch.maximum(dropped.abs(), taken.abs()).clamp_min(1e-30)
+        ulps = (dropped - taken) / torch.exp2(torch.floor(torch.log2(size))
+                                              - 7)
+        moved += int(diff.sum())
+        not_tie += int((ulps > ROUTE_TIE_ULPS).sum())
+        if ulps.numel():
+            worst = max(worst, float(ulps.max()))
+        total += diff.numel()
+    return {"moved": moved, "not_tie": not_tie, "tokens": total,
+            "worst_ulps": worst}
+
+
+def fault_applies(kind: str, res: dict) -> bool:
+    """Whether a planted fault of ``kind`` reaches the sharded step that
+    ``res`` describes: "seq" faults need the residual split over the
+    sequence, "moe" faults an MoE split over its experts."""
+    return {"any": True, "seq": res["seq_split"],
+            "moe": res["moe_split"]}[kind]
+
+
 def lm_mesh_rank(spec: dict) -> dict:
     """One rank of an LM mesh world (phase 19: gloo, ranks sharing card 0;
-    phase 20: NCCL, a card each), on a (data, model) mesh:
+    phases 20-21: NCCL, a card each), on a (data, model) mesh:
 
-      check  a ``check_layers``-layer model at the architecture's width:
-             one sharded train step (``launch.specs.build_cell``'s step,
-             masters drawn on the card from the seed by every rank, each
-             keeping its shard) against the unsharded step that rank 0 runs
-             on its own card first: the loss, every gradient leaf and every
-             AdamW update, gathered leaf by leaf
-      serve  greedy prefill + decode of a ``serve_layers``-layer model (None:
-             full depth) sharded, against the one-card model (rank 0, its
-             card, before the sharded one)
+      check  with ``check_layers``: a model of the architecture's first
+             ``check_layers`` layers at its width: one sharded train step
+             (``launch.specs.build_cell``'s step, masters drawn on the card
+             from the seed by every rank, each keeping its shard) against
+             the unsharded step that rank 0 runs on its own card first: the
+             loss, every gradient leaf and every AdamW update, gathered
+             leaf by leaf, and a digest of every MoE call's expert ids on
+             every rank; then each planted fault of ``MESH_FAULTS`` whose
+             kind is in ``faults`` and reaches the step
+      serve  with ``prompt``: greedy prefill + decode of a
+             ``serve_layers``-layer model (None: full depth) sharded,
+             against the one-card model (rank 0, its card, before the
+             sharded one); every MoE call's expert ids on both
       train  with ``train_steps``: the full-depth model trains that many
              steps through ``Trainer`` (float32 masters from the seed, the
              sharded step by ``step_fn=``): each step's loss, grad norm,
@@ -5490,6 +5638,7 @@ def lm_mesh_rank(spec: dict) -> dict:
 
     Returns rank 0's comparisons and every rank's timings and memory."""
     import dataclasses as dc
+    import hashlib
     import statistics
 
     import torch
@@ -5503,7 +5652,6 @@ def lm_mesh_rank(spec: dict) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharding as sh
     from repro_torch.models import transformer as T
-    from repro_torch.models.config import dense_segments
     from repro_torch.train.optimizer import (OptConfig, apply_updates,
                                              init_opt_state)
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -5513,125 +5661,191 @@ def lm_mesh_rank(spec: dict) -> dict:
     rank = dist.get_rank()
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(spec["mesh"], ("data", "model"), device_type="cuda")
+    coord = tuple(mesh.get_coordinate())
     full = configs.get_config(spec["arch"])
     b, s_len = spec["batch"], spec["seq"]
     tcfg = TrainConfig(opt=OptConfig(**TRAIN_OPT), log_every=1000)
     shape = dc.replace(SHAPES["train_4k"], seq_len=s_len, global_batch=b)
-    out = {"rank": rank, "device": str(dev)}
+    out = {"rank": rank, "device": str(dev), "coord": coord}
 
     def gen():
         return torch.Generator(dev).manual_seed(spec["seed"])
 
-    # -- check: one step at full width, check_layers layers ----------------
-    cfg = dc.replace(full, segments=dense_segments(spec["check_layers"]))
-    data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=b,
-                           seq_len=s_len, seed=spec["seed"])
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in data.batch_at(0).items()}
-    step, _, _ = specs.build_cell(cfg, shape, mesh, train=tcfg)
+    t_part = [time.perf_counter()]
 
-    def one_card_step():
-        one = T.init_params(cfg, gen(), masters=True, device=dev)
-        named = dict(one.named_parameters())
-        before = {n: p.detach().clone() for n, p in named.items()}
-        _, _, m = step(one, init_opt_state(named, tcfg.opt), batch)
-        return {"loss": float(m["loss"]), "before": before,
-                "grad": {n: p.grad for n, p in named.items()},
-                "after": {n: p.detach() for n, p in named.items()}}
-
-    # rank 0's unsharded step, on its own card first (freed with want)
-    want = one_card_step() if rank == 0 else {}
-
-    def sharded_check():
-        """The sharded step from the seed's draws, held against ``want``
-        (rank 0); the flash launches and whether the residual was split
-        over the sequence."""
-        model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
-                              batch_size=b, device=dev)
-        seq = T.layout_of(model).sequence(s_len) is not None
-        named = dict(model.named_parameters())
-        before = {n: p.to_local().detach().clone() for n, p in named.items()}
-        ops.reset_launch_counts()
-        _, _, m = step(model, init_opt_state(named, tcfg.opt), batch)
-        launches = ops.launch_counts()["flash_attention"]
-        losses = [None] * dist.get_world_size()
-        dist.all_gather_object(losses, float(m["loss"]))
-        grads, after, first = {}, {}, {}
-        for n, p in named.items():        # gathered leaf by leaf, every rank
-            g, a = sh.whole(p.grad), sh.whole(p.detach())
-            w = _whole_of(before[n], p)
-            if rank == 0:
-                grads[n], after[n], first[n] = g, a, w
-            del g, a, w
-        del model, named, before
-        check = None
+    def done(what):
+        """Rank 0 logs the seconds since the last part ended."""
+        now = time.perf_counter()
         if rank == 0:
+            log(f"[mesh world] {spec['arch']}: {what} "
+                f"{now - t_part[0]:.1f}s")
+        t_part[0] = now
+
+    def moe_split(model):
+        return "moe" in T.layout_of(model).split_blocks.values()
+
+    # -- check: one step at full width, check_layers layers ----------------
+    if spec["check_layers"]:
+        cfg = first_layers(full, spec["check_layers"])
+        data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=b,
+                               seq_len=s_len, seed=spec["seed"])
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch_at(0).items()}
+        step, _, _ = specs.build_cell(cfg, shape, mesh, train=tcfg)
+        world = dist.get_world_size()
+
+        def one_card_step(routes=None):
+            """Rank 0's unsharded step on its own card, routing each MoE
+            call as ``routes`` says (the mesh's expert ids, gates from its
+            own probabilities there) or by its own router; its own
+            routing kept."""
+            one = T.init_params(cfg, gen(), masters=True, device=dev)
+            named = dict(one.named_parameters())
+            before = {n: p.detach().clone() for n, p in named.items()}
+            own = []
+            with routes_as(routes, own):
+                _, _, m = step(one, init_opt_state(named, tcfg.opt), batch)
+            return {"loss": float(m["loss"]), "before": before,
+                    "grad": {n: p.grad for n, p in named.items()},
+                    "after": {n: p.detach() for n, p in named.items()},
+                    "routes": own}
+
+        def sharded_step():
+            """The sharded step from the seed's draws: every rank's loss,
+            MoE routing (digests; expert ids and router logits gathered to
+            rank 0), and on rank 0 the step's leaves gathered whole; the
+            flash launches, whether the residual was split over the
+            sequence and the experts over the model axis."""
+            model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
+                                  batch_size=b, device=dev)
+            seq = T.layout_of(model).sequence(s_len) is not None
+            split = moe_split(model)
+            named = dict(model.named_parameters())
+            before = {n: p.to_local().detach().clone()
+                      for n, p in named.items()}
+            routes = []
+            ops.reset_launch_counts()
+            with routes_as(None, routes):
+                _, _, m = step(model, init_opt_state(named, tcfg.opt), batch)
+            launches = ops.launch_counts()["flash_attention"]
+            losses = [None] * world
+            dist.all_gather_object(losses, float(m["loss"]))
+            digests = [hashlib.sha256(e.numpy().tobytes()).hexdigest()
+                       for e, _ in routes]
+            all_routes = [None] * world
+            dist.all_gather_object(all_routes, (coord, digests, routes))
+            got = {"grad": {}, "after": {}, "first": {}}
+            for n, p in named.items():    # gathered leaf by leaf to rank 0
+                got["grad"][n] = whole_on_rank0(p.grad.to_local(), p)
+                got["after"][n] = whole_on_rank0(p.to_local(), p)
+                got["first"][n] = whole_on_rank0(before[n], p)
+            del model, named, before
+            torch.cuda.empty_cache()
+            if rank == 0:
+                got.update(loss=float(m["loss"]), rank_losses=losses,
+                           routes=[(c, d) for c, d, _ in all_routes],
+                           batch_routes=batch_routes(all_routes))
+            return got, launches, seq, split
+
+        def compare(got, want, one_routes):
+            """Rank 0's figures of the sharded step ``got`` against the
+            unsharded ``want``; the mesh's routing against one card's own
+            (``one_routes``)."""
             def rel(x, y):
                 return float((x - y).norm() / y.norm().clamp_min(1e-30))
+            first, after = got["first"], got["after"]
             # one card's AdamW on the sharded step's own gradients
             own = {n: w.clone() for n, w in first.items()}
-            apply_updates(own, grads, init_opt_state(own, tcfg.opt),
+            apply_updates(own, got["grad"], init_opt_state(own, tcfg.opt),
                           tcfg.opt)
             check = {
-                "loss": float(m["loss"]), "want_loss": want["loss"],
-                "rank_losses": losses,
+                "loss": got["loss"], "want_loss": want["loss"],
+                "rank_losses": got["rank_losses"], "routes": got["routes"],
+                "routing": routing_against(got["batch_routes"], one_routes),
                 "same_draws": max(float((first[n] - want["before"][n])
                                         .abs().max()) for n in first),
-                "grad_rel": {n: rel(grads[n], want["grad"][n])
-                             for n in grads},
+                "grad_rel": {n: rel(got["grad"][n], want["grad"][n])
+                             for n in first},
                 "master_rel": {n: rel(after[n], want["after"][n])
-                               for n in after},
+                               for n in first},
                 "update_rel": {n: rel(after[n] - first[n],
                                       want["after"][n] - want["before"][n])
-                               for n in after},
+                               for n in first},
                 "own_rel": {n: rel(after[n] - first[n], own[n] - first[n])
-                            for n in after}}
+                            for n in first}}
             del own
-        del grads, after, first
-        torch.cuda.empty_cache()
-        return check, launches, seq
+            return check
 
-    out["check"], out["check_launches"], out["seq_split"] = sharded_check()
-    # the planted faults of the sharded step: each must fail the check
-    out["faults"] = {}
-    for name, (needs_seq, plant) in MESH_FAULTS.items():
-        if needs_seq and not out["seq_split"]:
-            continue
-        with plant(mesh):
-            check, _, _ = sharded_check()
+        got, out["check_launches"], out["seq_split"], out["moe_split"] = \
+            sharded_step()
+        want = one_routes = None
         if rank == 0:
-            out["faults"][name] = check
-    del want, batch
-    torch.cuda.empty_cache()
+            # one card routing by its own router: printed. The check holds
+            # the step against one card routing as the mesh did (bf16 router
+            # logits near a tie may pick another expert on either side:
+            # ``routing`` holds those to near-ties)
+            alone = one_card_step()
+            one_routes = alone["routes"]
+            indep = compare(got, alone, one_routes)
+            del alone
+            torch.cuda.empty_cache()
+            want = one_card_step([e for e, _ in got["batch_routes"]])
+            out["check"] = compare(got, want, one_routes)
+            out["check"]["alone"] = {k: indep[k] for k in (
+                "loss", "want_loss", "grad_rel", "master_rel")}
+            del indep
+        del got
+        torch.cuda.empty_cache()
+        done("the 2-layer check")
+        # the planted faults of the sharded step: each must fail the check
+        out["fault_kinds"], out["faults"] = spec["faults"], {}
+        for name, (kind, plant) in MESH_FAULTS.items():
+            if kind not in spec["faults"] or not fault_applies(kind, out):
+                continue
+            with plant(mesh):
+                got, _, _, _ = sharded_step()
+            if rank == 0:
+                out["faults"][name] = compare(got, want, one_routes)
+            del got
+            torch.cuda.empty_cache()
+            done(f"planted fault '{name}'")
+        del want, batch
+        torch.cuda.empty_cache()
 
     # -- serve: greedy prefill + decode, sharded against one card -----------
-    scfg = full if spec["serve_layers"] is None else dc.replace(
-        full, segments=dense_segments(spec["serve_layers"]))
-    prompts = torch.as_tensor(SyntheticTokens(
-        vocab_size=scfg.vocab_size, batch=spec["prompt"][0],
-        seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
-            "tokens"], device=dev)
-    one_card = None
-    if rank == 0:
-        served = T.init_params(scfg, gen(), device=dev)
-        one_card = lm_greedy(scfg, served, prompts, spec["new"])
-        del served
+    if spec["prompt"] is not None:
+        scfg = full if spec["serve_layers"] is None \
+            else first_layers(full, spec["serve_layers"])
+        prompts = torch.as_tensor(SyntheticTokens(
+            vocab_size=scfg.vocab_size, batch=spec["prompt"][0],
+            seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
+                "tokens"], device=dev)
+        one_card, one_routes, routes = None, [], []
+        if rank == 0:
+            served = T.init_params(scfg, gen(), device=dev)
+            with routes_as(None, one_routes):
+                one_card = lm_greedy(scfg, served, prompts, spec["new"])
+            del served
+            torch.cuda.empty_cache()
+        served = T.init_params(scfg, gen(), mesh=mesh, device=dev)
+        ops.reset_launch_counts()
+        sh.reset_collectives()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with routes_as(None, routes):
+            got = lm_greedy(scfg, served, prompts, spec["new"])
+        torch.cuda.synchronize(dev)
+        out["serve_s"] = time.perf_counter() - t0
+        out["serve_launches"] = ops.launch_counts()["flash_attention"]
+        out["serve_collectives"] = sh.collective_counts()
+        out["serve_routes"] = routes
+        if rank == 0:
+            out["serve"] = {"got": tuple(t.cpu() for t in got),
+                            "want": tuple(t.cpu() for t in one_card),
+                            "routes": one_routes}
+        del served, got, one_card, one_routes, routes
         torch.cuda.empty_cache()
-    served = T.init_params(scfg, gen(), mesh=mesh, device=dev)
-    ops.reset_launch_counts()
-    sh.reset_collectives()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    got = lm_greedy(scfg, served, prompts, spec["new"])
-    torch.cuda.synchronize(dev)
-    out["serve_s"] = time.perf_counter() - t0
-    out["serve_launches"] = ops.launch_counts()["flash_attention"]
-    out["serve_collectives"] = sh.collective_counts()
-    if rank == 0:
-        out["serve"] = {"got": tuple(t.cpu() for t in got),
-                        "want": tuple(t.cpu() for t in one_card)}
-    del served, got, one_card
-    torch.cuda.empty_cache()
+        done("greedy serving")
 
     # -- train: full depth, train_steps steps ------------------------------
     if spec["train_steps"]:
@@ -5641,6 +5855,8 @@ def lm_mesh_rank(spec: dict) -> dict:
                               batch_size=b, device=dev)
         torch.cuda.synchronize(dev)
         out["init_s"] = time.perf_counter() - t0
+        out["train_moe_split"] = moe_split(model)
+        out["train_batch"] = (b, s_len)
         out["n_params"] = sum(p.numel() for p in model.parameters())
         out["local_bytes"] = sum(p.to_local().numel() * 4
                                  for p in model.parameters())
@@ -5652,28 +5868,57 @@ def lm_mesh_rank(spec: dict) -> dict:
         for _ in range(spec["train_steps"]):
             ops.reset_launch_counts()
             sh.reset_collectives()
+            retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
+                                                       0)
             m = trainer.run(1)
             m["launches"] = ops.launch_counts()["flash_attention"]
             m["collectives"] = sh.collective_counts()
+            # the caching allocator's frees and retries of a cudaMalloc
+            # that failed (memory near full), a step
+            m["alloc_retries"] = torch.cuda.memory_stats(dev).get(
+                "num_alloc_retries", 0) - retries
             steps.append(m)
         out["steps"] = steps
         out["step_s"] = statistics.median(m["step_time_s"]
                                           for m in steps[2:])
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+        done(f"{spec['train_steps']} training steps")
         del trainer, model
         torch.cuda.empty_cache()
     return out
 
 
-def _whole_of(local, p):
-    """``local`` (this rank's shard of DTensor ``p``'s earlier value) made
-    whole, as ``p`` is (a collective every rank joins)."""
-    from torch.distributed.tensor import DTensor
+def lm_mesh_specs(specs: list) -> list:
+    """``lm_mesh_rank`` for each spec in turn, in one world."""
+    return [lm_mesh_rank(spec) for spec in specs]
 
-    from repro_torch.models.sharding import whole
-    return whole(DTensor.from_local(local, p.device_mesh, p.placements,
-                                    run_check=False, shape=p.shape,
-                                    stride=p.stride()))
+
+def whole_on_rank0(local, p):
+    """``local`` (this rank's shard of DTensor ``p``, or of an earlier
+    value of it) made whole on rank 0 alone, None elsewhere: every rank's
+    shard gathered to rank 0 (through the host in a gloo world) and put in
+    place by its mesh coordinate. A collective every rank joins; rank 0
+    alone receives, where an all-gather makes every rank whole."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.sharding import local_slice
+    mesh = p.device_mesh
+    host = dist.get_backend() == "gloo" and local.is_cuda
+    send = local.detach().contiguous()
+    send = send.cpu() if host else send
+    rank, world = dist.get_rank(), dist.get_world_size()
+    parts = [torch.empty_like(send) for _ in range(world)] if rank == 0 \
+        else None
+    dist.gather(send, parts, dst=0)
+    if rank != 0:
+        return None
+    out = torch.empty(p.shape, dtype=local.dtype, device=local.device)
+    for r, part in enumerate(parts):
+        coord = [int(i) for i in (mesh.mesh == r).nonzero()[0]]
+        local_slice(out, mesh, p.placements, coord).copy_(part)
+    return out
 
 
 # planted faults of the sharded train step (phases 19-20), each patched in
@@ -5699,10 +5944,11 @@ def fault_exit_twice(mesh):
     from repro_torch.models import sharding as sh
     right = L.row_parallel
 
-    def twice(x, w, tp):
+    def twice(x, w, tp, plus=None):
         if not torch.is_grad_enabled():
-            return right(x, w, tp)
-        return tp.exit(sh._Exit.apply(x @ w, tp))
+            return right(x, w, tp, plus)
+        y = x @ w if plus is None else x @ w + plus
+        return tp.exit(sh._Exit.apply(y, tp))
     return _patched(L, "row_parallel", twice)
 
 
@@ -5788,17 +6034,60 @@ def fault_gold_not_summed(mesh):
     return _patched(sh.VocabSplit, "gold", local_gold)
 
 
-#: name → (needs the residual split over the sequence, plant(mesh))
+def fault_experts_shifted(mesh):
+    """Experts on the wrong model rank: each rank takes its expert shard
+    for the next rank's experts (the local-expert offset shifted by one
+    shard), so it runs the slots of experts whose weights it lacks."""
+    from repro_torch.models import layers as L
+
+    def shifted(p, tp):
+        return (tp.index + 1) % tp.n * p.experts.wg.shape[0]
+    return _patched(L, "first_expert", shifted)
+
+
+def fault_routed_not_summed(mesh):
+    """The routed partials not summed over the model axis: each rank keeps
+    its own experts' output (its part of the sequence of it, where the
+    residual is split), only the shared experts' partial crosses the
+    axis."""
+    from repro_torch.models import layers as L
+    right = L.row_parallel
+
+    def unsummed(x, w, tp, plus=None):
+        out = right(x, w, tp)
+        if plus is None:
+            return out
+        return out + (tp.part(plus) if tp.seq else plus).to(out.dtype)
+    return _patched(L, "row_parallel", unsummed)
+
+
+#: name → (kind, plant(mesh)); kind "any", or "seq" (needs the residual
+#: split over the sequence) or "moe" (an MoE split over its experts)
 MESH_FAULTS = {
-    "row-parallel exit reduced twice": (False, fault_exit_twice),
-    "gradient reduce-scatter drops data rank 1": (False,
-                                                   fault_drop_data_share),
-    "column shards on the wrong model rank": (False, fault_wrong_columns),
-    "sequence parts gathered in the wrong order": (True,
+    "row-parallel exit reduced twice": ("any", fault_exit_twice),
+    "gradient reduce-scatter drops data rank 1": ("any",
+                                                  fault_drop_data_share),
+    "column shards on the wrong model rank": ("any", fault_wrong_columns),
+    "sequence parts gathered in the wrong order": ("seq",
                                                    fault_sequence_order),
-    "norm gradients not summed over model": (True, fault_norm_not_summed),
-    "vocab-parallel gold logit not summed": (False, fault_gold_not_summed),
+    "norm gradients not summed over model": ("seq", fault_norm_not_summed),
+    "vocab-parallel gold logit not summed": ("any", fault_gold_not_summed),
+    "experts on the wrong model rank": ("moe", fault_experts_shifted),
+    "routed partials not summed over model": ("moe",
+                                              fault_routed_not_summed),
 }
+
+
+def route_splits(c: dict) -> tuple[int, int]:
+    """(MoE calls whose expert ids differ between the model ranks of a
+    batch group, MoE calls digested on one rank), from the check's
+    digests."""
+    groups: dict = {}
+    for coord, digests in c["routes"]:
+        groups.setdefault(coord[0], []).append(digests)
+    split = sum(len(set(calls)) > 1 for ranks in groups.values()
+                for calls in zip(*ranks))
+    return split, len(c["routes"][0][1])
 
 
 def mesh_check_over(c: dict) -> list:
@@ -5814,6 +6103,15 @@ def mesh_check_over(c: dict) -> list:
     spread = max(c["rank_losses"]) - min(c["rank_losses"])
     if spread != 0.0:
         over.append(("loss spread over the ranks", spread, 0.0))
+    # the model ranks of a batch group route every token alike, and where
+    # the mesh routes a token to other experts than one card, it is a tie
+    split, _ = route_splits(c)
+    if split:
+        over.append(("MoE calls routed differently on a batch group's "
+                     "model ranks", split, 0))
+    if c["routing"]["not_tie"]:
+        over.append(("tokens routed unlike one card off a near-tie",
+                     c["routing"]["not_tie"], 0))
     for key, limit in (("grad_rel", MESH_GRAD_REL),
                        ("master_rel", MESH_MASTER_REL),
                        ("own_rel", MESH_OWN_REL)):
@@ -5827,11 +6125,17 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     loss within MESH_LOSS_REL, every gradient leaf within MESH_GRAD_REL and
     every updated master within MESH_MASTER_REL of the unsharded step's
     (relative L2); every leaf's update within MESH_OWN_REL of one card's
-    AdamW on the sharded step's own gathered gradients. The update against
-    the unsharded step's is printed (AdamW's first step is lr·sign(g)
-    where |g| ≫ eps: an entry whose gradient is below the bf16 noise may
-    take the other sign). Then each planted fault of the step
-    (``MESH_FAULTS``) must fail the same check, at the same limits."""
+    AdamW on the sharded step's own gathered gradients; every rank's loss
+    the same bits, and every MoE call's expert ids the same bits on the
+    model ranks of a batch group. One card routes as the mesh did (its
+    gates from its own probabilities at the mesh's experts); where one
+    card's own router picks other experts for a token, that token must be
+    a near-tie. The update against the unsharded step's
+    is printed (AdamW's first step is lr·sign(g) where |g| ≫ eps: an entry
+    whose gradient is below the bf16 noise may take the other sign). Then
+    each planted fault of the step (``MESH_FAULTS``) of the kinds the spec
+    names that reaches the step must fail the same check, at the same
+    limits."""
     c = res["check"]
     loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
 
@@ -5839,7 +6143,22 @@ def hold_mesh_check(tag: str, res: dict) -> None:
         return max(c[key].items(), key=lambda kv: kv[1])
     g, mst, u, own = (worst(k) for k in ("grad_rel", "master_rel",
                                           "update_rel", "own_rel"))
+    split, calls = route_splits(c)
+    rt, alone = c["routing"], c["alone"]
+    if calls:
+        ga = max(alone["grad_rel"].items(), key=lambda kv: kv[1])
+        log(f"{tag}: {calls} MoE calls a rank, {split} of them routed "
+            f"differently on a batch group's model ranks (limit 0); "
+            f"{rt['moved']} of {rt['tokens']} tokens x calls routed to "
+            f"other experts than one card's own routing, the worst across "
+            f"a margin of {rt['worst_ulps']:.3g} bf16 ulps of one card's "
+            f"logits, {rt['not_tie']} of them off a near-tie (over "
+            f"{ROUTE_TIE_ULPS} ulps; limit 0); against one card routing "
+            f"by its own router (printed): loss rel "
+            f"{abs(alone['loss'] - alone['want_loss']) / abs(alone['want_loss']):.3g}, "
+            f"worst gradient {ga[0]} {ga[1]:.3g}")
     log(f"{tag}: residual split over the sequence: {res['seq_split']}; "
+        f"MoE split over its experts: {res['moe_split']}; "
         f"loss by rank {c['rank_losses']}; "
         f"sharded init against one card's draws: max |diff| "
         f"{c['same_draws']}; loss {c['loss']:.6f} against one card's "
@@ -5853,8 +6172,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     over = mesh_check_over(c)
     if over:
         fail(f"{tag}: over the limits: {over}")
-    want = [n for n, (needs_seq, _) in MESH_FAULTS.items()
-            if res["seq_split"] or not needs_seq]
+    want = [n for n, (kind, _) in MESH_FAULTS.items()
+            if kind in res["fault_kinds"] and fault_applies(kind, res)]
     if sorted(res["faults"]) != sorted(want):
         fail(f"{tag}: planted faults run {sorted(res['faults'])}, expected "
              f"{sorted(want)}")
@@ -5862,6 +6181,7 @@ def hold_mesh_check(tag: str, res: dict) -> None:
         over = mesh_check_over(fc)
         if not over:
             fail(f"{tag}: the planted fault '{name}' passes the check")
+            continue
         worst_over = max(over, key=lambda o: o[1] / max(o[2], 1e-30))
         loss_rel = abs(fc["loss"] - fc["want_loss"]) / abs(fc["want_loss"])
         g = max(fc["grad_rel"].items(), key=lambda kv: kv[1])
@@ -5876,27 +6196,38 @@ def hold_mesh_check(tag: str, res: dict) -> None:
 
 def phase19_lm_mesh(seed: int) -> dict:
     """Phase 19: the LM on a (data 2, model 2) mesh of gloo ranks sharing
-    card 0, at internlm2-1.8b's width with 2 layers: a sharded train step
-    and greedy prefill + decode, each against the unsharded model on the
-    same card. Returns the flash launches of a sharded step on one rank."""
+    card 0: at internlm2-1.8b's width with 2 layers, a sharded train step
+    with four planted faults and greedy prefill + decode, each against the
+    unsharded model on the same card; at deepseek-moe-16b's width with its
+    first 2 layers (dense, then MoE, its experts split over the model
+    axis), the sharded step with the two MoE faults. Returns the flash
+    launches of internlm2's sharded step on one rank."""
     from repro_torch.launch.world import run_world
-    spec = {"arch": LM_ARCH, "mesh": MESH_LM_SHAPE, "check_layers": 2,
-            "serve_layers": 2, "train_steps": 0, "seed": seed,
-            "batch": MESH_LM_BATCH[0], "seq": MESH_LM_BATCH[1],
-            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW_GLOO}
+    common = {"mesh": MESH_LM_SHAPE, "check_layers": 2, "train_steps": 0,
+              "seed": seed, "batch": MESH_LM_BATCH[0],
+              "seq": MESH_LM_BATCH[1]}
+    specs = [dict(common, arch=LM_ARCH, serve_layers=2,
+                  prompt=MESH_LM_PROMPT, new=MESH_LM_NEW_GLOO,
+                  faults=("any",)),
+             dict(common, arch=MOE_MESH_ARCH, prompt=None, faults=("moe",))]
     t0 = time.perf_counter()
-    ranks = run_world(lm_mesh_rank, MESH_LM_WORLD, backend="gloo",
-                      device="cuda:0", args=(spec,), timeout_s=120.0,
+    ranks = run_world(lm_mesh_specs, MESH_LM_WORLD, backend="gloo",
+                      device="cuda:0", args=(specs,), timeout_s=120.0,
                       join_timeout_s=MESH_LM_JOIN_S)
     log(f"[phase 19] gloo world of {MESH_LM_WORLD} on one card, mesh "
         f"{MESH_LM_SHAPE}: {time.perf_counter() - t0:.1f}s")
-    r0 = ranks[0]
+    r0, m0 = ranks[0]
     hold_mesh_check("[phase 19] 2 layers at internlm2's width", r0)
     hold_greedy("[phase 19] prefill + decode", r0["serve"]["got"],
                 r0["serve"]["want"])
-    launches = {r["check_launches"] for r in ranks}
+    if not m0["moe_split"]:
+        fail("[phase 19] deepseek-moe-16b's experts are not split over the "
+             "model axis")
+    hold_mesh_check("[phase 19] 2 layers at deepseek-moe-16b's width", m0)
+    launches = {r[0]["check_launches"] for r in ranks}
     want = 2 * 2           # a forward a layer and its remat recompute
-    if launches != {want}:
+    if launches != {want} or {r[1]["check_launches"] for r in ranks} \
+            != {want}:
         fail(f"[phase 19] flash launches a sharded step {launches}, "
              f"expected {want} on every rank")
     log(f"[phase 19] flash launches: {want} a sharded step a rank, "
@@ -5910,8 +6241,6 @@ def phase20_lm_cards(n_cards: int, seed: int) -> dict:
     card, mesh (data 2, model 2): the 2-layer check at full width, greedy
     prefill + decode of the full model sharded against one card, then
     TRAIN_STEPS steps at full width and depth."""
-    import math
-
     from repro_torch import configs
     from repro_torch.launch.world import run_world
     cfg = configs.get_config(MESH_TRAIN_ARCH)
@@ -5919,7 +6248,8 @@ def phase20_lm_cards(n_cards: int, seed: int) -> dict:
             "check_layers": 2, "serve_layers": None,
             "train_steps": TRAIN_STEPS, "seed": seed,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW}
+            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW,
+            "faults": ("any", "seq")}
     t0 = time.perf_counter()
     ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
                       args=(spec,), timeout_s=300.0,
@@ -5932,71 +6262,165 @@ def phase20_lm_cards(n_cards: int, seed: int) -> dict:
                 f"{MESH_LM_PROMPT[0]} x {MESH_LM_PROMPT[1]} + "
                 f"{MESH_LM_NEW} tokens", r0["serve"]["got"],
                 r0["serve"]["want"])
+    log(f"[phase 20] {cfg.name}: sharded serving greedy generate "
+        f"{r0['serve_s']:.3f}s with {r0['serve_launches']} flash launches")
+    embed = cfg.vocab_size * cfg.d_model
+    return hold_mesh_train(
+        "[phase 20]", cfg, ranks, n_cards, cfg.param_count() - embed,
+        "parameters less the embedding", MESH_BEFORE,
+        "the residual whole over the sequence and the vocab gathered")
+
+
+def hold_mesh_train(tag: str, cfg, ranks: list, n_cards: int,
+                    active: int, counted: str, before=None,
+                    before_what: str = "") -> dict:
+    """The training steps of a mesh world (``lm_mesh_rank``'s train part):
+    a finite, falling loss, the same bits on every rank, 2 flash launches
+    a layer a step a rank; the median step of steps 3-TRAIN_STEPS (the
+    slowest rank's) beside its bound (6 x ``active`` parameters x the
+    tokens plus the causal attention, at n_cards x 989 TFLOP/s),
+    tokens/s, each card's peak memory and the collectives a step, printed
+    beside ``before`` (a dict like MESH_BEFORE, or None)."""
+    import math
+    r0 = ranks[0]
     if r0["n_params"] != cfg.param_count():
         fail(f"{r0['n_params']} parameters, the config counts "
              f"{cfg.param_count()}")
-    log(f"[phase 20] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"H={cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, d_ff="
         f"{cfg.d_ff}, vocab={cfg.vocab_size}: {r0['n_params']} float32 "
         f"masters, {r0['local_bytes'] / 1e9:.3f} GB a card, drawn in "
-        f"{r0['init_s']:.2f}s; sharded serving greedy generate "
-        f"{r0['serve_s']:.3f}s with {r0['serve_launches']} flash launches")
+        f"{r0['init_s']:.2f}s")
     for i, m in enumerate(r0["steps"]):
         c = m["collectives"]
-        log(f"[phase 20] step {i + 1}: loss {m['loss']:.6f} grad_norm "
+        log(f"{tag} step {i + 1}: loss {m['loss']:.6f} grad_norm "
             f"{m['grad_norm']:.6f} lr {m['lr']:.3e} {m['step_time_s']:.4f}s "
-            f"flash launches {m['launches']}; collectives "
+            f"flash launches {m['launches']}; allocator retries "
+            f"{m['alloc_retries']}; collectives "
             + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
                         for k, v in c.items() if v["count"]))
     losses = [m["loss"] for m in r0["steps"]]
     vals = losses + [m["grad_norm"] for m in r0["steps"]]
     if not all(map(math.isfinite, vals)):
-        fail(f"[phase 20] a loss or grad norm is not finite: {vals}")
+        fail(f"{tag} a loss or grad norm is not finite: {vals}")
     if not losses[-1] < losses[0]:
-        fail(f"[phase 20] step {TRAIN_STEPS}'s loss {losses[-1]} is not "
-             f"below step 1's {losses[0]}")
+        fail(f"{tag} step {len(losses)}'s loss {losses[-1]} is not below "
+             f"step 1's {losses[0]}")
     for r in ranks[1:]:
         if [m["loss"] for m in r["steps"]] != losses:
-            fail(f"[phase 20] rank {r['rank']} reports other losses")
+            fail(f"{tag} rank {r['rank']} reports other losses")
     want = 2 * cfg.n_layers
     launches = {m["launches"] for r in ranks for m in r["steps"]}
     if launches != {want}:
-        fail(f"[phase 20] flash launches a step {sorted(launches)}, "
-             f"expected {want} on every rank")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+        fail(f"{tag} flash launches a step {sorted(launches)}, expected "
+             f"{want} on every rank")
+    b, s_len = r0["train_batch"]
+    tokens = b * s_len
     step_s = max(r["step_s"] for r in ranks)
-    embed = cfg.vocab_size * cfg.d_model
-    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None)
-    attn = 3 * 4.0 * cfg.head_dim * pairs * TRAIN_BATCH * cfg.n_heads \
-        * cfg.n_layers
-    flops = 6.0 * (cfg.param_count() - embed) * tokens + attn
+    pairs = visible_pairs(s_len, s_len, True, None)
+    attn = 3 * 4.0 * cfg.head_dim * pairs * b * cfg.n_heads * cfg.n_layers
+    flops = 6.0 * active * tokens + attn
     bound_s = flops / (n_cards * PEAK_BF16_OPS_PER_S)
     coll = r0["steps"][-1]["collectives"]
     coll_gb = sum(v["bytes"] for v in coll.values()) / 1e9
     peaks = [r["peak_gib"] for r in ranks]
-    log(f"[phase 20] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} = "
-        f"{tokens} tokens on {n_cards} cards: loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}; median step of steps 3-{TRAIN_STEPS} "
-        f"{step_s:.4f}s (slowest rank's), {tokens / step_s:.0f} tokens/s; "
-        f"bound {bound_s:.4f}s (6 x {cfg.param_count() - embed} parameters "
-        f"less the embedding x {tokens} tokens + causal attention "
+    log(f"{tag} {len(losses)} steps of {b} x {s_len} = {tokens} tokens on "
+        f"{n_cards} cards: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"median step of steps 3-{len(losses)} {step_s:.4f}s (slowest "
+        f"rank's), {tokens / step_s:.0f} tokens/s; bound {bound_s:.4f}s (6 x "
+        f"{active} {counted} x {tokens} tokens + causal attention "
         f"{attn:.3g} FLOP at {n_cards} x {PEAK_BF16_OPS_PER_S / 1e12:.0f} "
         f"TFLOP/s bf16), {bound_s / step_s:.1%} of it; peak device memory "
-        f"by card {[round(p, 3) for p in peaks]} GiB; collectives a step "
+        f"by card {[round(p, 3) for p in peaks]} GiB (reserved "
+        f"{[round(r['reserved_gib'], 3) for r in ranks]}); collectives a step "
         f"{coll_gb:.3f} GB of output a rank; flash launches a step {want}")
-    before = MESH_BEFORE
-    log(f"[phase 20] against the residual whole over the sequence and the "
-        f"vocab gathered (before): step {step_s:.4f}s against "
-        f"{before['step_s'][0]}-{before['step_s'][1]}s; peak "
-        f"{max(peaks):.2f} GiB a card against {before['peak_gib']} GiB; "
-        "collectives a step "
-        + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
-                    for k, v in coll.items() if v["count"])
-        + " against "
-        + ", ".join(f"{k} {n} x {gb} GB"
-                    for k, (n, gb) in before["collectives"].items()))
+    now = {"step_s": step_s, "peak_gib": round(max(peaks), 3),
+           "collectives": {k: (v["count"], round(v["bytes"] / 1e9, 3))
+                           for k, v in coll.items() if v["count"]}}
+    log(f"{tag} this tree's step as a constant: {json.dumps(now)}")
+    if before is not None:
+        log(f"{tag} against {before_what} (before): step {step_s:.4f}s "
+            f"against {before['step_s'][0]}-{before['step_s'][1]}s; peak "
+            f"{max(peaks):.2f} GiB a card against {before['peak_gib']} GiB; "
+            "collectives a step "
+            + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.3f} GB"
+                        for k, v in coll.items() if v["count"])
+            + " against "
+            + ", ".join(f"{k} {n} x {gb} GB"
+                        for k, (n, gb) in before["collectives"].items()))
     return {"launches": want, "step_s": step_s, "bound_s": bound_s,
             "peaks": peaks, "collective_gb": coll_gb}
+
+
+def phase21_moe_cards(n_cards: int, seed: int) -> dict:
+    """Phase 21 (--cards 4): deepseek-moe-16b on an NCCL world of one rank
+    a card, mesh (data 2, model 2), its 64 routed experts split over the
+    model axis (32 a card): the 2-layer check (layer 0 dense, layer 1 MoE)
+    at full width with the two MoE faults, greedy prefill + decode of the
+    full model sharded against one card (the prompt tokens that the mesh
+    routes to other experts than one card does: at near-ties in the first
+    MoE layer, printed in the rest), then TRAIN_STEPS steps at full width
+    and depth, beside MOE_BEFORE_WHY."""
+    from repro_torch import configs
+    from repro_torch.launch.world import run_world
+    cfg = configs.get_config(MOE_MESH_ARCH)
+    spec = {"arch": MOE_MESH_ARCH, "mesh": (2, n_cards // 2),
+            "check_layers": 2, "serve_layers": None,
+            "train_steps": TRAIN_STEPS, "seed": seed,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW, "faults": ("moe",)}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
+                      args=(spec,), timeout_s=300.0,
+                      join_timeout_s=MESH_TRAIN_JOIN_S)
+    log(f"[phase 21] NCCL world of {n_cards}, mesh {spec['mesh']}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    if not (r0["moe_split"] and r0["train_moe_split"]):
+        fail(f"[phase 21] {cfg.name}'s experts are not split over the "
+             f"model axis")
+    hold_mesh_check(f"[phase 21] 2 layers at {cfg.name}'s width", r0)
+    hold_greedy(f"[phase 21] {cfg.name} prefill + decode, "
+                f"{MESH_LM_PROMPT[0]} x {MESH_LM_PROMPT[1]} + "
+                f"{MESH_LM_NEW} tokens", r0["serve"]["got"],
+                r0["serve"]["want"])
+    # the prefill's calls, one a MoE layer: the first MoE layer's input is
+    # formed alike by the two runs, so its reroutes must be near-ties; the
+    # later layers' inputs part further with depth (printed)
+    n_moe = sum(seg.count for seg in cfg.segments if seg.ffn == "moe")
+    mesh_routes = batch_routes(
+        [(r["coord"], None, r["serve_routes"]) for r in ranks])
+    one_routes = r0["serve"]["routes"]
+    first = routing_against(mesh_routes[:1], one_routes[:1])
+    rt = routing_against(mesh_routes[:n_moe], one_routes[:n_moe])
+    log(f"[phase 21] sharded serving: greedy generate "
+        f"{r0['serve_s']:.3f}s with {r0['serve_launches']} flash "
+        f"launches; in the first MoE layer {first['moved']} of "
+        f"{first['tokens']} prompt tokens routed to other experts than one "
+        f"card's, the worst across a margin of {first['worst_ulps']:.3g} "
+        f"bf16 ulps, {first['not_tie']} of them off a near-tie (over "
+        f"{ROUTE_TIE_ULPS} ulps; limit 0); over all {n_moe} MoE layers "
+        f"{rt['moved']} of {rt['tokens']} prompt tokens x layers "
+        f"({rt['moved'] / rt['tokens']:.3%}) (printed: the layers before "
+        f"part the two runs' inputs); collectives {r0['serve_collectives']}")
+    if first["not_tie"]:
+        fail(f"[phase 21] sharded serving routes {first['not_tie']} prompt "
+             f"tokens of the first MoE layer unlike one card off a "
+             f"near-tie (limit 0)")
+    # the bound counts the parameters a token uses: every weight but the
+    # embedding and the routed experts it is not sent to (top 6 of 64 in
+    # each of the 27 MoE layers)
+    mo = cfg.moe
+    idle = n_moe * (mo.n_routed - mo.top_k) * 3 * cfg.d_model * mo.d_expert
+    active = cfg.param_count() - cfg.vocab_size * cfg.d_model - idle
+    res = hold_mesh_train(
+        "[phase 21]", cfg, ranks, n_cards, active,
+        f"active parameters (all but the embedding and {mo.n_routed - mo.top_k}"
+        f" of {mo.n_routed} routed experts a MoE layer)")
+    log(f"[phase 21] against the experts gathered whole and run on every "
+        f"model rank (before): {MOE_BEFORE_WHY}; here peak "
+        f"{max(res['peaks']):.2f} GiB a card")
+    return res
 
 
 def main() -> None:
@@ -6007,7 +6431,7 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (and 20 on 4: more "
+                        help="run phases 0, 1 and 15 (and 20-21 on 4: more "
                              "than one card) on this many cards instead of "
                              "phases 0-14 and 16-19")
     args = parser.parse_args()
@@ -6030,6 +6454,9 @@ def main() -> None:
             t0 = time.perf_counter()
             phase20_lm_cards(args.cards, args.seed)
             log(f"[phase 20] {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            phase21_moe_cards(args.cards, args.seed)
+            log(f"[phase 21] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)

@@ -31,8 +31,12 @@ block runs split over the model axis; such a block's ``tp`` (a
 ``sharding.ModelSplit``) marks its entry and its partial output, which is
 all-reduced (or, on a training step whose residual is split over the
 sequence, the split passed as ``tp=``: the entry all-gathers the sequence
-and the partial output is reduce-scattered over it). The reference's
-``shard_hint`` has no other counterpart.
+and the partial output is reduce-scattered over it). An MoE split over the
+model axis holds this rank's share of the routed experts (expert
+parallelism): it routes every token over all experts, alike on every model
+rank, runs its own experts' slots, and sums its partial output over the
+axis through the same exit. The reference's ``shard_hint`` has no other
+counterpart.
 """
 from __future__ import annotations
 
@@ -66,18 +70,27 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp,
+                 plus: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w for a block split over the model axis (``tp``, a
     ``sharding.ModelSplit``): each rank's partial product over its share
     of the inner dim, summed by ``tp.exit`` (an all-reduce, or a
-    reduce-scatter over the sequence). Serving forms the partials in float32
-    (``ref.bmm_f32``) and rounds their sum once, as one card's product
-    rounds once; training keeps the compute dtype (that float32-output
-    product has no derivative)."""
+    reduce-scatter over the sequence). ``plus``: another partial output of
+    this rank (an MoE's routed experts'), added to the product over the
+    axis in the same collective. Serving forms the partials in float32
+    (``ref.bmm_f32``; ``plus`` float32 too) and rounds each sum once, as
+    one card's product rounds once, then adds the two rounded sums, as one
+    card adds its routed and shared experts' outputs; training keeps the
+    compute dtype (that float32-output product has no derivative)."""
     if torch.is_grad_enabled():
-        return tp.exit(x @ w)
-    y = ref.bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None])
-    return tp.exit(y.reshape(*x.shape[:-1], w.shape[1])).to(x.dtype)
+        y = x @ w
+        return tp.exit(y if plus is None else y + plus)
+    y = ref.bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None]).reshape(
+        *x.shape[:-1], w.shape[1])
+    if plus is None:
+        return tp.exit(y).to(x.dtype)
+    both = tp.exit(torch.cat([y, plus.float()], -1)).to(x.dtype)
+    return both[..., w.shape[1]:] + both[..., :w.shape[1]]
 
 
 def normal_(w: torch.Tensor, generator: torch.Generator,
@@ -313,8 +326,15 @@ class MLP(nn.Module):
         tp = self.tp if tp is None else tp
         if tp is None:
             return swiglu(x, self.wg, self.wu, self.wd)
-        x = tp.enter(x)
-        return row_parallel(F.silu(x @ self.wg) * (x @ self.wu), self.wd, tp)
+        return self.split(tp.enter(x), tp)
+
+    def split(self, x: torch.Tensor, tp,
+              plus: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block's output from ``x`` as it entered through split
+        ``tp``: this rank's columns of wg and wu, its rows of wd, summed
+        over the axis with ``plus`` (``row_parallel``)."""
+        return row_parallel(F.silu(x @ self.wg) * (x @ self.wu), self.wd,
+                            tp, plus)
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,
@@ -475,7 +495,16 @@ def apply_mla(cfg: ModelConfig, p: MLA, x: torch.Tensor, cos: torch.Tensor,
 class MoE(nn.Module):
     """Routed experts ``experts.{wg, wu, wd}`` (E, D, Fe) / (E, Fe, D), a
     router (D, E) and the shared experts as one SwiGLU of width
-    n_shared·Fe."""
+    n_shared·Fe.
+
+    Split over the model axis (``tp``, a ``sharding.ModelSplit``), the
+    expert stacks hold this rank's E/m experts and the shared SwiGLU its
+    columns of wg, wu and rows of wd. The router sees the same input on
+    every model rank (after ``tp.enter``) and picks the same experts and
+    capacity drops there, as one card does; each rank runs the slots of its
+    own experts (``first_expert`` onward), the others add exact zeros, and the
+    routed partial output crosses the axis in the shared experts' exit
+    (``MLP.split``): one collective."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -492,12 +521,32 @@ class MoE(nn.Module):
         self.shared = MLP(cfg, mo.n_shared * fe, **kw)
         # a sharding.BatchStats on a mesh: the aux loss's global statistics
         self.batch_stats = None
+        self.tp = None       # a sharding.ModelSplit when split over experts
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, tp=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``tp``: the split to enter and exit through instead of
+        ``self.tp`` (a training step whose residual is split over the
+        sequence passes the layout's sequence split)."""
+        tp = self.tp if tp is None else tp
+        if tp is None:
+            probs, gates, eidx = moe_route(self.cfg, self, x)
+            out = moe_experts(self.cfg, self, x, gates, eidx)
+            return out + self.shared(x), moe_aux(self.cfg, probs, eidx,
+                                                 self.batch_stats)
+        x = tp.enter(x)
         probs, gates, eidx = moe_route(self.cfg, self, x)
-        out = moe_experts(self.cfg, self, x, gates, eidx)
-        return out + self.shared(x), moe_aux(self.cfg, probs, eidx,
-                                             self.batch_stats)
+        # serving sums the routed slots in float32, a partial that
+        # row_parallel rounds once over the axis, as one card rounds them
+        routed = moe_experts(self.cfg, self, x, gates, eidx,
+                             first=first_expert(self, tp),
+                             acc=None if torch.is_grad_enabled()
+                             else torch.float32)
+        # every model rank computes the same aux loss from the same routing:
+        # its gradient is shared out, so the entry's sum counts it once
+        aux = tp.once(moe_aux(self.cfg, probs, eidx, self.batch_stats))
+        # the routed partial joins the shared experts' exit
+        return self.shared.split(x, tp, plus=routed), aux
 
 
 def moe_capacity(cfg: ModelConfig, s: int) -> int:
@@ -540,24 +589,43 @@ def moe_slots(cfg: ModelConfig, eidx: torch.Tensor, cap: int
     return rank, rank < cap
 
 
+def first_expert(p: MoE, tp) -> int:
+    """The first of the experts whose stacks ``p`` holds on the model rank
+    of split ``tp``: the rule splits the expert dim over ``model`` in rank
+    order, so rank r holds experts [r·E/m, (r+1)·E/m)."""
+    return tp.index * p.experts.wg.shape[0]
+
+
 def moe_experts(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-                gates: torch.Tensor, eidx: torch.Tensor) -> torch.Tensor:
+                gates: torch.Tensor, eidx: torch.Tensor, *, first: int = 0,
+                acc: Optional[torch.dtype] = None) -> torch.Tensor:
     """The routed experts' gated output (B, S, D) for the given routing.
 
     Dispatch: every kept slot's token row is copied to its own row of an
     (E, B·cap, D) buffer (unused rows stay 0), so the three expert products
     are batched matrix products over E. Combine: each token gathers its k
-    rows and adds them in a fixed order. Neither step adds with atomics, so
-    the output is the same bits on every run; a dropped slot's weight is 0,
-    so it adds exact zeros, as in the JAX package's scatter-add."""
+    rows and adds them in a fixed order (in ``acc``, float32 for a partial
+    summed over ranks later; by default x's dtype). Neither step adds with
+    atomics, so the output is the same bits on every run; a dropped slot's
+    weight is 0, so it adds exact zeros, as in the JAX package's
+    scatter-add.
+
+    ``p``'s stacks may hold experts ``first`` onward alone (a model rank's
+    share, ``first_expert``): the buffer then has their rows alone, and a
+    slot of another expert is treated as dropped, its token copied nowhere
+    and its weight 0. The capacity ranks come from the routing over all
+    experts, so a kept slot is the one card's."""
     mo = cfg.moe
     g, s, d = x.shape
-    e, k = mo.n_routed, mo.top_k
+    e, k = p.experts.wg.shape[0], mo.top_k
     cap = moe_capacity(cfg, s)
     rank, keep = moe_slots(cfg, eidx, cap)
+    local = eidx - first
+    keep = keep & (local >= 0) & (local < e)
+    local = local.clamp(0, e - 1)
     rows = e * g * cap
     grp = torch.arange(g, device=x.device)[:, None, None]
-    dest = eidx * (g * cap) + grp * cap + rank.clamp(0, cap - 1)
+    dest = local * (g * cap) + grp * cap + rank.clamp(0, cap - 1)
     # buffer row -> the token filling it; empty rows (and, through the
     # spare last entry, every dropped slot) point at a zero row
     tok = torch.arange(g * s, device=x.device).view(g, s, 1).expand(g, s, k)
@@ -569,7 +637,7 @@ def moe_experts(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     h = F.silu(torch.bmm(eb, we.wg)) * torch.bmm(eb, we.wu)
     y = torch.bmm(h, we.wd).view(rows, d)
     w = (gates * keep).to(x.dtype)
-    return (y[dest] * w[..., None]).sum(dim=2)
+    return (y[dest] * w[..., None]).sum(dim=2, dtype=acc)
 
 
 def moe_aux(cfg: ModelConfig, probs: torch.Tensor, eidx: torch.Tensor,

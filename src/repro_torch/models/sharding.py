@@ -24,10 +24,16 @@ and all-gathers it over the axes it is split on, except that an attention
 whose heads (and KV heads) divide the model axis, and an MLP whose width
 does, keep their model-axis shard (column-parallel wq/wk/wv/wg/wu,
 row-parallel wo/wd, an all-reduce over ``model`` after the row-parallel
-product). Every other weight is gathered whole. A gathered weight's
-gradient is reduce-scattered back to its shard over the axes whose ranks
-computed different parts of it. Every collective the port issues is
-counted in ``COLLECTIVES`` (count and output bytes a rank).
+product), and an MoE whose expert count the axis divides keeps its
+experts' shard (expert parallelism, the reference's ``(DP, TP, None,
+None)`` dispatch buffer: each model rank runs its E/m experts on its batch
+group's slots, and the routed partial output joins the shared experts'
+row-parallel one in a single all-reduce over ``model``; no all-to-all,
+since every model rank holds the group's tokens). Every other weight is
+gathered whole. A gathered weight's gradient is reduce-scattered back to
+its shard over the axes whose ranks computed different parts of it. Every
+collective the port issues is counted in ``COLLECTIVES`` (count and
+output bytes a rank).
 
 A training step also runs Megatron's sequence and vocab parallelism, the
 layouts GSPMD gives the reference from its ``shard_hint`` and rules: at a
@@ -423,6 +429,13 @@ class ModelSplit:
         return x.narrow(1, self.index * size, size).clone(
             memory_format=torch.contiguous_format)
 
+    def once(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as it is, its gradient divided by the ranks: a value that
+        every model rank computes alike from inputs that entered through
+        this split (an MoE's aux loss), whose gradients the entry's
+        backward sums over the ranks, so the sum counts it once."""
+        return _Once.apply(t, self.n)
+
 
 class _Enter(torch.autograd.Function):
     @staticmethod
@@ -447,6 +460,17 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 class _SeqEnter(torch.autograd.Function):
@@ -631,9 +655,12 @@ class _Use(torch.autograd.Function):
         return g.to(ctx.local_dtype).contiguous(), None, None, None
 
 
+#: each split block's weights (named within the block) and the dim the
+#: model axis keeps split: heads, FFN width, experts
 _SPLIT_DIMS = {"gqa": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
                         "wo": 0},
-               "mlp": {"wg": 1, "wu": 1, "wd": 0}}
+               "mlp": {"wg": 1, "wu": 1, "wd": 0},
+               "moe": {"experts.wg": 0, "experts.wu": 0, "experts.wd": 0}}
 #: the vocab dim of the embedding (V, D) and the head (D, V)
 _VOCAB_DIMS = {"embed": 0, "head": 1}
 
@@ -655,11 +682,16 @@ class Layout:
     A GQA block runs split when the model axis divides both its heads and
     its KV heads (the rule then splits wq, wk, wv by columns and wo by
     rows, each on whole heads); an MLP block when the axis divides its
-    width. Every other block — MLA, the SSM, MoE experts, a GQA whose
-    split would cut a head (hymba's 25 heads, 8 KV heads on a 16-way
-    axis) — runs whole on every model rank, its weights gathered whole.
-    Under ``dp_over_tp`` the model axis is a data axis and nothing runs
-    split.
+    width; an MoE when the rule put its experts' dim on the model axis
+    (the axis divides E) and its shared experts run split as an MLP: its
+    expert stacks keep their model-axis shard, its router is whole on
+    every rank and takes a gradient partial over ``model`` (each rank's
+    gates feed only its own experts' slots). Every other block — MLA, the
+    SSM, an MoE whose experts the axis does not divide (64 experts on a
+    128-way axis), a GQA whose split would cut a head (hymba's 25 heads, 8
+    KV heads on a 16-way axis) — runs whole on every model rank, its
+    weights gathered whole. Under ``dp_over_tp`` the model axis is a data
+    axis and nothing runs split.
 
     With blocks split over the model axis, a training step keeps the
     embedding's and the head's vocab shard where the rule splits their
@@ -718,7 +750,8 @@ class Layout:
     # -- which blocks run split over the model axis -------------------------
     def _split_blocks(self, shapes: Mapping[str, Tuple[int, ...]]
                       ) -> Dict[str, str]:
-        """{module prefix: "gqa" | "mlp"} of the blocks that run split."""
+        """{module prefix: "gqa" | "mlp" | "moe"} of the blocks that run
+        split (an MoE's shared experts are an "mlp" block inside it)."""
         if self.tp_dim is None:
             return {}
         cfg, m = self.cfg, self.sizes[self.tp_dim]
@@ -737,6 +770,13 @@ class Layout:
                 if all(self._on_model(prefix + w, d) for w, d in (
                         ("wg", 1), ("wu", 1), ("wd", 0))):
                     out[prefix] = "mlp"
+        for name in shapes:
+            if name.endswith("router"):
+                prefix = name[:-len("router")]
+                if prefix + "shared." in out and all(
+                        self._on_model(prefix + w, d)
+                        for w, d in _SPLIT_DIMS["moe"].items()):
+                    out[prefix] = "moe"
         return out
 
     def _on_model(self, name: str, dim: int) -> bool:
@@ -744,8 +784,15 @@ class Layout:
         return dim < len(spec) and spec[dim] == ("model",)
 
     def block_of(self, name: str) -> Optional[str]:
-        prefix = name.rsplit(".", 1)[0] + "." if "." in name else "."
-        return prefix if prefix in self.split_blocks else None
+        """The prefix of the innermost split block that holds parameter
+        ``name`` (an MoE's ``experts.wg`` lies in the MoE, its
+        ``shared.wg`` in the shared experts' MLP), or None."""
+        parts = name.split(".")
+        for i in range(len(parts) - 1, 0, -1):
+            prefix = ".".join(parts[:i]) + "."
+            if prefix in self.split_blocks:
+                return prefix
+        return None
 
     def sequence(self, seq_len: int) -> Optional[ModelSplit]:
         """The split of a training step's residual over the sequence: at
@@ -768,9 +815,11 @@ class Layout:
         if keep_vocab and name in self.vocab_parallel:
             keep = _VOCAB_DIMS[name]
         if block is not None:
-            # the dim that holds the heads (the FFN width): columns of the
-            # projections into them, rows of the one back to D
-            want = _SPLIT_DIMS[self.split_blocks[block]].get(leaf)
+            # the dim that holds the heads (the FFN width, the experts):
+            # columns of the projections into them, rows of the one back
+            # to D, the expert dim of an MoE's stacks
+            want = _SPLIT_DIMS[self.split_blocks[block]].get(
+                name[len(block):])
             if want is not None:
                 if self._on_model(name, want):
                     keep = want
@@ -785,6 +834,10 @@ class Layout:
             if i == self.tp_dim and keep == dim:
                 continue
             gathers.append((i, dim))
+        # a split block's weights take gradients partial over the model
+        # axis (summed there), except a weight that keeps its model-axis
+        # shard: that shard's gradient is whole on its rank, summed over
+        # the batch axes alone (_Use.backward skips the kept axis)
         partial = set(self.batch_axes)
         if block is not None:
             partial.add(self.tp_dim)

@@ -97,10 +97,11 @@ class Layer(nn.Module):
     ``seq`` (a training step on a mesh whose residual is split over the
     sequence: ``sharding.Layout.sequence``): x is this rank's part of the
     sequence, and the norms and residual adds run on it. A block split
-    over the model axis enters and exits through ``seq``; any other runs
-    whole on the gathered sequence and keeps this rank's part of its
-    output (``ModelSplit.whole`` / ``own``). An MoE's aux loss so sees the
-    whole sequence, as without the split."""
+    over the model axis (an MoE split over its experts too) enters and
+    exits through ``seq``; any other runs whole on the gathered sequence
+    and keeps this rank's part of its output (``ModelSplit.whole`` /
+    ``own``). An MoE's router and aux loss so see the whole sequence, as
+    without the split."""
 
     def __init__(self, cfg: ModelConfig, seg: Segment, mixer: Mixer,
                  ffn: Optional[FFN]) -> None:
@@ -465,7 +466,8 @@ def _shard_module(module: nn.Module, prefix: str, layout: S.Layout,
 
 def _attach(model: TransformerLM, layout: S.Layout) -> None:
     """The layout on the model, the model-axis split on each block that
-    runs split, the batch statistics on each MoE."""
+    runs split (an attention, an MLP, an MoE over its experts), the batch
+    statistics on each MoE."""
     for prefix in layout.split_blocks:
         model.get_submodule(prefix[:-1]).tp = layout.split
     for mod in model.modules():

@@ -106,26 +106,34 @@ def _copies(t: torch.Tensor) -> int:
 
 def global_norm(tensors) -> torch.Tensor:
     """√(Σ g²) over every tensor, float32: each tensor's sum of squares,
-    as the reference writes it. (``torch._foreach_norm`` and
+    as the reference writes it, accumulated in float64 and rounded once,
+    so that one card and a mesh's shards, which sum in other orders, get
+    clip factors that agree up to float32 rounding (their float64 totals
+    may still differ in the last bits). (``torch._foreach_norm`` and
     ``linalg.vector_norm`` sum float32 in one running total on the CPU:
-    2% off at 95M elements, where ``torch.sum`` is within 1e-7.) DTensors:
-    the local sums, each over the number of ranks holding its shard,
-    all-reduced over the mesh."""
+    2% off at 95M elements.) DTensors: the local sums, each over the
+    number of ranks holding its shard, all-reduced over the mesh."""
     tensors = list(tensors)
     if not any(hasattr(t, "placements") for t in tensors):
-        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                              for t in tensors))
+        return _sqrt32(sum(_squares(t) for t in tensors))
     return _mesh_norm([_local(t) for t in tensors],
                       [_copies(t) for t in tensors], tensors[0].device_mesh)
 
 
+def _squares(t: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(t.float()), dtype=torch.float64)
+
+
+def _sqrt32(total: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(total).to(torch.float32)
+
+
 def _mesh_norm(locals_, copies, mesh) -> torch.Tensor:
-    total = sum(torch.sum(torch.square(t.float())) / c
-                for t, c in zip(locals_, copies))
+    total = sum(_squares(t) / c for t, c in zip(locals_, copies))
     sizes = tuple(mesh.mesh.shape)
     for i, n in enumerate(sizes):
         total = S.all_reduce(total, mesh.get_group(i), n)
-    return torch.sqrt(total)
+    return _sqrt32(total)
 
 
 def compress_bf16(grads: Mapping[str, torch.Tensor], err: Tensors

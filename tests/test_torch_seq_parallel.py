@@ -10,9 +10,9 @@ the JAX package:
 
   - ``internlm2``: S = 2,048 with remat "dots": the residual split over
     the sequence, attention and MLP split over the model axis;
-  - ``deepseek-moe``: S = 2,048 with remat "full": the MoE runs whole on
-    the gathered sequence under the split residual (its aux loss sees the
-    whole sequence);
+  - ``deepseek-moe``: S = 2,048 with remat "full": the MoE enters and
+    leaves through the sequence split, its experts split over the model
+    axis (its router and aux loss see the whole sequence);
   - ``kv3``: internlm2 with 6 heads and 3 KV heads at S = 2,048: the
     attention runs whole under the split residual, the MLP split;
   - ``mamba2``: S = 2,048 under ``dp_over_tp``: no split;

@@ -5,9 +5,10 @@ package, on one gloo world of 4 CPU ranks on a (data 2, model 2) mesh.
 
 Configs at smoke size (float32): internlm2-1.8b (GQA and an MLP, both
 split over the model axis; remat "dots", which keeps the split
-attention's partial output product for the recompute), deepseek-moe-16b (the MoE aux loss, whose
-expert fractions are summed over the batch ranks; remat "full", so the
-layers' collectives run again in the recompute), mamba2-370m (the pure-DP
+attention's partial output product for the recompute), deepseek-moe-16b (its
+experts split over the model axis; the MoE aux loss, whose expert fractions
+are summed over the batch ranks; remat "full", so the layers' collectives
+run again in the recompute), mamba2-370m (the pure-DP
 ``dp_over_tp`` layout) and internlm2 with 6 heads and 3 KV heads, whose 48
 K columns the rule still splits over the model axis although the split
 cuts a head (so the attention runs whole, its weights gathered). The
