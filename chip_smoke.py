@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1, 15, 20 and 21, on 4 cards
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-22, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -331,8 +331,13 @@ from a seed):
            4,096 tokens, so the residual is split over the sequence) with
            the routing digests and the two MoE faults; greedy prefill +
            decode of the full model (2 x 1,024 + 8 tokens) sharded against
-           the one-card bf16 model, with the share of prompt tokens routed
-           to other experts than one card's; then 10 Trainer steps at full
+           the one-card bf16 model routed as the mesh routed (each MoE
+           call of the prefill and of every decode step takes the mesh's
+           expert ids; gates from its own probabilities there), and beside
+           it the one card routing by its own router (printed: its logits'
+           distance and the share of prompt tokens x layers routed to other
+           experts; its first MoE layer's reroutes must be near-ties); then
+           10 Trainer steps at full
            width and depth (28 layers, 4 x 4,096 tokens, the same settings
            as phase 20): a finite, falling loss, the same bits on every
            rank, 56 flash launches a step a rank, the median step beside
@@ -342,6 +347,18 @@ from a seed):
            card's peak memory and the collectives a step by kind, beside
            why the same steps with the experts gathered whole have no time
            (MOE_BEFORE_WHY)
+  phase 22 only with --cards 4: deepseek-v2-lite-16b on the same mesh, its
+           MLA split over its 16 heads on the model axis (8 a card) and its
+           experts as phase 21's: the 2-layer check (layer 0 MLA + dense
+           MLP, layer 1 MLA + MoE, the residual split over the sequence)
+           with two planted MLA faults (the heads' latent columns of w_uk
+           and w_uv from the wrong model rank; w_dkv's and kv_ln's
+           gradients not summed over the model axis); greedy serving held
+           as phase 21's; 10 Trainer steps at full width and depth (27
+           layers), 0 flash launches a rank (MLA's absorbed attention is
+           plain PyTorch), the median step beside its bound, tokens/s,
+           peak memory and collectives, printed beside the same steps with
+           MLA gathered whole on every model rank (MLA_BEFORE)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -365,7 +382,8 @@ deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 ``launches_hymba``, ``launches_qwen2_vl`` and ``launches_musicgen``: per
 generate of phase 17's models; ``launches_train``: per training step of
 phase 18; ``launches_lm_mesh``: per sharded train step of phase 19, on
-one of its ranks).
+one of its ranks). With ``--cards 4`` no kernels line is printed; phases
+20-22 print their flash launches a rank.
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -662,6 +680,17 @@ MOE_BEFORE_WHY = ("out of memory in step 1's backward (the remat "
 # each), is ~5.5 ulps. (First stated as 4: phase 19 measured 6 on an
 # H100.)
 ROUTE_TIE_ULPS = 8
+# phase 22 (--cards 4): deepseek-v2-lite-16b on the same mesh, its MLA split
+# over its heads on the model axis and its experts as phase 21's
+MLA_MESH_ARCH = "deepseek-v2-lite-16b"
+# phase 22's steps with MLA gathered whole and run on every model rank (the
+# tree before the split, driven through its own lm_mesh_rank in the call
+# that timed this tree's, parent, change, change, parent; four H100 80GB
+# HBM3 at 700 W; PERF.md section 5): as MESH_BEFORE
+MLA_BEFORE = {"step_s": (3.1395, 3.1441), "peak_gib": 62.159,
+              "collectives": {"all-gather": (1185, 37.990),
+                              "all-reduce": (177, 0.007),
+                              "reduce-scatter": (433, 17.021)}}
 
 
 def log(msg: str) -> None:
@@ -5483,13 +5512,15 @@ def lm_greedy(cfg, params, prompts, new: int):
     return torch.stack(toks, 1), torch.stack(steps)
 
 
-def hold_greedy(tag: str, got, want) -> dict:
+def hold_greedy(tag: str, got, want, gate: bool = True) -> dict:
     """The mesh's greedy tokens and logits against one card's: equal tokens,
     except that a row may part where one card's top two logits are closer
     than twice that row's largest logit difference (a near-tie inside the
     noise, printed), after which it is not compared; the logits of each
-    step the rows agree on within MESH_LOGIT_REL (relative L2)."""
+    step the rows agree on within MESH_LOGIT_REL (relative L2). With
+    ``gate`` False the same figures are printed and nothing fails."""
     import torch
+    check = fail if gate else (lambda msg: log(f"{msg} (printed)"))
     toks, logits = got
     want_toks, want_logits = want
     worst, ties = 0.0, []
@@ -5502,8 +5533,8 @@ def hold_greedy(tag: str, got, want) -> dict:
         rel = float((a - b).norm() / b.norm())
         worst = max(worst, rel)
         if rel > MESH_LOGIT_REL:
-            fail(f"{tag}: step {i}'s logits are {rel:.3g} from one card's "
-                 f"(limit {MESH_LOGIT_REL})")
+            check(f"{tag}: step {i}'s logits are {rel:.3g} from one card's "
+                  f"(limit {MESH_LOGIT_REL})")
         for r in rows.tolist():
             if int(toks[r, i]) == int(want_toks[r, i]):
                 continue
@@ -5511,17 +5542,61 @@ def hold_greedy(tag: str, got, want) -> dict:
             margin = float(top2[0] - top2[1])
             noise = float((logits[i, r] - want_logits[i, r]).abs().max())
             if margin > 2 * noise:
-                fail(f"{tag}: row {r} step {i}: token {int(toks[r, i])} "
-                     f"against one card's {int(want_toks[r, i])}, whose "
-                     f"top-2 margin {margin:.4g} is more than twice the "
-                     f"row's largest logit difference {noise:.4g}")
+                check(f"{tag}: row {r} step {i}: token {int(toks[r, i])} "
+                      f"against one card's {int(want_toks[r, i])}, whose "
+                      f"top-2 margin {margin:.4g} is more than twice the "
+                      f"row's largest logit difference {noise:.4g}")
             ties.append((r, i, margin))
             live[r] = False
     log(f"{tag}: greedy tokens {'equal' if not ties else 'equal up to '}"
         f"{'' if not ties else ties} (row, step, one card's top-2 margin); "
         f"worst step logits relative L2 {worst:.3g} (limit "
-        f"{MESH_LOGIT_REL})")
+        f"{MESH_LOGIT_REL}{'' if gate else ', printed'})")
     return {"logit_rel": worst, "ties": ties}
+
+
+def hold_serving(tag: str, cfg, r0: dict) -> dict:
+    """Rank 0's greedy serving of the full model sharded: held by
+    ``hold_greedy`` against one card routed as the mesh routed (a model
+    with MoE layers; one card's own run for any other); beside it, the
+    same figures against one card routing by its own router, printed,
+    with the prompt tokens x MoE layers routed to other experts than that
+    card's. The prefill's calls come first, one a MoE layer: the first
+    MoE layer's input is formed alike by the two runs, so its reroutes
+    must be near-ties (ROUTE_TIE_ULPS); the later layers' inputs part
+    further with depth (printed)."""
+    sv = r0["serve"]
+    what = f"{MESH_LM_PROMPT[0]} x {MESH_LM_PROMPT[1]} + {MESH_LM_NEW} tokens"
+    n_moe = sum(seg.count for seg in cfg.segments if seg.ffn == "moe")
+    routed = bool(sv["mesh_routes"])
+    res = hold_greedy(f"{tag} {cfg.name} prefill + decode, {what}, against "
+                      f"one card "
+                      + ("routed as the mesh" if routed else "alone"),
+                      sv["got"], sv["want"])
+    if not routed:
+        return res
+    free = hold_greedy(f"{tag} {cfg.name} prefill + decode, {what}, against "
+                       f"one card routing by its own router",
+                       sv["got"], sv["free"], gate=False)
+    first = routing_against(sv["mesh_routes"][:1], sv["routes"][:1])
+    rt = routing_against(sv["mesh_routes"][:n_moe], sv["routes"][:n_moe])
+    log(f"{tag} sharded serving: greedy generate {r0['serve_s']:.3f}s with "
+        f"{r0['serve_launches']} flash launches; against one card's own "
+        f"router: in the first MoE layer {first['moved']} of "
+        f"{first['tokens']} prompt tokens routed to other experts, the worst "
+        f"across a margin of {first['worst_ulps']:.3g} bf16 ulps, "
+        f"{first['not_tie']} of them off a near-tie (over {ROUTE_TIE_ULPS} "
+        f"ulps; limit 0); over all {n_moe} MoE layers {rt['moved']} of "
+        f"{rt['tokens']} prompt tokens x layers "
+        f"({rt['moved'] / rt['tokens']:.3%}) (printed: the layers before "
+        f"part the two runs' inputs), its logits {free['logit_rel']:.3g} "
+        f"from the mesh's (printed); collectives {r0['serve_collectives']}")
+    if first["not_tie"]:
+        fail(f"{tag} sharded serving routes {first['not_tie']} prompt tokens "
+             f"of the first MoE layer unlike one card off a near-tie (limit "
+             f"0)")
+    return dict(res, free_logit_rel=free["logit_rel"],
+                rerouted=rt["moved"] / rt["tokens"])
 
 
 def first_layers(cfg, n: int):
@@ -5609,9 +5684,10 @@ def routing_against(mesh_routes: list, one_routes: list) -> dict:
 def fault_applies(kind: str, res: dict) -> bool:
     """Whether a planted fault of ``kind`` reaches the sharded step that
     ``res`` describes: "seq" faults need the residual split over the
-    sequence, "moe" faults an MoE split over its experts."""
+    sequence, "moe" faults an MoE split over its experts, "mla" faults
+    an MLA split over its heads."""
     return {"any": True, "seq": res["seq_split"],
-            "moe": res["moe_split"]}[kind]
+            "moe": res["moe_split"], "mla": res["mla_split"]}[kind]
 
 
 def lm_mesh_rank(spec: dict) -> dict:
@@ -5629,8 +5705,11 @@ def lm_mesh_rank(spec: dict) -> dict:
              kind is in ``faults`` and reaches the step
       serve  with ``prompt``: greedy prefill + decode of a
              ``serve_layers``-layer model (None: full depth) sharded,
-             against the one-card model (rank 0, its card, before the
-             sharded one); every MoE call's expert ids on both
+             against the one-card model (rank 0, its card): for a model
+             with MoE layers, the one card routed as the mesh routed
+             (every MoE call's expert ids gathered to rank 0), and beside
+             it the one card routing by its own router, with every MoE
+             call's expert ids of both
       train  with ``train_steps``: the full-depth model trains that many
              steps through ``Trainer`` (float32 masters from the seed, the
              sharded step by ``step_fn=``): each step's loss, grad norm,
@@ -5681,8 +5760,8 @@ def lm_mesh_rank(spec: dict) -> dict:
                 f"{now - t_part[0]:.1f}s")
         t_part[0] = now
 
-    def moe_split(model):
-        return "moe" in T.layout_of(model).split_blocks.values()
+    def split(model, kind):
+        return kind in T.layout_of(model).split_blocks.values()
 
     # -- check: one step at full width, check_layers layers ----------------
     if spec["check_layers"]:
@@ -5715,11 +5794,11 @@ def lm_mesh_rank(spec: dict) -> dict:
             MoE routing (digests; expert ids and router logits gathered to
             rank 0), and on rank 0 the step's leaves gathered whole; the
             flash launches, whether the residual was split over the
-            sequence and the experts over the model axis."""
+            sequence, the experts and MLA's heads over the model axis."""
             model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
                                   batch_size=b, device=dev)
             seq = T.layout_of(model).sequence(s_len) is not None
-            split = moe_split(model)
+            kinds = {k: split(model, k) for k in ("moe", "mla")}
             named = dict(model.named_parameters())
             before = {n: p.to_local().detach().clone()
                       for n, p in named.items()}
@@ -5745,7 +5824,7 @@ def lm_mesh_rank(spec: dict) -> dict:
                 got.update(loss=float(m["loss"]), rank_losses=losses,
                            routes=[(c, d) for c, d, _ in all_routes],
                            batch_routes=batch_routes(all_routes))
-            return got, launches, seq, split
+            return got, launches, seq, kinds
 
         def compare(got, want, one_routes):
             """Rank 0's figures of the sharded step ``got`` against the
@@ -5776,8 +5855,8 @@ def lm_mesh_rank(spec: dict) -> dict:
             del own
             return check
 
-        got, out["check_launches"], out["seq_split"], out["moe_split"] = \
-            sharded_step()
+        got, out["check_launches"], out["seq_split"], kinds = sharded_step()
+        out["moe_split"], out["mla_split"] = kinds["moe"], kinds["mla"]
         want = one_routes = None
         if rank == 0:
             # one card routing by its own router: printed. The check holds
@@ -5820,11 +5899,12 @@ def lm_mesh_rank(spec: dict) -> dict:
             vocab_size=scfg.vocab_size, batch=spec["prompt"][0],
             seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
                 "tokens"], device=dev)
-        one_card, one_routes, routes = None, [], []
+        free, free_routes, routes = None, [], []
         if rank == 0:
+            # one card routing by its own router, first: printed beside
             served = T.init_params(scfg, gen(), device=dev)
-            with routes_as(None, one_routes):
-                one_card = lm_greedy(scfg, served, prompts, spec["new"])
+            with routes_as(None, free_routes):
+                free = lm_greedy(scfg, served, prompts, spec["new"])
             del served
             torch.cuda.empty_cache()
         served = T.init_params(scfg, gen(), mesh=mesh, device=dev)
@@ -5838,12 +5918,29 @@ def lm_mesh_rank(spec: dict) -> dict:
         out["serve_s"] = time.perf_counter() - t0
         out["serve_launches"] = ops.launch_counts()["flash_attention"]
         out["serve_collectives"] = sh.collective_counts()
-        out["serve_routes"] = routes
+        got = tuple(t.cpu() for t in got)
+        del served
+        torch.cuda.empty_cache()
+        # the mesh's routing of the whole batch, call by call (the prefill's,
+        # then each decode step's, one a MoE layer) on rank 0
+        all_routes = [None] * dist.get_world_size()
+        dist.all_gather_object(all_routes, (coord, None, routes))
         if rank == 0:
-            out["serve"] = {"got": tuple(t.cpu() for t in got),
-                            "want": tuple(t.cpu() for t in one_card),
-                            "routes": one_routes}
-        del served, got, one_card, one_routes, routes
+            mesh_routes = batch_routes(all_routes)
+            want, as_mesh = free, []
+            if mesh_routes:
+                # the one card again, routed as the mesh routed: the gate
+                served = T.init_params(scfg, gen(), device=dev)
+                with routes_as([e for e, _ in mesh_routes], as_mesh):
+                    want = lm_greedy(scfg, served, prompts, spec["new"])
+                del served
+                torch.cuda.empty_cache()
+            out["serve"] = {"got": got,
+                            "want": tuple(t.cpu() for t in want),
+                            "free": tuple(t.cpu() for t in free),
+                            "routes": free_routes,
+                            "mesh_routes": mesh_routes}
+        del got, free, free_routes, routes, all_routes
         torch.cuda.empty_cache()
         done("greedy serving")
 
@@ -5855,7 +5952,8 @@ def lm_mesh_rank(spec: dict) -> dict:
                               batch_size=b, device=dev)
         torch.cuda.synchronize(dev)
         out["init_s"] = time.perf_counter() - t0
-        out["train_moe_split"] = moe_split(model)
+        out["train_moe_split"] = split(model, "moe")
+        out["train_mla_split"] = split(model, "mla")
         out["train_batch"] = (b, s_len)
         out["n_params"] = sum(p.numel() for p in model.parameters())
         out["local_bytes"] = sum(p.to_local().numel() * 4
@@ -6061,8 +6159,45 @@ def fault_routed_not_summed(mesh):
     return _patched(L, "row_parallel", unsummed)
 
 
+def fault_mla_wrong_heads(mesh):
+    """MLA's w_uk and w_uv cut to the wrong model rank's heads: each rank
+    takes its neighbour's heads' latent columns of the gathered weights
+    (its own wq columns and wo rows)."""
+    from repro_torch.models import sharding as sh
+    right = sh.Layout._plan
+
+    def shifted(self, name, *args, **kwargs):
+        plan = right(self, name, *args, **kwargs)
+        if plan.select is None or name.rsplit(".", 1)[1] not in ("w_uk",
+                                                                "w_uv"):
+            return plan
+        dim, parts, index = plan.select
+        return dataclasses.replace(plan, select=(dim, parts,
+                                                 (index + 1) % parts))
+    return _patched(sh.Layout, "_plan", shifted)
+
+
+def fault_mla_latent_not_summed(mesh):
+    """MLA's latent projection gradients not summed over the model axis:
+    w_dkv and kv_ln, which every model rank uses alike, keep the gradient
+    of this rank's heads alone."""
+    from repro_torch.models import sharding as sh
+    right = sh.Layout._plan
+
+    def unsummed(self, name, *args, **kwargs):
+        plan = right(self, name, *args, **kwargs)
+        block = self.block_of(name)
+        if block is None or self.split_blocks[block] != "mla" \
+                or name.rsplit(".", 1)[1] not in ("w_dkv", "kv_ln"):
+            return plan
+        return dataclasses.replace(plan, partial=tuple(
+            a for a in plan.partial if a != self.tp_dim))
+    return _patched(sh.Layout, "_plan", unsummed)
+
+
 #: name → (kind, plant(mesh)); kind "any", or "seq" (needs the residual
-#: split over the sequence) or "moe" (an MoE split over its experts)
+#: split over the sequence), "moe" (an MoE split over its experts) or "mla"
+#: (an MLA split over its heads)
 MESH_FAULTS = {
     "row-parallel exit reduced twice": ("any", fault_exit_twice),
     "gradient reduce-scatter drops data rank 1": ("any",
@@ -6075,6 +6210,10 @@ MESH_FAULTS = {
     "experts on the wrong model rank": ("moe", fault_experts_shifted),
     "routed partials not summed over model": ("moe",
                                               fault_routed_not_summed),
+    "MLA heads' latent columns from the wrong model rank": (
+        "mla", fault_mla_wrong_heads),
+    "latent projection gradients not summed over model": (
+        "mla", fault_mla_latent_not_summed),
 }
 
 
@@ -6276,7 +6415,7 @@ def hold_mesh_train(tag: str, cfg, ranks: list, n_cards: int,
                     before_what: str = "") -> dict:
     """The training steps of a mesh world (``lm_mesh_rank``'s train part):
     a finite, falling loss, the same bits on every rank, 2 flash launches
-    a layer a step a rank; the median step of steps 3-TRAIN_STEPS (the
+    a GQA layer a step a rank; the median step of steps 3-TRAIN_STEPS (the
     slowest rank's) beside its bound (6 x ``active`` parameters x the
     tokens plus the causal attention, at n_cards x 989 TFLOP/s),
     tokens/s, each card's peak memory and the collectives a step, printed
@@ -6309,7 +6448,10 @@ def hold_mesh_train(tag: str, cfg, ranks: list, n_cards: int,
     for r in ranks[1:]:
         if [m["loss"] for m in r["steps"]] != losses:
             fail(f"{tag} rank {r['rank']} reports other losses")
-    want = 2 * cfg.n_layers
+    # the flash kernel runs each GQA attention in the forward and in its
+    # remat recompute (MLA's absorbed attention is plain PyTorch)
+    want = 2 * sum(seg.count for seg in cfg.segments
+                   if seg.mixer in ("gqa", "hybrid"))
     launches = {m["launches"] for r in ranks for m in r["steps"]}
     if launches != {want}:
         fail(f"{tag} flash launches a step {sorted(launches)}, expected "
@@ -6318,7 +6460,11 @@ def hold_mesh_train(tag: str, cfg, ranks: list, n_cards: int,
     tokens = b * s_len
     step_s = max(r["step_s"] for r in ranks)
     pairs = visible_pairs(s_len, s_len, True, None)
-    attn = 3 * 4.0 * cfg.head_dim * pairs * b * cfg.n_heads * cfg.n_layers
+    # QK^T and PV a visible pair and head: 2 (qk dims + v dims)
+    per_pair = 2.0 * (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+                      + cfg.mla.v_dim) if cfg.mla is not None \
+        else 4.0 * cfg.head_dim
+    attn = 3 * per_pair * pairs * b * cfg.n_heads * cfg.n_layers
     flops = 6.0 * active * tokens + attn
     bound_s = flops / (n_cards * PEAK_BF16_OPS_PER_S)
     coll = r0["steps"][-1]["collectives"]
@@ -6357,10 +6503,9 @@ def phase21_moe_cards(n_cards: int, seed: int) -> dict:
     a card, mesh (data 2, model 2), its 64 routed experts split over the
     model axis (32 a card): the 2-layer check (layer 0 dense, layer 1 MoE)
     at full width with the two MoE faults, greedy prefill + decode of the
-    full model sharded against one card (the prompt tokens that the mesh
-    routes to other experts than one card does: at near-ties in the first
-    MoE layer, printed in the rest), then TRAIN_STEPS steps at full width
-    and depth, beside MOE_BEFORE_WHY."""
+    full model sharded against one card routed as the mesh routed
+    (``hold_serving``), then TRAIN_STEPS steps at full width and depth,
+    beside MOE_BEFORE_WHY."""
     from repro_torch import configs
     from repro_torch.launch.world import run_world
     cfg = configs.get_config(MOE_MESH_ARCH)
@@ -6380,46 +6525,66 @@ def phase21_moe_cards(n_cards: int, seed: int) -> dict:
         fail(f"[phase 21] {cfg.name}'s experts are not split over the "
              f"model axis")
     hold_mesh_check(f"[phase 21] 2 layers at {cfg.name}'s width", r0)
-    hold_greedy(f"[phase 21] {cfg.name} prefill + decode, "
-                f"{MESH_LM_PROMPT[0]} x {MESH_LM_PROMPT[1]} + "
-                f"{MESH_LM_NEW} tokens", r0["serve"]["got"],
-                r0["serve"]["want"])
-    # the prefill's calls, one a MoE layer: the first MoE layer's input is
-    # formed alike by the two runs, so its reroutes must be near-ties; the
-    # later layers' inputs part further with depth (printed)
-    n_moe = sum(seg.count for seg in cfg.segments if seg.ffn == "moe")
-    mesh_routes = batch_routes(
-        [(r["coord"], None, r["serve_routes"]) for r in ranks])
-    one_routes = r0["serve"]["routes"]
-    first = routing_against(mesh_routes[:1], one_routes[:1])
-    rt = routing_against(mesh_routes[:n_moe], one_routes[:n_moe])
-    log(f"[phase 21] sharded serving: greedy generate "
-        f"{r0['serve_s']:.3f}s with {r0['serve_launches']} flash "
-        f"launches; in the first MoE layer {first['moved']} of "
-        f"{first['tokens']} prompt tokens routed to other experts than one "
-        f"card's, the worst across a margin of {first['worst_ulps']:.3g} "
-        f"bf16 ulps, {first['not_tie']} of them off a near-tie (over "
-        f"{ROUTE_TIE_ULPS} ulps; limit 0); over all {n_moe} MoE layers "
-        f"{rt['moved']} of {rt['tokens']} prompt tokens x layers "
-        f"({rt['moved'] / rt['tokens']:.3%}) (printed: the layers before "
-        f"part the two runs' inputs); collectives {r0['serve_collectives']}")
-    if first["not_tie"]:
-        fail(f"[phase 21] sharded serving routes {first['not_tie']} prompt "
-             f"tokens of the first MoE layer unlike one card off a "
-             f"near-tie (limit 0)")
-    # the bound counts the parameters a token uses: every weight but the
-    # embedding and the routed experts it is not sent to (top 6 of 64 in
-    # each of the 27 MoE layers)
-    mo = cfg.moe
-    idle = n_moe * (mo.n_routed - mo.top_k) * 3 * cfg.d_model * mo.d_expert
-    active = cfg.param_count() - cfg.vocab_size * cfg.d_model - idle
-    res = hold_mesh_train(
-        "[phase 21]", cfg, ranks, n_cards, active,
-        f"active parameters (all but the embedding and {mo.n_routed - mo.top_k}"
-        f" of {mo.n_routed} routed experts a MoE layer)")
+    hold_serving("[phase 21]", cfg, r0)
+    res = hold_mesh_train("[phase 21]", cfg, ranks, n_cards,
+                          *active_parameters(cfg))
     log(f"[phase 21] against the experts gathered whole and run on every "
         f"model rank (before): {MOE_BEFORE_WHY}; here peak "
         f"{max(res['peaks']):.2f} GiB a card")
+    return res
+
+
+def active_parameters(cfg) -> tuple:
+    """(the parameters a token uses, what they are): every weight but the
+    embedding and the routed experts it is not sent to (top k of E in
+    each MoE layer)."""
+    mo = cfg.moe
+    n_moe = sum(seg.count for seg in cfg.segments if seg.ffn == "moe")
+    idle = n_moe * (mo.n_routed - mo.top_k) * 3 * cfg.d_model * mo.d_expert
+    return (cfg.param_count() - cfg.vocab_size * cfg.d_model - idle,
+            f"active parameters (all but the embedding and "
+            f"{mo.n_routed - mo.top_k} of {mo.n_routed} routed experts a MoE "
+            f"layer)")
+
+
+def phase22_mla_cards(n_cards: int, seed: int) -> dict:
+    """Phase 22 (--cards 4): deepseek-v2-lite-16b on an NCCL world of one
+    rank a card, mesh (data 2, model 2), its MLA split over its 16 heads on
+    the model axis (8 a card) and its 64 routed experts as phase 21's: the
+    2-layer check (layer 0 MLA + dense MLP, layer 1 MLA + MoE) at full
+    width with the two MLA faults, greedy serving of the full model held as
+    phase 21's, then TRAIN_STEPS steps at full width and depth beside
+    MLA_BEFORE (MLA gathered whole on every model rank). MLA's attention is
+    plain PyTorch: 0 flash launches a rank."""
+    from repro_torch import configs
+    from repro_torch.launch.world import run_world
+    cfg = configs.get_config(MLA_MESH_ARCH)
+    spec = {"arch": MLA_MESH_ARCH, "mesh": (2, n_cards // 2),
+            "check_layers": 2, "serve_layers": None,
+            "train_steps": TRAIN_STEPS, "seed": seed,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "prompt": MESH_LM_PROMPT, "new": MESH_LM_NEW, "faults": ("mla",)}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
+                      args=(spec,), timeout_s=300.0,
+                      join_timeout_s=MESH_TRAIN_JOIN_S)
+    log(f"[phase 22] NCCL world of {n_cards}, mesh {spec['mesh']}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    if not (r0["mla_split"] and r0["train_mla_split"]):
+        fail(f"[phase 22] {cfg.name}'s MLA is not split over the model axis")
+    if not (r0["moe_split"] and r0["train_moe_split"]):
+        fail(f"[phase 22] {cfg.name}'s experts are not split over the model "
+             f"axis")
+    launches = {r["check_launches"] for r in ranks}
+    if launches != {0}:
+        fail(f"[phase 22] flash launches a sharded step {sorted(launches)}, "
+             f"expected 0 (MLA's attention is plain PyTorch)")
+    hold_mesh_check(f"[phase 22] 2 layers at {cfg.name}'s width", r0)
+    hold_serving("[phase 22]", cfg, r0)
+    res = hold_mesh_train("[phase 22]", cfg, ranks, n_cards,
+                          *active_parameters(cfg), MLA_BEFORE,
+                          "MLA gathered whole on every model rank")
     return res
 
 
@@ -6431,7 +6596,7 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (and 20-21 on 4: more "
+                        help="run phases 0, 1 and 15 (and 20-22 on 4: more "
                              "than one card) on this many cards instead of "
                              "phases 0-14 and 16-19")
     args = parser.parse_args()
@@ -6457,6 +6622,9 @@ def main() -> None:
             t0 = time.perf_counter()
             phase21_moe_cards(args.cards, args.seed)
             log(f"[phase 21] {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            phase22_mla_cards(args.cards, args.seed)
+            log(f"[phase 22] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)

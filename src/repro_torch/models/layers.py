@@ -31,11 +31,12 @@ block runs split over the model axis; such a block's ``tp`` (a
 ``sharding.ModelSplit``) marks its entry and its partial output, which is
 all-reduced (or, on a training step whose residual is split over the
 sequence, the split passed as ``tp=``: the entry all-gathers the sequence
-and the partial output is reduce-scattered over it). An MoE split over the
-model axis holds this rank's share of the routed experts (expert
-parallelism): it routes every token over all experts, alike on every model
-rank, runs its own experts' slots, and sums its partial output over the
-axis through the same exit. The reference's ``shard_hint`` has no other
+and the partial output is reduce-scattered over it). An MLA split over
+the model axis runs its own heads on the latent that every model rank
+computes alike. An MoE split over the model axis holds this rank's share
+of the routed experts (expert parallelism): it routes every token over all
+experts, alike on every model rank, runs its own experts' slots, and sums
+its partial output over the axis through the same exit. The reference's ``shard_hint`` has no other
 counterpart.
 """
 from __future__ import annotations
@@ -393,7 +394,13 @@ def mla_scores(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
 class MLA(nn.Module):
     """Multi-head latent attention: keys and values live in one compressed
     latent (``kv_lora_rank``) plus a shared rotary key, and the cache holds
-    only those."""
+    only those.
+
+    Split over the model axis (``tp``, a ``sharding.ModelSplit``), wq
+    holds this rank's heads' columns, w_uk and w_uv their columns, wo
+    their rows; the latent and the rotary key, which every head reads,
+    are computed alike on every model rank, and the heads' partial output
+    is summed over the axis by ``row_parallel``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -407,6 +414,7 @@ class MLA(nn.Module):
         self.w_uk = param(m.kv_lora_rank, h * m.qk_nope_dim, **kw)
         self.w_uv = param(m.kv_lora_rank, h * m.v_dim, **kw)
         self.wo = param(h * m.v_dim, d, **kw)
+        self.tp = None       # a sharding.ModelSplit when split over heads
 
     def forward(
         self,
@@ -416,11 +424,17 @@ class MLA(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,   # {"ckv": (B,T,lo), "kr": (B,T,dr)}
         pos: Optional[int] = None,       # write offset into the cache
+        tp=None,                         # the split to run through, if
+                                         # not self.tp's (see MLP.forward)
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg, m = self.cfg, self.cfg.mla
-        b, s, _ = x.shape
-        h = cfg.n_heads
+        tp = self.tp if tp is None else tp
         dn, dr, dv, lo = m.qk_nope_dim, m.qk_rope_dim, m.v_dim, m.kv_lora_rank
+        # this rank's heads when the block runs split over the model axis
+        h = self.wq.shape[1] // (dn + dr)
+        if tp is not None:
+            x = tp.enter(x)
+        b, s, _ = x.shape
         scale = 1.0 / math.sqrt(dn + dr)
 
         q = (x @ self.wq).reshape(b, s, h, dn + dr)
@@ -431,7 +445,7 @@ class MLA(nn.Module):
         # absorbed scoring: q_nope projected into the latent space once, so
         # the keys stay compressed
         q_lat = torch.einsum("bshn,lhn->bhsl", q_nope,
-                             self.w_uk.view(lo, h, dn))
+                             self.w_uk.reshape(lo, h, dn))
         q_rope = q_rope.transpose(1, 2)                      # (B, H, S, dr)
 
         q_off = 0
@@ -466,8 +480,10 @@ class MLA(nn.Module):
                                   ckv[:, :hi]).view(b, h, c, lo))
         o_lat = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
         out = torch.einsum("bhsl,lhv->bshv", o_lat,
-                           self.w_uv.view(lo, h, dv))
-        return out.reshape(b, s, h * dv) @ self.wo, cache
+                           self.w_uv.reshape(lo, h, dv)).reshape(b, s, h * dv)
+        if tp is not None:
+            return row_parallel(out, self.wo, tp), cache
+        return out @ self.wo, cache
 
 
 def init_mla(cfg: ModelConfig, generator: torch.Generator, *,

@@ -24,12 +24,15 @@ and all-gathers it over the axes it is split on, except that an attention
 whose heads (and KV heads) divide the model axis, and an MLP whose width
 does, keep their model-axis shard (column-parallel wq/wk/wv/wg/wu,
 row-parallel wo/wd, an all-reduce over ``model`` after the row-parallel
-product), and an MoE whose expert count the axis divides keeps its
-experts' shard (expert parallelism, the reference's ``(DP, TP, None,
-None)`` dispatch buffer: each model rank runs its E/m experts on its batch
-group's slots, and the routed partial output joins the shared experts'
-row-parallel one in a single all-reduce over ``model``; no all-to-all,
-since every model rank holds the group's tokens). Every other weight is
+product), an MLA whose heads the axis divides keeps its wq columns and wo
+rows and takes its heads' columns of the gathered w_uk and w_uv (whose
+shards lie on the latent rows), and an MoE whose expert count the axis
+divides keeps its experts' shard (expert parallelism, the reference's
+``(DP, TP, None, None)`` dispatch buffer: each model rank runs its E/m
+experts on its batch group's slots, and the routed partial output joins
+the shared experts' row-parallel one in a single all-reduce over
+``model``; no all-to-all, since every model rank holds the group's
+tokens). Every other weight is
 gathered whole. A gathered weight's gradient is reduce-scattered back to
 its shard over the axes whose ranks computed different parts of it. Every
 collective the port issues is counted in ``COLLECTIVES`` (count and
@@ -655,10 +658,13 @@ class _Use(torch.autograd.Function):
         return g.to(ctx.local_dtype).contiguous(), None, None, None
 
 
-#: each split block's weights (named within the block) and the dim the
-#: model axis keeps split: heads, FFN width, experts
+#: each split block's weights (named within the block) and the dim that
+#: holds the heads, FFN width or experts, which the model axis keeps split
+#: (or, where the rule splits another dim, ``Plan.select`` cuts to this
+#: rank's part after the gather: a GQA's biases, an MLA's w_uk and w_uv)
 _SPLIT_DIMS = {"gqa": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
                         "wo": 0},
+               "mla": {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
                "mlp": {"wg": 1, "wu": 1, "wd": 0},
                "moe": {"experts.wg": 0, "experts.wu": 0, "experts.wd": 0}}
 #: the vocab dim of the embedding (V, D) and the head (D, V)
@@ -681,17 +687,24 @@ class Layout:
 
     A GQA block runs split when the model axis divides both its heads and
     its KV heads (the rule then splits wq, wk, wv by columns and wo by
-    rows, each on whole heads); an MLP block when the axis divides its
-    width; an MoE when the rule put its experts' dim on the model axis
-    (the axis divides E) and its shared experts run split as an MLP: its
-    expert stacks keep their model-axis shard, its router is whole on
-    every rank and takes a gradient partial over ``model`` (each rank's
-    gates feed only its own experts' slots). Every other block — MLA, the
-    SSM, an MoE whose experts the axis does not divide (64 experts on a
-    128-way axis), a GQA whose split would cut a head (hymba's 25 heads, 8
-    KV heads on a 16-way axis) — runs whole on every model rank, its
-    weights gathered whole. Under ``dp_over_tp`` the model axis is a data
-    axis and nothing runs split.
+    rows, each on whole heads); an MLA block when the axis divides its
+    heads and the rule put ``model`` on wq's columns and wo's rows: each
+    model rank keeps those shards (its heads; wq's columns are
+    head-major), gathers w_uk and w_uv whole (the rule splits them on the
+    latent rows) and takes its heads' columns of them (``Plan.select``,
+    whose gradient is reduce-scattered back to the latent-row shard), and
+    computes the shared latent ``ckv`` and rotary key alike, so w_dkv's
+    and kv_ln's gradients are partial over ``model``; an MLP block when
+    the axis divides its width; an MoE when the rule put its experts' dim
+    on the model axis (the axis divides E) and its shared experts run
+    split as an MLP: its expert stacks keep their model-axis shard, its
+    router is whole on every rank and takes a gradient partial over
+    ``model`` (each rank's gates feed only its own experts' slots). Every
+    other block — the SSM, an MoE whose experts the axis does not divide
+    (64 experts on a 128-way axis), a GQA or MLA whose split would cut a
+    head (hymba's 25 heads, 8 KV heads on a 16-way axis) — runs whole on
+    every model rank, its weights gathered whole. Under ``dp_over_tp``
+    the model axis is a data axis and nothing runs split.
 
     With blocks split over the model axis, a training step keeps the
     embedding's and the head's vocab shard where the rule splits their
@@ -750,8 +763,9 @@ class Layout:
     # -- which blocks run split over the model axis -------------------------
     def _split_blocks(self, shapes: Mapping[str, Tuple[int, ...]]
                       ) -> Dict[str, str]:
-        """{module prefix: "gqa" | "mlp" | "moe"} of the blocks that run
-        split (an MoE's shared experts are an "mlp" block inside it)."""
+        """{module prefix: "gqa" | "mla" | "mlp" | "moe"} of the blocks
+        that run split (an MoE's shared experts are an "mlp" block inside
+        it)."""
         if self.tp_dim is None:
             return {}
         cfg, m = self.cfg, self.sizes[self.tp_dim]
@@ -761,7 +775,12 @@ class Layout:
             prefix += "."
             if prefix in out:
                 continue
-            if leaf == "wq" and prefix + "w_dkv" not in shapes:
+            if leaf == "wq" and prefix + "w_dkv" in shapes:
+                if cfg.n_heads % m == 0 and all(
+                        self._on_model(prefix + w, d)
+                        for w, d in (("wq", 1), ("wo", 0))):
+                    out[prefix] = "mla"
+            elif leaf == "wq":
                 if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0 and all(
                         self._on_model(prefix + w, d) for w, d in (
                             ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))):
@@ -809,7 +828,6 @@ class Layout:
         spec = self.specs[name]
         pls = placements(self.mesh, spec)
         block = self.block_of(name)
-        leaf = name.rsplit(".", 1)[-1]
         keep = None         # the tensor dim kept split over the model axis
         select = None
         if keep_vocab and name in self.vocab_parallel:
@@ -817,14 +835,15 @@ class Layout:
         if block is not None:
             # the dim that holds the heads (the FFN width, the experts):
             # columns of the projections into them, rows of the one back
-            # to D, the expert dim of an MoE's stacks
+            # to D, the expert dim of an MoE's stacks; a weight the rule
+            # splits elsewhere is gathered and cut to this rank's heads
             want = _SPLIT_DIMS[self.split_blocks[block]].get(
                 name[len(block):])
             if want is not None:
                 if self._on_model(name, want):
                     keep = want
-                elif leaf in ("bq", "bk", "bv"):
-                    select = (0, self.sizes[self.tp_dim],
+                else:
+                    select = (want, self.sizes[self.tp_dim],
                               self.coord[self.tp_dim])
         gathers = []
         for i in reversed(range(len(self.names))):   # minor axis first

@@ -875,9 +875,9 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
     gathered as its plan says (``layout.use``) for the layer alone. A
     cache buffer whose model-axis split is not the layer's own (an
     attention that runs whole, an SSM's state and conv inputs, MLA's
-    latents) is all-gathered over ``model`` for the layer and this rank's
-    part written back after it; a split attention's K/V shard holds its
-    own heads."""
+    latents, which every head reads, split over its heads or not) is
+    all-gathered over ``model`` for the layer and this rank's part written
+    back after it; a split GQA's K/V shard holds its own heads."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     tp = layout.model_dim
     for i, seg in enumerate(params.segments):

@@ -6,7 +6,7 @@ Cases at smoke size (float32, remat "full", 8 routed experts, top 2):
 
   moe        deepseek-moe-16b on (data 2, model 2): 4 experts a model rank
   v2-lite    deepseek-v2-lite-16b on (data 2, model 2): the same MoE, MLA
-             run whole
+             split over its 4 heads (2 a model rank)
   moe-seq    deepseek-moe-16b at S = 2,048, where the residual is split over
              the sequence and the MoE enters and exits through that split
   moe-whole  deepseek-moe-16b with 6 experts on (data 1, model 4): the axis
