@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-22, on 4 cards
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-23, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -359,6 +359,31 @@ from a seed):
            plain PyTorch), the median step beside its bound, tokens/s,
            peak memory and collectives, printed beside the same steps with
            MLA gathered whole on every model rank (MLA_BEFORE)
+  phase 23 only with --cards 4: qwen3-32b served on the same mesh (64
+           heads, 8 KV heads, 32/4 a card; qk_norm), a prefill's residual
+           split over the sequence and the embedding and head on their
+           vocab shard (the logits split over the vocab on the model axis).
+           The flash kernel at the prefill's local shape (B 2, S = T =
+           4,096, H 32, Hkv 4, hd 128, bf16, causal) on card 0 against its
+           plain version (rows within 1e-2), beside SDPA and its bound.
+           The check: the first 32 layers at full width, greedy prefill +
+           decode of 2 x 4,096 tokens + 8 sharded against the one-card
+           model (the tokens and logits as phase 20's; every rank's tokens
+           equal; each layer's K/V cache after the last step within 0.1
+           relative L2 of one card's); three planted serving faults (the
+           vocab shards' logits in the wrong model order, the last
+           position from the wrong sequence part, a split prefill's caches
+           written from the wrong sequence part) must each fail it. Then
+           the full 64-layer model through Engine.generate, 4 x 4,096
+           prompt tokens + 32 new: tokens equal on every rank, 64 flash
+           launches a generate a rank, each layer's residual (2, 2,048,
+           5,120) at the prefill; prefill s and prompt tokens/s beside
+           the bound of 2 x the parameters less the embedding x the tokens
+           plus the causal attention at 4 x 989 TFLOP/s, decode ms/step
+           beside the weight-read bound, peak memory a card, each rank's
+           collectives of the prefill and of one decode step by kind,
+           printed beside the tree that gathered the tables whole and kept
+           the residual whole (SERVE_BEFORE)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -383,7 +408,7 @@ deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 generate of phase 17's models; ``launches_train``: per training step of
 phase 18; ``launches_lm_mesh``: per sharded train step of phase 19, on
 one of its ranks). With ``--cards 4`` no kernels line is printed; phases
-20-22 print their flash launches a rank.
+20-23 print their flash launches a rank.
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -615,8 +640,8 @@ MESH_LM_BATCH = (4, 1_024)     # the 2-layer check's batch
 MESH_LM_PROMPT = (2, 1_024)    # greedy prefill + decode
 MESH_LM_NEW = 8
 MESH_LM_NEW_GLOO = 2           # phase 19: each decode step gathers the
-                               # embedding and head through the host (gloo
-                               # on one card): ~1.3 GB a step a rank
+                               # embedding's and head's vocab shards over
+                               # data through the host (gloo on one card)
 MESH_LM_JOIN_S = 300.0
 MESH_TRAIN_ARCH = "stablelm-12b"
 MESH_TRAIN_JOIN_S = 900.0
@@ -691,6 +716,30 @@ MLA_BEFORE = {"step_s": (3.1395, 3.1441), "peak_gib": 62.159,
               "collectives": {"all-gather": (1185, 37.990),
                               "all-reduce": (177, 0.007),
                               "reduce-scatter": (433, 17.021)}}
+# phase 23 (--cards 4): qwen3-32b served on the same mesh, a prefill's
+# residual split over the sequence, the embedding and head on their vocab
+# shard. The check runs the first SERVE_CHECK_LAYERS of its 64 layers: the
+# one-card model and the sharded one never share a card, so memory would
+# take all 64 (~64 GiB on rank 0), but the bf16 noise against one card
+# grows with depth, and MESH_LOGIT_REL was set at stablelm-12b's 40 layers
+SERVE_MESH_ARCH = "qwen3-32b"
+SERVE_CHECK_LAYERS = 32
+SERVE_CHECK_PROMPT = (2, 4_096)     # S >= 2,048: the split is on
+SERVE_CHECK_NEW = 8
+SERVE_GENERATE = (4, 4_096, 32)     # full depth: batch, prompt, new tokens
+# phase 23's full-depth generate on the tree that gathered the embedding and
+# head whole and kept the residual whole (this script's lm_mesh_rank's
+# generate part run with that tree's src first on sys.path, each tree in a
+# process of its own, parent, change, change, parent, on four H100 80GB HBM3
+# at 700 W; PERF.md section 6): prefill s and decode ms/step (slowest rank,
+# the two runs), peak GiB a card, rank 0's collectives of the prefill and of
+# one decode step {kind: (count, GB)}
+SERVE_BEFORE = {"prefill_s": (0.8022, 0.8134),
+                "decode_ms": (271.107, 272.180), "peak_gib": 19.921,
+                "prefill": {"all-gather": (581, 35.8744),
+                            "all-reduce": (128, 21.4748)},
+                "decode": {"all-gather": (581, 35.8744),
+                           "all-reduce": (128, 0.0052)}}
 
 
 def log(msg: str) -> None:
@@ -4867,22 +4916,33 @@ def new_planted_faults() -> dict:
 
 def flash_at_model_shape(tag: str, cfg) -> None:
     """The flash kernel at the model's prefill shape (its windowed layers'
-    window, if any), timed beside SDPA (a windowed one with an explicit
-    boolean mask, K and V repeated to H heads: SDPA's masked route takes
-    no grouped K/V), its plain version and its bound over the visible
-    pairs."""
+    window, if any): ``flash_at_shape``, printed."""
+    windows = {seg.window for seg in cfg.segments} - {None}
+    flash_at_shape(tag, LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.head_dim, max(windows) if windows else None)
+
+
+def flash_at_shape(tag: str, b: int, s: int, h: int, hkv: int, hd: int,
+                   window=None, gate: bool = False) -> dict:
+    """The flash kernel on random bf16 (b, s, h/hkv, hd) causal inputs:
+    its largest row error against its plain version (``gate``: within
+    FLASH_ROW_REL, else fail), timed beside SDPA (a windowed one with an
+    explicit boolean mask, K and V repeated to H heads: SDPA's masked
+    route takes no grouped K/V), the plain version and its bound over the
+    visible pairs. Returns the kernels-line fields."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_bshd_ref as plain
-    windows = {seg.window for seg in cfg.segments} - {None}
-    window = max(windows) if windows else None
-    b, s, h, hkv, hd = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim)
     g = torch.Generator(device="cuda").manual_seed(h * hd)
     q, k, v = (torch.randn((b, s, n, hd), generator=g,
                            device="cuda").bfloat16() for n in (h, hkv, hkv))
+    out = ops.flash_attention(q, k, v, window=window)
+    want = plain(q, k, v, window=window)
+    err = row_error(out, want)
+    max_abs = float((out.float() - want.float()).abs().max())
+    del out, want
     ms = time_ms(lambda: ops.flash_attention(q, k, v, window=window),
                  iters=20)
     plain_ms = time_ms(lambda: plain(q, k, v, window=window), iters=2,
@@ -4902,12 +4962,19 @@ def flash_at_model_shape(tag: str, cfg) -> None:
     ops_n = 4.0 * hd * pairs * b * h
     b_ms, b_by = bound(2 * (2 * b * s * h * hd + 2 * b * s * hkv * hd),
                        ops_n, PEAK_BF16_OPS_PER_S)
-    log(f"{tag} flash_attention at the prefill's shape B={b} S=T={s} H={h} "
-        f"Hkv={hkv} hd={hd} bf16 causal window={window}: ms={ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}, {pairs} visible pairs a head) SDPA "
-        f"ms={sdpa_ms:.4f} plain_ms={plain_ms:.4f}; "
-        f"{ops_n / ms / 1e9:.1f} TFLOP/s, "
+    log(f"{tag} flash_attention at B={b} S=T={s} H={h} Hkv={hkv} hd={hd} "
+        f"bf16 causal window={window}: row error against the plain version "
+        f"{err:.3g} (limit {FLASH_ROW_REL}{'' if gate else ', printed'}), "
+        f"max abs {max_abs:.3g}; ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+        f"{pairs} visible pairs a head) SDPA ms={sdpa_ms:.4f} "
+        f"plain_ms={plain_ms:.4f}; {ops_n / ms / 1e9:.1f} TFLOP/s, "
         f"{b_ms / ms:.1%} of the bound")
+    if gate and not err <= FLASH_ROW_REL:
+        fail(f"{tag} the flash kernel at B={b} S={s} H={h}/{hkv} hd={hd} "
+             f"is {err:.3g} from its plain version (limit {FLASH_ROW_REL})")
+    return {"max_abs_err": max_abs, "row_error": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sdpa_ms}
 
 
 def new_model(arch: str, seed: int) -> dict:
@@ -5489,10 +5556,11 @@ def phase18_train(seed: int) -> dict:
 # phases 19 and 20: the LM on a mesh (FSDP×TP, models/sharding.py)
 # --------------------------------------------------------------------------
 
-def lm_greedy(cfg, params, prompts, new: int):
+def lm_greedy(cfg, params, prompts, new: int, caches_out=None):
     """Greedy tokens (B, new) and each step's float32 logits (new, B, V)
     on the card: the prefill, then ``new − 1`` decode steps (``Engine``'s
-    loop), on one card or on a mesh (DTensor logits made whole)."""
+    loop), on one card or on a mesh (DTensor logits made whole). The
+    caches after the last step are appended to ``caches_out`` if given."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -5509,21 +5577,23 @@ def lm_greedy(cfg, params, prompts, new: int):
         logits, caches = T.decode_step(cfg, params, toks[-1], caches, p + i)
         steps.append(whole(logits).float())
         toks.append(steps[-1].argmax(-1))
+    if caches_out is not None:
+        caches_out.append(caches)
     return torch.stack(toks, 1), torch.stack(steps)
 
 
-def hold_greedy(tag: str, got, want, gate: bool = True) -> dict:
-    """The mesh's greedy tokens and logits against one card's: equal tokens,
-    except that a row may part where one card's top two logits are closer
-    than twice that row's largest logit difference (a near-tie inside the
-    noise, printed), after which it is not compared; the logits of each
-    step the rows agree on within MESH_LOGIT_REL (relative L2). With
-    ``gate`` False the same figures are printed and nothing fails."""
+def greedy_over(got, want) -> dict:
+    """The mesh's greedy tokens and logits against one card's: the worst
+    step's logits (relative L2, over the rows still compared), the rows
+    that parted at a near-tie (row, step, one card's top-2 margin), and
+    the figures over their limits (what, figure, limit): a step's logits
+    over MESH_LOGIT_REL; a token unlike one card's where one card's top
+    two logits are further apart than twice that row's largest logit
+    difference. A row is not compared after it parts."""
     import torch
-    check = fail if gate else (lambda msg: log(f"{msg} (printed)"))
     toks, logits = got
     want_toks, want_logits = want
-    worst, ties = 0.0, []
+    worst, ties, over = 0.0, [], []
     live = torch.ones(toks.shape[0], dtype=torch.bool, device=toks.device)
     for i in range(toks.shape[1]):
         rows = live.nonzero()[:, 0]
@@ -5533,8 +5603,8 @@ def hold_greedy(tag: str, got, want, gate: bool = True) -> dict:
         rel = float((a - b).norm() / b.norm())
         worst = max(worst, rel)
         if rel > MESH_LOGIT_REL:
-            check(f"{tag}: step {i}'s logits are {rel:.3g} from one card's "
-                  f"(limit {MESH_LOGIT_REL})")
+            over.append((f"step {i}'s logits against one card's", rel,
+                         MESH_LOGIT_REL))
         for r in rows.tolist():
             if int(toks[r, i]) == int(want_toks[r, i]):
                 continue
@@ -5542,17 +5612,30 @@ def hold_greedy(tag: str, got, want, gate: bool = True) -> dict:
             margin = float(top2[0] - top2[1])
             noise = float((logits[i, r] - want_logits[i, r]).abs().max())
             if margin > 2 * noise:
-                check(f"{tag}: row {r} step {i}: token {int(toks[r, i])} "
-                      f"against one card's {int(want_toks[r, i])}, whose "
-                      f"top-2 margin {margin:.4g} is more than twice the "
-                      f"row's largest logit difference {noise:.4g}")
+                over.append((f"row {r} step {i}: token {int(toks[r, i])} "
+                             f"against one card's {int(want_toks[r, i])}, "
+                             f"one card's top-2 margin against twice the "
+                             f"row's largest logit difference", margin,
+                             2 * noise))
             ties.append((r, i, margin))
             live[r] = False
+    return {"logit_rel": worst, "ties": ties, "over": over}
+
+
+def hold_greedy(tag: str, got, want, gate: bool = True) -> dict:
+    """``greedy_over``'s figures printed; any over its limit fails, unless
+    ``gate`` is False (then they are printed alone)."""
+    res = greedy_over(got, want)
+    ties = res["ties"]
     log(f"{tag}: greedy tokens {'equal' if not ties else 'equal up to '}"
         f"{'' if not ties else ties} (row, step, one card's top-2 margin); "
-        f"worst step logits relative L2 {worst:.3g} (limit "
-        f"{MESH_LOGIT_REL}{'' if gate else ', printed'})")
-    return {"logit_rel": worst, "ties": ties}
+        f"worst step logits relative L2 {res['logit_rel']:.3g} (limit "
+        f"{MESH_LOGIT_REL}{'' if gate else ', printed'})"
+        + (f"; over the limits{'' if gate else ' (printed)'}: "
+           f"{res['over']}" if res["over"] else ""))
+    if gate and res["over"]:
+        fail(f"{tag}: over the limits: {res['over']}")
+    return res
 
 
 def hold_serving(tag: str, cfg, r0: dict) -> dict:
@@ -5709,7 +5792,16 @@ def lm_mesh_rank(spec: dict) -> dict:
              with MoE layers, the one card routed as the mesh routed
              (every MoE call's expert ids gathered to rank 0), and beside
              it the one card routing by its own router, with every MoE
-             call's expert ids of both
+             call's expert ids of both; every rank's tokens; with
+             ``hold_caches``, each cache buffer after the last step
+             gathered to rank 0 against one card's, a layer at a time;
+             then each planted serving fault of ``MESH_FAULTS`` (kind
+             "serve") on the same sharded model, the same figures
+      generate  with ``generate`` (batch, prompt, new): the full-depth
+             model (bf16, drawn from the seed, sharded) serves random
+             prompts through ``Engine.generate``: its stats, flash
+             launches, tokens, the collectives of the prefill and of the
+             first decode step by kind, peak memory
       train  with ``train_steps``: the full-depth model trains that many
              steps through ``Trainer`` (float32 masters from the seed, the
              sharded step by ``step_fn=``): each step's loss, grad norm,
@@ -5899,26 +5991,69 @@ def lm_mesh_rank(spec: dict) -> dict:
             vocab_size=scfg.vocab_size, batch=spec["prompt"][0],
             seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
                 "tokens"], device=dev)
-        free, free_routes, routes = None, [], []
+        hold_caches = spec.get("hold_caches", False)
+        free, free_routes, routes, one_caches = None, [], [], None
         if rank == 0:
             # one card routing by its own router, first: printed beside
             served = T.init_params(scfg, gen(), device=dev)
+            kept = [] if hold_caches else None
             with routes_as(None, free_routes):
-                free = lm_greedy(scfg, served, prompts, spec["new"])
-            del served
+                free = lm_greedy(scfg, served, prompts, spec["new"], kept)
+            if hold_caches:
+                one_caches = {seg: {n: buf.cpu() for n, buf in bufs.items()}
+                              for seg, bufs in kept[0].items()}
+            del served, kept
             torch.cuda.empty_cache()
+
+        def sharded_generate(model, keep_routes):
+            """The greedy generate on the mesh: tokens and logits on the
+            host; with ``hold_caches``, each cache buffer's worst layer
+            against one card's on rank 0."""
+            kept = [] if hold_caches else None
+            with routes_as(None, keep_routes):
+                res = lm_greedy(scfg, model, prompts, spec["new"], kept)
+            res = tuple(t.cpu() for t in res)
+            cache_rel = {}
+            for seg, bufs in (kept[0].items() if hold_caches else ()):
+                for name, buf in bufs.items():
+                    mesh_buf = whole_on_rank0(buf.to_local(), buf)
+                    if rank == 0:
+                        one = one_caches[seg][name].to(dev).float()
+                        diff = (mesh_buf.float() - one).flatten(1)
+                        rel = diff.norm(dim=1) / one.flatten(1).norm(
+                            dim=1).clamp_min(1e-30)
+                        cache_rel[f"{seg}.{name}"] = (float(rel.max()),
+                                                      int(rel.argmax()))
+                    del mesh_buf
+            tokens = [None] * dist.get_world_size()
+            dist.all_gather_object(tokens, res[0])
+            same = all(torch.equal(t, res[0]) for t in tokens)
+            return {"got": res, "cache_rel": cache_rel,
+                    "ranks_agree": same}
+
         served = T.init_params(scfg, gen(), mesh=mesh, device=dev)
+        out["serve_seq_split"] = T.layout_of(served).sequence(
+            spec["prompt"][1]) is not None
         ops.reset_launch_counts()
         sh.reset_collectives()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        with routes_as(None, routes):
-            got = lm_greedy(scfg, served, prompts, spec["new"])
+        clean = sharded_generate(served, routes)
         torch.cuda.synchronize(dev)
         out["serve_s"] = time.perf_counter() - t0
         out["serve_launches"] = ops.launch_counts()["flash_attention"]
         out["serve_collectives"] = sh.collective_counts()
-        got = tuple(t.cpu() for t in got)
+        got = clean["got"]
+        # the planted serving faults, each on the same sharded model
+        out["serve_faults"] = {}
+        for name, (kind, plant) in MESH_FAULTS.items():
+            if kind != "serve" or name not in spec.get("serve_faults", ()):
+                continue
+            with plant(mesh):
+                res = sharded_generate(served, [])
+            if rank == 0:
+                out["serve_faults"][name] = res
+            done(f"planted serving fault '{name}'")
         del served
         torch.cuda.empty_cache()
         # the mesh's routing of the whole batch, call by call (the prefill's,
@@ -5939,10 +6074,81 @@ def lm_mesh_rank(spec: dict) -> dict:
                             "want": tuple(t.cpu() for t in want),
                             "free": tuple(t.cpu() for t in free),
                             "routes": free_routes,
-                            "mesh_routes": mesh_routes}
-        del got, free, free_routes, routes, all_routes
+                            "mesh_routes": mesh_routes,
+                            "cache_rel": clean["cache_rel"],
+                            "ranks_agree": clean["ranks_agree"]}
+        del got, free, free_routes, routes, all_routes, clean, one_caches
         torch.cuda.empty_cache()
         done("greedy serving")
+
+    # -- generate: full depth through Engine.generate -----------------------
+    if spec.get("generate"):
+        from repro_torch.serve.engine import Engine, ServeConfig
+        gb, gp, gnew = spec["generate"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = T.init_params(full, gen(), mesh=mesh, device=dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        prompts = torch.as_tensor(SyntheticTokens(
+            vocab_size=full.vocab_size, batch=gb, seq_len=gp,
+            seed=spec["seed"] + 2).batch_at(0)["tokens"], device=dev)
+        engine = Engine(full, model, ServeConfig(cache_len=gp + gnew,
+                                                 batch_size=gb), device=dev)
+        engine.generate(prompts[:, :256], 2)                   # warm up
+        calls = []
+
+        def counted(fn):
+            """``fn`` (the prefill or a decode step), each call's
+            collectives by kind appended to ``calls``."""
+            def run(*args, **kwargs):
+                before = sh.collective_counts()
+                res = fn(*args, **kwargs)
+                after = sh.collective_counts()
+                calls.append({k: {"count": after[k]["count"]
+                                  - before[k]["count"],
+                                  "bytes": after[k]["bytes"]
+                                  - before[k]["bytes"]}
+                              for k in after
+                              if after[k]["count"] > before[k]["count"]})
+                return res
+            return run
+
+        # the residual each layer takes, a shape a call (this tree's
+        # split, seen from the layer: (B/dp, S/m, D) where it splits)
+        carries = []
+        hook = model.segments[0][0].register_forward_pre_hook(
+            lambda mod, args: carries.append(tuple(args[0].shape)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        with _patched(T, "prefill", counted(T.prefill)), \
+                _patched(T, "decode_step", counted(T.decode_step)):
+            toks = engine.generate(prompts, gnew)
+        hook.remove()
+        gen_out = {"stats": dict(engine.last_stats),
+                   "launches": ops.launch_counts()["flash_attention"],
+                   "prefill_collectives": calls[0],
+                   "decode_collectives": calls[1] if len(calls) > 1
+                   else {},
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                   "init_s": init_s,
+                   "n_params": sum(p.numel() for p in model.parameters()),
+                   "local_bytes": sum(p.to_local().numel()
+                                      * p.to_local().element_size()
+                                      for p in model.parameters()),
+                   "prefill_carry": carries[0],
+                   "decode_carry": carries[1] if len(carries) > 1 else None}
+        tokens = [None] * dist.get_world_size()
+        dist.all_gather_object(tokens, toks)
+        gen_out["ranks_agree"] = all(bool((t == toks).all())
+                                     for t in tokens)
+        gen_out["tokens_ok"] = bool(toks.shape == (gb, gnew)
+                                    and toks.min() >= 0
+                                    and toks.max() < full.vocab_size)
+        out["generate"] = gen_out
+        del engine, model
+        torch.cuda.empty_cache()
+        done("full-depth generate")
 
     # -- train: full depth, train_steps steps ------------------------------
     if spec["train_steps"]:
@@ -6195,9 +6401,70 @@ def fault_mla_latent_not_summed(mesh):
     return _patched(sh.Layout, "_plan", unsummed)
 
 
+def fault_vocab_order(mesh):
+    """Serving's vocab-parallel logits assembled in the wrong model order:
+    each model rank returns its neighbour's vocab shard's logits as its
+    own."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as T
+    right = T._logits
+
+    def rolled(cfg, params, h):
+        out = right(cfg, params, h)
+        layout = T.layout_of(params)
+        if layout is None or T._head_name(cfg) not in layout.vocab_parallel:
+            return out
+        tp = layout.tp_dim
+        n, index = layout.sizes[tp], layout.coord[tp]
+        parts = sh.all_gather(out[None].contiguous(), layout.groups[tp], n, 0)
+        return parts[(index + 1) % n].contiguous()
+    return _patched(T, "_logits", rolled)
+
+
+def fault_last_part(mesh):
+    """A split prefill's last position taken from the wrong sequence part:
+    the last row of the first model rank's part, not the last rank's."""
+    from repro_torch.models import transformer as T
+    right = T._last_position
+
+    def first_part(x, seq):
+        if seq is None:
+            return right(x, seq)
+        return seq.gather(x[:, -1:].contiguous())[:, 0]
+    return _patched(T, "_last_position", first_part)
+
+
+def fault_cache_part(mesh):
+    """A split prefill's K/V caches written from the wrong sequence part:
+    each model rank writes its own part's keys and values at the prompt's
+    first rows and leaves the rest of the prompt's rows zero (as a
+    prefill that wrote its part without gathering the sequence)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    right = L.GQA.forward
+
+    def own_part_first(self, x, cos, sin, *, cache=None, pos=None, tp=None,
+                       **kwargs):
+        out = right(self, x, cos, sin, cache=cache, pos=pos, tp=tp,
+                    **kwargs)
+        if cache is not None and pos == 0 and tp is not None and tp.seq:
+            part = x.shape[1]                  # this rank's part's length
+            with torch.no_grad():
+                for buf in (cache["k"], cache["v"]):
+                    mine = buf[:, tp.index * part:(tp.index + 1) * part] \
+                        .clone()
+                    buf[:, :tp.n * part] = 0
+                    buf[:, :part] = mine
+        return out
+    return _patched(L.GQA, "forward", own_part_first)
+
+
 #: name → (kind, plant(mesh)); kind "any", or "seq" (needs the residual
-#: split over the sequence), "moe" (an MoE split over its experts) or "mla"
-#: (an MLA split over its heads)
+#: split over the sequence), "moe" (an MoE split over its experts), "mla"
+#: (an MLA split over its heads): faults of the sharded train step, held
+#: by its 2-layer check; or "serve": faults of sharded serving (the
+#: vocab-parallel head, the split prefill), held by phase 23's check
 MESH_FAULTS = {
     "row-parallel exit reduced twice": ("any", fault_exit_twice),
     "gradient reduce-scatter drops data rank 1": ("any",
@@ -6214,6 +6481,12 @@ MESH_FAULTS = {
         "mla", fault_mla_wrong_heads),
     "latent projection gradients not summed over model": (
         "mla", fault_mla_latent_not_summed),
+    "vocab shards' logits in the wrong model order": ("serve",
+                                                       fault_vocab_order),
+    "last position from the wrong sequence part": ("serve",
+                                                   fault_last_part),
+    "prefill caches written from the wrong sequence part": (
+        "serve", fault_cache_part),
 }
 
 
@@ -6588,6 +6861,193 @@ def phase22_mla_cards(n_cards: int, seed: int) -> dict:
     return res
 
 
+def phase23_serve_cards(n_cards: int, seed: int) -> dict:
+    """Phase 23 (--cards 4): qwen3-32b served on an NCCL world of one rank
+    a card, mesh (data 2, model 2): a prefill's residual split over the
+    sequence (S = 4,096 ≥ 2,048, which the model axis divides), the
+    embedding and the head on their vocab shard, the logits split over the
+    vocab on ``model``. First the flash kernel at the prefill's local shape
+    on card 0 against its plain version, beside SDPA and its bound; then
+    the check (the first SERVE_CHECK_LAYERS layers at full width, greedy
+    prefill + decode sharded against one card: logits, tokens, every
+    rank's tokens, each cache layer), the three planted serving faults
+    against the same check, and the full 64-layer model through
+    ``Engine.generate`` (SERVE_GENERATE), printed beside the tree that
+    served with the tables gathered whole and the residual whole
+    (SERVE_BEFORE)."""
+    from repro_torch import configs
+    from repro_torch.launch.world import run_world
+    cfg = configs.get_config(SERVE_MESH_ARCH)
+    m = n_cards // 2
+    b_loc, s_len = SERVE_GENERATE[0] // 2, SERVE_GENERATE[1]
+    flash = flash_at_shape("[phase 23] the prefill's local shape:", b_loc,
+                           s_len, cfg.n_heads // m, cfg.n_kv_heads // m,
+                           cfg.head_dim, gate=True)
+    spec = {"arch": SERVE_MESH_ARCH, "mesh": (2, m), "check_layers": 0,
+            "serve_layers": SERVE_CHECK_LAYERS, "train_steps": 0,
+            "seed": seed, "batch": SERVE_GENERATE[0], "seq": s_len,
+            "prompt": SERVE_CHECK_PROMPT, "new": SERVE_CHECK_NEW,
+            "faults": (), "hold_caches": True,
+            "serve_faults": tuple(n for n, (kind, _) in MESH_FAULTS.items()
+                                  if kind == "serve"),
+            "generate": SERVE_GENERATE}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
+                      args=(spec,), timeout_s=300.0,
+                      join_timeout_s=MESH_TRAIN_JOIN_S)
+    log(f"[phase 23] NCCL world of {n_cards}, mesh {spec['mesh']}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    tag = (f"[phase 23] {cfg.name}, first {SERVE_CHECK_LAYERS} layers, "
+           f"{SERVE_CHECK_PROMPT[0]} x {SERVE_CHECK_PROMPT[1]} + "
+           f"{SERVE_CHECK_NEW} tokens")
+    if not r0["serve_seq_split"]:
+        fail(f"{tag}: the prefill's residual is not split over the sequence")
+    over = serve_check_over(r0["serve"])
+    hold_greedy(f"{tag} against one card", r0["serve"]["got"],
+                r0["serve"]["want"])
+    rel = r0["serve"]["cache_rel"]
+    worst = max(rel.items(), key=lambda kv: kv[1][0])
+    log(f"{tag}: every rank's tokens equal: {r0['serve']['ranks_agree']}; "
+        f"caches after the last step against one card's, the worst layer "
+        f"of each buffer (rel L2, layer): {rel} (limit {MESH_LOGIT_REL}); "
+        f"{r0['serve_launches']} flash launches a rank; collectives "
+        f"{r0['serve_collectives']}")
+    if over:
+        fail(f"{tag}: over the limits: {over}")
+    want = sorted(n for n, (kind, _) in MESH_FAULTS.items()
+                  if kind == "serve")
+    if sorted(r0["serve_faults"]) != want:
+        fail(f"[phase 23] planted serving faults run "
+             f"{sorted(r0['serve_faults'])}, expected {want}")
+    for name, res in r0["serve_faults"].items():
+        f_over = serve_check_over(dict(res, want=r0["serve"]["want"]))
+        w = max(res["cache_rel"].values())[0]
+        log(f"[phase 23] planted fault '{name}': "
+            f"{'fails' if f_over else 'PASSES'} the check: logits "
+            f"{greedy_over(res['got'], r0['serve']['want'])['logit_rel']:.3g} "
+            f"(limit {MESH_LOGIT_REL}), worst cache layer {w:.3g} (limit "
+            f"{MESH_LOGIT_REL}); {len(f_over)} figures over their limits: "
+            f"{f_over[:3]}")
+        if not f_over:
+            fail(f"[phase 23] the planted fault '{name}' passes the check")
+    return hold_serve_generate("[phase 23]", cfg, ranks, n_cards, flash,
+                               SERVE_BEFORE)
+
+
+def serve_check_over(sv: dict) -> list:
+    """Phase 23's check over its limits (what, figure, limit): the greedy
+    tokens and logits against one card's (``greedy_over``), each cache
+    buffer's worst layer over MESH_LOGIT_REL relative L2, the ranks'
+    tokens unequal."""
+    over = list(greedy_over(sv["got"], sv["want"])["over"])
+    over += [(f"cache {name} layer {layer}", rel, MESH_LOGIT_REL)
+             for name, (rel, layer) in sv["cache_rel"].items()
+             if not rel <= MESH_LOGIT_REL]
+    if not sv["ranks_agree"]:
+        over.append(("ranks' tokens unequal", 1, 0))
+    return over
+
+
+def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
+                        flash: dict, before=None) -> dict:
+    """The full-depth ``Engine.generate`` of a mesh world
+    (``lm_mesh_rank``'s generate part): finite tokens in the vocabulary,
+    the same on every rank, one flash launch a layer a rank; prefill s,
+    prompt tokens/s beside the bound of 2 x the parameters less the
+    embedding x the prompt tokens plus the causal attention at n_cards x
+    989 TFLOP/s; decode ms/step beside the weight-read bound (a rank reads
+    the weights less the embedding over the model axis and its batch and
+    channel share of the K/V cache, at 3.35 TB/s); peak memory a card; the
+    layer's residual at the prefill and at a decode step; each rank's
+    collectives of the prefill and of one decode step by kind; printed
+    beside ``before`` (a dict like SERVE_BEFORE, or None)."""
+    import math
+    gb, gp, gnew = SERVE_GENERATE
+    m = n_cards // 2
+    g0 = ranks[0]["generate"]
+    st = g0["stats"]
+    embed = cfg.vocab_size * cfg.d_model
+    body = cfg.param_count() - embed
+    pairs = visible_pairs(gp, gp, True, None)
+    attn = 4.0 * cfg.head_dim * pairs * gb * cfg.n_heads * cfg.n_layers
+    prefill_bound = (2.0 * body * gb * gp + attn) / (
+        n_cards * PEAK_BF16_OPS_PER_S)
+    prefill_s = max(r["generate"]["stats"]["prefill_s"] for r in ranks)
+    step_ms = max(r["generate"]["stats"]["decode_s"]
+                  / r["generate"]["stats"]["decode_steps"]
+                  for r in ranks) * 1e3
+    kv = 2 * 2 * cfg.n_layers * (gb // 2) * (gp + gnew // 2) \
+        * cfg.n_kv_heads * cfg.head_dim / m
+    read_bound_ms = (2.0 * body / m + kv) / PEAK_BYTES_PER_S * 1e3
+    peaks = [round(r["generate"]["peak_gib"], 3) for r in ranks]
+
+    def kinds(c):
+        return ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e9:.4f} GB"
+                         for k, v in c.items() if v["count"]) or "none"
+    log(f"{tag} {cfg.name} full depth: {cfg.n_layers} layers, "
+        f"d={cfg.d_model}, H={cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"hd={cfg.head_dim}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+        f"{g0['n_params']} bf16 parameters, {g0['local_bytes'] / 1e9:.3f} "
+        f"GB a card, drawn in {g0['init_s']:.2f}s")
+    log(f"{tag} Engine.generate of {gb} x {gp} prompt tokens + {gnew} new "
+        f"on {n_cards} cards: prefill {prefill_s:.4f}s (slowest rank's), "
+        f"{gb * gp / prefill_s:.0f} prompt tokens/s, bound "
+        f"{prefill_bound:.4f}s (2 x {body} parameters less the embedding x "
+        f"{gb * gp} tokens + causal attention {attn:.3g} FLOP at "
+        f"{n_cards} x {PEAK_BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+        f"{prefill_bound / prefill_s:.1%} of it; time to first token "
+        f"{st['ttft_s']:.4f}s; decode {step_ms:.3f} ms/step over "
+        f"{st['decode_steps']} steps (slowest rank's), weight-read bound "
+        f"{read_bound_ms:.3f} ms ({2.0 * body / m / 1e9:.3f} GB of weights "
+        f"and {kv / 1e9:.3f} GB of K/V a rank at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); peak device memory by card "
+        f"{peaks} GiB; the first layer's residual {g0['prefill_carry']} at "
+        f"the prefill, {g0['decode_carry']} at a decode step; flash "
+        f"launches a generate a rank {g0['launches']}")
+    for r in ranks:
+        g = r["generate"]
+        log(f"{tag} rank {r['rank']} {r['coord']}: prefill collectives "
+            f"{kinds(g['prefill_collectives'])}; one decode step "
+            f"{kinds(g['decode_collectives'])}")
+    now = {"prefill_s": round(prefill_s, 4), "decode_ms": round(step_ms, 3),
+           "peak_gib": max(peaks),
+           "prefill": {k: (v["count"], round(v["bytes"] / 1e9, 4))
+                       for k, v in g0["prefill_collectives"].items()},
+           "decode": {k: (v["count"], round(v["bytes"] / 1e9, 4))
+                      for k, v in g0["decode_collectives"].items()}}
+    log(f"{tag} this tree's generate as a constant: {json.dumps(now)}")
+    if before is not None:
+        log(f"{tag} against the tables gathered whole and the residual "
+            f"whole (before): prefill {prefill_s:.4f}s against "
+            f"{before['prefill_s'][0]}-{before['prefill_s'][1]}s; decode "
+            f"{step_ms:.3f} against {before['decode_ms'][0]}-"
+            f"{before['decode_ms'][1]} ms/step; peak {max(peaks):.3f} against "
+            f"{before['peak_gib']} GiB a card; rank 0's prefill collectives "
+            f"{now['prefill']} against {before['prefill']}; a decode step's "
+            f"{now['decode']} against {before['decode']} ((count, GB))")
+    if g0["n_params"] != cfg.param_count():
+        fail(f"{tag} {g0['n_params']} parameters, the config counts "
+             f"{cfg.param_count()}")
+    for r in ranks:
+        g = r["generate"]
+        if not (g["ranks_agree"] and g["tokens_ok"]):
+            fail(f"{tag} rank {r['rank']}: tokens unequal across the ranks "
+                 f"or out of the vocabulary")
+        if g["launches"] != cfg.n_layers:
+            fail(f"{tag} rank {r['rank']} launched the flash kernel "
+                 f"{g['launches']} times in one generate, expected "
+                 f"{cfg.n_layers} (one a layer)")
+    want = (gb // 2, gp // m, cfg.d_model)
+    if g0["prefill_carry"] != want:
+        fail(f"{tag} the prefill's layers take {g0['prefill_carry']}, "
+             f"expected {want} (the residual split over the sequence)")
+    if not math.isfinite(prefill_s + step_ms):
+        fail(f"{tag} timings not finite")
+    return dict(now, flash=flash, launches=g0["launches"],
+                prefill_bound_s=prefill_bound, read_bound_ms=read_bound_ms)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6596,7 +7056,7 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (and 20-22 on 4: more "
+                        help="run phases 0, 1 and 15 (and 20-23 on 4: more "
                              "than one card) on this many cards instead of "
                              "phases 0-14 and 16-19")
     args = parser.parse_args()
@@ -6625,6 +7085,9 @@ def main() -> None:
             t0 = time.perf_counter()
             phase22_mla_cards(args.cards, args.seed)
             log(f"[phase 22] {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            phase23_serve_cards(args.cards, args.seed)
+            log(f"[phase 23] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)

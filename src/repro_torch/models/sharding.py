@@ -38,15 +38,17 @@ its shard over the axes whose ranks computed different parts of it. Every
 collective the port issues is counted in ``COLLECTIVES`` (count and
 output bytes a rank).
 
-A training step also runs Megatron's sequence and vocab parallelism, the
-layouts GSPMD gives the reference from its ``shard_hint`` and rules: at a
-global sequence of ``SEQ_SPLIT_MIN`` or more that the model axis divides
-(``Layout.sequence``), the residual between blocks is split over the
-sequence as well as the batch, and a split block's entry and exit become
-an all-gather and a reduce-scatter over the sequence (``ModelSplit`` with
-``seq``); and where the model axis splits the vocab, the embedding and the
-head keep their vocab shard (``vocab_embedding``, ``VocabSplit``).
-Serving gathers them whole and keeps the residual whole.
+A training step and a prefill also run Megatron's sequence and vocab
+parallelism, the layouts GSPMD gives the reference from its ``shard_hint``
+and rules: at a global sequence of ``SEQ_SPLIT_MIN`` or more that the
+model axis divides (``Layout.sequence``), the residual between blocks is
+split over the sequence as well as the batch, and a split block's entry
+and exit become an all-gather and a reduce-scatter over the sequence
+(``ModelSplit`` with ``seq``); and where the model axis splits the vocab,
+the embedding and the head keep their vocab shard in training, prefill
+and decode alike (``vocab_embedding``; ``VocabSplit`` for the loss, and
+serving's logits come back split over the vocab on ``model``). A decode
+step (one position) never splits the sequence.
 """
 from __future__ import annotations
 
@@ -529,10 +531,11 @@ def vocab_embedding(tokens: torch.Tensor, table: torch.Tensor,
     rows ``split.index``·V/m onward): each rank looks up the tokens in its
     range (``F.embedding``, whose backward sums in a fixed order), zeroes
     the others' rows, and ``split.exit`` sums the ranks' parts (an
-    all-reduce, or a reduce-scatter into this rank's part of the sequence
-    when ``split.seq``). One rank holds each token's row and the others add
-    zeros, so the result has the bits of the whole table's lookup; a row
-    gets a gradient only from the tokens it embeds."""
+    all-reduce, as in a decode step's (B, 1, D), or a reduce-scatter into
+    this rank's part of the sequence when ``split.seq``, as in a split
+    training step or prefill). One rank holds each token's row and the
+    others add zeros, so the result has the bits of the whole table's
+    lookup; a row gets a gradient only from the tokens it embeds."""
     v = table.shape[0]
     local = tokens - split.index * v
     mine = (local >= 0) & (local < v)
@@ -706,12 +709,11 @@ class Layout:
     every model rank, its weights gathered whole. Under ``dp_over_tp``
     the model axis is a data axis and nothing runs split.
 
-    With blocks split over the model axis, a training step keeps the
-    embedding's and the head's vocab shard where the rule splits their
-    vocab over ``model`` (``vocab_parallel``; ``use(..., whole=True)``
-    gathers them whole for serving), and its norms that run on a
-    sequence part take a gradient partial over ``model``
-    (``use(..., seq=True)``)."""
+    With blocks split over the model axis, training, prefill and decode
+    keep the embedding's and the head's vocab shard where the rule splits
+    their vocab over ``model`` (``vocab_parallel``), and a training step's
+    norms that run on a sequence part take a gradient partial over
+    ``model`` (``use(..., seq=True)``)."""
 
     def __init__(self, cfg, mesh: Any, params: Any, *,
                  batch_size: Optional[int] = None) -> None:
@@ -744,14 +746,11 @@ class Layout:
             self.vocab = VocabSplit(group, n, index)
         shapes = _named_shapes(params)
         self.split_blocks = self._split_blocks(shapes)
-        #: the tables a training step keeps split over the vocab on the
-        #: model axis (the embedding and loss run vocab-parallel)
+        #: the tables kept split over the vocab on the model axis (the
+        #: embedding, the loss and serving's logits run vocab-parallel)
         self.vocab_parallel = {n for n, d in _VOCAB_DIMS.items()
                                if n in shapes and tp and self._on_model(n, d)}
         self.plans = {n: self._plan(n) for n in shapes}
-        # serving gathers the vocab-split tables whole
-        self.whole_plans = {n: self._plan(n, keep_vocab=False)
-                            for n in self.vocab_parallel}
         # a step whose residual is split over the sequence: the norms that
         # run on the sequence part take a gradient partial over the model
         # axis
@@ -814,23 +813,24 @@ class Layout:
         return None
 
     def sequence(self, seq_len: int) -> Optional[ModelSplit]:
-        """The split of a training step's residual over the sequence: at
-        a global sequence of ``SEQ_SPLIT_MIN`` or more that the model axis
-        divides, when blocks run split over it; else None. GSPMD pads a
-        sequence the axis does not divide; the port keeps that residual
-        whole on the model ranks instead."""
+        """The split of a training step's or a prefill's residual over the
+        sequence (the JAX package's ``_apply_layer``): at a global sequence
+        of ``SEQ_SPLIT_MIN`` or more that the model axis divides, when
+        blocks run split over it (not under ``dp_over_tp``); else None.
+        GSPMD pads a sequence the axis does not divide; the port keeps
+        that residual whole on the model ranks instead."""
         if self.tp_dim is None or seq_len < SEQ_SPLIT_MIN \
                 or seq_len % self.sizes[self.tp_dim]:
             return None
         return self.seq_split
 
-    def _plan(self, name: str, keep_vocab: bool = True) -> Plan:
+    def _plan(self, name: str) -> Plan:
         spec = self.specs[name]
         pls = placements(self.mesh, spec)
         block = self.block_of(name)
         keep = None         # the tensor dim kept split over the model axis
         select = None
-        if keep_vocab and name in self.vocab_parallel:
+        if name in self.vocab_parallel:
             keep = _VOCAB_DIMS[name]
         if block is not None:
             # the dim that holds the heads (the FFN width, the experts):
@@ -864,14 +864,12 @@ class Layout:
 
     # -- the parameters --------------------------------------------------------
     def use(self, name: str, p, dtype: Optional[torch.dtype], *,
-            seq: bool = False, whole: bool = False) -> torch.Tensor:
+            seq: bool = False) -> torch.Tensor:
         """The tensor a layer computes with for parameter ``name`` (a
-        DTensor, or its local shard): see ``_Use``. ``seq``: on a step
-        whose residual is split over the sequence; ``whole``: a
-        vocab-parallel table gathered whole (serving)."""
+        DTensor, or its local shard): see ``_Use``. ``seq``: on a training
+        step whose residual is split over the sequence."""
         local = p.to_local() if hasattr(p, "to_local") else p
-        plan = (self.whole_plans.get(name) if whole else None) \
-            or (self.seq_plans.get(name) if seq else None) \
+        plan = (self.seq_plans.get(name) if seq else None) \
             or self.plans[name]
         return _Use.apply(local, dtype, self, plan)
 

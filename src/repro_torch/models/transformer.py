@@ -36,8 +36,11 @@ more that the model axis divides, the residual between layers split over
 the sequence too; the embedding and the loss on this rank's vocab shard
 where the model axis splits the vocab), ``init_cache`` makes
 ``cache_specs``' DTensor caches, and ``prefill`` and ``decode_step`` run
-the rows of the caches' batch split and return DTensor logits. Batches
-come whole (the global batch on every rank) or as DTensors.
+the rows of the caches' batch split (a prefill's residual split over the
+sequence by training's rule, the embedding and the head on this rank's
+vocab shard) and return DTensor logits, split over the vocab on
+``model`` where the head is. Batches come whole (the global batch on
+every rank) or as DTensors.
 
 Entry points run on the card unless given ``device="cpu"``; without a card
 they raise.
@@ -534,10 +537,7 @@ def _dtensor(layout: S.Layout, local: torch.Tensor, spec: S.Spec,
 # ---------------------------------------------------------------------------
 
 def _embed(params: TransformerLM, tokens) -> torch.Tensor:
-    layout = layout_of(params)
-    table = params.embed if layout is None \
-        else layout.use("embed", params.embed, None, whole=True)
-    return table[torch.as_tensor(tokens, device=params.device).long()]
+    return params.embed[torch.as_tensor(tokens, device=params.device).long()]
 
 
 def _embed_inputs(cfg: ModelConfig, params: TransformerLM,
@@ -550,6 +550,26 @@ def _embed_inputs(cfg: ModelConfig, params: TransformerLM,
         _dtype(cfg))
 
 
+def _sharded_inputs(cfg: ModelConfig, params: TransformerLM,
+                    layout: S.Layout, inputs: torch.Tensor,
+                    seq: Optional[S.ModelSplit]) -> torch.Tensor:
+    """Serving's residual on a mesh from this rank's rows of ``inputs``
+    (tokens (B, S), or embeds (B, S, D)), in ``cfg.dtype``: this rank's
+    part of the sequence under ``seq``. A vocab-parallel embedding sums
+    the model ranks' rows (``vocab_embedding``: an all-reduce, or a
+    reduce-scatter into the part); a table the model axis does not split
+    is gathered whole and embeds alike on every model rank."""
+    if cfg.input_mode == "tokens":
+        table = layout.use("embed", params.embed, None)
+        if "embed" in layout.vocab_parallel:
+            return S.vocab_embedding(inputs.long(), table,
+                                     seq or layout.split)
+        x = F.embedding(inputs.long(), table)
+    else:
+        x = inputs.to(_dtype(cfg))
+    return x if seq is None else seq.part(x)
+
+
 def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
     return L.rope_tables(positions, cfg.rotary_dim, cfg.rope_theta,
                          cfg.mrope_sections)
@@ -559,7 +579,8 @@ def _prompt_rope(cfg: ModelConfig, batch: Mapping[str, Any],
                  x: torch.Tensor):
     """RoPE tables of ``batch["positions"]`` ((B, S), or (3, B, S) under
     M-RoPE) where given, else of 0..S−1 (plain RoPE, M-RoPE or not), for
-    the (B, S) of x's first two dims."""
+    the (B, S) of x's first two dims (the whole sequence: a residual split
+    over it meets the tables in blocks that see it gathered)."""
     if "positions" in batch:
         return _rope_for(cfg, torch.as_tensor(batch["positions"],
                                               device=x.device).long())
@@ -699,11 +720,15 @@ def forward_hidden(cfg: ModelConfig, params: TransformerLM,
         with torch.no_grad():
             b = len(next(iter(batch.values())))
             batch = _local_batch(layout, batch, layout.cache_axes(b))
-            x = _embed_inputs(cfg, params, batch)
-            x, aux = _run_sharded(params, layout, x,
-                                  _prompt_rope(cfg, batch, x), None, None)
-            return L.rmsnorm(x, layout.use("final_ln", params.final_ln,
-                                           None), cfg.norm_eps), aux
+            inputs = _prompt_inputs(cfg, params, batch)
+            seq = layout.sequence(inputs.shape[1])
+            x, aux = _run_sharded(
+                params, layout, _sharded_inputs(cfg, params, layout, inputs,
+                                                seq),
+                _prompt_rope(cfg, batch, inputs), None, None, seq)
+            h = L.rmsnorm(x, layout.use("final_ln", params.final_ln, None),
+                          cfg.norm_eps)
+            return (h if seq is None else seq.gather(h)), aux
     with torch.no_grad():
         x = _embed_inputs(cfg, params, batch)
         x, aux = _run(params, x, _prompt_rope(cfg, batch, x), None, None)
@@ -753,10 +778,8 @@ def lm_loss(cfg: ModelConfig, params: TransformerLM,
         head = params.head_matrix().to(dtype)
     else:
         batch = _local_batch(layout, batch, layout.batch_axes)
-        name = "embed" if cfg.tie_embeddings else "head"
-        head = layout.use(name, getattr(params, name), dtype)
-        head = head.T if cfg.tie_embeddings else head
-        if name in layout.vocab_parallel:
+        head = _sharded_head(cfg, params, layout, dtype)
+        if _head_name(cfg) in layout.vocab_parallel:
             h = (seq or layout.split).enter(h)
             nll = layout.vocab.nll
         elif seq is not None:
@@ -869,15 +892,21 @@ def _cache_shapes(cfg: ModelConfig, batch_size: int, cache_len: int
 
 
 def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
-                 rope, caches: Optional[Caches], pos: Optional[int]
+                 rope, caches: Optional[Caches], pos: Optional[int],
+                 seq: Optional[S.ModelSplit] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_run`` on a mesh, under ``torch.no_grad``: each layer's weights
-    gathered as its plan says (``layout.use``) for the layer alone. A
-    cache buffer whose model-axis split is not the layer's own (an
-    attention that runs whole, an SSM's state and conv inputs, MLA's
-    latents, which every head reads, split over its heads or not) is
-    all-gathered over ``model`` for the layer and this rank's part written
-    back after it; a split GQA's K/V shard holds its own heads."""
+    gathered as its plan says (``layout.use``) for the layer alone. With
+    ``seq`` (a prefill whose residual is split over the sequence) x is
+    this rank's part of it, and each layer crosses into its blocks as a
+    training step's does (``Layer``): a split block gathers the sequence
+    at its entry and writes its own heads' K/V of the whole prompt, a
+    block that runs whole sees the gathered sequence. A cache buffer
+    whose model-axis split is not the layer's own (an attention that runs
+    whole, an SSM's state and conv inputs, MLA's latents, which every
+    head reads, split over its heads or not) is all-gathered over
+    ``model`` for the layer and this rank's part written back after it; a
+    split GQA's K/V shard holds its own heads."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     tp = layout.model_dim
     for i, seg in enumerate(params.segments):
@@ -902,7 +931,8 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
                                         layout.sizes[tp], dim - 1)
                     cache[name] = full
                     back.append((local, full, dim - 1))
-            x, aux = functional_call(layer, used, (x, rope, cache, pos))
+            x, aux = functional_call(layer, used, (x, rope, cache, pos),
+                                     {"seq": seq})
             for local, full, dim in back:
                 n = local.shape[dim]
                 local.copy_(full.narrow(dim, layout.coord[tp] * n, n))
@@ -913,34 +943,80 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
 
 def _logits(cfg: ModelConfig, params: TransformerLM,
             h: torch.Tensor) -> torch.Tensor:
+    """(B, V) float32 logits of the last position's hidden states; on a
+    mesh, this rank's head columns' (B, V/m) where the model axis splits
+    the head's vocab (a tied model's: its embedding shard's rows)."""
     layout = layout_of(params)
     if layout is None:
         h = L.rmsnorm(h, params.final_ln, cfg.norm_eps)
         return (h @ params.head_matrix()).float()
     h = L.rmsnorm(h, layout.use("final_ln", params.final_ln, None),
                   cfg.norm_eps)
-    head = layout.use("embed", params.embed, None, whole=True).T \
-        if cfg.tie_embeddings \
-        else layout.use("head", params.head, None, whole=True)
-    return (h @ head).float()
+    return (h @ _sharded_head(cfg, params, layout, None)).float()
 
 
-def _sharded_serve(cfg: ModelConfig, params: TransformerLM, x_fn, batch,
-                   caches: Caches, pos: int, positions_fn):
-    """Prefill or decode on a mesh: the rows of the caches' batch split,
-    DTensor logits (B, V) split the same way."""
+def _head_name(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "head"
+
+
+def _sharded_head(cfg: ModelConfig, params: TransformerLM, layout: S.Layout,
+                  dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The head (D, V) as this rank computes with it (``layout.use``):
+    its vocab shard's columns (D, V/m) where the model axis splits the
+    vocab; a tied model's embedding rows, transposed."""
+    name = _head_name(cfg)
+    w = layout.use(name, getattr(params, name), dtype)
+    return w.T if cfg.tie_embeddings else w
+
+
+def _last_position(x: torch.Tensor, seq: Optional[S.ModelSplit]
+                   ) -> torch.Tensor:
+    """The hidden states (B, D) of the prompt's last position: under
+    ``seq``, the last row of the model rank that holds the sequence's last
+    part, taken by gathering each part's last row over ``model`` (B, m,
+    D), never the whole carry."""
+    if seq is None:
+        return x[:, -1]
+    return seq.gather(x[:, -1:].contiguous())[:, -1]
+
+
+def _prompt_inputs(cfg: ModelConfig, params: TransformerLM,
+                   batch: Mapping[str, Any]) -> torch.Tensor:
+    key = "tokens" if cfg.input_mode == "tokens" else "embeds"
+    return torch.as_tensor(batch[key], device=params.device)
+
+
+def _sharded_serve(cfg: ModelConfig, params: TransformerLM,
+                   batch: Mapping[str, Any], caches: Caches,
+                   pos: Optional[int]):
+    """Prefill (``pos`` None, ``batch`` a prompt) or one decode step
+    (``batch`` {"token"} at ``pos``) on a mesh: the rows of the caches'
+    batch split, a prefill's residual split over the sequence where
+    ``Layout.sequence`` says, the embedding and the head on this rank's
+    vocab shard. DTensor logits (B, V) split as the caches' batch and,
+    where the head is, over the vocab on ``model`` (the reference's head
+    spec)."""
     layout = layout_of(params)
     some = next(iter(next(iter(caches.values())).values()))
     b = some.shape[1]
     axes = layout.cache_axes(b)
     batch = _local_batch(layout, batch, axes)
-    x = x_fn(batch)
-    x, _ = _run_sharded(params, layout, x, positions_fn(batch, x), caches,
-                        pos)
-    logits = _logits(cfg, params, x[:, -1])
-    names = layout.names
-    spec = (tuple(names[i] for i in axes) or None, None)
-    return _dtensor(layout, logits, spec, (b, logits.shape[1])), caches
+    if pos is None:
+        inputs = _prompt_inputs(cfg, params, batch)
+        rope = _prompt_rope(cfg, batch, inputs)
+        seq = layout.sequence(inputs.shape[1])
+    else:
+        inputs = torch.as_tensor(batch["token"],
+                                 device=params.device)[:, None]
+        rope = _decode_rope(cfg, inputs, pos)
+        seq = None
+    x = _sharded_inputs(cfg, params, layout, inputs, seq)
+    x, _ = _run_sharded(params, layout, x, rope, caches,
+                        0 if pos is None else pos, seq)
+    logits = _logits(cfg, params, _last_position(x, seq))
+    vocab = ("model",) if _head_name(cfg) in layout.vocab_parallel else None
+    spec = (tuple(layout.names[i] for i in axes) or None, vocab)
+    return _dtensor(layout, logits, spec, (b, cfg.vocab_size)), caches
 
 
 @torch.no_grad()
@@ -954,9 +1030,7 @@ def prefill(cfg: ModelConfig, params: TransformerLM,
     (an MLA layer's absorbed attention and the SSM scan are plain PyTorch,
     as the JAX package computes them outside any kernel)."""
     if layout_of(params) is not None:
-        return _sharded_serve(
-            cfg, params, lambda bt: _embed_inputs(cfg, params, bt), batch,
-            caches, 0, lambda bt, x: _prompt_rope(cfg, bt, x))
+        return _sharded_serve(cfg, params, batch, caches, None)
     x = _embed_inputs(cfg, params, batch)
     x, _ = _run(params, x, _prompt_rope(cfg, batch, x), caches, 0)
     return _logits(cfg, params, x[:, -1]), caches
@@ -968,10 +1042,8 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, token,
     """One decode step. token: (B,) integer, or (B, D) embeds for a model on
     embedding input; pos: its position (every M-RoPE stream's)."""
     if layout_of(params) is not None:
-        return _sharded_serve(
-            cfg, params, lambda bt: _token_inputs(cfg, params, bt["token"]),
-            {"token": token}, caches, int(pos),
-            lambda bt, x: _decode_rope(cfg, x, pos))
+        return _sharded_serve(cfg, params, {"token": token}, caches,
+                              int(pos))
     x = _token_inputs(cfg, params, token)
     return _decode_from(cfg, params, x, caches, pos)
 

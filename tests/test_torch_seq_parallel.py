@@ -124,7 +124,7 @@ def _embedding(model, layout, tokens, seq):
             x = S.vocab_embedding(tokens, part, seq or layout.split)
             if seq is not None:
                 x = seq.gather(x)
-            whole = layout.use("embed", model.embed, dtype, whole=True)
+            whole = S.whole(model.embed).to(dtype)
             out[str(dtype)] = (x.float().numpy(),
                                F.embedding(tokens, whole).float().numpy())
     return out
