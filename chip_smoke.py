@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-23, on 4 cards
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-24, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -70,7 +70,8 @@ from a seed):
            same chunks; the agreement with phase 3's Lloyd labels is
            printed (the data has no cluster gap, and the two k-means settle
            apart). The LOBPCG solve stops before its iteration cap at both
-           N, the leading K Ritz values within 1e-3
+           N (at N/2 at a residual of 1e-2: that fit is held by its
+           memory alone), the leading K Ritz values within 1e-3
            relative of phase 3's and the embedding's span within
            principal-angle cosines ≥ 1 − 1e-3; one bin_counts launch per
            chunk, every other kernel of the path launched, no fused Gram
@@ -154,8 +155,8 @@ from a seed):
            load → predict the same bits; the engine at one bucket equal to
            model.predict; the card against the CPU on 24,000 rows (k-means++
            drawn on the CPU for both) by ARI ≥ 0.99; a host-chunked
-           partitioned fit on the first 131,072 rows (2 partitions, chunks
-           of 32,768). Printed, not gated: stage seconds at each worker
+           partitioned fit on the first 65,536 rows (2 partitions, chunks
+           of 16,384). Printed, not gated: stage seconds at each worker
            count, the 4-worker fit's device idle share (phase 9's
            profiler method), ARI against phase 3 and accuracy
   phase 14 the mesh placement (SCRBModel.fit(..., mesh=...)) at covtype's
@@ -177,9 +178,11 @@ from a seed):
            K) payload (two ranks on one card: not a scaling figure), ARI
            against phase 3's labels (not gated: the mesh's k-means seeds
            from a pool of 64 rows, and on data with no cluster gap k-means
-           settles by its seeds). Then one mesh fit of each other solver
-           (lanczos, subspace, randomized, auto, compressive) in the gloo
-           world, each held to the same solver's single fit on the card
+           settles by its seeds). The bf16 fit runs 100 iterations (its
+           residuals stall above tol). Then one mesh fit of each other
+           solver (lanczos, randomized, auto, compressive; subspace's
+           mesh fit is phase 15's, on NCCL) in the gloo world, each held
+           to the same solver's single fit on the card
            (phase 9's, and for compressive a fit with LOBPCG's bracket
            CompressiveOptions.lambdas, the same options for both): Ritz
            values within 1e-3 relative, the same iteration count on both
@@ -254,7 +257,8 @@ from a seed):
            same bits twice; the flash kernel at the model's prefill shape
            beside SDPA (a boolean window mask for hymba), its plain
            version and its bound;
-           greedy twice and at temperature 0.8 twice (same tokens); prefill
+           greedy twice and at temperature 0.8 twice (same tokens), 4 new
+           tokens each (NEW_ARCHS_NEW; phase 7's generates make 32); prefill
            s, TTFT, decode ms/step beside the bound of reading the weights
            once a step, one decode step's device busy ms, one layer's mixer
            and FFN ms, peak memory; flash launches per generate 0, 32, 28,
@@ -384,6 +388,25 @@ from a seed):
            collectives of the prefill and of one decode step by kind,
            printed beside the tree that gathered the tables whole and kept
            the residual whole (SERVE_BEFORE)
+  phase 24 only with --cards 4: hymba-1.5b on (data 1, model 4), its 25
+           query heads and 5 KV heads, which the model axis divides
+           neither, dealt by sharding.head_ranges (10/5/5/5 query heads,
+           2/1/1/1 KV heads; the K/V cache held by each rank's own KV
+           heads), its SSM whole on every rank. The flash kernel at the
+           ranks' local shapes (B 4, S = T = 4,096, 10/2 and 5/1 heads, hd
+           64, windowed at 1,024 and global) on card 0 against its plain
+           version (rows within 1e-2), beside SDPA and its bound. The
+           2-layer check (layer 0 global, layer 1 windowed): a training
+           step on 4 x 4,096 tokens held as phase 20's, with two planted
+           faults (query heads reading the KV head one group over; KV head
+           gradients from one model rank only); greedy prefill + decode of
+           2 x 4,096 + 8 tokens against one card (logits and tokens as
+           phase 20's; every K/V cache layer whole and its decoded rows
+           alone within 0.1), with a planted decode fault (the new K/V
+           written into another head's slot). Then the full model through
+           Engine.generate (4 x 4,096 + 32) and 10 Trainer steps, each
+           printed beside the tree that ran the attention whole
+           (ATTN_BEFORE)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -408,7 +431,7 @@ deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 generate of phase 17's models; ``launches_train``: per training step of
 phase 18; ``launches_lm_mesh``: per sharded train step of phase 19, on
 one of its ranks). With ``--cards 4`` no kernels line is printed; phases
-20-23 print their flash launches a rank.
+20-24 print their flash launches a rank.
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -457,6 +480,11 @@ FIT_ITERATIONS = 31
 # the first half of the rows to all of them
 STREAM_CHUNK = 131_072
 STREAM_HALF = COVTYPE[3] // 2
+# the N/2 fit is held to the N fit by its peak memory alone (set by the
+# chunk buffers, not by the solve's depth): its LOBPCG stops at this
+# residual (PR 29: at the fit's 1e-4, 63 iterations and 56 s of host
+# algebra); the N fit keeps 1e-4 and every comparison with phase 3
+STREAM_HALF_TOL = 1e-2
 STREAM_FLAT_BYTES = 64 * 2**20
 STREAM_KERNELS = ("rb_binning", "zt_matmul", "z_matmul", "z_matmul_gather",
                   "kmeans_assign", "kmeans_assign_stats")
@@ -509,6 +537,11 @@ LM_ARCH = "internlm2-1.8b"
 LM_BATCH = 4               # requests served together (prefill_32k: 32)
 LM_PROMPT = 4_096          # prompt tokens each (prefill_32k: 32,768)
 LM_NEW = 32                # tokens generated each
+# phase 17's generates (four a model: greedy twice, at a temperature
+# twice) make NEW_ARCHS_NEW tokens each: their gates (equal tokens, the
+# seed's tokens again, one flash launch a layer) need a few decode steps,
+# and 31 steps a generate cost ~55 s of the one-card run (PR 29: 132.3 s)
+NEW_ARCHS_NEW = 4
 LM_CACHE = LM_PROMPT + LM_NEW
 LM_TEMPERATURE = 0.8
 # The bf16 prefill's logits are held against a float32 truth (the same
@@ -549,10 +582,12 @@ PART_WORKERS = (1, 4)
 PART_KERNELS = ("rb_binning", "z_matmul", "zt_matmul", "gram_matmul",
                 "kmeans_assign", "kmeans_assign_stats")
 PART_CPU_ROWS = 24_000     # the card against the CPU, the same draws
-PART_CHUNKED_ROWS = 131_072   # the host-chunked partitioned fit's prefix
-PART_CHUNK = 32_768
+# the host-chunked partitioned fit's prefix and chunks: two chunks a
+# partition (PR 29: 131,072 rows in chunks of 32,768, 25.4 s)
+PART_CHUNKED_ROWS = 65_536
+PART_CHUNK = 16_384
 PART_CHUNKED_N = 2
-# chunks of 32,768 rows: every z product on the gather route
+# chunks of 16,384 rows: every z product on the gather route
 PART_CHUNKED_KERNELS = ("rb_binning", "bin_counts", "zt_matmul",
                         "z_matmul_gather", "kmeans_assign",
                         "kmeans_assign_stats")
@@ -570,12 +605,20 @@ MESH_RITZ_ATOL = 1e-4
 # ‖E‖ ≲ 2^-8 (‖Â‖ ≤ 1), so its Ritz values may move that far (Weyl), and
 # LOBPCG's residuals stall near that floor, above tol 1e-4
 MESH_BF16_RITZ_ATOL = 2.0 ** -8
+# so the bf16 fit runs to its iteration cap (PR 29: 300, 14.6 s on two
+# gloo ranks); its gates (Ritz values, labels against the same k-means
+# over its own embedding) hold long before: it runs this many
+MESH_BF16_ITERS = 100
 MESH_SINE = 1e-2
 MESH_ARI = 0.99
-MESH_PREDICT_ROWS = 100_000
-MESH_REDUCE_REPS = 20
+MESH_PREDICT_ROWS = 20_000     # PR 29: 100,000
+MESH_REDUCE_REPS = 5           # PR 29: 20
 MESH_JOIN_S = 420.0
 MESH_SOLVERS = ("lanczos", "subspace", "randomized", "auto", "compressive")
+# phase 14's gloo world fits these; subspace (548 iterations, ~25 s of
+# gloo all_reduces on one card) is held on the mesh by phase 15's NCCL
+# worlds (--cards 4) at 1, 2 and 4 ranks
+MESH_SOLVERS_GLOO = ("lanczos", "randomized", "auto", "compressive")
 Z_STRIP_ROWS_15 = 131_072     # phase 15's kernel rows: the strip route's
 MESH_GATHER_WIDTHS = (1, EIG_BLOCK)   # lanczos; the block solvers
 MESH_NCCL_RITZ_ATOL = 1e-5
@@ -656,7 +699,10 @@ MESH_TRAIN_JOIN_S = 900.0
 # that: phase 18's own 5e-2). AdamW's first step is lr·sign(g) where
 # |g| ≫ eps, so an entry whose gradient is below that noise may take the
 # other sign: each updated master (|w| ≈ 0.02, an update ≈ lr = 1.5e-4)
-# within MESH_MASTER_REL of the unsharded step's, and the sharded update
+# within MESH_MASTER_REL of the unsharded step's (a master drawn as zeros,
+# hymba's SSM conv bias, is only its update after one step: printed; phase
+# 24 measured 0.101 on it with every gradient leaf within 1.27e-2), and
+# the sharded update
 # within MESH_OWN_REL of one card's AdamW on the same gathered gradients
 # (float32, the same operations; the global norm sums in another order).
 # Serving rounds the row-parallel sums once, in float32; each step's
@@ -740,6 +786,36 @@ SERVE_BEFORE = {"prefill_s": (0.8022, 0.8134),
                             "all-reduce": (128, 21.4748)},
                 "decode": {"all-gather": (581, 35.8744),
                            "all-reduce": (128, 0.0052)}}
+# phase 24 (--cards 4): hymba-1.5b on an NCCL world of one rank a card,
+# mesh (data 1, model 4): its 25 query heads and 5 KV heads, which the
+# model axis divides neither, dealt by sharding.head_ranges (10/5/5/5
+# query heads, 2/1/1/1 KV heads), its SSM whole on every rank. The 2-layer
+# check (layer 0 global, layer 1 windowed at 1,024) trains at phase 18's
+# 4 x 4,096 tokens (the residual split over the sequence) and serves
+# ATTN_CHECK_PROMPT, past the window; the full model generates
+# ATTN_GENERATE and trains TRAIN_STEPS steps
+ATTN_MESH_ARCH = "hymba-1.5b"
+ATTN_MESH = (1, 4)
+ATTN_CHECK_PROMPT = (2, 4_096)
+ATTN_GENERATE = (4, 4_096, 32)
+# phase 24's full-depth generate and steps on the tree that ran hymba's
+# attention whole on every model rank (this script's lm_mesh_rank run with
+# that tree's src first on sys.path by tools/serve_ab.py --phase 24, each
+# tree in a process of its own, parent, change, change, parent, in the call
+# that ran this tree's phase 24; four H100 80GB HBM3 at 700 W; PERF.md
+# section 6; chiprun_out/pr30_ab2.log): the generate as SERVE_BEFORE, the
+# steps as MESH_BEFORE, each range the two parent runs
+ATTN_BEFORE = {
+    "generate": {"prefill_s": (0.6549, 0.6591),
+                 "decode_ms": (214.321, 216.462), "peak_gib": 3.328,
+                 "prefill": {"all-gather": (546, 4.7569),
+                             "reduce-scatter": (32, 0.8389)},
+                 "decode": {"all-gather": (481, 1.4014),
+                            "all-reduce": (32, 0.0008)}},
+    "train": {"step_s": (3.7492, 3.9031), "peak_gib": 17.42,
+              "collectives": {"all-gather": (963, 11.616),
+                              "all-reduce": (1, 0.0),
+                              "reduce-scatter": (129, 0.839)}}}
 
 
 def log(msg: str) -> None:
@@ -1749,32 +1825,34 @@ def phase7_lm(seed: int) -> int:
 
 
 def serve_requests(tag: str, cfg, params, prompts, seed: int, *,
-                   flash_layers: int) -> dict:
-    """Phase 7's and 16's requests through ``Engine.generate``: greedy
-    twice (the same tokens) and at LM_TEMPERATURE twice from one seed (the
-    same tokens), with prefill s, TTFT, decode ms/step, peak memory and
-    the kernel launches of one generate (the flash kernel's must be
-    ``flash_layers``). Returns those launches, the greedy run's stats and
-    tokens."""
+                   flash_layers: int, new: "int | None" = None
+                   ) -> dict:
+    """Phase 7's, 16's and 17's requests through ``Engine.generate``,
+    ``new`` tokens each: greedy twice (the same tokens) and at
+    LM_TEMPERATURE twice from one seed (the same tokens), with prefill s,
+    TTFT, decode ms/step, peak memory and the kernel launches of one
+    generate (the flash kernel's must be ``flash_layers``). Returns those
+    launches, the greedy run's stats and tokens."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Engine, ServeConfig
 
+    new = new or LM_NEW
     engine = Engine(cfg, params, ServeConfig(cache_len=LM_CACHE,
                                              batch_size=LM_BATCH))
     engine.generate(prompts[:, :256], 2)                    # warm up
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    greedy = engine.generate(prompts, LM_NEW, seed=seed)
+    greedy = engine.generate(prompts, new, seed=seed)
     launches = ops.launch_counts()
     flash = launches["flash_attention"]
     stats = st = engine.last_stats
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode_tok = LM_BATCH * st["decode_steps"]
     log(f"{tag} generate greedy: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
-        f"{LM_NEW} new each: prefill {st['prefill_s']:.4f}s "
+        f"{new} new each: prefill {st['prefill_s']:.4f}s "
         f"({st['prompt_tokens'] / st['prefill_s']:.0f} prompt tokens/s), "
         f"time to first token {st['ttft_s']:.4f}s, decode "
         f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step over "
@@ -1785,11 +1863,11 @@ def serve_requests(tag: str, cfg, params, prompts, seed: int, *,
     if flash != flash_layers:
         fail(f"{cfg.name}: one generate launched the flash kernel {flash} "
              f"times, not once per layer through it ({flash_layers})")
-    if greedy.shape != (LM_BATCH, LM_NEW) or greedy.min() < 0 \
+    if greedy.shape != (LM_BATCH, new) or greedy.min() < 0 \
             or greedy.max() >= cfg.vocab_size:
         fail(f"{cfg.name}: greedy tokens of shape {greedy.shape} out of "
              "the vocabulary")
-    again = engine.generate(prompts, LM_NEW, seed=seed)
+    again = engine.generate(prompts, new, seed=seed)
     if not np.array_equal(greedy, again):
         fail(f"{cfg.name}: two greedy generates differ in "
              f"{int((greedy != again).sum())} tokens")
@@ -1798,9 +1876,9 @@ def serve_requests(tag: str, cfg, params, prompts, seed: int, *,
 
     sampler = Engine(cfg, params, ServeConfig(
         cache_len=LM_CACHE, batch_size=LM_BATCH, temperature=LM_TEMPERATURE))
-    hot = sampler.generate(prompts, LM_NEW, seed=seed)
+    hot = sampler.generate(prompts, new, seed=seed)
     st = sampler.last_stats
-    same = np.array_equal(hot, sampler.generate(prompts, LM_NEW, seed=seed))
+    same = np.array_equal(hot, sampler.generate(prompts, new, seed=seed))
     log(f"{tag} generate at temperature {LM_TEMPERATURE}: ttft "
         f"{st['ttft_s']:.4f}s, decode "
         f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step; tokens "
@@ -1844,7 +1922,7 @@ def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
         sweeps["bytes"] += store.h2d_stats["bytes"] - b0
         return out
 
-    def fit(x):
+    def fit(x, c=cfg_c):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -1853,7 +1931,7 @@ def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
         t0 = time.perf_counter()
         with mock.patch.object(streaming.ChunkedELL, "gram_matvec_chunked",
                                timed_gram):
-            model = SCRBModel.fit(x, cfg_c)
+            model = SCRBModel.fit(x, c)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return (model, wall, ops.launch_counts(),
@@ -1973,13 +2051,15 @@ def phase8_streaming(x_np, y_np, cfg, device_fit) -> dict:
     del model, served
 
     sweeps.update(n=0, s=0.0, bytes=0)
-    half, wall_h, _, peak_h = fit(x_np[:STREAM_HALF])
+    half, wall_h, _, peak_h = fit(
+        x_np[:STREAM_HALF],
+        dataclasses.replace(cfg_c, solver_tol=STREAM_HALF_TOL))
     diag_h = half.fit_result.diagnostics
     log(f"[phase 8] host-chunked fit N={STREAM_HALF} in {wall_h:.2f}s "
         f"({diag_h['n_chunks']} chunks); stages (s): " + ", ".join(
             f"{k}={v:.3f}" for k, v in half.fit_result.timer.times.items())
         + f"; solver_iterations={diag_h['solver_iterations']} (cap "
-        f"{max_iters}) resnorms="
+        f"{max_iters}, tol {STREAM_HALF_TOL}) resnorms="
         f"{[float(f'{r:.3g}') for r in diag_h['solver_resnorms']]}; "
         f"{sweeps['n']} Gram sweeps, {sweeps['s']:.2f} s")
     log(f"[phase 8] peak device memory above the start at N={STREAM_HALF} "
@@ -3522,6 +3602,8 @@ def mesh_fit(x, cfg, mesh, chunk, compress):
     from repro_torch.kernels import ops
 
     c = dataclasses.replace(cfg, chunk_size=chunk)
+    if compress:
+        c = dataclasses.replace(c, solver_iters=MESH_BF16_ITERS)
     plan = dataclasses.replace(executor.plan_from_config(c, mesh=mesh),
                                collective_compress=compress)
     dist.barrier()
@@ -3599,7 +3681,8 @@ def mesh_rank(tmp: str, cfg_dict: dict, solver_cfgs: dict) -> dict:
         if rank == 0:
             np.save(Path(tmp) / f"emb_{name}.npy", emb)
 
-    out["solver_fits"] = mesh_solver_fits(x, solver_cfgs, mesh, save)
+    out["solver_fits"] = mesh_solver_fits(
+        x, {s: solver_cfgs[s] for s in MESH_SOLVERS_GLOO}, mesh, save)
     return out
 
 
@@ -3624,7 +3707,7 @@ def nccl_rank(tmp: str, cfg_dict: dict, n_embeddings: int) -> dict:
                                                              counts),
            "embedding": model.fit_result.embedding, "kmeans": []}
     names = ["emb3.npy"] + [f"emb{i}.npy" for i in range(n_embeddings)] \
-        + [f"emb_{s}.npy" for s in MESH_SOLVERS if s != "compressive"]
+        + [f"emb_{s}.npy" for s in MESH_SOLVERS_GLOO if s != "compressive"]
     for name in names:
         u = torch.as_tensor(np.load(Path(tmp) / name), device="cuda")
         res, _ = distributed_kmeans(
@@ -3689,7 +3772,7 @@ def phase14_mesh(x_np, cfg, device_fit, fm3, solver_fits) -> dict:
         embs = [np.load(Path(tmp) / f"emb{i}.npy")
                 for i in range(len(MESH_FITS))]
         solver_embs = {s: np.load(Path(tmp) / f"emb_{s}.npy")
-                       for s in MESH_SOLVERS}
+                       for s in MESH_SOLVERS_GLOO}
     log(f"[phase 14] gloo world of {MESH_WORLD} on one card: {t_gloo:.1f}s "
         f"(spawn included); NCCL world of 1: {t_nccl:.1f}s")
     r0 = ranks[0]
@@ -3779,7 +3862,7 @@ def phase14_mesh(x_np, cfg, device_fit, fm3, solver_fits) -> dict:
 
     # every other solver on the mesh, against its single fit
     kmeans_at = 1 + len(MESH_FITS)
-    for name in MESH_SOLVERS:
+    for name in MESH_SOLVERS_GLOO:
         if name == "compressive":
             one = one_process_subset_labels(solver_embs[name],
                                             solver_cfgs[name])
@@ -5096,7 +5179,7 @@ def new_model(arch: str, seed: int) -> dict:
         flash_at_model_shape(tag, cfg)
 
     served = serve_requests(tag, cfg, params, prompts, seed,
-                            flash_layers=attending)
+                            flash_layers=attending, new=NEW_ARCHS_NEW)
     st, greedy = served["stats"], served["greedy"]
     step_ms = st["decode_s"] / st["decode_steps"] * 1e3
     last = cfg.segments[-1]
@@ -5768,9 +5851,11 @@ def fault_applies(kind: str, res: dict) -> bool:
     """Whether a planted fault of ``kind`` reaches the sharded step that
     ``res`` describes: "seq" faults need the residual split over the
     sequence, "moe" faults an MoE split over its experts, "mla" faults
-    an MLA split over its heads."""
+    an MLA split over its heads, "attn" faults a GQA split over its
+    heads."""
     return {"any": True, "seq": res["seq_split"],
-            "moe": res["moe_split"], "mla": res["mla_split"]}[kind]
+            "moe": res["moe_split"], "mla": res["mla_split"],
+            "attn": res["attn_split"]}[kind]
 
 
 def lm_mesh_rank(spec: dict) -> dict:
@@ -5881,16 +5966,18 @@ def lm_mesh_rank(spec: dict) -> dict:
                     "after": {n: p.detach() for n, p in named.items()},
                     "routes": own}
 
-        def sharded_step():
+        def sharded_step(leaves=("grad", "after", "first")):
             """The sharded step from the seed's draws: every rank's loss,
             MoE routing (digests; expert ids and router logits gathered to
-            rank 0), and on rank 0 the step's leaves gathered whole; the
+            rank 0), and on rank 0 the step's ``leaves`` gathered whole
+            (a planted fault's step gathers its gradients alone); the
             flash launches, whether the residual was split over the
-            sequence, the experts and MLA's heads over the model axis."""
+            sequence, the experts, MLA's and GQA's heads over the model
+            axis."""
             model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
                                   batch_size=b, device=dev)
             seq = T.layout_of(model).sequence(s_len) is not None
-            kinds = {k: split(model, k) for k in ("moe", "mla")}
+            kinds = {k: split(model, k) for k in ("moe", "mla", "gqa")}
             named = dict(model.named_parameters())
             before = {n: p.to_local().detach().clone()
                       for n, p in named.items()}
@@ -5905,11 +5992,13 @@ def lm_mesh_rank(spec: dict) -> dict:
                        for e, _ in routes]
             all_routes = [None] * world
             dist.all_gather_object(all_routes, (coord, digests, routes))
-            got = {"grad": {}, "after": {}, "first": {}}
+            got = {k: {} for k in leaves}
+            local = {"grad": lambda n, p: p.grad.to_local(),
+                     "after": lambda n, p: p.to_local(),
+                     "first": lambda n, p: before[n]}
             for n, p in named.items():    # gathered leaf by leaf to rank 0
-                got["grad"][n] = whole_on_rank0(p.grad.to_local(), p)
-                got["after"][n] = whole_on_rank0(p.to_local(), p)
-                got["first"][n] = whole_on_rank0(before[n], p)
+                for k in leaves:
+                    got[k][n] = whole_on_rank0(local[k](n, p), p)
             del model, named, before
             torch.cuda.empty_cache()
             if rank == 0:
@@ -5921,9 +6010,19 @@ def lm_mesh_rank(spec: dict) -> dict:
         def compare(got, want, one_routes):
             """Rank 0's figures of the sharded step ``got`` against the
             unsharded ``want``; the mesh's routing against one card's own
-            (``one_routes``)."""
+            (``one_routes``). A step gathered without its masters (a
+            planted fault's) has the loss, routing and gradient figures
+            alone."""
             def rel(x, y):
                 return float((x - y).norm() / y.norm().clamp_min(1e-30))
+            if "after" not in got:
+                return {"loss": got["loss"], "want_loss": want["loss"],
+                        "rank_losses": got["rank_losses"],
+                        "routes": got["routes"],
+                        "routing": routing_against(got["batch_routes"],
+                                                   one_routes),
+                        "grad_rel": {n: rel(g, want["grad"][n])
+                                     for n, g in got["grad"].items()}}
             first, after = got["first"], got["after"]
             # one card's AdamW on the sharded step's own gradients
             own = {n: w.clone() for n, w in first.items()}
@@ -5937,8 +6036,14 @@ def lm_mesh_rank(spec: dict) -> dict:
                                         .abs().max()) for n in first),
                 "grad_rel": {n: rel(got["grad"][n], want["grad"][n])
                              for n in first},
+                # a master drawn as zeros (a conv bias) is its update after
+                # one step, which the sign noise above leaves ungated:
+                # printed apart
                 "master_rel": {n: rel(after[n], want["after"][n])
-                               for n in first},
+                               for n in first if bool(first[n].any())},
+                "zero_init_master_rel": {
+                    n: rel(after[n], want["after"][n])
+                    for n in first if not bool(first[n].any())},
                 "update_rel": {n: rel(after[n] - first[n],
                                       want["after"][n] - want["before"][n])
                                for n in first},
@@ -5949,19 +6054,24 @@ def lm_mesh_rank(spec: dict) -> dict:
 
         got, out["check_launches"], out["seq_split"], kinds = sharded_step()
         out["moe_split"], out["mla_split"] = kinds["moe"], kinds["mla"]
+        out["attn_split"] = kinds["gqa"]
         want = one_routes = None
         if rank == 0:
             # one card routing by its own router: printed. The check holds
             # the step against one card routing as the mesh did (bf16 router
             # logits near a tie may pick another expert on either side:
-            # ``routing`` holds those to near-ties)
+            # ``routing`` holds those to near-ties). A model without MoE
+            # layers routes nothing: the two are one step
             alone = one_card_step()
             one_routes = alone["routes"]
             indep = compare(got, alone, one_routes)
-            del alone
-            torch.cuda.empty_cache()
-            want = one_card_step([e for e, _ in got["batch_routes"]])
-            out["check"] = compare(got, want, one_routes)
+            if got["batch_routes"]:
+                del alone
+                torch.cuda.empty_cache()
+                want = one_card_step([e for e, _ in got["batch_routes"]])
+                out["check"] = compare(got, want, one_routes)
+            else:
+                want, out["check"] = alone, dict(indep)
             out["check"]["alone"] = {k: indep[k] for k in (
                 "loss", "want_loss", "grad_rel", "master_rel")}
             del indep
@@ -5971,10 +6081,11 @@ def lm_mesh_rank(spec: dict) -> dict:
         # the planted faults of the sharded step: each must fail the check
         out["fault_kinds"], out["faults"] = spec["faults"], {}
         for name, (kind, plant) in MESH_FAULTS.items():
-            if kind not in spec["faults"] or not fault_applies(kind, out):
+            if kind not in spec["faults"] or name in SERVE_PATH_FAULTS \
+                    or not fault_applies(kind, out):
                 continue
             with plant(mesh):
-                got, _, _, _ = sharded_step()
+                got, _, _, _ = sharded_step(("grad",))
             if rank == 0:
                 out["faults"][name] = compare(got, want, one_routes)
             del got
@@ -5992,6 +6103,9 @@ def lm_mesh_rank(spec: dict) -> dict:
             seq_len=spec["prompt"][1], seed=spec["seed"] + 1).batch_at(0)[
                 "tokens"], device=dev)
         hold_caches = spec.get("hold_caches", False)
+        # the cache rows the decode steps wrote, held on their own too
+        decoded = slice(spec["prompt"][1], spec["prompt"][1] + spec["new"]
+                        - 1) if spec.get("hold_decode_rows") else None
         free, free_routes, routes, one_caches = None, [], [], None
         if rank == 0:
             # one card routing by its own router, first: printed beside
@@ -6014,16 +6128,23 @@ def lm_mesh_rank(spec: dict) -> dict:
                 res = lm_greedy(scfg, model, prompts, spec["new"], kept)
             res = tuple(t.cpu() for t in res)
             cache_rel = {}
+
+            def worst_layer(got_, want_):
+                diff = (got_ - want_).flatten(1)
+                rel = diff.norm(dim=1) / want_.flatten(1).norm(
+                    dim=1).clamp_min(1e-30)
+                return float(rel.max()), int(rel.argmax())
             for seg, bufs in (kept[0].items() if hold_caches else ()):
                 for name, buf in bufs.items():
                     mesh_buf = whole_on_rank0(buf.to_local(), buf)
                     if rank == 0:
                         one = one_caches[seg][name].to(dev).float()
-                        diff = (mesh_buf.float() - one).flatten(1)
-                        rel = diff.norm(dim=1) / one.flatten(1).norm(
-                            dim=1).clamp_min(1e-30)
-                        cache_rel[f"{seg}.{name}"] = (float(rel.max()),
-                                                      int(rel.argmax()))
+                        cache_rel[f"{seg}.{name}"] = worst_layer(
+                            mesh_buf.float(), one)
+                        if decoded is not None and name in ("k", "v"):
+                            cache_rel[f"{seg}.{name} decoded rows"] = \
+                                worst_layer(mesh_buf[:, :, decoded].float(),
+                                            one[:, :, decoded])
                     del mesh_buf
             tokens = [None] * dist.get_world_size()
             dist.all_gather_object(tokens, res[0])
@@ -6047,7 +6168,7 @@ def lm_mesh_rank(spec: dict) -> dict:
         # the planted serving faults, each on the same sharded model
         out["serve_faults"] = {}
         for name, (kind, plant) in MESH_FAULTS.items():
-            if kind != "serve" or name not in spec.get("serve_faults", ()):
+            if name not in spec.get("serve_faults", ()):
                 continue
             with plant(mesh):
                 res = sharded_generate(served, [])
@@ -6138,6 +6259,14 @@ def lm_mesh_rank(spec: dict) -> dict:
                                       for p in model.parameters()),
                    "prefill_carry": carries[0],
                    "decode_carry": carries[1] if len(carries) > 1 else None}
+        # this rank's K/V cache bytes of the generate (a split GQA's
+        # HeadCache, or the channel shard of cache_specs)
+        caches = T.init_cache(full, gb, gp + gnew, device=dev, mesh=mesh)
+        gen_out["kv_bytes"] = sum(
+            buf.to_local().numel() * buf.to_local().element_size()
+            for bufs in caches.values() for n, buf in bufs.items()
+            if n in ("k", "v"))
+        del caches
         tokens = [None] * dist.get_world_size()
         dist.all_gather_object(tokens, toks)
         gen_out["ranks_agree"] = all(bool((t == toks).all())
@@ -6207,7 +6336,11 @@ def whole_on_rank0(local, p):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.models.sharding import local_slice
+    from repro_torch.models.sharding import HeadCache, local_slice
+    if isinstance(p, HeadCache):
+        # a split GQA's cache held by heads: every rank makes it whole
+        full = p.whole()
+        return full if dist.get_rank() == 0 else None
     mesh = p.device_mesh
     host = dist.get_backend() == "gloo" and local.is_cuda
     send = local.detach().contiguous()
@@ -6377,9 +6510,10 @@ def fault_mla_wrong_heads(mesh):
         if plan.select is None or name.rsplit(".", 1)[1] not in ("w_uk",
                                                                 "w_uv"):
             return plan
-        dim, parts, index = plan.select
-        return dataclasses.replace(plan, select=(dim, parts,
-                                                 (index + 1) % parts))
+        dim, start, count = plan.select
+        full = count * self.sizes[self.tp_dim]     # an even cut of the heads
+        return dataclasses.replace(plan, select=(dim, (start + count) % full,
+                                                 count))
     return _patched(sh.Layout, "_plan", shifted)
 
 
@@ -6460,11 +6594,68 @@ def fault_cache_part(mesh):
     return _patched(L.GQA, "forward", own_part_first)
 
 
+def fault_kv_group_over(mesh):
+    """A split GQA's query heads reading the KV head one group over: each
+    model rank computes with the KV heads after its own (the deal of
+    ``sharding.head_ranges`` shifted by one group, kept within the KV
+    heads), its K/V cache holding those."""
+    from repro_torch.models import sharding as sh
+    right = sh.head_ranges
+
+    def shifted(h, g, m, index):
+        q0, qn, k0, kn = right(h, g, m, index)
+        return q0, qn, (k0 + 1) % (g - kn + 1), kn
+    return _patched(sh, "head_ranges", shifted)
+
+
+def fault_kv_grad_one_rank(mesh):
+    """A split GQA's KV weights keep this rank's part of their gradient
+    alone (not summed over the model axis), so a KV head dealt to or
+    shared by several ranks lacks the others' parts."""
+    from repro_torch.models import sharding as sh
+    right = sh.Layout._plan
+
+    def unsummed(self, name, *args, **kwargs):
+        plan = right(self, name, *args, **kwargs)
+        block = self.block_of(name)
+        if block is None or self.split_blocks[block] != "gqa" \
+                or name.rsplit(".", 1)[1] not in sh._KV_LEAVES:
+            return plan
+        return dataclasses.replace(plan, partial=tuple(
+            a for a in plan.partial if a != self.tp_dim))
+    return _patched(sh.Layout, "_plan", unsummed)
+
+
+def fault_decode_kv_slot(mesh):
+    """A split GQA's decode step writing its K and V into another head's
+    slot of the cache: the new rows of a rank that holds two or more KV
+    heads land rolled by one head."""
+    import torch
+
+    from repro_torch.models import layers as L
+    right = L.GQA.forward
+
+    def rolled(self, x, cos, sin, *, cache=None, pos=None, tp=None,
+               **kwargs):
+        out = right(self, x, cos, sin, cache=cache, pos=pos, tp=tp,
+                    **kwargs)
+        if cache is not None and pos and (tp or self.tp) is not None:
+            hd, s = self.cfg.head_dim, x.shape[1]
+            with torch.no_grad():
+                for buf in (cache["k"], cache["v"]):
+                    rows = buf[:, pos:pos + s]
+                    rows.copy_(rows.roll(hd, -1))
+        return out
+    return _patched(L.GQA, "forward", rolled)
+
+
 #: name → (kind, plant(mesh)); kind "any", or "seq" (needs the residual
 #: split over the sequence), "moe" (an MoE split over its experts), "mla"
-#: (an MLA split over its heads): faults of the sharded train step, held
-#: by its 2-layer check; or "serve": faults of sharded serving (the
-#: vocab-parallel head, the split prefill), held by phase 23's check
+#: (an MLA split over its heads), "attn" (a GQA split over its heads):
+#: faults of the sharded train step, held by its 2-layer check, but those
+#: of SERVE_PATH_FAULTS, held by the serving check; or "serve": faults of
+#: sharded serving (the vocab-parallel head, the split prefill), held by
+#: phase 23's check
 MESH_FAULTS = {
     "row-parallel exit reduced twice": ("any", fault_exit_twice),
     "gradient reduce-scatter drops data rank 1": ("any",
@@ -6487,7 +6678,16 @@ MESH_FAULTS = {
                                                    fault_last_part),
     "prefill caches written from the wrong sequence part": (
         "serve", fault_cache_part),
+    "query heads read the KV head one group over": ("attn",
+                                                    fault_kv_group_over),
+    "KV head gradients from one model rank only": ("attn",
+                                                   fault_kv_grad_one_rank),
+    "decode K/V written into another head's cache slot": (
+        "attn", fault_decode_kv_slot),
 }
+#: the planted faults of a kind other than "serve" that only serving
+#: reaches: run on the serving check (``lm_mesh_rank``'s ``serve_faults``)
+SERVE_PATH_FAULTS = ("decode K/V written into another head's cache slot",)
 
 
 def route_splits(c: dict) -> tuple[int, int]:
@@ -6506,7 +6706,7 @@ def mesh_check_over(c: dict) -> list:
     """The check's figures over their limits: (what, figure, limit)."""
     over = []
     loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
-    if c["same_draws"] != 0.0:
+    if c.get("same_draws", 0.0) != 0.0:
         over.append(("init against one card's draws", c["same_draws"], 0.0))
     if loss_rel > MESH_LOSS_REL:
         over.append(("loss", loss_rel, MESH_LOSS_REL))
@@ -6527,7 +6727,7 @@ def mesh_check_over(c: dict) -> list:
     for key, limit in (("grad_rel", MESH_GRAD_REL),
                        ("master_rel", MESH_MASTER_REL),
                        ("own_rel", MESH_OWN_REL)):
-        over += [(f"{key} {n}", r, limit) for n, r in c[key].items()
+        over += [(f"{key} {n}", r, limit) for n, r in c.get(key, {}).items()
                  if r > limit]
     return over
 
@@ -6536,6 +6736,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     """Rank 0's check: the sharded init the bits of one card's draws; the
     loss within MESH_LOSS_REL, every gradient leaf within MESH_GRAD_REL and
     every updated master within MESH_MASTER_REL of the unsharded step's
+    (but a master drawn as zeros, whose first step leaves only its update,
+    printed)
     (relative L2); every leaf's update within MESH_OWN_REL of one card's
     AdamW on the sharded step's own gathered gradients; every rank's loss
     the same bits, and every MoE call's expert ids the same bits on the
@@ -6547,7 +6749,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     whose gradient is below the bf16 noise may take the other sign). Then
     each planted fault of the step (``MESH_FAULTS``) of the kinds the spec
     names that reaches the step must fail the same check, at the same
-    limits."""
+    limits, on the figures its step gathers (the loss, the routing and
+    every gradient leaf: a fault's step gathers no masters)."""
     c = res["check"]
     loss_rel = abs(c["loss"] - c["want_loss"]) / abs(c["want_loss"])
 
@@ -6577,7 +6780,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
         f"{c['want_loss']:.6f} (rel {loss_rel:.3g}, limit {MESH_LOSS_REL}); "
         f"of {len(c['grad_rel'])} leaves the worst gradient {g[0]} "
         f"{g[1]:.3g} (limit {MESH_GRAD_REL}), updated master {mst[0]} "
-        f"{mst[1]:.3g} (limit {MESH_MASTER_REL}), update against one "
+        f"{mst[1]:.3g} (limit {MESH_MASTER_REL}; masters drawn as zeros, "
+        f"printed: {c['zero_init_master_rel']}), update against one "
         f"card's AdamW on the same gradients {own[0]} {own[1]:.3g} (limit "
         f"{MESH_OWN_REL}); update against the unsharded step's {u[0]} "
         f"{u[1]:.3g} (printed)")
@@ -6585,7 +6789,8 @@ def hold_mesh_check(tag: str, res: dict) -> None:
     if over:
         fail(f"{tag}: over the limits: {over}")
     want = [n for n, (kind, _) in MESH_FAULTS.items()
-            if kind in res["fault_kinds"] and fault_applies(kind, res)]
+            if kind in res["fault_kinds"] and n not in SERVE_PATH_FAULTS
+            and fault_applies(kind, res)]
     if sorted(res["faults"]) != sorted(want):
         fail(f"{tag}: planted faults run {sorted(res['faults'])}, expected "
              f"{sorted(want)}")
@@ -6935,6 +7140,110 @@ def phase23_serve_cards(n_cards: int, seed: int) -> dict:
                                SERVE_BEFORE)
 
 
+def phase24_attn_cards(n_cards: int, seed: int) -> dict:
+    """Phase 24 (--cards 4): hymba-1.5b on an NCCL world of one rank a
+    card, mesh ATTN_MESH (data 1, model 4), its attention split over the
+    model axis where the axis divides neither its 25 heads nor its 5 KV
+    heads (``sharding.head_ranges``: 10/5/5/5 query heads, 2/1/1/1 KV
+    heads; the K/V cache held by each rank's own KV heads), its SSM whole.
+    First the flash kernel at the ranks' local shapes on card 0, windowed
+    and global, against its plain version beside SDPA and its bound; then
+    the 2-layer check (layer 0 global, layer 1 windowed): a training step
+    against one card with the two "attn" faults of the step, and greedy
+    prefill + decode against one card (logits, tokens, every K/V cache
+    layer, whole and the decoded rows alone) with the decode fault; then
+    the full model through ``Engine.generate`` (ATTN_GENERATE) and
+    TRAIN_STEPS training steps, each printed beside the tree that ran the
+    attention whole (ATTN_BEFORE)."""
+    from repro_torch import configs
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import sharding as sh
+    cfg = configs.get_config(ATTN_MESH_ARCH)
+    d, m = ATTN_MESH
+    heads = [sh.head_ranges(cfg.n_heads, cfg.n_kv_heads, m, i)
+             for i in range(m)]
+    most = max(qn for _, qn, _, _ in heads)
+    log(f"[phase 24] {cfg.name}: {cfg.n_heads} query heads, "
+        f"{cfg.n_kv_heads} KV heads, hd {cfg.head_dim} on (data {d}, model "
+        f"{m}): (first query head, count, first KV head, count) by rank "
+        f"{heads}; the largest rank runs {most} query heads against a mean "
+        f"of {cfg.n_heads / m:.2f} ({most * m / cfg.n_heads:.2f}x)")
+    gb, gp, _ = ATTN_GENERATE
+    window = next(seg.window for seg in cfg.segments if seg.window)
+    flash = {}
+    for qn, kn in sorted({(h[1], h[3]) for h in heads}, reverse=True):
+        for w in (window, None):
+            flash[(qn, kn, w)] = flash_at_shape(
+                f"[phase 24] a rank's local shape ({qn}/{kn} heads):",
+                gb // d, gp, qn, kn, cfg.head_dim, window=w, gate=True)
+    spec = {"arch": ATTN_MESH_ARCH, "mesh": ATTN_MESH, "check_layers": 2,
+            "serve_layers": 2, "train_steps": TRAIN_STEPS, "seed": seed,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "prompt": ATTN_CHECK_PROMPT, "new": MESH_LM_NEW,
+            "faults": ("attn",), "serve_faults": SERVE_PATH_FAULTS,
+            "hold_caches": True, "hold_decode_rows": True,
+            "generate": ATTN_GENERATE}
+    t0 = time.perf_counter()
+    ranks = run_world(lm_mesh_rank, n_cards, backend="nccl", device="cuda",
+                      args=(spec,), timeout_s=300.0,
+                      join_timeout_s=MESH_TRAIN_JOIN_S)
+    log(f"[phase 24] NCCL world of {n_cards}, mesh {spec['mesh']}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    if not r0["attn_split"]:
+        fail(f"[phase 24] {cfg.name}'s attention is not split over the "
+             f"model axis")
+    launches = {r["check_launches"] for r in ranks}
+    if launches != {2 * 2}:
+        fail(f"[phase 24] flash launches a sharded 2-layer step "
+             f"{sorted(launches)}, expected 4 on every rank (a forward a "
+             f"layer and its remat recompute)")
+    hold_mesh_check(f"[phase 24] 2 layers at {cfg.name}'s width", r0)
+    tag = (f"[phase 24] {cfg.name}, first 2 layers, {ATTN_CHECK_PROMPT[0]} x "
+           f"{ATTN_CHECK_PROMPT[1]} + {MESH_LM_NEW} tokens")
+    over = serve_check_over(r0["serve"])
+    hold_greedy(f"{tag} against one card", r0["serve"]["got"],
+                r0["serve"]["want"])
+    log(f"{tag}: every rank's tokens equal: {r0['serve']['ranks_agree']}; "
+        f"caches after the last step against one card's, the worst layer "
+        f"of each buffer (rel L2, layer): {r0['serve']['cache_rel']} (limit "
+        f"{MESH_LOGIT_REL}); {r0['serve_launches']} flash launches a rank; "
+        f"collectives {r0['serve_collectives']}")
+    if over:
+        fail(f"{tag}: over the limits: {over}")
+    if sorted(r0["serve_faults"]) != sorted(SERVE_PATH_FAULTS):
+        fail(f"[phase 24] planted serving faults run "
+             f"{sorted(r0['serve_faults'])}, expected "
+             f"{sorted(SERVE_PATH_FAULTS)}")
+    for name, res in r0["serve_faults"].items():
+        f_over = serve_check_over(dict(res, want=r0["serve"]["want"]))
+        log(f"[phase 24] planted fault '{name}': "
+            f"{'fails' if f_over else 'PASSES'} the check: logits "
+            f"{greedy_over(res['got'], r0['serve']['want'])['logit_rel']:.3g} "
+            f"(limit {MESH_LOGIT_REL}), caches {res['cache_rel']} (limit "
+            f"{MESH_LOGIT_REL}); {len(f_over)} figures over their limits: "
+            f"{f_over[:3]}")
+        if not f_over:
+            fail(f"[phase 24] the planted fault '{name}' passes the check")
+    what = "the attention whole on every model rank"
+    gen = hold_serve_generate("[phase 24]", cfg, ranks, n_cards,
+                              flash[(most, heads[0][3], None)],
+                              ATTN_BEFORE["generate"], what,
+                              gen=ATTN_GENERATE, mesh=ATTN_MESH)
+    embed = cfg.vocab_size * cfg.d_model
+    train = hold_mesh_train("[phase 24]", cfg, ranks, n_cards,
+                            cfg.param_count() - embed,
+                            "parameters less the embedding",
+                            ATTN_BEFORE["train"], what)
+    for (qn, kn, w), f in flash.items():
+        log(f"[phase 24] flash row at {gb // d} x {gp}, {qn}/{kn} heads, "
+            f"window {w}: ms {f['ms']:.4f} bound_ms {f['bound_ms']:.4f} "
+            f"plain_ms {f['plain_ms']:.4f} SDPA ms {f['library_ms']:.4f}; "
+            f"launches a rank: {gen['launches']} a generate, "
+            f"{train['launches']} a training step")
+    return {"flash": flash, "generate": gen, "train": train}
+
+
 def serve_check_over(sv: dict) -> list:
     """Phase 23's check over its limits (what, figure, limit): the greedy
     tokens and logits against one card's (``greedy_over``), each cache
@@ -6950,21 +7259,24 @@ def serve_check_over(sv: dict) -> list:
 
 
 def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
-                        flash: dict, before=None) -> dict:
+                        flash: dict, before=None,
+                        before_what: str = "the tables gathered whole and "
+                        "the residual whole", gen=None,
+                        mesh=None) -> dict:
     """The full-depth ``Engine.generate`` of a mesh world
     (``lm_mesh_rank``'s generate part): finite tokens in the vocabulary,
     the same on every rank, one flash launch a layer a rank; prefill s,
     prompt tokens/s beside the bound of 2 x the parameters less the
     embedding x the prompt tokens plus the causal attention at n_cards x
     989 TFLOP/s; decode ms/step beside the weight-read bound (a rank reads
-    the weights less the embedding over the model axis and its batch and
-    channel share of the K/V cache, at 3.35 TB/s); peak memory a card; the
+    the weights less the embedding over the model axis and its own K/V
+    cache, ``kv_bytes``, at 3.35 TB/s); peak memory a card; the
     layer's residual at the prefill and at a decode step; each rank's
     collectives of the prefill and of one decode step by kind; printed
     beside ``before`` (a dict like SERVE_BEFORE, or None)."""
     import math
-    gb, gp, gnew = SERVE_GENERATE
-    m = n_cards // 2
+    gb, gp, gnew = gen or SERVE_GENERATE
+    d, m = mesh or (2, n_cards // 2)
     g0 = ranks[0]["generate"]
     st = g0["stats"]
     embed = cfg.vocab_size * cfg.d_model
@@ -6977,8 +7289,11 @@ def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
     step_ms = max(r["generate"]["stats"]["decode_s"]
                   / r["generate"]["stats"]["decode_steps"]
                   for r in ranks) * 1e3
-    kv = 2 * 2 * cfg.n_layers * (gb // 2) * (gp + gnew // 2) \
-        * cfg.n_kv_heads * cfg.head_dim / m
+    # the busiest rank's K/V cache (its own KV heads where the attention
+    # runs split, a channel share where it runs whole), half of it filled
+    # past the prompt on average over the decode steps
+    kv_cache = max(r["generate"]["kv_bytes"] for r in ranks)
+    kv = kv_cache * (gp + gnew // 2) / (gp + gnew)
     read_bound_ms = (2.0 * body / m + kv) / PEAK_BYTES_PER_S * 1e3
     peaks = [round(r["generate"]["peak_gib"], 3) for r in ranks]
 
@@ -7000,7 +7315,8 @@ def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
         f"{st['ttft_s']:.4f}s; decode {step_ms:.3f} ms/step over "
         f"{st['decode_steps']} steps (slowest rank's), weight-read bound "
         f"{read_bound_ms:.3f} ms ({2.0 * body / m / 1e9:.3f} GB of weights "
-        f"and {kv / 1e9:.3f} GB of K/V a rank at "
+        f"and {kv / 1e9:.3f} GB of K/V a rank, of a {kv_cache / 1e9:.3f} GB "
+        f"K/V cache, at "
         f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); peak device memory by card "
         f"{peaks} GiB; the first layer's residual {g0['prefill_carry']} at "
         f"the prefill, {g0['decode_carry']} at a decode step; flash "
@@ -7018,8 +7334,8 @@ def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
                       for k, v in g0["decode_collectives"].items()}}
     log(f"{tag} this tree's generate as a constant: {json.dumps(now)}")
     if before is not None:
-        log(f"{tag} against the tables gathered whole and the residual "
-            f"whole (before): prefill {prefill_s:.4f}s against "
+        log(f"{tag} against {before_what} (before): prefill "
+            f"{prefill_s:.4f}s against "
             f"{before['prefill_s'][0]}-{before['prefill_s'][1]}s; decode "
             f"{step_ms:.3f} against {before['decode_ms'][0]}-"
             f"{before['decode_ms'][1]} ms/step; peak {max(peaks):.3f} against "
@@ -7034,11 +7350,12 @@ def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
         if not (g["ranks_agree"] and g["tokens_ok"]):
             fail(f"{tag} rank {r['rank']}: tokens unequal across the ranks "
                  f"or out of the vocabulary")
-        if g["launches"] != cfg.n_layers:
+        if g["launches"] != sum(seg.count for seg in cfg.segments
+                                if seg.mixer in ("gqa", "hybrid")):
             fail(f"{tag} rank {r['rank']} launched the flash kernel "
                  f"{g['launches']} times in one generate, expected "
                  f"{cfg.n_layers} (one a layer)")
-    want = (gb // 2, gp // m, cfg.d_model)
+    want = (gb // d, gp // m, cfg.d_model)
     if g0["prefill_carry"] != want:
         fail(f"{tag} the prefill's layers take {g0['prefill_carry']}, "
              f"expected {want} (the residual split over the sequence)")
@@ -7056,7 +7373,7 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (and 20-23 on 4: more "
+                        help="run phases 0, 1 and 15 (and 20-24 on 4: more "
                              "than one card) on this many cards instead of "
                              "phases 0-14 and 16-19")
     args = parser.parse_args()
@@ -7088,6 +7405,9 @@ def main() -> None:
             t0 = time.perf_counter()
             phase23_serve_cards(args.cards, args.seed)
             log(f"[phase 23] {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            phase24_attn_cards(args.cards, args.seed)
+            log(f"[phase 24] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)

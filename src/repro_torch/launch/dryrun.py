@@ -21,6 +21,8 @@ keeps the reference's keys (``memory``, ``cost``, ``collectives``,
 
   - ``memory.argument_bytes``: this rank's shards of the step's arguments
     (parameters, AdamW's state, batch, caches), exact from the placements;
+    ``cache_bytes``: the caches' alone (a prefill or decode cell; a split
+    GQA's K/V held by this rank's own KV heads, ``sharding.HeadCache``);
     ``output_bytes``: the tensors the step returns that are not its
     arguments; ``temp_bytes``: the largest sum of live bytes of the
     tensors the step created (each op's fresh outputs, counted from the
@@ -157,6 +159,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
                 "output_bytes": int(out_bytes),
                 "temp_bytes": int(live.peak),
                 "peak_bytes_per_device": int(arg_bytes + live.peak),
+                "cache_bytes": 0 if shape.kind == "train"
+                else int(specs.argument_bytes(sharded[2])),
             }
             record["cost"] = {"flops": float(fc.get_total_flops()),
                               "bytes_accessed": -1.0}
@@ -173,7 +177,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_path: str,
     print(f"[{cfg.name} × {shape.name} × {mesh_name}] "
           f"run {record['run_s']}s, "
           f"peak/device {record['memory']['peak_bytes_per_device']/2**30:.2f} "
-          f"GiB, flops {record['cost']['flops']:.3e}")
+          f"GiB (caches {record['memory']['cache_bytes']/2**30:.2f} GiB), "
+          f"flops {record['cost']['flops']:.3e}")
     _write(out_path, record)
     return record
 

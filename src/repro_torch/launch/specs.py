@@ -136,7 +136,10 @@ def shard_args(cfg: ModelConfig, shape: ShapeSpec, mesh, args: Tuple,
     """``build_cell``'s stand-ins as this rank's shards on ``device``
     (zeros; under ``FakeTensorMode`` fakes with no memory): the sharded
     model (``transformer.shard_params``), AdamW's state over it, the batch
-    or token and the caches as DTensors."""
+    or token as DTensors, and the caches as ``transformer.init_cache``
+    makes them on the mesh (``build_cell``'s cache placements are the
+    reference's rule; a split GQA's K/V is held by this rank's own KV heads
+    instead, ``sharding.HeadCache``)."""
     cfg = effective_config(cfg, shape, mesh)
 
     def tree(t, pls):
@@ -149,11 +152,12 @@ def shard_args(cfg: ModelConfig, shape: ShapeSpec, mesh, args: Tuple,
     if shape.kind == "train":
         opt = init_opt_state(dict(params.named_parameters()), OptConfig())
         return params, opt, tree(args[2], placements_[2])
+    caches = T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          device=device, mesh=mesh)
     if shape.kind == "prefill":
-        return params, tree(args[1], placements_[1]), \
-            tree(args[2], placements_[2])
+        return params, tree(args[1], placements_[1]), caches
     return (params, _shard(args[1], mesh, placements_[1], device),
-            tree(args[2], placements_[2]), args[3])
+            caches, args[3])
 
 
 def argument_bytes(args: Any) -> int:
@@ -165,6 +169,8 @@ def argument_bytes(args: Any) -> int:
         return argument_bytes(list(args.values()))
     if isinstance(args, (tuple, list)):
         return sum(argument_bytes(a) for a in args)
+    if isinstance(args, sh.HeadCache):
+        return argument_bytes(args.to_local())
     if isinstance(args, torch.Tensor):
         t = args.to_local() if hasattr(args, "to_local") else args
         return t.numel() * t.element_size()

@@ -27,7 +27,8 @@ plain PyTorch here too.
 
 On a mesh (``models.sharding.Layout``) the blocks read their head counts
 and widths from their weights' shapes, which are this rank's share when a
-block runs split over the model axis; such a block's ``tp`` (a
+block runs split over the model axis (a GQA's query and KV heads may be
+dealt unevenly, ``sharding.head_ranges``); such a block's ``tp`` (a
 ``sharding.ModelSplit``) marks its entry and its partial output, which is
 all-reduced (or, on a training step whose residual is split over the
 sequence, the split passed as ``tp=``: the entry all-gathers the sequence
@@ -904,7 +905,15 @@ class Hybrid(nn.Module):
     same input; each output is normed (``attn_out_ln``, ``ssm_out_ln``)
     and the two are fused by their mean, in float32 and rounded once (the
     JAX package rounds each norm and the sum). Its cache is {"k", "v",
-    "state", "conv"}."""
+    "state", "conv"}.
+
+    On a mesh the hybrid runs whole on every model rank (on the gathered
+    sequence where the residual is split over it), but for its attention,
+    which runs split over its heads when the layout splits it (``attn.tp``:
+    this rank's query and KV heads, ``sharding.head_ranges``): the
+    attention's row-parallel exit sums its partial output over the model
+    axis before ``attn_out_ln``, which is not linear, so the fused output
+    and its gradient are whole on every model rank."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype: torch.dtype = torch.float32) -> None:

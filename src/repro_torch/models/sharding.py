@@ -20,13 +20,19 @@ dim, so its spec is its reference leaf's without the leading ``None``.
 Below the rules, the runtime that takes the place of the reference's
 ``shard_hint`` and GSPMD (``Layout``): every parameter is a DTensor with
 its spec's placements; a layer casts each local shard to the compute dtype
-and all-gathers it over the axes it is split on, except that an attention
-whose heads (and KV heads) divide the model axis, and an MLP whose width
-does, keep their model-axis shard (column-parallel wq/wk/wv/wg/wu,
-row-parallel wo/wd, an all-reduce over ``model`` after the row-parallel
-product), an MLA whose heads the axis divides keeps its wq columns and wo
-rows and takes its heads' columns of the gathered w_uk and w_uv (whose
-shards lie on the latent rows), and an MoE whose expert count the axis
+and all-gathers it over the axes it is split on, except that a GQA
+attention runs this rank's heads (``head_ranges``: whole KV heads and their
+query heads, dealt evenly or not, a KV head shared where the axis is wider
+than the KV heads) with the model-axis shard of each weight whose shard
+holds exactly those heads and the rest gathered and cut to them, and an
+MLP whose width the axis divides keeps its model-axis shard
+(column-parallel wq/wk/wv/wg/wu, row-parallel wo/wd, an all-reduce over
+``model`` after the row-parallel product); such an attention's K/V cache
+holds the rank's own KV heads (``HeadCache``, the port's runtime layout,
+where ``cache_specs`` is the reference's rule). An MLA whose heads the
+axis divides keeps its wq columns and wo rows and takes its heads'
+columns of the gathered w_uk and w_uv (whose shards lie on the latent
+rows), and an MoE whose expert count the axis
 divides keeps its experts' shard (expert parallelism, the reference's
 ``(DP, TP, None, None)`` dispatch buffer: each model rank runs its E/m
 experts on its batch group's slots, and the routed partial output joins
@@ -208,6 +214,61 @@ def cache_specs(cfg, mesh: Any, caches: Mapping[str, Any]) -> Dict[str, Any]:
             for seg, bufs in caches.items()}
 
 
+def head_ranges(h: int, g: int, m: int, index: int
+                ) -> Tuple[int, int, int, int]:
+    """(first query head, count, first KV head, count) that model rank
+    ``index`` of ``m`` runs of an attention of ``h`` query heads in ``g``
+    KV groups (r = h/g query heads a group), for ``m`` ≤ ``h``. Every rank
+    holds whole KV heads and a whole number of query heads on each (the
+    flash kernel wants its local H a multiple of its local Hkv):
+
+      m ≤ g  the g groups dealt over the m ranks as evenly as possible,
+             contiguous, the larger shares first (hymba's 5 groups on 4
+             ranks: 2/1/1/1 groups, 10/5/5/5 query heads);
+      m > g  the m ranks dealt over the g groups as evenly as possible,
+             contiguous, then each group's r query heads over its ranks
+             the same way; the ranks of a group share its one KV head,
+             each holding, computing and caching it (qwen2.5-32b's 40/8
+             heads on 16 ranks: 3 or 2 query heads and 1 KV head a rank).
+    """
+    if not 0 < m <= h or h % g or not 0 <= index < m:
+        raise ValueError(f"no head split of {h}/{g} heads over {m} ranks "
+                         f"(rank {index})")
+    r = h // g
+    if m <= g:
+        base, extra = divmod(g, m)
+        kv0 = index * base + min(index, extra)
+        kvn = base + (index < extra)
+        return kv0 * r, kvn * r, kv0, kvn
+    base, extra = divmod(m, g)
+    group, first = 0, 0
+    while index >= first + base + (group < extra):
+        first += base + (group < extra)
+        group += 1
+    ranks, place = base + (group < extra), index - first
+    qb, qe = divmod(r, ranks)
+    return (group * r + place * qb + min(place, qe), qb + (place < qe),
+            group, 1)
+
+
+def gqa_heads(cfg, mesh: Any) -> Optional[Tuple[Tuple[int, int, int, int],
+                                                 ...]]:
+    """Every model rank's ``head_ranges`` where a GQA attention (a GQA
+    mixer, a hybrid's attention) runs split over the model axis: the
+    reference's rule puts ``model`` on wq's columns (``_rule_for_leaf``)
+    and the axis is no larger than the heads, not under ``dp_over_tp``.
+    None where it runs whole on every model rank."""
+    sizes = mesh_sizes(mesh)
+    m = sizes.get("model", 1)
+    if cfg.dp_over_tp or m == 1 or m > cfg.n_heads:
+        return None
+    wq = (cfg.d_model, cfg.n_heads * cfg.head_dim)
+    if _rule_for_leaf(mesh, ("wq",), wq)[1] != TP:
+        return None
+    return tuple(head_ranges(cfg.n_heads, cfg.n_kv_heads, m, i)
+                 for i in range(m))
+
+
 def placements(mesh: Any, spec: Spec) -> tuple:
     """DTensor placements of ``spec``: for each mesh dim, ``Shard(d)`` where
     that axis splits tensor dim ``d``, ``Replicate()`` otherwise. Two axes
@@ -347,9 +408,12 @@ def all_reduce(t: torch.Tensor, group, n: int,
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor made whole on every rank by this module's all-gathers (a
-    gloo group moves CUDA tensors through the host); any other tensor as
-    it is. Not differentiable: for outputs, gradients and checkpoints."""
+    """A DTensor (or a ``HeadCache``) made whole on every rank by this
+    module's all-gathers (a gloo group moves CUDA tensors through the
+    host); any other tensor as it is. Not differentiable: for outputs,
+    gradients, caches and checkpoints."""
+    if isinstance(t, HeadCache):
+        return t.whole()
     if not hasattr(t, "to_local"):
         return t
     mesh = t.device_mesh
@@ -362,6 +426,59 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class HeadCache:
+    """A K/V cache buffer of GQA layers that run split over the model axis
+    (``gqa_heads``), in the port's own runtime layout: each rank holds its
+    rows of the batch (split over the data axes as ``cache_specs`` splits
+    it) and its own whole KV heads, (L, B_local, T, kvn·hd), so a prefill
+    and a decode step read and write it with no collective. Ranks that
+    share a KV head (a model axis wider than the KV heads) each hold and
+    write it. The reference's ``cache_specs`` splits the channels evenly
+    over ``model`` instead, which cuts a KV head wherever the axis does not
+    divide them.
+
+    ``shape`` is the whole buffer's, (L, B, T, Hkv·hd); ``placements`` the
+    batch's split (``Replicate`` on the model axis); ``heads`` every model
+    rank's (first KV head, count)."""
+
+    def __init__(self, local: torch.Tensor, shape: Sequence[int], mesh: Any,
+                 placements_: Sequence[Any], model_dim: int,
+                 heads: Sequence[Tuple[int, int]], head_dim: int) -> None:
+        self.local, self.shape = local, torch.Size(shape)
+        self.device_mesh, self.placements = mesh, tuple(placements_)
+        self.model_dim, self.heads = model_dim, tuple(heads)
+        self.head_dim = head_dim
+
+    def to_local(self) -> torch.Tensor:
+        return self.local
+
+    def whole(self) -> torch.Tensor:
+        """The whole buffer (L, B, T, Hkv·hd) on every rank: the batch
+        gathered over the data axes, then every model rank's heads (padded
+        to the most a rank holds), each KV head taken from the first rank
+        that holds it."""
+        mesh = self.device_mesh
+        sizes = tuple(mesh.mesh.shape)
+        out = self.local.detach()
+        for i in reversed(range(len(sizes))):
+            dim = getattr(self.placements[i], "dim", None)
+            if dim is not None and i != self.model_dim:
+                out = all_gather(out, mesh.get_group(i), sizes[i], dim)
+        hd, m = self.head_dim, sizes[self.model_dim]
+        most = max(n for _, n in self.heads)
+        padded = out.new_zeros(out.shape[:-1] + (most * hd,))
+        padded[..., :out.shape[-1]] = out
+        parts = all_gather(padded[None], mesh.get_group(self.model_dim), m,
+                           0)
+        pieces = []
+        for k in range(self.shape[-1] // hd):
+            r = next(i for i, (k0, n) in enumerate(self.heads)
+                     if k0 <= k < k0 + n)
+            k0 = self.heads[r][0]
+            pieces.append(parts[r][..., (k - k0) * hd:(k - k0 + 1) * hd])
+        return torch.cat(pieces, -1)
+
+
 # ---------------------------------------------------------------------------
 # the runtime layout
 # ---------------------------------------------------------------------------
@@ -370,10 +487,11 @@ def whole(t: torch.Tensor) -> torch.Tensor:
 class Plan:
     """How a layer uses one parameter: its placements; the (mesh dim,
     tensor dim) pairs to all-gather, minor axis first; an optional narrowing
-    to this rank's heads after the gather ((dim, parts, index)); and the
-    mesh dims whose ranks compute different parts of its gradient, which
-    the backward sums (a reduce-scatter where the forward gathered, an
-    all-reduce where the weight is replicated)."""
+    to this rank's heads after the gather ((dim, start, count), which may
+    be uneven over the ranks or overlap another rank's: a KV head that two
+    ranks share); and the mesh dims whose ranks compute different parts of
+    its gradient, which the backward sums (a reduce-scatter where the
+    forward gathered, an all-reduce where the weight is replicated)."""
     placements: tuple
     gathers: Tuple[Tuple[int, int], ...]
     select: Optional[Tuple[int, int, int]]
@@ -617,8 +735,10 @@ class _Use(torch.autograd.Function):
     """A parameter's local shard → the tensor a layer computes with: cast
     to the compute dtype, all-gathered over the plan's axes, narrowed to
     this rank's heads. The backward returns the float32 gradient of the
-    local shard: summed over the plan's partial axes (reduce-scatter or
-    all-reduce), cut to the shard elsewhere."""
+    local shard: the narrowed gradient put in place among zeros, summed
+    over the plan's partial axes (reduce-scatter or all-reduce, so a head
+    that two ranks use takes both ranks' gradients), cut to the shard
+    elsewhere."""
 
     @staticmethod
     def forward(ctx, local, dtype, layout, plan):
@@ -628,10 +748,9 @@ class _Use(torch.autograd.Function):
         for mdim, tdim in plan.gathers:
             w = all_gather(w, layout.groups[mdim], layout.sizes[mdim], tdim)
         if plan.select is not None:
-            dim, parts, index = plan.select
+            dim, start, count = plan.select
             ctx.full_shape = w.shape
-            w = w.narrow(dim, index * (w.shape[dim] // parts),
-                         w.shape[dim] // parts)
+            w = w.narrow(dim, start, count)
         return w
 
     @staticmethod
@@ -639,9 +758,9 @@ class _Use(torch.autograd.Function):
         layout, plan = ctx.layout, ctx.plan
         g = g.float()
         if plan.select is not None:
-            dim, parts, index = plan.select
+            dim, start, count = plan.select
             full = g.new_zeros(ctx.full_shape)
-            full.narrow(dim, index * g.shape[dim], g.shape[dim]).copy_(g)
+            full.narrow(dim, start, count).copy_(g)
             g = full
         gathered = set()
         for mdim, tdim in reversed(plan.gathers):
@@ -663,13 +782,17 @@ class _Use(torch.autograd.Function):
 
 #: each split block's weights (named within the block) and the dim that
 #: holds the heads, FFN width or experts, which the model axis keeps split
-#: (or, where the rule splits another dim, ``Plan.select`` cuts to this
-#: rank's part after the gather: a GQA's biases, an MLA's w_uk and w_uv)
+#: where its shard is exactly this rank's part (or else ``Plan.select``
+#: cuts to this rank's part after the gather: a GQA's weights whose shard
+#: cuts a head or whose heads are dealt unevenly, its biases, an MLA's
+#: w_uk and w_uv)
 _SPLIT_DIMS = {"gqa": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
                         "wo": 0},
                "mla": {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
                "mlp": {"wg": 1, "wu": 1, "wd": 0},
                "moe": {"experts.wg": 0, "experts.wu": 0, "experts.wd": 0}}
+#: a split GQA's weights that hold its KV heads (the rest, its query heads)
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
 #: the vocab dim of the embedding (V, D) and the head (D, V)
 _VOCAB_DIMS = {"embed": 0, "head": 1}
 
@@ -688,9 +811,21 @@ class Layout:
     attention and MLP blocks run split over the model axis; this rank's
     coordinate and the process group of each axis.
 
-    A GQA block runs split when the model axis divides both its heads and
-    its KV heads (the rule then splits wq, wk, wv by columns and wo by
-    rows, each on whole heads); an MLA block when the axis divides its
+    A GQA block (a GQA mixer, a hybrid's attention) runs split when the
+    rule put ``model`` on wq's columns and the axis is no larger than its
+    heads (``gqa_heads``): each model rank runs the query and KV heads
+    that ``head_ranges`` deals it, whole KV heads and a whole number of
+    query heads on each, evenly or not (hymba's 25/5 heads on 4 ranks:
+    10/5/5/5 query heads), a KV head shared by the ranks of its group
+    where the axis is wider than the KV heads (qwen3-32b's 8 on 16 ranks).
+    A weight keeps its model-axis shard where that shard holds exactly the
+    rank's heads (wq, wk, wv by columns, wo by rows, when the axis divides
+    the heads and KV heads); any other is gathered and cut to the rank's
+    heads (``Plan.select``; the gradient put among zeros and
+    reduce-scattered, so a shared KV head takes every sharing rank's
+    gradient). q_norm and k_norm stay whole and take a gradient partial
+    over ``model``. Its K/V cache holds the rank's own KV heads
+    (``HeadCache``). An MLA block runs split when the axis divides its
     heads and the rule put ``model`` on wq's columns and wo's rows: each
     model rank keeps those shards (its heads; wq's columns are
     head-major), gathers w_uk and w_uv whole (the rule splits them on the
@@ -704,10 +839,11 @@ class Layout:
     router is whole on every rank and takes a gradient partial over
     ``model`` (each rank's gates feed only its own experts' slots). Every
     other block — the SSM, an MoE whose experts the axis does not divide
-    (64 experts on a 128-way axis), a GQA or MLA whose split would cut a
-    head (hymba's 25 heads, 8 KV heads on a 16-way axis) — runs whole on
-    every model rank, its weights gathered whole. Under ``dp_over_tp``
-    the model axis is a data axis and nothing runs split.
+    (64 experts on a 128-way axis), a GQA whose heads are fewer than the
+    axis, an MLA whose heads it does not divide — runs whole on every
+    model rank, its weights gathered whole. A hybrid runs its attention
+    split and its SSM whole. Under ``dp_over_tp`` the model axis is a data
+    axis and nothing runs split.
 
     With blocks split over the model axis, training, prefill and decode
     keep the embedding's and the head's vocab shard where the rule splits
@@ -744,7 +880,13 @@ class Layout:
             self.split = ModelSplit(group, n, index)
             self.seq_split = ModelSplit(group, n, index, seq=True)
             self.vocab = VocabSplit(group, n, index)
-        shapes = _named_shapes(params)
+        shapes = self.shapes = _named_shapes(params)
+        #: every model rank's (first query head, count, first KV head,
+        #: count) in a split GQA (``head_ranges``), None where GQA runs
+        #: whole; ``heads``: this rank's
+        self.gqa_heads = gqa_heads(cfg, mesh) if tp else None
+        self.heads = None if self.gqa_heads is None \
+            else self.gqa_heads[self.coord[self.tp_dim]]
         self.split_blocks = self._split_blocks(shapes)
         #: the tables kept split over the vocab on the model axis (the
         #: embedding, the loss and serving's logits run vocab-parallel)
@@ -780,9 +922,7 @@ class Layout:
                         for w, d in (("wq", 1), ("wo", 0))):
                     out[prefix] = "mla"
             elif leaf == "wq":
-                if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0 and all(
-                        self._on_model(prefix + w, d) for w, d in (
-                            ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))):
+                if self.gqa_heads is not None:
                     out[prefix] = "gqa"
             elif leaf == "wg" and len(shapes[name]) == 2:
                 if all(self._on_model(prefix + w, d) for w, d in (
@@ -835,16 +975,20 @@ class Layout:
         if block is not None:
             # the dim that holds the heads (the FFN width, the experts):
             # columns of the projections into them, rows of the one back
-            # to D, the expert dim of an MoE's stacks; a weight the rule
-            # splits elsewhere is gathered and cut to this rank's heads
-            want = _SPLIT_DIMS[self.split_blocks[block]].get(
-                name[len(block):])
+            # to D, the expert dim of an MoE's stacks; a weight whose
+            # model-axis shard is not exactly this rank's part is gathered
+            # and cut to it
+            kind, leaf = self.split_blocks[block], name[len(block):]
+            want = _SPLIT_DIMS[kind].get(leaf)
             if want is not None:
-                if self._on_model(name, want):
+                m = self.sizes[self.tp_dim]
+                size = self.shapes[name][want]
+                even = [(i * (size // m), size // m) for i in range(m)]
+                cuts = self._head_cuts(leaf) if kind == "gqa" else even
+                if self._on_model(name, want) and cuts == even:
                     keep = want
                 else:
-                    select = (want, self.sizes[self.tp_dim],
-                              self.coord[self.tp_dim])
+                    select = (want,) + cuts[self.coord[self.tp_dim]]
         gathers = []
         for i in reversed(range(len(self.names))):   # minor axis first
             dim = getattr(pls[i], "dim", None)
@@ -861,6 +1005,14 @@ class Layout:
         if block is not None:
             partial.add(self.tp_dim)
         return Plan(pls, tuple(gathers), select, tuple(sorted(partial)))
+
+    def _head_cuts(self, leaf: str) -> list:
+        """Every model rank's (start, count) along a split GQA weight's
+        head dim: its query heads' or, for ``_KV_LEAVES``, its KV heads'
+        (``head_ranges``)."""
+        hd, kv = self.cfg.head_dim, leaf in _KV_LEAVES
+        return [((k0 if kv else q0) * hd, (kn if kv else qn) * hd)
+                for q0, qn, k0, kn in self.gqa_heads]
 
     # -- the parameters --------------------------------------------------------
     def use(self, name: str, p, dtype: Optional[torch.dtype], *,

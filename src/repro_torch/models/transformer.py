@@ -35,7 +35,8 @@ loss's statistics summed over the batch ranks; at a sequence of 2,048 or
 more that the model axis divides, the residual between layers split over
 the sequence too; the embedding and the loss on this rank's vocab shard
 where the model axis splits the vocab), ``init_cache`` makes
-``cache_specs``' DTensor caches, and ``prefill`` and ``decode_step`` run
+``cache_specs``' DTensor caches (a split GQA's K/V held by this rank's
+own KV heads instead), and ``prefill`` and ``decode_step`` run
 the rows of the caches' batch split (a prefill's residual split over the
 sequence by training's rule, the embedding and the head on this rank's
 vocab shard) and return DTensor logits, split over the vocab on
@@ -820,7 +821,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
     "conv"}`` of (count, B, H, N, P) float32 and (count, B, K−1, C) for an
     SSM one, all four for a hybrid one. With ``mesh`` each buffer is a
     DTensor of zeros with ``sharding.cache_specs``' placements (this rank's
-    shard alone is allocated)."""
+    shard alone is allocated), except the K/V of GQA attentions that run
+    split over the model axis (``sharding.gqa_heads``): a
+    ``sharding.HeadCache`` of this rank's batch rows and its own whole KV
+    heads, (count, B_local, cache_len, kvn·hd)."""
     check_layers(cfg)
     dev = resolve_device(device)
     if mesh is not None:
@@ -852,11 +856,27 @@ def _sharded_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     from torch.distributed.tensor import DTensor
     shapes = _cache_shapes(cfg, batch_size, cache_len)
     specs = S.cache_specs(cfg, mesh, shapes)
+    heads = S.gqa_heads(cfg, mesh)
+    if heads is not None:
+        model_dim = mesh.mesh_dim_names.index("model")
+        kn = heads[mesh.get_coordinate()[model_dim]][3]
     out: Caches = {}
     for seg, bufs in shapes.items():
         out[seg] = {}
         for name, meta in bufs.items():
-            pls = S.placements(mesh, specs[seg][name])
+            spec = specs[seg][name]
+            if heads is not None and name in ("k", "v"):
+                # the batch split as the reference's; the channels this
+                # rank's own KV heads
+                pls = S.placements(mesh, spec[:3] + (None,))
+                local = torch.zeros(
+                    S.local_shape(meta.shape, mesh, pls)[:3]
+                    + (kn * cfg.head_dim,), dtype=meta.dtype, device=dev)
+                out[seg][name] = S.HeadCache(
+                    local, meta.shape, mesh, pls, model_dim,
+                    [(r[2], r[3]) for r in heads], cfg.head_dim)
+                continue
+            pls = S.placements(mesh, spec)
             local = torch.zeros(S.local_shape(meta.shape, mesh, pls),
                                 dtype=meta.dtype, device=dev)
             out[seg][name] = DTensor.from_local(
@@ -901,12 +921,13 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
     this rank's part of it, and each layer crosses into its blocks as a
     training step's does (``Layer``): a split block gathers the sequence
     at its entry and writes its own heads' K/V of the whole prompt, a
-    block that runs whole sees the gathered sequence. A cache buffer
-    whose model-axis split is not the layer's own (an attention that runs
-    whole, an SSM's state and conv inputs, MLA's latents, which every
-    head reads, split over its heads or not) is all-gathered over
-    ``model`` for the layer and this rank's part written back after it; a
-    split GQA's K/V shard holds its own heads."""
+    block that runs whole sees the gathered sequence. A split GQA's K/V
+    (a ``HeadCache``) holds this rank's own KV heads and is used as it
+    is, with no collective. A cache buffer whose model-axis split is not
+    the layer's own (an attention that runs whole, an SSM's state and
+    conv inputs, MLA's latents, which every head reads, split over its
+    heads or not) is all-gathered over ``model`` for the layer and this
+    rank's part written back after it."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     tp = layout.model_dim
     for i, seg in enumerate(params.segments):
@@ -917,14 +938,12 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
                     for n, w in layer.named_parameters()}
             cache, back = None, []
             if c is not None:
-                split_attn = any(prefix + m in layout.split_blocks
-                                 for m in ("mixer.", "mixer.attn."))
                 cache = {}
                 for name, buf in c.items():
                     local = buf.to_local()[j]
-                    dim = None if tp is None else \
-                        getattr(buf.placements[tp], "dim", None)
-                    if dim is None or (split_attn and name in ("k", "v")):
+                    dim = None if tp is None or isinstance(buf, S.HeadCache) \
+                        else getattr(buf.placements[tp], "dim", None)
+                    if dim is None:
                         cache[name] = local
                         continue
                     full = S.all_gather(local, layout.groups[tp],

@@ -10,10 +10,11 @@ different tokens from the same seed (greedy decoding agrees).
 
 ``make_prefill_step`` and ``make_serve_step`` are the reference's step
 functions (``launch.specs.build_cell`` returns them). With weights on a
-mesh (``transformer.shard_params``) they run this rank's share with
-``sharding.cache_specs``' caches (``init_cache(..., mesh=)``) and return
-DTensor logits; ``Engine`` then gathers each step's logits, so every rank
-samples the same tokens.
+mesh (``transformer.shard_params``) they run this rank's share with the
+caches of ``init_cache(..., mesh=)`` (``sharding.cache_specs``' split, a
+split GQA's K/V held by this rank's own KV heads) and return DTensor
+logits; ``Engine`` then gathers each step's logits, so every rank samples
+the same tokens.
 
 ``Engine`` runs on the card unless given ``device="cpu"``, and raises
 without a card.

@@ -14,7 +14,10 @@ the JAX package:
     leaves through the sequence split, its experts split over the model
     axis (its router and aux loss see the whole sequence);
   - ``kv3``: internlm2 with 6 heads and 3 KV heads at S = 2,048: the
-    attention runs whole under the split residual, the MLP split;
+    model axis divides neither the 3 KV heads nor the rule's shard of wk
+    (1.5 heads), so each model rank runs the heads
+    ``sharding.head_ranges`` deals it (4/2 query heads, 2/1 KV heads),
+    entering and leaving through the sequence split, the MLP split;
   - ``mamba2``: S = 2,048 under ``dp_over_tp``: no split;
   - ``internlm2-1024``: S = 1,024, below the split's threshold;
   - ``internlm2-2049``: S = 2,049, which the model axis does not divide.

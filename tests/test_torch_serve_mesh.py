@@ -14,7 +14,9 @@ smoke width (float32) from the same numpy tree, carried across with
   - ``internlm2-1024``: S = 1,024, below the split's threshold;
   - ``internlm2-2049``: S = 2,049, which the model axis does not divide;
   - ``kv3``: internlm2 with 6 heads and 3 KV heads at S = 2,048: the
-    attention runs whole under the split residual;
+    attention runs split under the split residual, 4/2 query heads and
+    2/1 KV heads a model rank (``sharding.head_ranges``), each caching its
+    own KV heads;
   - ``deepseek-moe``: S = 2,048, its experts split over the model axis;
   - ``qwen2-vl``: S = 2,048 of embeds input with M-RoPE positions (3, B,
     S) of text around an image grid;

@@ -11,8 +11,10 @@ are summed over the batch ranks; remat "full", so the layers' collectives
 run again in the recompute), mamba2-370m (the pure-DP
 ``dp_over_tp`` layout) and internlm2 with 6 heads and 3 KV heads, whose 48
 K columns the rule still splits over the model axis although the split
-cuts a head (so the attention runs whole, its weights gathered). The
-same numpy tree, batch and tokens go through each.
+cuts a head: the attention runs split all the same, each model rank on
+the heads ``sharding.head_ranges`` deals it (4/2 query heads, 2/1 KV
+heads), wk and wv gathered and cut to them, its K/V cache held by its
+own KV heads. The same numpy tree, batch and tokens go through each.
 
 Tolerances (float32): sharded against unsharded, the loss 1e-6 relative,
 each gradient leaf 1e-5 relative L2 (the sums over batch ranks and over the
