@@ -392,21 +392,26 @@ from a seed):
            query heads and 5 KV heads, which the model axis divides
            neither, dealt by sharding.head_ranges (10/5/5/5 query heads,
            2/1/1/1 KV heads; the K/V cache held by each rank's own KV
-           heads), its SSM whole on every rank. The flash kernel at the
-           ranks' local shapes (B 4, S = T = 4,096, 10/2 and 5/1 heads, hd
-           64, windowed at 1,024 and global) on card 0 against its plain
-           version (rows within 1e-2), beside SDPA and its bound. The
-           2-layer check (layer 0 global, layer 1 windowed): a training
-           step on 4 x 4,096 tokens held as phase 20's, with two planted
-           faults (query heads reading the KV head one group over; KV head
-           gradients from one model rank only); greedy prefill + decode of
-           2 x 4,096 + 8 tokens against one card (logits and tokens as
-           phase 20's; every K/V cache layer whole and its decoded rows
-           alone within 0.1), with a planted decode fault (the new K/V
-           written into another head's slot). Then the full model through
-           Engine.generate (4 x 4,096 + 32) and 10 Trainer steps, each
-           printed beside the tree that ran the attention whole
-           (ATTN_BEFORE)
+           heads), its 50 SSD heads by sharding.ssm_heads (13/13/12/12;
+           the state and conv cache held by each rank's own heads), the
+           two branches' partial outputs summed in one collective a layer.
+           The flash kernel at the ranks' local shapes (B 4, S = T =
+           4,096, 10/2 and 5/1 heads, hd 64, windowed at 1,024 and global)
+           on card 0 against its plain version (rows within 1e-2), beside
+           SDPA and its bound. The 2-layer check (layer 0 global, layer 1
+           windowed): a training step on 4 x 4,096 tokens held as phase
+           20's, with four planted faults (query heads reading the KV head
+           one group over; KV head gradients from one model rank only; the
+           SSM norm's squares not summed over the model axis; the SSM's B
+           and C gradients from one model rank only); greedy prefill +
+           decode of 2 x 4,096 + 8 tokens against one card (logits and
+           tokens as phase 20's; every cache layer whole, K/V, SSM state
+           and conv inputs, and the K/V's decoded rows alone within 0.1),
+           with two planted decode faults (the new K/V, or the new SSM
+           state, written into another head's slot). Then the full model
+           through Engine.generate (4 x 4,096 + 32) and 10 Trainer steps,
+           each printed beside the tree that ran the SSM whole
+           (SSM_BEFORE)
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -789,33 +794,34 @@ SERVE_BEFORE = {"prefill_s": (0.8022, 0.8134),
 # phase 24 (--cards 4): hymba-1.5b on an NCCL world of one rank a card,
 # mesh (data 1, model 4): its 25 query heads and 5 KV heads, which the
 # model axis divides neither, dealt by sharding.head_ranges (10/5/5/5
-# query heads, 2/1/1/1 KV heads), its SSM whole on every rank. The 2-layer
-# check (layer 0 global, layer 1 windowed at 1,024) trains at phase 18's
-# 4 x 4,096 tokens (the residual split over the sequence) and serves
-# ATTN_CHECK_PROMPT, past the window; the full model generates
-# ATTN_GENERATE and trains TRAIN_STEPS steps
+# query heads, 2/1/1/1 KV heads), its 50 SSD heads by sharding.ssm_heads
+# (13/13/12/12). The 2-layer check (layer 0 global, layer 1 windowed at
+# 1,024) trains at phase 18's 4 x 4,096 tokens (the residual split over
+# the sequence) and serves ATTN_CHECK_PROMPT, past the window; the full
+# model generates ATTN_GENERATE and trains TRAIN_STEPS steps
 ATTN_MESH_ARCH = "hymba-1.5b"
 ATTN_MESH = (1, 4)
 ATTN_CHECK_PROMPT = (2, 4_096)
 ATTN_GENERATE = (4, 4_096, 32)
 # phase 24's full-depth generate and steps on the tree that ran hymba's
-# attention whole on every model rank (this script's lm_mesh_rank run with
-# that tree's src first on sys.path by tools/serve_ab.py --phase 24, each
-# tree in a process of its own, parent, change, change, parent, in the call
-# that ran this tree's phase 24; four H100 80GB HBM3 at 700 W; PERF.md
-# section 6; chiprun_out/pr30_ab2.log): the generate as SERVE_BEFORE, the
-# steps as MESH_BEFORE, each range the two parent runs
-ATTN_BEFORE = {
-    "generate": {"prefill_s": (0.6549, 0.6591),
-                 "decode_ms": (214.321, 216.462), "peak_gib": 3.328,
-                 "prefill": {"all-gather": (546, 4.7569),
+# SSM whole on every model rank (its attention split; this script's
+# lm_mesh_rank run with that tree's src first on sys.path by
+# tools/serve_ab.py --phase 24, each tree in a process of its own, parent,
+# change, change, parent, in the call that ran this tree's phase 24; four
+# H100 80GB HBM3 at 700 W; PERF.md section 6): the generate as
+# SERVE_BEFORE, the steps as MESH_BEFORE, each range the two parent runs
+SSM_BEFORE = {
+    "generate": {"prefill_s": (0.8257, 1.0986),
+                 "decode_ms": (428.216, 444.271), "peak_gib": 3.402,
+                 "prefill": {"all-gather": (482, 4.0805),
+                             "all-reduce": (32, 3.3554),
                              "reduce-scatter": (32, 0.8389)},
-                 "decode": {"all-gather": (481, 1.4014),
-                            "all-reduce": (32, 0.0008)}},
-    "train": {"step_s": (3.7492, 3.9031), "peak_gib": 17.42,
+                 "decode": {"all-gather": (417, 0.7250),
+                            "all-reduce": (64, 0.0016)}},
+    "train": {"step_s": (4.5197, 4.7704), "peak_gib": 17.134,
               "collectives": {"all-gather": (963, 11.616),
-                              "all-reduce": (1, 0.0),
-                              "reduce-scatter": (129, 0.839)}}}
+                              "all-reduce": (97, 5.033),
+                              "reduce-scatter": (257, 1.036)}}}
 
 
 def log(msg: str) -> None:
@@ -5852,10 +5858,25 @@ def fault_applies(kind: str, res: dict) -> bool:
     ``res`` describes: "seq" faults need the residual split over the
     sequence, "moe" faults an MoE split over its experts, "mla" faults
     an MLA split over its heads, "attn" faults a GQA split over its
-    heads."""
+    heads, "ssm" faults an SSM split over its heads."""
     return {"any": True, "seq": res["seq_split"],
             "moe": res["moe_split"], "mla": res["mla_split"],
-            "attn": res["attn_split"]}[kind]
+            "attn": res["attn_split"], "ssm": res["ssm_split"]}[kind]
+
+
+def ssm_bc_part(cfg, name: str):
+    """(dim, start, count) of the B and C columns of an SSM's w_in and of
+    the B and C channels of its conv_w and conv_b; None for any other
+    parameter. Every model rank of a split SSM computes B and C alike for
+    its own heads, and their gradient, a small share of each of these
+    leaves' (dt·x is small), is held on its own."""
+    leaf = name.rsplit(".", 1)[-1]
+    if cfg.ssm is None or leaf not in ("w_in", "conv_w", "conv_b"):
+        return None
+    sc = cfg.ssm
+    di = sc.d_inner(cfg.d_model)
+    return (-1, 2 * di if leaf == "w_in" else di,
+            2 * sc.n_groups * sc.d_state)
 
 
 def lm_mesh_rank(spec: dict) -> dict:
@@ -5972,12 +5993,13 @@ def lm_mesh_rank(spec: dict) -> dict:
             rank 0), and on rank 0 the step's ``leaves`` gathered whole
             (a planted fault's step gathers its gradients alone); the
             flash launches, whether the residual was split over the
-            sequence, the experts, MLA's and GQA's heads over the model
-            axis."""
+            sequence, the experts, MLA's, GQA's and the SSM's heads over
+            the model axis."""
             model = T.init_params(cfg, gen(), masters=True, mesh=mesh,
                                   batch_size=b, device=dev)
             seq = T.layout_of(model).sequence(s_len) is not None
-            kinds = {k: split(model, k) for k in ("moe", "mla", "gqa")}
+            kinds = {k: split(model, k)
+                     for k in ("moe", "mla", "gqa", "ssm")}
             named = dict(model.named_parameters())
             before = {n: p.to_local().detach().clone()
                       for n, p in named.items()}
@@ -6015,14 +6037,24 @@ def lm_mesh_rank(spec: dict) -> dict:
             alone."""
             def rel(x, y):
                 return float((x - y).norm() / y.norm().clamp_min(1e-30))
+
+            def grad_rel():
+                """Every gradient leaf's, and an SSM's B and C parts'."""
+                out = {n: rel(g, want["grad"][n])
+                       for n, g in got["grad"].items()}
+                for n, g in got["grad"].items():
+                    part = ssm_bc_part(cfg, n)
+                    if part is not None:
+                        out[f"{n} (B and C)"] = rel(
+                            g.narrow(*part), want["grad"][n].narrow(*part))
+                return out
             if "after" not in got:
                 return {"loss": got["loss"], "want_loss": want["loss"],
                         "rank_losses": got["rank_losses"],
                         "routes": got["routes"],
                         "routing": routing_against(got["batch_routes"],
                                                    one_routes),
-                        "grad_rel": {n: rel(g, want["grad"][n])
-                                     for n, g in got["grad"].items()}}
+                        "grad_rel": grad_rel()}
             first, after = got["first"], got["after"]
             # one card's AdamW on the sharded step's own gradients
             own = {n: w.clone() for n, w in first.items()}
@@ -6034,8 +6066,7 @@ def lm_mesh_rank(spec: dict) -> dict:
                 "routing": routing_against(got["batch_routes"], one_routes),
                 "same_draws": max(float((first[n] - want["before"][n])
                                         .abs().max()) for n in first),
-                "grad_rel": {n: rel(got["grad"][n], want["grad"][n])
-                             for n in first},
+                "grad_rel": grad_rel(),
                 # a master drawn as zeros (a conv bias) is its update after
                 # one step, which the sign noise above leaves ungated:
                 # printed apart
@@ -6054,7 +6085,7 @@ def lm_mesh_rank(spec: dict) -> dict:
 
         got, out["check_launches"], out["seq_split"], kinds = sharded_step()
         out["moe_split"], out["mla_split"] = kinds["moe"], kinds["mla"]
-        out["attn_split"] = kinds["gqa"]
+        out["attn_split"], out["ssm_split"] = kinds["gqa"], kinds["ssm"]
         want = one_routes = None
         if rank == 0:
             # one card routing by its own router: printed. The check holds
@@ -6071,7 +6102,10 @@ def lm_mesh_rank(spec: dict) -> dict:
                 want = one_card_step([e for e, _ in got["batch_routes"]])
                 out["check"] = compare(got, want, one_routes)
             else:
+                # ``want`` is the step's one reference from here on, so
+                # ``del want`` below frees it
                 want, out["check"] = alone, dict(indep)
+                del alone
             out["check"]["alone"] = {k: indep[k] for k in (
                 "loss", "want_loss", "grad_rel", "master_rel")}
             del indep
@@ -6121,8 +6155,8 @@ def lm_mesh_rank(spec: dict) -> dict:
 
         def sharded_generate(model, keep_routes):
             """The greedy generate on the mesh: tokens and logits on the
-            host; with ``hold_caches``, each cache buffer's worst layer
-            against one card's on rank 0."""
+            host; with ``hold_caches``, each cache buffer against one
+            card's on rank 0, by layer and batch row (``cache_worst``)."""
             kept = [] if hold_caches else None
             with routes_as(None, keep_routes):
                 res = lm_greedy(scfg, model, prompts, spec["new"], kept)
@@ -6130,10 +6164,11 @@ def lm_mesh_rank(spec: dict) -> dict:
             cache_rel = {}
 
             def worst_layer(got_, want_):
-                diff = (got_ - want_).flatten(1)
-                rel = diff.norm(dim=1) / want_.flatten(1).norm(
-                    dim=1).clamp_min(1e-30)
-                return float(rel.max()), int(rel.argmax())
+                """Relative L2 of each layer's batch row, [layer][row]."""
+                diff = (got_ - want_).flatten(2)
+                rel = diff.norm(dim=2) / want_.flatten(2).norm(
+                    dim=2).clamp_min(1e-30)
+                return rel.cpu().tolist()
             for seg, bufs in (kept[0].items() if hold_caches else ()):
                 for name, buf in bufs.items():
                     mesh_buf = whole_on_rank0(buf.to_local(), buf)
@@ -6454,7 +6489,7 @@ def fault_norm_not_summed(mesh):
     """The norms that run on this rank's part of the sequence take their
     gradient from that part alone (not summed over the model axis)."""
     from repro_torch.models import sharding as sh
-    return _patched(sh, "_on_sequence_part", lambda name: False)
+    return _patched(sh, "_on_sequence_part", lambda name, blocks: False)
 
 
 def fault_gold_not_summed(mesh):
@@ -6510,10 +6545,10 @@ def fault_mla_wrong_heads(mesh):
         if plan.select is None or name.rsplit(".", 1)[1] not in ("w_uk",
                                                                 "w_uv"):
             return plan
-        dim, start, count = plan.select
+        dim, ((start, count),) = plan.select
         full = count * self.sizes[self.tp_dim]     # an even cut of the heads
-        return dataclasses.replace(plan, select=(dim, (start + count) % full,
-                                                 count))
+        return dataclasses.replace(plan, select=(
+            dim, (((start + count) % full, count),)))
     return _patched(sh.Layout, "_plan", shifted)
 
 
@@ -6633,25 +6668,87 @@ def fault_decode_kv_slot(mesh):
     import torch
 
     from repro_torch.models import layers as L
-    right = L.GQA.forward
+    right = L.GQA.attend
 
-    def rolled(self, x, cos, sin, *, cache=None, pos=None, tp=None,
-               **kwargs):
-        out = right(self, x, cos, sin, cache=cache, pos=pos, tp=tp,
-                    **kwargs)
-        if cache is not None and pos and (tp or self.tp) is not None:
+    def rolled(self, x, cos, sin, *, cache=None, pos=None, **kwargs):
+        out = right(self, x, cos, sin, cache=cache, pos=pos, **kwargs)
+        if cache is not None and pos and self.tp is not None:
             hd, s = self.cfg.head_dim, x.shape[1]
             with torch.no_grad():
                 for buf in (cache["k"], cache["v"]):
                     rows = buf[:, pos:pos + s]
                     rows.copy_(rows.roll(hd, -1))
         return out
-    return _patched(L.GQA, "forward", rolled)
+    return _patched(L.GQA, "attend", rolled)
+
+
+def fault_ssm_norm_not_summed(mesh):
+    """A split SSM's gated norm over this rank's channels alone: the
+    squares not summed over the model axis (``ModelSplit.total`` returns
+    its input)."""
+    from repro_torch.models import sharding as sh
+    return _patched(sh.ModelSplit, "total", lambda self, t: t)
+
+
+def fault_ssm_bc_grad_one_rank(mesh):
+    """A split SSM's B and C gradients from model rank 0 alone: the other
+    ranks drop their gradient of w_in's B and C columns and of the conv's
+    B and C channels before the sum over the model axis."""
+    import torch
+
+    from repro_torch.models import sharding as sh
+
+    class Drop(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w, start, width):
+            ctx.cut = (start, width)
+            return w.view_as(w)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            g.narrow(-1, *ctx.cut).zero_()
+            return g, None, None
+
+    right = sh.Layout.use
+
+    def dropped(self, name, p, dtype, **kw):
+        w = right(self, name, p, dtype, **kw)
+        block, leaf = self.block_of(name), name.rsplit(".", 1)[-1]
+        if block is None or self.split_blocks[block] != "ssm" \
+                or leaf not in ("w_in", "conv_w", "conv_b") \
+                or self.coord[self.tp_dim] == 0:
+            return w
+        sc = self.cfg.ssm
+        own = self.ssm_heads[self.coord[self.tp_dim]][1] * sc.head_dim
+        # w_in's pieces [z | x | B | C | dt], the conv's [x | B | C]
+        return Drop.apply(w, 2 * own if leaf == "w_in" else own,
+                          2 * sc.n_groups * sc.d_state)
+    return _patched(sh.Layout, "use", dropped)
+
+
+def fault_ssm_decode_state_slot(mesh):
+    """A split SSM's decode step writing its new state into another
+    head's slot of the cache: the state a rank's decode step leaves lands
+    rolled by one of its heads."""
+    import torch
+
+    from repro_torch.models import layers as L
+    right = L.SSM.mix
+
+    def rolled(self, x, *, cache=None, tp=None):
+        out = right(self, x, cache=cache, tp=tp)
+        if cache is not None and x.shape[1] == 1 and tp is not None:
+            with torch.no_grad():
+                cache["state"].copy_(cache["state"].roll(1, 1))
+        return out
+    return _patched(L.SSM, "mix", rolled)
 
 
 #: name → (kind, plant(mesh)); kind "any", or "seq" (needs the residual
 #: split over the sequence), "moe" (an MoE split over its experts), "mla"
-#: (an MLA split over its heads), "attn" (a GQA split over its heads):
+#: (an MLA split over its heads), "attn" (a GQA split over its heads),
+#: "ssm" (an SSM split over its heads):
 #: faults of the sharded train step, held by its 2-layer check, but those
 #: of SERVE_PATH_FAULTS, held by the serving check; or "serve": faults of
 #: sharded serving (the vocab-parallel head, the split prefill), held by
@@ -6684,10 +6781,18 @@ MESH_FAULTS = {
                                                    fault_kv_grad_one_rank),
     "decode K/V written into another head's cache slot": (
         "attn", fault_decode_kv_slot),
+    "SSM norm's squares not summed over model": ("ssm",
+                                                 fault_ssm_norm_not_summed),
+    "SSM B and C gradients from one model rank only": (
+        "ssm", fault_ssm_bc_grad_one_rank),
+    "decode SSM state written into another head's cache slot": (
+        "ssm", fault_ssm_decode_state_slot),
 }
 #: the planted faults of a kind other than "serve" that only serving
 #: reaches: run on the serving check (``lm_mesh_rank``'s ``serve_faults``)
-SERVE_PATH_FAULTS = ("decode K/V written into another head's cache slot",)
+SERVE_PATH_FAULTS = ("decode K/V written into another head's cache slot",
+                     "decode SSM state written into another head's cache "
+                     "slot")
 
 
 def route_splits(c: dict) -> tuple[int, int]:
@@ -7111,8 +7216,7 @@ def phase23_serve_cards(n_cards: int, seed: int) -> dict:
     over = serve_check_over(r0["serve"])
     hold_greedy(f"{tag} against one card", r0["serve"]["got"],
                 r0["serve"]["want"])
-    rel = r0["serve"]["cache_rel"]
-    worst = max(rel.items(), key=lambda kv: kv[1][0])
+    rel = cache_worst(r0["serve"])
     log(f"{tag}: every rank's tokens equal: {r0['serve']['ranks_agree']}; "
         f"caches after the last step against one card's, the worst layer "
         f"of each buffer (rel L2, layer): {rel} (limit {MESH_LOGIT_REL}); "
@@ -7126,8 +7230,9 @@ def phase23_serve_cards(n_cards: int, seed: int) -> dict:
         fail(f"[phase 23] planted serving faults run "
              f"{sorted(r0['serve_faults'])}, expected {want}")
     for name, res in r0["serve_faults"].items():
-        f_over = serve_check_over(dict(res, want=r0["serve"]["want"]))
-        w = max(res["cache_rel"].values())[0]
+        held = dict(res, want=r0["serve"]["want"])
+        f_over = serve_check_over(held)
+        w = max(cache_worst(held).values())[0]
         log(f"[phase 23] planted fault '{name}': "
             f"{'fails' if f_over else 'PASSES'} the check: logits "
             f"{greedy_over(res['got'], r0['serve']['want'])['logit_rel']:.3g} "
@@ -7145,16 +7250,19 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
     card, mesh ATTN_MESH (data 1, model 4), its attention split over the
     model axis where the axis divides neither its 25 heads nor its 5 KV
     heads (``sharding.head_ranges``: 10/5/5/5 query heads, 2/1/1/1 KV
-    heads; the K/V cache held by each rank's own KV heads), its SSM whole.
-    First the flash kernel at the ranks' local shapes on card 0, windowed
-    and global, against its plain version beside SDPA and its bound; then
-    the 2-layer check (layer 0 global, layer 1 windowed): a training step
-    against one card with the two "attn" faults of the step, and greedy
-    prefill + decode against one card (logits, tokens, every K/V cache
-    layer, whole and the decoded rows alone) with the decode fault; then
-    the full model through ``Engine.generate`` (ATTN_GENERATE) and
-    TRAIN_STEPS training steps, each printed beside the tree that ran the
-    attention whole (ATTN_BEFORE)."""
+    heads; the K/V cache held by each rank's own KV heads), its SSM split
+    over its 50 SSD heads (``sharding.ssm_heads``: 13/13/12/12; the state
+    and conv cache held by each rank's own heads), the two branches'
+    partial outputs summed in one collective a layer. First the flash
+    kernel at the ranks' local shapes on card 0, windowed and global,
+    against its plain version beside SDPA and its bound; then the 2-layer
+    check (layer 0 global, layer 1 windowed): a training step against one
+    card with the "attn" and "ssm" faults of the step, and greedy prefill
+    + decode against one card (logits, tokens, every cache layer whole,
+    the K/V's decoded rows alone) with the two decode faults; then the
+    full model through ``Engine.generate`` (ATTN_GENERATE) and TRAIN_STEPS
+    training steps, each printed beside the tree that ran the SSM whole
+    (SSM_BEFORE)."""
     from repro_torch import configs
     from repro_torch.launch.world import run_world
     from repro_torch.models import sharding as sh
@@ -7168,6 +7276,13 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
         f"{m}): (first query head, count, first KV head, count) by rank "
         f"{heads}; the largest rank runs {most} query heads against a mean "
         f"of {cfg.n_heads / m:.2f} ({most * m / cfg.n_heads:.2f}x)")
+    ssm = sh.ssm_heads(cfg, argparse.Namespace(shape={"data": d,
+                                                      "model": m}))
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    log(f"[phase 24] {cfg.name}: {nh} SSD heads of hd {cfg.ssm.head_dim}, "
+        f"d_state {cfg.ssm.d_state}: (first SSD head, count) by rank "
+        f"{ssm}; the largest rank scans {max(n for _, n in ssm)} against a "
+        f"mean of {nh / m:.2f}")
     gb, gp, _ = ATTN_GENERATE
     window = next(seg.window for seg in cfg.segments if seg.window)
     flash = {}
@@ -7180,7 +7295,7 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
             "serve_layers": 2, "train_steps": TRAIN_STEPS, "seed": seed,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "prompt": ATTN_CHECK_PROMPT, "new": MESH_LM_NEW,
-            "faults": ("attn",), "serve_faults": SERVE_PATH_FAULTS,
+            "faults": ("attn", "ssm"), "serve_faults": SERVE_PATH_FAULTS,
             "hold_caches": True, "hold_decode_rows": True,
             "generate": ATTN_GENERATE}
     t0 = time.perf_counter()
@@ -7190,9 +7305,10 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
     log(f"[phase 24] NCCL world of {n_cards}, mesh {spec['mesh']}: "
         f"{time.perf_counter() - t0:.1f}s")
     r0 = ranks[0]
-    if not r0["attn_split"]:
-        fail(f"[phase 24] {cfg.name}'s attention is not split over the "
-             f"model axis")
+    if not (r0["attn_split"] and r0["ssm_split"]):
+        fail(f"[phase 24] {cfg.name}'s attention or SSM is not split over "
+             f"the model axis (attention {r0['attn_split']}, SSM "
+             f"{r0['ssm_split']})")
     launches = {r["check_launches"] for r in ranks}
     if launches != {2 * 2}:
         fail(f"[phase 24] flash launches a sharded 2-layer step "
@@ -7206,7 +7322,7 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
                 r0["serve"]["want"])
     log(f"{tag}: every rank's tokens equal: {r0['serve']['ranks_agree']}; "
         f"caches after the last step against one card's, the worst layer "
-        f"of each buffer (rel L2, layer): {r0['serve']['cache_rel']} (limit "
+        f"of each buffer (rel L2, layer): {cache_worst(r0['serve'])} (limit "
         f"{MESH_LOGIT_REL}); {r0['serve_launches']} flash launches a rank; "
         f"collectives {r0['serve_collectives']}")
     if over:
@@ -7216,25 +7332,26 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
              f"{sorted(r0['serve_faults'])}, expected "
              f"{sorted(SERVE_PATH_FAULTS)}")
     for name, res in r0["serve_faults"].items():
-        f_over = serve_check_over(dict(res, want=r0["serve"]["want"]))
+        held = dict(res, want=r0["serve"]["want"])
+        f_over = serve_check_over(held)
         log(f"[phase 24] planted fault '{name}': "
             f"{'fails' if f_over else 'PASSES'} the check: logits "
             f"{greedy_over(res['got'], r0['serve']['want'])['logit_rel']:.3g} "
-            f"(limit {MESH_LOGIT_REL}), caches {res['cache_rel']} (limit "
+            f"(limit {MESH_LOGIT_REL}), caches {cache_worst(held)} (limit "
             f"{MESH_LOGIT_REL}); {len(f_over)} figures over their limits: "
             f"{f_over[:3]}")
         if not f_over:
             fail(f"[phase 24] the planted fault '{name}' passes the check")
-    what = "the attention whole on every model rank"
+    what = "the SSM whole on every model rank"
     gen = hold_serve_generate("[phase 24]", cfg, ranks, n_cards,
                               flash[(most, heads[0][3], None)],
-                              ATTN_BEFORE["generate"], what,
+                              SSM_BEFORE["generate"], what,
                               gen=ATTN_GENERATE, mesh=ATTN_MESH)
     embed = cfg.vocab_size * cfg.d_model
     train = hold_mesh_train("[phase 24]", cfg, ranks, n_cards,
                             cfg.param_count() - embed,
                             "parameters less the embedding",
-                            ATTN_BEFORE["train"], what)
+                            SSM_BEFORE["train"], what)
     for (qn, kn, w), f in flash.items():
         log(f"[phase 24] flash row at {gb // d} x {gp}, {qn}/{kn} heads, "
             f"window {w}: ms {f['ms']:.4f} bound_ms {f['bound_ms']:.4f} "
@@ -7244,14 +7361,30 @@ def phase24_attn_cards(n_cards: int, seed: int) -> dict:
     return {"flash": flash, "generate": gen, "train": train}
 
 
+def cache_worst(sv: dict) -> dict:
+    """Each held cache buffer's worst (relative L2, layer) against one
+    card's, over the batch rows whose greedy tokens never parted from one
+    card's (a row that parts at a near-tie, ``greedy_over``, feeds other
+    tokens after it, so its cache rows differ by construction); (inf, -1)
+    where every row parted."""
+    parted = {r for r, _, _ in greedy_over(sv["got"], sv["want"])["ties"]}
+    out = {}
+    for name, rel in sv["cache_rel"].items():
+        held = [(rel[layer][row], layer) for layer in range(len(rel))
+                for row in range(len(rel[layer])) if row not in parted]
+        out[name] = max(held) if held else (float("inf"), -1)
+    return out
+
+
 def serve_check_over(sv: dict) -> list:
     """Phase 23's check over its limits (what, figure, limit): the greedy
     tokens and logits against one card's (``greedy_over``), each cache
-    buffer's worst layer over MESH_LOGIT_REL relative L2, the ranks'
-    tokens unequal."""
+    buffer's worst layer over MESH_LOGIT_REL relative L2 on the rows that
+    never parted (``cache_worst``; every row parted counts as over), the
+    ranks' tokens unequal."""
     over = list(greedy_over(sv["got"], sv["want"])["over"])
     over += [(f"cache {name} layer {layer}", rel, MESH_LOGIT_REL)
-             for name, (rel, layer) in sv["cache_rel"].items()
+             for name, (rel, layer) in cache_worst(sv).items()
              if not rel <= MESH_LOGIT_REL]
     if not sv["ranks_agree"]:
         over.append(("ranks' tokens unequal", 1, 0))

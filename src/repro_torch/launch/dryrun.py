@@ -22,7 +22,8 @@ keeps the reference's keys (``memory``, ``cost``, ``collectives``,
   - ``memory.argument_bytes``: this rank's shards of the step's arguments
     (parameters, AdamW's state, batch, caches), exact from the placements;
     ``cache_bytes``: the caches' alone (a prefill or decode cell; a split
-    GQA's K/V held by this rank's own KV heads, ``sharding.HeadCache``);
+    GQA's K/V and a split SSM's state and conv inputs held by this rank's
+    own heads, ``sharding.HeadCache``);
     ``output_bytes``: the tensors the step returns that are not its
     arguments; ``temp_bytes``: the largest sum of live bytes of the
     tensors the step created (each op's fresh outputs, counted from the

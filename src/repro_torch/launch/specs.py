@@ -138,8 +138,9 @@ def shard_args(cfg: ModelConfig, shape: ShapeSpec, mesh, args: Tuple,
     model (``transformer.shard_params``), AdamW's state over it, the batch
     or token as DTensors, and the caches as ``transformer.init_cache``
     makes them on the mesh (``build_cell``'s cache placements are the
-    reference's rule; a split GQA's K/V is held by this rank's own KV heads
-    instead, ``sharding.HeadCache``)."""
+    reference's rule; a split GQA's K/V and a split SSM's state and conv
+    inputs are held by this rank's own heads instead,
+    ``sharding.HeadCache``)."""
     cfg = effective_config(cfg, shape, mesh)
 
     def tree(t, pls):

@@ -37,8 +37,13 @@ the model axis runs its own heads on the latent that every model rank
 computes alike. An MoE split over the model axis holds this rank's share
 of the routed experts (expert parallelism): it routes every token over all
 experts, alike on every model rank, runs its own experts' slots, and sums
-its partial output over the axis through the same exit. The reference's ``shard_hint`` has no other
-counterpart.
+its partial output over the axis through the same exit. An SSM split over
+the model axis scans its own SSD heads (dealt evenly or not,
+``sharding.ssm_heads``) with the B and C that every rank computes alike,
+and sums its gated norm's squares over the axis (``ModelSplit.total``). A
+hybrid whose two branches both run split enters once and sums the two
+partial outputs in one collective (``row_parallel_apart``) before each
+branch's norm. The reference's ``shard_hint`` has no other counterpart.
 """
 from __future__ import annotations
 
@@ -84,15 +89,33 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, tp,
     one card's product rounds once, then adds the two rounded sums, as one
     card adds its routed and shared experts' outputs; training keeps the
     compute dtype (that float32-output product has no derivative)."""
+    y = _partial(x, w)
     if torch.is_grad_enabled():
-        y = x @ w
         return tp.exit(y if plus is None else y + plus)
-    y = ref.bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None]).reshape(
-        *x.shape[:-1], w.shape[1])
     if plus is None:
         return tp.exit(y).to(x.dtype)
     both = tp.exit(torch.cat([y, plus.float()], -1)).to(x.dtype)
     return both[..., w.shape[1]:] + both[..., :w.shape[1]]
+
+
+def row_parallel_apart(pairs, tp) -> Tuple[torch.Tensor, ...]:
+    """``row_parallel`` of several (x, w) of one block (a hybrid's two
+    branches) through one collective: the partial products side by side
+    along the last dim, summed by one ``tp.exit``, then split apart; each
+    sum rounded once in serving, as ``row_parallel`` rounds its own."""
+    both = tp.exit(torch.cat([_partial(x, w) for x, w in pairs], -1))
+    if not torch.is_grad_enabled():
+        both = both.to(pairs[0][0].dtype)
+    return both.split([w.shape[1] for _, w in pairs], -1)
+
+
+def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel partial product x @ w: in the compute dtype while
+    training, float32 in serving (``ref.bmm_f32``)."""
+    if torch.is_grad_enabled():
+        return x @ w
+    return ref.bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None]).reshape(
+        *x.shape[:-1], w.shape[1])
 
 
 def normal_(w: torch.Tensor, generator: torch.Generator,
@@ -241,13 +264,24 @@ class GQA(nn.Module):
         tp=None,                         # the split to run through, if
                                          # not self.tp's (see MLP.forward)
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        cfg = self.cfg
         tp = self.tp if tp is None else tp
-        hd = cfg.head_dim
-        # this rank's heads when the block runs split over the model axis
-        h, hkv = self.wq.shape[1] // hd, self.wk.shape[1] // hd
         if tp is not None:
             x = tp.enter(x)
+        out, cache = self.attend(x, cos, sin, window=window, cache=cache,
+                                 pos=pos)
+        if tp is not None:
+            return row_parallel(out, self.wo, tp), cache
+        return out @ self.wo, cache
+
+    def attend(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               *, window: Optional[int] = None,
+               cache: Optional[Cache] = None, pos: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """The heads' output (B, S, h·hd) before ``wo``, from x as it
+        entered the block (this rank's heads when it runs split)."""
+        cfg = self.cfg
+        hd = cfg.head_dim
+        h, hkv = self.wq.shape[1] // hd, self.wk.shape[1] // hd
         b, s, _ = x.shape
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if cfg.qkv_bias:
@@ -281,10 +315,7 @@ class GQA(nn.Module):
                     q, cache["k"].view(b, t, hkv, hd),
                     cache["v"].view(b, t, hkv, hd), q_offset=pos,
                     window=window, chunk=cfg.attn_chunk, kv_len=pos + s)
-        out = out.reshape(b, s, h * hd)
-        if tp is not None:
-            return row_parallel(out, self.wo, tp), cache
-        return out @ self.wo, cache
+        return out.reshape(b, s, h * hd), cache
 
 
 def init_gqa(cfg: ModelConfig, generator: torch.Generator, *,
@@ -801,7 +832,17 @@ class SSM(nn.Module):
     conv to the output norm the activations stay float32 and are rounded
     to the weights' dtype once, before ``w_out`` (the JAX package rounds
     the conv output, its silu, y and the gated product to the compute
-    dtype; in float32 the two agree)."""
+    dtype; in float32 the two agree).
+
+    Split over the model axis (``tp``, a ``sharding.ModelSplit``), the
+    weights hold this rank's SSD heads (``sharding.ssm_heads``): w_in its
+    heads' z, x and dt columns beside the whole B and C, the conv its
+    heads' x channels beside B and C, out_ln, a_log, d_skip and dt_bias
+    its heads' entries, w_out their rows. Every rank computes B and C
+    alike and scans its own heads; the gated norm's squares are summed
+    over the axis (``ModelSplit.total``) and divided by the whole di, and
+    the heads' partial output is summed by ``row_parallel``. Its cache
+    holds the rank's own heads' state and conv inputs."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -818,6 +859,7 @@ class SSM(nn.Module):
         self.dt_bias = param(nh, **kw)
         self.out_ln = param(di, fill=1.0, **kw)
         self.w_out = param(di, d, **kw)
+        self.tp = None       # a sharding.ModelSplit when split over heads
 
     def forward(
         self,
@@ -828,14 +870,30 @@ class SSM(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,   # {"state", "conv"}
         pos: Optional[int] = None,
+        tp=None,                         # the split to run through, if
+                                         # not self.tp's (see MLP.forward)
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """RoPE, ``window`` and ``pos`` do not apply (the arguments are the
         attention mixers'). With a cache, its state and conv inputs start
         the sequence and are overwritten with the ones after it; one
         position (decode) takes the one-step recurrence."""
+        tp = self.tp if tp is None else tp
+        if tp is not None:
+            x = tp.enter(x)
+        y, cache = self.mix(x, cache=cache, tp=tp)
+        if tp is not None:
+            return row_parallel(y, self.w_out, tp), cache
+        return y @ self.w_out, cache
+
+    def mix(self, x: torch.Tensor, *, cache: Optional[Cache] = None,
+            tp=None) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """The gated, normed output (B, S, di) before ``w_out``, in x's
+        dtype, from x as it entered the block (this rank's heads and
+        channels when it runs split through ``tp``)."""
         cfg, sc = self.cfg, self.cfg.ssm
-        b, s, d = x.shape
-        di, nh, n = sc.d_inner(d), sc.n_heads(d), sc.d_state
+        b, s, _ = x.shape
+        # this rank's channels and heads when the block runs split
+        di, nh, n = self.w_out.shape[0], self.a_log.shape[0], sc.d_state
         gn = sc.n_groups * n
         z, xbc, dt = (x @ self.w_in).split([di, di + 2 * gn, nh], dim=-1)
         conv_out, new_conv = _causal_conv(
@@ -858,13 +916,19 @@ class SSM(nn.Module):
                 x.new_zeros((b, nh, n, sc.head_dim), dtype=torch.float32)
             y, state = ssd_scan(da, xdt, bm, cm, state, sc.chunk)
         y = (y + xc * self.d_skip.float()[:, None]).reshape(b, s, di)
-        y = rmsnorm(y * F.silu(z.float()), self.out_ln, cfg.norm_eps)
-        out = y.to(x.dtype) @ self.w_out
+        y = y * F.silu(z.float())
+        if tp is None:
+            y = rmsnorm(y, self.out_ln, cfg.norm_eps)
+        else:
+            # the norm is over all di channels: the ranks' squares summed
+            squares = tp.total(torch.sum(y * y, dim=-1, keepdim=True))
+            y = y * torch.rsqrt(squares / sc.d_inner(cfg.d_model)
+                                + cfg.norm_eps) * self.out_ln.float()
         if cache is not None:
             if state is not cache["state"]:
                 cache["state"].copy_(state)
             cache["conv"].copy_(new_conv)
-        return out, cache
+        return y.to(x.dtype), cache
 
 
 def init_ssm(cfg: ModelConfig, generator: torch.Generator, *,
@@ -907,13 +971,19 @@ class Hybrid(nn.Module):
     JAX package rounds each norm and the sum). Its cache is {"k", "v",
     "state", "conv"}.
 
-    On a mesh the hybrid runs whole on every model rank (on the gathered
-    sequence where the residual is split over it), but for its attention,
-    which runs split over its heads when the layout splits it (``attn.tp``:
-    this rank's query and KV heads, ``sharding.head_ranges``): the
-    attention's row-parallel exit sums its partial output over the model
-    axis before ``attn_out_ln``, which is not linear, so the fused output
-    and its gradient are whole on every model rank."""
+    On a mesh each branch runs split over the model axis where the layout
+    splits it (``attn.tp``: this rank's query and KV heads,
+    ``sharding.head_ranges``; ``ssm.tp``: its SSD heads,
+    ``sharding.ssm_heads``). With both split the hybrid has a ``tp`` of
+    its own: it enters once (on a training step or prefill whose residual
+    is split over the sequence, the entry gathers the sequence, which the
+    scan needs whole), runs the two branches' heads, and sums their
+    partial outputs over the model axis in one collective
+    (``row_parallel_apart``), each before its own norm, which is not
+    linear. With one branch split the block runs whole on every model
+    rank (on the gathered sequence) and that branch enters and exits by
+    itself. The fused output and its gradient are whole on every model
+    rank, or this rank's part of the sequence."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -924,6 +994,7 @@ class Hybrid(nn.Module):
         self.ssm = SSM(cfg, **kw)
         self.attn_out_ln = param(cfg.d_model, fill=1.0, **kw)
         self.ssm_out_ln = param(cfg.d_model, fill=1.0, **kw)
+        self.tp = None       # a sharding.ModelSplit when both run split
 
     def forward(
         self,
@@ -933,14 +1004,25 @@ class Hybrid(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,
         pos: Optional[int] = None,
+        tp=None,                         # the split to run through, if
+                                         # not self.tp's (see MLP.forward)
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        tp = self.tp if tp is None else tp
         attn_cache = ssm_cache = None
         if cache is not None:
             attn_cache = {"k": cache["k"], "v": cache["v"]}
             ssm_cache = {"state": cache["state"], "conv": cache["conv"]}
-        a, _ = self.attn(x, cos, sin, window=window, cache=attn_cache,
-                         pos=pos)
-        s, _ = self.ssm(x, cache=ssm_cache)
+        if tp is None:
+            a, _ = self.attn(x, cos, sin, window=window, cache=attn_cache,
+                             pos=pos)
+            s, _ = self.ssm(x, cache=ssm_cache)
+        else:
+            h = tp.enter(x)
+            a, _ = self.attn.attend(h, cos, sin, window=window,
+                                    cache=attn_cache, pos=pos)
+            s, _ = self.ssm.mix(h, cache=ssm_cache, tp=tp)
+            a, s = row_parallel_apart(((a, self.attn.wo),
+                                       (s, self.ssm.w_out)), tp)
         eps = self.cfg.norm_eps
         out = 0.5 * (rmsnorm(a.float(), self.attn_out_ln, eps)
                      + rmsnorm(s.float(), self.ssm_out_ln, eps))

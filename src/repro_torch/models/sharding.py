@@ -29,7 +29,11 @@ MLP whose width the axis divides keeps its model-axis shard
 (column-parallel wq/wk/wv/wg/wu, row-parallel wo/wd, an all-reduce over
 ``model`` after the row-parallel product); such an attention's K/V cache
 holds the rank's own KV heads (``HeadCache``, the port's runtime layout,
-where ``cache_specs`` is the reference's rule). An MLA whose heads the
+where ``cache_specs`` is the reference's rule). An SSM runs the SSD heads
+that ``ssm_heads`` deals it the same way, with its heads' pieces of each
+weight and the B and C that every head reads, its gated norm's squares
+summed over ``model``, and its state and conv cache held by its own
+heads. An MLA whose heads the
 axis divides keeps its wq columns and wo rows and takes its heads'
 columns of the gathered w_uk and w_uv (whose shards lie on the latent
 rows), and an MoE whose expert count the axis
@@ -269,6 +273,25 @@ def gqa_heads(cfg, mesh: Any) -> Optional[Tuple[Tuple[int, int, int, int],
                  for i in range(m))
 
 
+def ssm_heads(cfg, mesh: Any) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """Every model rank's (first SSD head, count) where an SSM (an SSM
+    mixer, a hybrid's SSM) runs split over the model axis: each SSD head a
+    group of its own in ``head_ranges`` (hymba's 50 heads: 13/13/12/12 on
+    4 ranks, 4/4/3/… on 16). It runs split where the reference's rule puts
+    ``model`` on w_out's rows (``_rule_for_leaf``) and the axis is no
+    larger than the heads, not under ``dp_over_tp``; None where it runs
+    whole on every model rank."""
+    m = mesh_sizes(mesh).get("model", 1)
+    sc = cfg.ssm
+    if sc is None or cfg.dp_over_tp or m == 1:
+        return None
+    nh = sc.n_heads(cfg.d_model)
+    w_out = (sc.d_inner(cfg.d_model), cfg.d_model)
+    if m > nh or _rule_for_leaf(mesh, ("w_out",), w_out)[0] != TP:
+        return None
+    return tuple(head_ranges(nh, nh, m, i)[:2] for i in range(m))
+
+
 def placements(mesh: Any, spec: Spec) -> tuple:
     """DTensor placements of ``spec``: for each mesh dim, ``Shard(d)`` where
     that axis splits tensor dim ``d``, ``Replicate()`` otherwise. Two axes
@@ -427,36 +450,44 @@ def whole(t: torch.Tensor) -> torch.Tensor:
 
 
 class HeadCache:
-    """A K/V cache buffer of GQA layers that run split over the model axis
-    (``gqa_heads``), in the port's own runtime layout: each rank holds its
-    rows of the batch (split over the data axes as ``cache_specs`` splits
-    it) and its own whole KV heads, (L, B_local, T, kvn·hd), so a prefill
-    and a decode step read and write it with no collective. Ranks that
-    share a KV head (a model axis wider than the KV heads) each hold and
-    write it. The reference's ``cache_specs`` splits the channels evenly
-    over ``model`` instead, which cuts a KV head wherever the axis does not
-    divide them.
+    """A cache buffer of layers that run split over the model axis by
+    heads, in the port's own runtime layout: each rank holds its rows of
+    the batch (split over the data axes as ``cache_specs`` splits it) and
+    its own heads, so a prefill and a decode step read and write it with
+    no collective. A split GQA's K/V (``gqa_heads``) holds the rank's
+    whole KV heads, (L, B_local, T, kvn·hd); ranks that share a KV head (a
+    model axis wider than the KV heads) each hold and write it. A split
+    SSM's (``ssm_heads``) ``state`` holds its SSD heads, (L, B_local, hn,
+    N, P), and ``conv`` its heads' x channels followed by the B and C
+    channels, which every rank convolves alike, (L, B_local, K−1, hn·P +
+    2·G·N). The reference's ``cache_specs`` splits the channels (and the
+    SSD heads, where the axis divides them) evenly over ``model`` instead,
+    which cuts a head wherever the axis does not divide them.
 
-    ``shape`` is the whole buffer's, (L, B, T, Hkv·hd); ``placements`` the
-    batch's split (``Replicate`` on the model axis); ``heads`` every model
-    rank's (first KV head, count)."""
+    ``shape`` is the whole buffer's; ``placements`` the batch's split
+    (``Replicate`` on the model axis); ``heads`` every model rank's (first
+    head, count); ``head_dim`` a head's width along ``dim``, the tensor
+    dim that holds the heads, where ``shared`` entries that every rank
+    holds follow them."""
 
     def __init__(self, local: torch.Tensor, shape: Sequence[int], mesh: Any,
                  placements_: Sequence[Any], model_dim: int,
-                 heads: Sequence[Tuple[int, int]], head_dim: int) -> None:
+                 heads: Sequence[Tuple[int, int]], head_dim: int, *,
+                 dim: int = -1, shared: int = 0) -> None:
         self.local, self.shape = local, torch.Size(shape)
         self.device_mesh, self.placements = mesh, tuple(placements_)
         self.model_dim, self.heads = model_dim, tuple(heads)
-        self.head_dim = head_dim
+        self.head_dim, self.shared = head_dim, shared
+        self.dim = dim % len(self.shape)
 
     def to_local(self) -> torch.Tensor:
         return self.local
 
     def whole(self) -> torch.Tensor:
-        """The whole buffer (L, B, T, Hkv·hd) on every rank: the batch
-        gathered over the data axes, then every model rank's heads (padded
-        to the most a rank holds), each KV head taken from the first rank
-        that holds it."""
+        """The whole buffer on every rank: the batch gathered over the
+        data axes, then every model rank's heads (padded to the most a rank
+        holds), each head taken from the first rank that holds it, and the
+        shared entries from model rank 0."""
         mesh = self.device_mesh
         sizes = tuple(mesh.mesh.shape)
         out = self.local.detach()
@@ -464,19 +495,23 @@ class HeadCache:
             dim = getattr(self.placements[i], "dim", None)
             if dim is not None and i != self.model_dim:
                 out = all_gather(out, mesh.get_group(i), sizes[i], dim)
-        hd, m = self.head_dim, sizes[self.model_dim]
+        hd, m, dim = self.head_dim, sizes[self.model_dim], self.dim
         most = max(n for _, n in self.heads)
-        padded = out.new_zeros(out.shape[:-1] + (most * hd,))
-        padded[..., :out.shape[-1]] = out
+        padded = out.new_zeros(out.shape[:dim] + (most * hd + self.shared,)
+                               + out.shape[dim + 1:])
+        padded.narrow(dim, 0, out.shape[dim]).copy_(out)
         parts = all_gather(padded[None], mesh.get_group(self.model_dim), m,
                            0)
         pieces = []
-        for k in range(self.shape[-1] // hd):
+        for k in range((self.shape[dim] - self.shared) // hd):
             r = next(i for i, (k0, n) in enumerate(self.heads)
                      if k0 <= k < k0 + n)
             k0 = self.heads[r][0]
-            pieces.append(parts[r][..., (k - k0) * hd:(k - k0 + 1) * hd])
-        return torch.cat(pieces, -1)
+            pieces.append(parts[r].narrow(dim, (k - k0) * hd, hd))
+        if self.shared:
+            pieces.append(parts[0].narrow(dim, self.heads[0][1] * hd,
+                                          self.shared))
+        return torch.cat(pieces, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -486,15 +521,18 @@ class HeadCache:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How a layer uses one parameter: its placements; the (mesh dim,
-    tensor dim) pairs to all-gather, minor axis first; an optional narrowing
-    to this rank's heads after the gather ((dim, start, count), which may
-    be uneven over the ranks or overlap another rank's: a KV head that two
-    ranks share); and the mesh dims whose ranks compute different parts of
-    its gradient, which the backward sums (a reduce-scatter where the
-    forward gathered, an all-reduce where the weight is replicated)."""
+    tensor dim) pairs to all-gather, minor axis first; an optional cut to
+    this rank's part after the gather, (dim, pieces): the (start, count)
+    pieces along dim, concatenated in order (a range of heads; a split
+    SSM's heads' columns of z, x and dt beside the B and C columns that
+    every rank uses), which may be uneven over the ranks or overlap
+    another rank's (a KV head that two ranks share, B and C); and the mesh
+    dims whose ranks compute different parts of its gradient, which the
+    backward sums (a reduce-scatter where the forward gathered, an
+    all-reduce where the weight is replicated)."""
     placements: tuple
     gathers: Tuple[Tuple[int, int], ...]
-    select: Optional[Tuple[int, int, int]]
+    select: Optional[Tuple[int, Tuple[Tuple[int, int], ...]]]
     partial: Tuple[int, ...]
 
 
@@ -552,6 +590,14 @@ class ModelSplit:
         return x.narrow(1, self.index * size, size).clone(
             memory_format=torch.contiguous_format)
 
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ over the model ranks of ``t``, a statistic of this rank's
+        channels that every rank's output then reads (a split SSM's
+        squares under its gated norm): an all-reduce, whose backward is an
+        all-reduce too, since each rank's gradient holds its own outputs'
+        part alone."""
+        return _Total.apply(t, self)
+
     def once(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as it is, its gradient divided by the ranks: a value that
         every model rank computes alike from inputs that entered through
@@ -583,6 +629,20 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _Total(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split):
+        ctx.split = split
+        return all_reduce(t.clone(memory_format=torch.contiguous_format),
+                          split.group, split.n)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          s.group, s.n), None
 
 
 class _Once(torch.autograd.Function):
@@ -733,9 +793,9 @@ class BatchStats:
 
 class _Use(torch.autograd.Function):
     """A parameter's local shard → the tensor a layer computes with: cast
-    to the compute dtype, all-gathered over the plan's axes, narrowed to
-    this rank's heads. The backward returns the float32 gradient of the
-    local shard: the narrowed gradient put in place among zeros, summed
+    to the compute dtype, all-gathered over the plan's axes, cut to this
+    rank's pieces. The backward returns the float32 gradient of the
+    local shard: each piece's gradient put in its place among zeros, summed
     over the plan's partial axes (reduce-scatter or all-reduce, so a head
     that two ranks use takes both ranks' gradients), cut to the shard
     elsewhere."""
@@ -748,9 +808,10 @@ class _Use(torch.autograd.Function):
         for mdim, tdim in plan.gathers:
             w = all_gather(w, layout.groups[mdim], layout.sizes[mdim], tdim)
         if plan.select is not None:
-            dim, start, count = plan.select
+            dim, pieces = plan.select
             ctx.full_shape = w.shape
-            w = w.narrow(dim, start, count)
+            parts = [w.narrow(dim, start, count) for start, count in pieces]
+            w = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
         return w
 
     @staticmethod
@@ -758,9 +819,12 @@ class _Use(torch.autograd.Function):
         layout, plan = ctx.layout, ctx.plan
         g = g.float()
         if plan.select is not None:
-            dim, start, count = plan.select
+            dim, pieces = plan.select
             full = g.new_zeros(ctx.full_shape)
-            full.narrow(dim, start, count).copy_(g)
+            at = 0
+            for start, count in pieces:
+                full.narrow(dim, start, count).copy_(g.narrow(dim, at, count))
+                at += count
             g = full
         gathered = set()
         for mdim, tdim in reversed(plan.gathers):
@@ -785,24 +849,33 @@ class _Use(torch.autograd.Function):
 #: where its shard is exactly this rank's part (or else ``Plan.select``
 #: cuts to this rank's part after the gather: a GQA's weights whose shard
 #: cuts a head or whose heads are dealt unevenly, its biases, an MLA's
-#: w_uk and w_uv)
+#: w_uk and w_uv, an SSM's weights but w_out's rows where the axis divides
+#: the heads)
 _SPLIT_DIMS = {"gqa": {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
                         "wo": 0},
                "mla": {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0},
                "mlp": {"wg": 1, "wu": 1, "wd": 0},
-               "moe": {"experts.wg": 0, "experts.wu": 0, "experts.wd": 0}}
+               "moe": {"experts.wg": 0, "experts.wu": 0, "experts.wd": 0},
+               "ssm": {"w_in": 1, "conv_w": 1, "conv_b": 0, "out_ln": 0,
+                       "w_out": 0, "a_log": 0, "d_skip": 0, "dt_bias": 0}}
 #: a split GQA's weights that hold its KV heads (the rest, its query heads)
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 #: the vocab dim of the embedding (V, D) and the head (D, V)
 _VOCAB_DIMS = {"embed": 0, "head": 1}
 
 
-def _on_sequence_part(name: str) -> bool:
+def _on_sequence_part(name: str, split_blocks: Mapping[str, str]) -> bool:
     """A parameter that a step with the residual split over the sequence
-    uses on this rank's part of it: a layer's norms and the final one."""
+    uses on this rank's part of it: a layer's norms and the final one, and
+    the output norms of a hybrid whose attention and SSM both run split
+    (``split_blocks``), whose one exit lands on the part."""
     parts = name.split(".")
-    return name == "final_ln" or (len(parts) == 4 and parts[0] == "segments"
-                                  and parts[3] in ("ln1", "ln2"))
+    if name == "final_ln" or (len(parts) == 4 and parts[0] == "segments"
+                              and parts[3] in ("ln1", "ln2")):
+        return True
+    prefix = name.rsplit(".", 1)[0] + "."
+    return parts[-1] in ("attn_out_ln", "ssm_out_ln") and all(
+        prefix + b in split_blocks for b in ("attn.", "ssm."))
 
 
 class Layout:
@@ -837,13 +910,26 @@ class Layout:
     on the model axis (the axis divides E) and its shared experts run
     split as an MLP: its expert stacks keep their model-axis shard, its
     router is whole on every rank and takes a gradient partial over
-    ``model`` (each rank's gates feed only its own experts' slots). Every
-    other block — the SSM, an MoE whose experts the axis does not divide
-    (64 experts on a 128-way axis), a GQA whose heads are fewer than the
-    axis, an MLA whose heads it does not divide — runs whole on every
-    model rank, its weights gathered whole. A hybrid runs its attention
-    split and its SSM whole. Under ``dp_over_tp`` the model axis is a data
-    axis and nothing runs split.
+    ``model`` (each rank's gates feed only its own experts' slots). An SSM
+    block (an SSM mixer, a hybrid's SSM) runs split when the rule put
+    ``model`` on w_out's rows and the axis is no larger than its SSD heads
+    (``ssm_heads``): each model rank scans the heads dealt it, evenly or
+    not (hymba's 50 on 4 ranks: 13/13/12/12), with its heads' columns of
+    w_in's z, x and dt and the whole B and C columns, its heads' x
+    channels of conv_w and conv_b and the B and C channels, its heads'
+    entries of out_ln, a_log, d_skip and dt_bias and rows of w_out, each
+    cut from the gathered weight (``Plan.select``; w_out keeps its shard
+    where the axis divides the heads); B and C, which every rank computes
+    alike for its own heads, take every rank's gradient. Its gated norm
+    sums its squares over ``model`` (``ModelSplit.total``) and its cache
+    holds the rank's own heads (``HeadCache``). A hybrid whose attention
+    and SSM both run split enters once and sums the two partial outputs
+    in one collective. Every other block — an MoE whose experts the axis
+    does not divide (64 experts on a 128-way axis), a GQA or an SSM whose
+    heads are fewer than the axis, an MLA whose heads it does not divide —
+    runs whole on every model rank, its weights gathered whole. Under
+    ``dp_over_tp`` (mamba2-370m) the model axis is a data axis and nothing
+    runs split.
 
     With blocks split over the model axis, training, prefill and decode
     keep the embedding's and the head's vocab shard where the rule splits
@@ -887,6 +973,9 @@ class Layout:
         self.gqa_heads = gqa_heads(cfg, mesh) if tp else None
         self.heads = None if self.gqa_heads is None \
             else self.gqa_heads[self.coord[self.tp_dim]]
+        #: every model rank's (first SSD head, count) in a split SSM
+        #: (``ssm_heads``), None where the SSM runs whole
+        self.ssm_heads = ssm_heads(cfg, mesh) if tp else None
         self.split_blocks = self._split_blocks(shapes)
         #: the tables kept split over the vocab on the model axis (the
         #: embedding, the loss and serving's logits run vocab-parallel)
@@ -899,14 +988,16 @@ class Layout:
         self.seq_plans = {n: dataclasses.replace(
             self.plans[n], partial=tuple(sorted(
                 set(self.plans[n].partial) | {self.tp_dim})))
-            for n in shapes if _on_sequence_part(n)} if tp else {}
+            for n in shapes if _on_sequence_part(n, self.split_blocks)} \
+            if tp else {}
 
     # -- which blocks run split over the model axis -------------------------
     def _split_blocks(self, shapes: Mapping[str, Tuple[int, ...]]
                       ) -> Dict[str, str]:
-        """{module prefix: "gqa" | "mla" | "mlp" | "moe"} of the blocks
-        that run split (an MoE's shared experts are an "mlp" block inside
-        it)."""
+        """{module prefix: "gqa" | "mla" | "mlp" | "moe" | "ssm"} of the
+        blocks that run split (an MoE's shared experts are an "mlp" block
+        inside it; a hybrid's attention a "gqa" block and its SSM an "ssm"
+        one)."""
         if self.tp_dim is None:
             return {}
         cfg, m = self.cfg, self.sizes[self.tp_dim]
@@ -924,6 +1015,9 @@ class Layout:
             elif leaf == "wq":
                 if self.gqa_heads is not None:
                     out[prefix] = "gqa"
+            elif leaf == "w_out" and prefix + "a_log" in shapes:
+                if self.ssm_heads is not None:
+                    out[prefix] = "ssm"
             elif leaf == "wg" and len(shapes[name]) == 2:
                 if all(self._on_model(prefix + w, d) for w, d in (
                         ("wg", 1), ("wu", 1), ("wd", 0))):
@@ -983,12 +1077,13 @@ class Layout:
             if want is not None:
                 m = self.sizes[self.tp_dim]
                 size = self.shapes[name][want]
-                even = [(i * (size // m), size // m) for i in range(m)]
-                cuts = self._head_cuts(leaf) if kind == "gqa" else even
+                even = [((i * (size // m), size // m),) for i in range(m)]
+                cuts = self._head_cuts(leaf) if kind == "gqa" \
+                    else self._ssm_cuts(leaf) if kind == "ssm" else even
                 if self._on_model(name, want) and cuts == even:
                     keep = want
                 else:
-                    select = (want,) + cuts[self.coord[self.tp_dim]]
+                    select = (want, cuts[self.coord[self.tp_dim]])
         gathers = []
         for i in reversed(range(len(self.names))):   # minor axis first
             dim = getattr(pls[i], "dim", None)
@@ -1007,12 +1102,31 @@ class Layout:
         return Plan(pls, tuple(gathers), select, tuple(sorted(partial)))
 
     def _head_cuts(self, leaf: str) -> list:
-        """Every model rank's (start, count) along a split GQA weight's
-        head dim: its query heads' or, for ``_KV_LEAVES``, its KV heads'
+        """Every model rank's pieces along a split GQA weight's head dim:
+        its query heads' or, for ``_KV_LEAVES``, its KV heads'
         (``head_ranges``)."""
         hd, kv = self.cfg.head_dim, leaf in _KV_LEAVES
-        return [((k0 if kv else q0) * hd, (kn if kv else qn) * hd)
+        return [(((k0 if kv else q0) * hd, (kn if kv else qn) * hd),)
                 for q0, qn, k0, kn in self.gqa_heads]
+
+    def _ssm_cuts(self, leaf: str) -> list:
+        """Every model rank's pieces along a split SSM weight's dim of
+        ``_SPLIT_DIMS`` (``ssm_heads``): w_in's columns [z | x | B | C |
+        dt] → its heads' z, x, the whole B and C, its heads' dt; the conv
+        channels [x | B | C] → its heads' x, B and C; out_ln's entries and
+        w_out's rows its heads' channels; a_log, d_skip, dt_bias its
+        heads."""
+        sc, d = self.cfg.ssm, self.cfg.d_model
+        p, di, bc = sc.head_dim, sc.d_inner(d), 2 * sc.n_groups * sc.d_state
+        out = []
+        for h0, hn in self.ssm_heads:
+            own = (h0 * p, hn * p)
+            out.append({"w_in": (own, (di + h0 * p, hn * p), (2 * di, bc),
+                                 (2 * di + bc + h0, hn)),
+                        "conv_w": (own, (di, bc)), "conv_b": (own, (di, bc)),
+                        "out_ln": (own,), "w_out": (own,)
+                        }.get(leaf, ((h0, hn),)))
+        return out
 
     # -- the parameters --------------------------------------------------------
     def use(self, name: str, p, dtype: Optional[torch.dtype], *,

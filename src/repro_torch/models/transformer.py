@@ -36,7 +36,8 @@ more that the model axis divides, the residual between layers split over
 the sequence too; the embedding and the loss on this rank's vocab shard
 where the model axis splits the vocab), ``init_cache`` makes
 ``cache_specs``' DTensor caches (a split GQA's K/V held by this rank's
-own KV heads instead), and ``prefill`` and ``decode_step`` run
+own KV heads instead, a split SSM's state and conv inputs by its own SSD
+heads), and ``prefill`` and ``decode_step`` run
 the rows of the caches' batch split (a prefill's residual split over the
 sequence by training's rule, the embedding and the head on this rank's
 vocab shard) and return DTensor logits, split over the vocab on
@@ -101,8 +102,10 @@ class Layer(nn.Module):
     ``seq`` (a training step on a mesh whose residual is split over the
     sequence: ``sharding.Layout.sequence``): x is this rank's part of the
     sequence, and the norms and residual adds run on it. A block split
-    over the model axis (an MoE split over its experts too) enters and
-    exits through ``seq``; any other runs whole on the gathered sequence
+    over the model axis (an MoE split over its experts, an SSM or a
+    hybrid over its heads, whose scan reads the sequence its entry
+    gathers, too) enters and exits through ``seq``; any other runs whole
+    on the gathered sequence
     and keeps this rank's part of its output (``ModelSplit.whole`` /
     ``own``). An MoE's router and aux loss so see the whole sequence, as
     without the split."""
@@ -470,13 +473,17 @@ def _shard_module(module: nn.Module, prefix: str, layout: S.Layout,
 
 def _attach(model: TransformerLM, layout: S.Layout) -> None:
     """The layout on the model, the model-axis split on each block that
-    runs split (an attention, an MLP, an MoE over its experts), the batch
-    statistics on each MoE."""
+    runs split (an attention, an SSM, an MLP, an MoE over its experts, a
+    hybrid whose attention and SSM both do), the batch statistics on each
+    MoE."""
     for prefix in layout.split_blocks:
         model.get_submodule(prefix[:-1]).tp = layout.split
     for mod in model.modules():
         if isinstance(mod, L.MoE):
             mod.batch_stats = layout.batch_stats
+        elif isinstance(mod, L.Hybrid) and mod.attn.tp is not None \
+                and mod.ssm.tp is not None:
+            mod.tp = layout.split
     model.layout = layout
 
 
@@ -821,34 +828,39 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
     "conv"}`` of (count, B, H, N, P) float32 and (count, B, K−1, C) for an
     SSM one, all four for a hybrid one. With ``mesh`` each buffer is a
     DTensor of zeros with ``sharding.cache_specs``' placements (this rank's
-    shard alone is allocated), except the K/V of GQA attentions that run
-    split over the model axis (``sharding.gqa_heads``): a
-    ``sharding.HeadCache`` of this rank's batch rows and its own whole KV
-    heads, (count, B_local, cache_len, kvn·hd)."""
+    shard alone is allocated), except the buffers of blocks that run split
+    over the model axis by heads, each a ``sharding.HeadCache`` of this
+    rank's batch rows and its own heads: a split GQA's K/V
+    (``sharding.gqa_heads``), (count, B_local, cache_len, kvn·hd); a split
+    SSM's (``sharding.ssm_heads``) state, (count, B_local, hn, N, P), and
+    conv, (count, B_local, K−1, hn·P + 2·G·N), its heads' x channels and
+    the B and C channels."""
     check_layers(cfg)
     dev = resolve_device(device)
     if mesh is not None:
         return _sharded_cache(cfg, batch_size, cache_len, dev, mesh)
-    dtype = _dtype(cfg)
-    caches: Caches = {}
-    for i, seg in enumerate(cfg.segments):
-        shapes = {}
-        if seg.mixer in ("gqa", "hybrid"):
-            kv = (cache_len, cfg.n_kv_heads * cfg.head_dim)
-            shapes.update(k=(kv, dtype), v=(kv, dtype))
-        if seg.mixer == "mla":
-            shapes.update(ckv=((cache_len, cfg.mla.kv_lora_rank), dtype),
-                          kr=((cache_len, cfg.mla.qk_rope_dim), dtype))
-        if seg.mixer in ("ssm", "hybrid"):
-            s, d = cfg.ssm, cfg.d_model
-            shapes.update(
-                state=((s.n_heads(d), s.d_state, s.head_dim), torch.float32),
-                conv=((s.conv_kernel - 1, s.conv_channels(d)), dtype))
-        caches[f"seg{i}"] = {
-            name: torch.zeros((seg.count, batch_size) + shape, dtype=dt,
-                              device=dev)
-            for name, (shape, dt) in shapes.items()}
-    return caches
+    return {seg: {name: torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
+                  for name, meta in bufs.items()}
+            for seg, bufs in _cache_shapes(cfg, batch_size,
+                                           cache_len).items()}
+
+
+def _head_held(cfg: ModelConfig, mesh) -> Dict[str, tuple]:
+    """{buffer name: (every model rank's (first head, count), a head's
+    width, the buffer's dim that holds the heads, the entries every rank
+    holds after them)} of the cache buffers held by the rank's own heads
+    (``sharding.HeadCache``)."""
+    out: Dict[str, tuple] = {}
+    gqa = S.gqa_heads(cfg, mesh)
+    if gqa is not None:
+        kv = ([(r[2], r[3]) for r in gqa], cfg.head_dim, 3, 0)
+        out.update(k=kv, v=kv)
+    ssm = S.ssm_heads(cfg, mesh)
+    if ssm is not None:
+        sc = cfg.ssm
+        out.update(state=(ssm, 1, 2, 0),
+                   conv=(ssm, sc.head_dim, 3, 2 * sc.n_groups * sc.d_state))
+    return out
 
 
 def _sharded_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
@@ -856,25 +868,27 @@ def _sharded_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     from torch.distributed.tensor import DTensor
     shapes = _cache_shapes(cfg, batch_size, cache_len)
     specs = S.cache_specs(cfg, mesh, shapes)
-    heads = S.gqa_heads(cfg, mesh)
-    if heads is not None:
+    held = _head_held(cfg, mesh)
+    if held:
         model_dim = mesh.mesh_dim_names.index("model")
-        kn = heads[mesh.get_coordinate()[model_dim]][3]
+        rank = mesh.get_coordinate()[model_dim]
     out: Caches = {}
     for seg, bufs in shapes.items():
         out[seg] = {}
         for name, meta in bufs.items():
             spec = specs[seg][name]
-            if heads is not None and name in ("k", "v"):
-                # the batch split as the reference's; the channels this
-                # rank's own KV heads
-                pls = S.placements(mesh, spec[:3] + (None,))
-                local = torch.zeros(
-                    S.local_shape(meta.shape, mesh, pls)[:3]
-                    + (kn * cfg.head_dim,), dtype=meta.dtype, device=dev)
+            if name in held:
+                # the batch split as the reference's; the rest this rank's
+                # own heads
+                heads, width, dim, shared = held[name]
+                pls = S.placements(mesh, tuple(
+                    a if i == 1 else None for i, a in enumerate(spec)))
+                shape = list(S.local_shape(meta.shape, mesh, pls))
+                shape[dim] = heads[rank][1] * width + shared
                 out[seg][name] = S.HeadCache(
-                    local, meta.shape, mesh, pls, model_dim,
-                    [(r[2], r[3]) for r in heads], cfg.head_dim)
+                    torch.zeros(shape, dtype=meta.dtype, device=dev),
+                    meta.shape, mesh, pls, model_dim, heads, width, dim=dim,
+                    shared=shared)
                 continue
             pls = S.placements(mesh, spec)
             local = torch.zeros(S.local_shape(meta.shape, mesh, pls),
@@ -922,12 +936,12 @@ def _run_sharded(params: TransformerLM, layout: S.Layout, x: torch.Tensor,
     training step's does (``Layer``): a split block gathers the sequence
     at its entry and writes its own heads' K/V of the whole prompt, a
     block that runs whole sees the gathered sequence. A split GQA's K/V
-    (a ``HeadCache``) holds this rank's own KV heads and is used as it
-    is, with no collective. A cache buffer whose model-axis split is not
-    the layer's own (an attention that runs whole, an SSM's state and
-    conv inputs, MLA's latents, which every head reads, split over its
-    heads or not) is all-gathered over ``model`` for the layer and this
-    rank's part written back after it."""
+    and a split SSM's state and conv inputs (each a ``HeadCache``) hold
+    this rank's own heads and are used as they are, with no collective. A
+    cache buffer whose model-axis split is not the layer's own (an
+    attention or an SSM that runs whole, MLA's latents, which every head
+    reads, split over its heads or not) is all-gathered over ``model`` for
+    the layer and this rank's part written back after it."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     tp = layout.model_dim
     for i, seg in enumerate(params.segments):

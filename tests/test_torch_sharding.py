@@ -249,7 +249,10 @@ def _reference_argument_bytes(arch, kind, b, s):
     the port's dtypes: float32 masters, AdamW's moments and int32 step for
     train; the smoke config's float32 weights and caches for decode; int32
     tokens. The decode position is a host int in the port (4 bytes in the
-    reference)."""
+    reference). A split SSM's conv inputs are the port's own runtime
+    layout (``sharding.HeadCache``): this rank's heads' x channels beside
+    the B and C channels, where the reference's spec splits the channels
+    evenly."""
     import jax
     from jax.sharding import PartitionSpec as P
     from repro.configs import smoke_config as jsmoke
@@ -274,11 +277,21 @@ def _reference_argument_bytes(arch, kind, b, s):
         return 3 * params + 4 + batch
     cshape = jax.eval_shape(lambda: JT.init_cache(jcfg, b, s))
     cspecs = jsh.cache_specs(jcfg, stub, cshape)
-    caches = sum(_spec_bytes(x.shape, x.dtype.itemsize, _norm(sp), sizes)
-                 for x, sp in zip(jax.tree_util.tree_leaves(cshape),
-                                  jax.tree_util.tree_leaves(
-                                      cspecs,
-                                      is_leaf=lambda x: isinstance(x, P))))
+    heads = S.ssm_heads(jcfg, stub)
+
+    def cache_bytes(path, x, sp):
+        shape, sp = x.shape, _norm(sp)
+        if heads is not None and path[-1].key == "conv":
+            sc = jcfg.ssm
+            shape = shape[:3] + (heads[0][1] * sc.head_dim
+                                 + 2 * sc.n_groups * sc.d_state,)
+            sp = sp[:3] + (None,)
+        return _spec_bytes(shape, x.dtype.itemsize, sp, sizes)
+    caches = sum(cache_bytes(path, x, sp)
+                 for (path, x), sp in zip(
+                     jax.tree_util.tree_leaves_with_path(cshape),
+                     jax.tree_util.tree_leaves(
+                         cspecs, is_leaf=lambda x: isinstance(x, P))))
     dp = jsh.pick_axes(stub, b, ("pod", "data"))
     return params + caches + _spec_bytes((b,), 4, (dp,), sizes)
 
