@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # phases 0-14 and 16-19, on card 0
-    python3 chip_smoke.py --cards 4    # phases 0, 1, 15 and 20-24, on 4 cards
+    python3 chip_smoke.py              # phases 0-14, 16-19 and 25, on card 0
+    python3 chip_smoke.py --cards 4    # phases 0, 1, 15, 20-24 and 26, on 4 cards
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (with ``nvcc``, into the package's ignored ``build/`` directory), holds each
@@ -412,6 +412,44 @@ from a seed):
            through Engine.generate (4 x 4,096 + 32) and 10 Trainer steps,
            each printed beside the tree that ran the SSM whole
            (SSM_BEFORE)
+  phase 25 the examples (examples_torch/) through main(argv) on the card
+           at the JAX package's defaults, quickstart also at covtype's row
+           count device-resident and streamed (100,000 rows in chunks of
+           16,384), serve_lm also on internlm2-1.8b's smoke config
+           (EXAMPLE_RUNS): each must launch its kernels (ops.LAUNCHES set
+           to 0 before it, read after); quickstart's labels against the
+           CPU's on the same RB grids and start block (ARI >= 0.99), its
+           streamed labels against a device-resident fit of the same rows
+           and grids (ARI >= 0.99); serve_predict's engine against
+           model.predict bit for bit and its HTTP answer against the
+           engine; embed_cluster's reloaded predict bit-identical;
+           serve_lm's tokens in range and the same twice from one seed;
+           embed_cluster (EXAMPLE_LM_STEPS pretraining steps) and
+           serve_lm's prefill on the card against the same on the CPU
+           from the same weights, the flash kernel at the examples' own
+           shapes (float32, hd 32; S 31 in training, 32 pooled, 4/2 GQA
+           heads at S 16 in the prefill): each step's loss within 1e-5
+           relative, the pooled embeddings of the card's trained weights
+           within 1e-5 of the largest entry, the prefill's logits within
+           1e-4, and two planted flash faults (the causal mask off by
+           one; kv heads mapped h % Hkv) must fail that check; then
+           quickstart once as a command line at its defaults (exit 0;
+           the other examples' command lines are tested on the CPU)
+  phase 26 only with --cards 4: one eigensolver iteration of the
+           clustering cell (core.distributed.make_gram_matvec: local zt,
+           the all-reduce of the (D, K) block, local z) on an NCCL world of
+           one rank a card, mesh (data 4), n = 6,250,000 (a data shard of
+           the JAX package's production cell, 1,562,500 rows, a card), R
+           256, d_g 4,096, K 16, idx uniform in each grid's bins from the
+           seed: the collectives counted on the cards equal those of
+           lower_clustering_cell on a fake world of the same mesh and n
+           (run in a process of its own); every rank's y within the sum
+           tolerance of the plain zt then z summed over the ranks (within
+           1e-2 relative with the bfloat16 payload); a planted fault (q
+           without the all-reduce) must fail that check; the iteration's
+           median device ms of 10 in float32 and compressed, the zt and z
+           products beside their bounds, the all-reduce beside its ring
+           bound over NVLink
 
 With ``--kmeans-baseline FILE`` phase 2 also builds FILE, a
 ``kmeans_assign.cu`` of another tree with the same ``kmeans_assign_launch``
@@ -435,8 +473,9 @@ deepseek-v2-lite-16b and deepseek-moe-16b; ``launches_mamba2``,
 ``launches_hymba``, ``launches_qwen2_vl`` and ``launches_musicgen``: per
 generate of phase 17's models; ``launches_train``: per training step of
 phase 18; ``launches_lm_mesh``: per sharded train step of phase 19, on
-one of its ranks). With ``--cards 4`` no kernels line is printed; phases
-20-24 print their flash launches a rank.
+one of its ranks; ``launches_examples``: over phase 25's runs of the
+examples). With ``--cards 4`` no kernels line is printed; phases 20-24
+print their flash launches a rank, phase 26 its zt and z launches.
 
 Bounds: ``bound_ms`` is the larger of (bytes each input read once and each
 output written once) / 3.35 TB/s and operations / the peak rate of their
@@ -823,6 +862,52 @@ SSM_BEFORE = {
                               "all-reduce": (97, 5.033),
                               "reduce-scatter": (257, 1.036)}}}
 
+# phase 25: the examples (examples_torch/) on the card. Each run: (tag,
+# example, argv, the kernels it must launch). quickstart also at covtype's
+# row count, device-resident, and streamed at its docstring's shape (rows,
+# chunk)
+EXAMPLE_STREAMED = (100_000, 16_384)
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart", [],
+     ("rb_binning", "zt_matmul", "z_matmul_gather", "kmeans_assign",
+      "kmeans_assign_stats")),
+    ("quickstart covtype N", "quickstart",
+     ["--n", str(COVTYPE[3]), "--grids", "256"], FIT_KERNELS),
+    ("quickstart streamed", "quickstart",
+     ["--n", str(EXAMPLE_STREAMED[0]), "--chunk-size",
+      str(EXAMPLE_STREAMED[1])],
+     ("rb_binning", "bin_counts", "zt_matmul", "z_matmul_gather",
+      "kmeans_assign", "kmeans_assign_stats")),
+    ("embed_cluster", "embed_cluster", [],
+     ("flash_attention", "rb_binning", "zt_matmul", "z_matmul_gather",
+      "kmeans_assign", "kmeans_assign_stats")),
+    ("serve_predict", "serve_predict", [],
+     ("rb_binning", "zt_matmul", "z_matmul_gather", "kmeans_assign",
+      "kmeans_assign_stats")),
+    ("serve_lm", "serve_lm", [], ("flash_attention",)),
+    ("serve_lm internlm2", "serve_lm", ["--arch", "internlm2-1.8b"],
+     ("flash_attention",)),
+)
+EXAMPLE_ARI = 0.99
+EXAMPLE_CLI_S = 300.0
+# embed_cluster's pretraining steps and serve_lm's prefill on the card
+# against the CPU from the same weights: each step's loss (relative), the
+# pooled embeddings (max error over the largest entry), the prefill's
+# logits (absolute), all float32
+EXAMPLE_LM_STEPS = 5
+EXAMPLE_LM_TOL = {"loss_rel": 1e-5, "pool_rel": 1e-5, "logits_abs": 1e-4}
+# planted flash faults, each with the measures of EXAMPLE_LM_TOL it must
+# push over their limit (H = Hkv in embed_cluster's LM: the heads' map
+# shows only in serve_lm's 4/2 GQA)
+EXAMPLE_LM_FAULTS = {
+    "causal mask off by one": ("loss_rel", "pool_rel", "logits_abs"),
+    "kv heads mapped h % Hkv": ("logits_abs",)}
+# phase 26: one eigensolver iteration of the clustering cell on four cards,
+# a data shard of the reference's production cell a card (n 25 M over 16)
+CELL = dict(n=6_250_000, n_grids=256, d_g=4_096, k=16)
+CELL_ITERS = 10
+CELL_BF16_REL = 1e-2
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1131,8 +1216,7 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
     lib_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
         idx, v, mode="sum", per_sample_weights=w_bag))
     del w_bag
-    b_ms, b_by = bound(idx_bytes + big_d * kb * 4 + n * 4 + n * kb * 4,
-                       n * r * kb + n * kb)
+    b_ms, b_by = bound(*ops.z_matmul_cost(n, r, big_d, kb))
     z_ms = time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g))
     rows.append(dict(name="z_matmul", route="cuda",
                      source="src/repro_torch/kernels/csrc/ell_spmm.cu",
@@ -1178,8 +1262,7 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
     lib_ms = time_ms(lambda: torch.zeros((big_d, kb), device=dev).index_add_(
         0, flat, src_rows), iters=3, warmup=1)
     del src_rows
-    b_ms, b_by = bound(idx_bytes + (big_d + 1) * 8 + n * kb * 4 + n * 4
-                       + big_d * kb * 4, 2.0 * n * r * kb)
+    b_ms, b_by = bound(*ops.zt_matmul_cost(n, r, big_d, kb))
     zt_ms = time_ms(lambda: ops.zt_matmul(idx, u, s, big_d, d_g=d_g,
                                           csc=csc))
     rows.append(dict(name="zt_matmul", route="cuda",
@@ -1287,9 +1370,8 @@ def phase2_kernels(x, fm, seed: int = 0, baseline_src=None) -> list:
         fail(f"gram_matmul differs from its plain version (max abs {err:.3g})")
     del want, terms
     # the pattern twice (CSC row ids and idx), the column pointer, u, s, y
-    gram_bytes = 2 * idx_bytes + (big_d + 1) * 8 + n * kb * 4 + n * 4 \
-        + n * kb * 4
-    gram_bound, gram_by = bound(gram_bytes, 4.0 * n * r * kb)
+    gram_bytes, gram_ops = ops.gram_matmul_cost(n, r, big_d, kb)
+    gram_bound, gram_by = bound(gram_bytes, gram_ops)
     gram_ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
                                               csc=csc))
     composed_ms = time_ms(composed)
@@ -2334,7 +2416,6 @@ def phase10_kernels(x, fm) -> list:
     idx = ops.rb_binning(x, p.widths, p.biases, p.hash_a, p.hash_c, d_g=d_g)
     adj = graph.build_normalized_adjacency(idx, d=big_d, d_g=d_g)
     s, csc = adj.rowscale, adj.csc
-    idx_bytes = n * r * 4
     rows = []
     for kk in GRAM_WIDTHS:
         if ops.z_strip_plan(n, r, d_g, kk, torch.float32) is None:
@@ -2360,8 +2441,7 @@ def phase10_kernels(x, fm) -> list:
             fail(f"the Gram product at K = {kk} differs from its plain "
                  f"version (max abs {err:.3g})")
         del plain, terms
-        gb = 2 * idx_bytes + (big_d + 1) * 8 + 2 * n * kk * 4 + n * 4
-        b_ms, b_by = bound(gb, 4.0 * n * r * kk)
+        b_ms, b_by = bound(*ops.gram_matmul_cost(n, r, big_d, kk))
         ms = time_ms(lambda: ops.gram_matmul(idx, u, s, big_d, d_g=d_g,
                                              csc=csc))
         c_ms = time_ms(composed)
@@ -2385,8 +2465,7 @@ def phase10_kernels(x, fm) -> list:
     if not ok:
         fail(f"zt_matmul at K = {kd} differs from its plain version "
              f"(max abs {err:.3g})")
-    b_ms, b_by = bound(idx_bytes + (big_d + 1) * 8 + n * kd * 4 + n * 4
-                       + big_d * kd * 4, 2.0 * n * r * kd)
+    b_ms, b_by = bound(*ops.zt_matmul_cost(n, r, big_d, kd))
     ms = time_ms(lambda: ops.zt_matmul(idx, u, s, big_d, d_g=d_g, csc=csc))
     plain_ms = time_ms(lambda: ref.zt_matmul_ref(idx, u, s, big_d), iters=2,
                        warmup=1)
@@ -2404,8 +2483,7 @@ def phase10_kernels(x, fm) -> list:
     if not ok:
         fail(f"z_matmul at K = {kd} differs from its plain version "
              f"(max abs {err:.3g})")
-    b_ms, b_by = bound(idx_bytes + big_d * kd * 4 + n * 4 + n * kd * 4,
-                       n * r * kd + n * kd)
+    b_ms, b_by = bound(*ops.z_matmul_cost(n, r, big_d, kd))
     ms = time_ms(lambda: ops.z_matmul(idx, v, s, d_g=d_g))
     plain_ms = time_ms(lambda: ref.z_matmul_ref(idx, v, s), iters=2,
                        warmup=1)
@@ -3145,8 +3223,7 @@ def engine_gather_row(idx, v, s, d_g: int, big_d: int) -> dict:
     lib_ms, _ = time_device(lambda: torch.nn.functional.embedding_bag(
         ie, ve, mode="sum", per_sample_weights=w_bag))
     b_ms, b_by = gather_bound(ie, k)
-    whole_v, _ = bound(n * r * 4 + big_d * k * 4 + n * 4 + n * k * 4,
-                       n * r * k + n * k)
+    whole_v, _ = bound(*ops.z_matmul_cost(n, r, big_d, k))
     g_ms, _ = time_device(lambda: ops.z_matmul_gather(ie, ve, se, d_g=d_g))
     plain_ms = time_ms(lambda: ref.z_matmul_ref(ie, ve, se))
     log(f"[phase 2] z_matmul_gather at the engine's top bucket {(n, r)} x "
@@ -7498,6 +7575,455 @@ def hold_serve_generate(tag: str, cfg, ranks: list, n_cards: int,
                 prefill_bound_s=prefill_bound, read_bound_ms=read_bound_ms)
 
 
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (the folder is not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_draws(n: int, grids: int, seed: int = 0):
+    """One RB map fitted on the CPU and one start block from numpy, as a
+    plan for quickstart's fit on either device: the same draws."""
+    import numpy as np
+
+    from repro_torch.core import ExecutionPlan, RBMap, SolverOptions
+    from repro_torch.core.eigensolver import lobpcg_block_width
+    from repro_torch.data.synthetic import make_rings
+
+    x, _ = make_rings(n, 2, seed=0)
+    fm = RBMap(n_grids=grids, sigma=0.15).fit(seed, x)
+    b = lobpcg_block_width(n, 2, SolverOptions().buffer)
+    x0 = np.random.default_rng(seed).standard_normal((n, b)).astype(
+        np.float32)
+    meta, state = fm.meta_dict(), fm.state_dict()
+    return lambda device: ExecutionPlan(
+        feature_map=RBMap.from_state(meta, state, device=device), eig_x0=x0)
+
+
+def phase25_examples() -> dict:
+    """The four examples through ``main(argv)`` on the card at the JAX
+    package's defaults (EXAMPLE_RUNS), each holding the kernels it must
+    launch (``ops.LAUNCHES`` set to 0 before it, read after); quickstart's
+    labels against the CPU's on the same draws, its streamed labels against
+    a device-resident fit of the same rows; the engine against
+    ``model.predict`` bit for bit and the HTTP answer against the engine;
+    embed_cluster's reloaded predict bit-identical; serve_lm's tokens in
+    range and the same twice; embed_cluster and serve_lm on the card
+    against the CPU (``lm_examples_against_cpu``); then quickstart once as
+    a command line at its defaults. Returns {kernel: launches over the
+    example runs}."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SCRBConfig, executor, metrics
+    from repro_torch.kernels import ops
+
+    quiet = lambda *a: None
+    total: dict = {}
+    out = {}
+    for tag, name, argv, kernels in EXAMPLE_RUNS:
+        mod = load_example(name)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        missing = [k for k in kernels if counts[k] <= 0]
+        log(f"[phase 25] {tag} ({' '.join(argv) or 'defaults'}): "
+            f"{wall:.2f}s; launches {({k: v for k, v in counts.items() if v})}")
+        if missing:
+            fail(f"example {tag} launched no {missing} kernel")
+        out[tag] = res
+    qs = out["quickstart"]
+    log(f"[phase 25] quickstart metrics {qs['metrics']}, D "
+        f"{qs['diagnostics']['n_features_D']}, iterations "
+        f"{qs['diagnostics']['solver_iterations']}; k-means baseline "
+        f"{qs['kmeans_metrics']}")
+    # the card against the CPU, the same draws
+    mod = load_example("quickstart")
+    plan = quickstart_draws(4_000, 256)
+    t0 = time.perf_counter()
+    cpu = mod.run(device="cpu", plan=plan("cpu"), log=quiet)
+    card = mod.run(device="cuda", plan=plan("cuda"), log=quiet)
+    ari = metrics.adjusted_rand_index(card["labels"], cpu["labels"])
+    log(f"[phase 25] quickstart on the card against the CPU, the same RB "
+        f"grids and start block: ARI {ari:.6f} ({time.perf_counter() - t0:.1f}"
+        f"s, the CPU's fit {cpu['seconds']:.1f}s)")
+    if ari < EXAMPLE_ARI:
+        fail(f"quickstart's labels on the card against the CPU's: ARI "
+             f"{ari:.4f} < {EXAMPLE_ARI}")
+    big = out["quickstart covtype N"]
+    log(f"[phase 25] quickstart at N={COVTYPE[3]}: metrics {big['metrics']}"
+        f", stages {big['stages']}")
+    # streamed against device-resident on the same 100,000 rows and grids
+    streamed = out["quickstart streamed"]
+    rows, chunk = EXAMPLE_STREAMED
+    dev_plan = quickstart_draws(rows, 256)("cuda")
+    chunked = dataclasses.replace(executor.plan_from_config(SCRBConfig(
+        n_clusters=2, chunk_size=chunk)), feature_map=dev_plan.feature_map)
+    s_run = mod.run(rows, 256, chunk, device="cuda", plan=chunked,
+                    log=quiet)
+    d_run = mod.run(rows, 256, device="cuda", plan=dev_plan, log=quiet)
+    ari = metrics.adjusted_rand_index(s_run["labels"], d_run["labels"])
+    log(f"[phase 25] quickstart streamed ({s_run['diagnostics']['n_chunks']}"
+        f" chunks of {chunk}, ELL peak "
+        f"{s_run['diagnostics']['ell_device_bytes_peak'] / 2**20:.1f} MiB) "
+        f"against device-resident on the same {rows} rows and grids: ARI "
+        f"{ari:.6f}; the example's own streamed run {streamed['metrics']}")
+    if ari < EXAMPLE_ARI:
+        fail(f"quickstart streamed against device-resident: ARI {ari:.4f} "
+             f"< {EXAMPLE_ARI}")
+    ec = out["embed_cluster"]
+    log(f"[phase 25] embed_cluster: final LM loss {ec['losses'][-1]:.4f}, "
+        f"sigma {ec['sigma']:.4f}, fit {ec['fit_metrics']}, served "
+        f"{ec['served_metrics']} at {ec['docs_per_s']:.0f} docs/s, "
+        f"reloaded predict bit-identical {ec['reloaded_identical']}")
+    if ec["reloaded_identical"] is not True:
+        fail("embed_cluster's reloaded model predicts other labels")
+    sp = out["serve_predict"]
+    st = sp["stats"]
+    log(f"[phase 25] serve_predict: engine = model {sp['engine_equals_model']}"
+        f", latency p50 {np.percentile(sp['latencies_ms'], 50):.3f} ms max "
+        f"{max(sp['latencies_ms']):.3f} ms, {st['cells']} cells, "
+        f"{st['rows_served']} rows in {st['batches']} batches, replayed "
+        f"launches {st['replayed_launches']}; HTTP {sp['http']}")
+    if not sp["engine_equals_model"] or sp["http"] != {
+            "labels": sp["engine_predict_http_rows"].tolist()}:
+        fail("serve_predict: the engine or its HTTP answer differs")
+    if not st["replayed_launches"].get("kmeans_assign"):
+        fail("serve_predict's engine replayed no kmeans_assign launch")
+    for tag in ("serve_lm", "serve_lm internlm2"):
+        lm = out[tag]
+        argv = dict((r[0], r[2]) for r in EXAMPLE_RUNS)[tag]
+        again = load_example("serve_lm").main(argv)
+        toks, vocab = lm["tokens"], lm["vocab_size"]
+        log(f"[phase 25] {tag} ({lm['model']}): {lm['tokens_per_s']:.1f} "
+            f"tok/s, prefill {lm['stats'].get('prefill_s', 0):.4f}s; tokens "
+            f"{toks.shape} in [{toks.min()}, {toks.max()}], the same twice "
+            f"{np.array_equal(toks, again['tokens'])}")
+        if toks.shape != (4, 32) or toks.min() < 0 or toks.max() >= vocab \
+                or not np.array_equal(toks, again["tokens"]):
+            fail(f"{tag}: tokens out of shape or range, or not the same "
+                 "twice from one seed")
+    lm_examples_against_cpu()
+    # one example as a command line at its defaults (its __main__ and import
+    # path on the card; every example's command line is tested on the CPU)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable,
+                        str(ROOT / "examples_torch" / "quickstart.py")],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=EXAMPLE_CLI_S)
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    log(f"[phase 25] python3 examples_torch/quickstart.py: exit "
+        f"{r.returncode} in {time.perf_counter() - t0:.1f}s; last line: "
+        f"{last[:160]}")
+    if r.returncode != 0:
+        fail(f"examples_torch/quickstart.py exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    return total
+
+
+def lm_examples_against_cpu() -> dict:
+    """embed_cluster (EXAMPLE_LM_STEPS steps of its pretraining) and
+    serve_lm on the card against the same examples on the CPU, from the
+    same weights (their ``params=``): each step's loss, the pooled
+    embeddings of the card's trained weights (``embed_cluster.pool`` on
+    each device) and the prefill's last-position logits on serve_lm's
+    prompts, float32 throughout, so the flash kernel is held at the
+    examples' own shapes (hd 32; S 31 in training, 32 pooled, 4/2 GQA
+    heads at S 16 in the prefill). The card's side must launch the kernel;
+    then it runs again under each of EXAMPLE_LM_FAULTS (the kernel's
+    launch replaced by the plain version with the fault planted), each of
+    which must fail the check. Returns the card's errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    quiet = lambda *a: None
+    ec, sl = load_example("embed_cluster"), load_example("serve_lm")
+    ecfg, scfg = ec.tiny_lm(ec.VOCAB), sl.tiny_lm()
+    etree = T.params_to_reference(ecfg, T.init_params(
+        ecfg, 0, device="cpu", masters=True))
+    stree = T.params_to_reference(scfg, T.init_params(scfg, 0, device="cpu"))
+    docs, _ = ec.topic_corpus(2_000, 32, ec.VOCAB, 6)
+
+    def side(device: str) -> dict:
+        """Both examples on ``device`` from the shared weights."""
+        e = ec.run(device=device, steps=EXAMPLE_LM_STEPS, log=quiet,
+                   params=T.params_from_reference(ecfg, etree, device=device,
+                                                  masters=True))
+        params = T.params_from_reference(scfg, stree, device=device)
+        s = sl.run(device=device, params=params, log=quiet)
+        b, p = s["prompts"].shape
+        with torch.no_grad():
+            logits, _ = T.prefill(
+                scfg, params,
+                {"tokens": torch.as_tensor(s["prompts"], device=device)},
+                T.init_cache(scfg, b, p + 32, device=device))
+        return {"losses": np.asarray(e["losses"], np.float64), "lm": e["lm"],
+                "logits": logits.float().cpu().numpy()}
+
+    def errors(card: dict) -> dict:
+        weights = T.params_from_reference(
+            ecfg, T.params_to_reference(ecfg, card["lm"]), device="cpu",
+            masters=True)
+        got = ec.pool(ecfg, card["lm"], docs, "cuda")
+        want = ec.pool(ecfg, weights, docs, "cpu")
+        return {"loss_rel": float(np.max(np.abs(card["losses"] - cpu["losses"])
+                                         / np.abs(cpu["losses"]))),
+                "pool_rel": float(np.abs(got - want).max()
+                                  / np.abs(want).max()),
+                "logits_abs": float(np.abs(card["logits"]
+                                           - cpu["logits"]).max())}
+
+    t0 = time.perf_counter()
+    cpu = side("cpu")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card = side("cuda")
+    err = errors(card)
+    flash = ops.launch_counts()["flash_attention"]
+    log(f"[phase 25] embed_cluster ({EXAMPLE_LM_STEPS} steps) and serve_lm's "
+        f"prefill on the card against the CPU, the same weights: {err} "
+        f"(limits {EXAMPLE_LM_TOL}), the flash kernel launched {flash} "
+        f"times ({time.perf_counter() - t0:.1f}s)")
+    if not flash:
+        fail("the LM examples' card side launched no flash kernel")
+    over = [k for k, v in err.items() if not v <= EXAMPLE_LM_TOL[k]]
+    if over:
+        fail(f"the LM examples on the card against the CPU: {over} over "
+             f"the limit, {err}")
+    faults = planted_faults()
+    for name, must in EXAMPLE_LM_FAULTS.items():
+        fault = faults[name]
+        with _patched(ops, "_flash_launch",
+                      lambda q, k, v, causal, window: fault(q, k, v)):
+            got = errors(side("cuda"))
+        caught = [k for k in must if not got[k] <= EXAMPLE_LM_TOL[k]]
+        log(f"[phase 25] planted flash fault '{name}': {got}; over the "
+            f"limit {caught}")
+        if caught != list(must):
+            fail(f"planted flash fault '{name}' passed the LM examples' "
+                 f"check on {[k for k in must if k not in caught]}")
+    return err
+
+
+CELL_FAKE = """
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.core.distributed import lower_clustering_cell
+from repro_torch.launch import mesh as M
+world, cell = json.loads(sys.argv[1])
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+mesh = M.make_mesh((world,), ("data",), device_type="cpu")
+print("RECORD " + json.dumps({str(c): lower_clustering_cell(
+    mesh, dim=0, compress=c, **cell) for c in (False, True)}))
+"""
+
+
+def fake_cell_records(world: int) -> dict:
+    """``lower_clustering_cell`` of CELL on a fake world of ``world`` ranks
+    on (data ``world``), in a process of its own (its fake group must not
+    meet this run's NCCL groups): {"False" | "True": record}."""
+    import os
+    r = subprocess.run([sys.executable, "-c", CELL_FAKE,
+                        json.dumps([world, CELL])],
+                       env=dict(os.environ, PYTHONPATH=str(SRC)),
+                       capture_output=True, text=True, timeout=300)
+    line = [s for s in r.stdout.splitlines() if s.startswith("RECORD ")]
+    if r.returncode != 0 or not line:
+        fail(f"lower_clustering_cell on a fake world of {world} failed: "
+             f"{r.stderr[-2000:]}")
+    return json.loads(line[-1][len("RECORD "):])
+
+
+def event_times(fn, iters: int, warmup: int = 2) -> list:
+    """Device ms of each of ``iters`` calls of ``fn``, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def cell_rank(seed: int) -> dict:
+    """One rank of phase 26's NCCL world: its data shard of CELL (idx
+    uniform in each grid's bins, drawn from ``seed`` and the rank; row
+    scales from the mesh's degree pass), one ``make_gram_matvec``
+    iteration in float32 and compressed, each with its collectives and
+    launches counted and held against the plain versions summed over the
+    ranks; the planted fault (q without the all-reduce); times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import sharding as sh
+
+    require_built()
+    mesh = lm.make_host_mesh()
+    rank, world = lm.data_rank(mesh), dist.get_world_size()
+    group = lm.data_group(mesh)
+    n, r, d_g, k = CELL["n"], CELL["n_grids"], CELL["d_g"], CELL["k"]
+    rows, d = n // world, r * d_g
+    g = torch.Generator(device="cuda").manual_seed(seed * 1_000 + rank)
+    idx = (torch.randint(0, d_g, (rows, r), generator=g, device="cuda",
+                         dtype=torch.int32)
+           + torch.arange(r, device="cuda", dtype=torch.int32) * d_g
+           ).contiguous()
+    deg, _ = D.make_degree_pass(mesh, idx, d, d_g)()
+    s = (1.0 / torch.sqrt(r * deg)).contiguous()
+    u = torch.randn((rows, k), generator=g, device="cuda")
+    cscs = [ops.ell_csc(idx, d)]
+    out = {"rank": rank, "card": torch.cuda.current_device(), "modes": {}}
+    # the plain versions, summed over the ranks by a plain all-reduce
+    q_plain = ref.zt_matmul_ref(idx, u, s, d)
+    q_abs = ref.zt_matmul_ref(idx, u.abs(), s.abs(), d)
+    dist.all_reduce(q_plain, group=group)
+    dist.all_reduce(q_abs, group=group)
+    want = ref.z_matmul_ref(idx, q_plain, s)
+    terms = ref.z_matmul_ref(idx, q_abs, s.abs())
+
+    def held(y, compress):
+        if compress:
+            err = float((y - want).norm() / want.norm())
+            return err <= CELL_BF16_REL, err
+        return within_sum_tolerance(y, want, terms)
+
+    for compress in (False, True):
+        gram = D.make_gram_matvec(mesh, idx, s, d, d_g, compress=compress,
+                                  cscs=cscs)
+        torch.cuda.synchronize()
+        sh.reset_collectives()
+        ops.reset_launch_counts()
+        y = gram(u)
+        torch.cuda.synchronize()
+        mode = {"collectives": sh.collective_counts(),
+                "launches": {kk: v for kk, v in ops.launch_counts().items()
+                             if v}}
+        mode["ok"], mode["err"] = held(y, compress)
+        mode["ms"] = event_times(lambda: gram(u), CELL_ITERS)
+        q = torch.randn((d, k), generator=g, device="cuda")
+        mode["all_reduce_ms"] = event_times(
+            lambda: D.all_reduce_sum(q.clone(), group, compress=compress),
+            CELL_ITERS)
+        with _patched(D, "all_reduce_sum",
+                      lambda t, group, compress=False: t):
+            mode["fault_ok"], mode["fault_err"] = held(gram(u), compress)
+        out["modes"][str(compress)] = mode
+    q = ops.zt_matmul(idx, u, s, d, d_g=d_g, csc=cscs[0])
+    out["zt_ms"] = event_times(
+        lambda: ops.zt_matmul(idx, u, s, d, d_g=d_g, csc=cscs[0]),
+        CELL_ITERS)
+    out["z_ms"] = event_times(lambda: ops.z_matmul(idx, q, s, d_g=d_g),
+                              CELL_ITERS)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase26_cell_cards(n_cards: int, seed: int) -> dict:
+    """One eigensolver iteration of the clustering cell (CELL) on an NCCL
+    world of one rank a card, mesh (data ``n_cards``): the collectives
+    counted on the cards against ``lower_clustering_cell``'s on a fake
+    world of the same mesh and n; every rank's y within the sum tolerance
+    of the plain zt then z summed over the ranks (compressed: within
+    CELL_BF16_REL relative); the planted fault (q without the all-reduce)
+    must fail that check; the iteration's median device ms in float32 and
+    compressed, beside the zt and z products' bounds and the all-reduce's
+    ring bound over NVLink."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.world import run_world
+
+    records = fake_cell_records(n_cards)
+    t0 = time.perf_counter()
+    ranks = run_world(cell_rank, n_cards, backend="nccl", device="cuda",
+                      args=(seed,), timeout_s=60.0,
+                      join_timeout_s=CARDS_JOIN_S)
+    log(f"[phase 26] NCCL world of {n_cards} (cards "
+        f"{[rk['card'] for rk in ranks]}): {time.perf_counter() - t0:.1f}s, "
+        "spawn included")
+    if [rk["card"] for rk in ranks] != list(range(n_cards)):
+        fail(f"phase 26's world of {n_cards} is not one rank a card")
+    n, r, d_g, k = CELL["n"], CELL["n_grids"], CELL["d_g"], CELL["k"]
+    rows, d = n // n_cards, r * d_g
+    zt_b, zt_by = bound(*ops.zt_matmul_cost(rows, r, d, k))
+    z_b, z_by = bound(*ops.z_matmul_cost(rows, r, d, k))
+    med = lambda v: float(np.median(v))
+    r0 = ranks[0]
+    log(f"[phase 26] {rows} rows a card (n {n}), R {r}, d_g {d_g}, D {d}, "
+        f"K {k}: zt_matmul {med(r0['zt_ms']):.4f} ms (bound {zt_b:.4f}, "
+        f"{zt_by}), z_matmul {med(r0['z_ms']):.4f} ms (bound {z_b:.4f}, "
+        f"{z_by}); peak {r0['peak_gib']:.2f} GiB a card")
+    for compress in (False, True):
+        rec = records[str(compress)]
+        tag = "bf16" if compress else "fp32"
+        for rk in ranks:
+            mode = rk["modes"][str(compress)]
+            if mode["collectives"] != rec["collectives"]:
+                fail(f"phase 26 {tag}, rank {rk['rank']}: collectives "
+                     f"{mode['collectives']} differ from the fake world's "
+                     f"record {rec['collectives']}")
+            if not mode["ok"]:
+                fail(f"phase 26 {tag}, rank {rk['rank']}: y differs from the "
+                     f"plain zt then z summed over the ranks (error "
+                     f"{mode['err']:.3g})")
+            if mode["fault_ok"]:
+                fail(f"phase 26 {tag}, rank {rk['rank']}: the planted fault "
+                     "(q without the all-reduce) passed the check")
+            for kern in ("zt_matmul", "z_matmul"):
+                if mode["launches"].get(kern) != 1:
+                    fail(f"phase 26 {tag}: {mode['launches']} launches, not "
+                         f"one {kern}")
+        m0 = r0["modes"][str(compress)]
+        payload = d * k * (2 if compress else 4)
+        ring = 2 * (n_cards - 1) / n_cards * payload / NVLINK_BYTES_PER_S \
+            * 1e3
+        ar = m0["collectives"]["all-reduce"]
+        errs = [float(f"{rk['modes'][str(compress)]['err']:.3g}")
+                for rk in ranks]
+        fault = [float(f"{rk['modes'][str(compress)]['fault_err']:.3g}")
+                 for rk in ranks]
+        log(f"[phase 26] {tag}: iteration {med(m0['ms']):.4f} ms median of "
+            f"{CELL_ITERS} (min {min(m0['ms']):.4f}, max {max(m0['ms']):.4f})"
+            f"; all-reduce of {payload} bytes {med(m0['all_reduce_ms']):.4f} "
+            f"ms (ring bound over NVLink {ring:.4f}); collectives "
+            f"{ar['count']} all-reduce of {ar['bytes']} bytes = the fake "
+            f"world's record; errors {errs}; the planted fault fails on "
+            f"every rank (errors {fault}); launches {m0['launches']}")
+        log(f"[phase 26] {tag} record: argument bytes "
+            f"{rec['memory']['argument_bytes']} a rank, temp "
+            f"{rec['memory']['temp_bytes']}, flops {rec['cost']['flops']:.4g},"
+            f" bytes accessed {rec['cost']['bytes_accessed']:.4g}")
+    return {"ranks": ranks, "records": records}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -7506,9 +8032,9 @@ def main() -> None:
                         help="a kmeans_assign.cu of another tree, timed "
                              "beside this tree's kernel in phase 2")
     parser.add_argument("--cards", type=int, default=None, choices=(2, 4),
-                        help="run phases 0, 1 and 15 (and 20-24 on 4: more "
-                             "than one card) on this many cards instead of "
-                             "phases 0-14 and 16-19")
+                        help="run phases 0, 1 and 15 (and 20-24 and 26 on 4: "
+                             "more than one card) on this many cards instead "
+                             "of phases 0-14, 16-19 and 25")
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -7541,6 +8067,9 @@ def main() -> None:
             t0 = time.perf_counter()
             phase24_attn_cards(args.cards, args.seed)
             log(f"[phase 24] {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            phase26_cell_cards(args.cards, args.seed)
+            log(f"[phase 26] {time.perf_counter() - t0:.1f}s")
         log(f"[total] {time.perf_counter() - t_start:.1f}s")
         print(card["smi"])
         print(json.dumps({"ok": True, "device": card["device"]}), flush=True)
@@ -7699,14 +8228,21 @@ def main() -> None:
         row["launches_lm_mesh"] = lm_mesh["launches"] \
             if row["name"] == "flash_attention" else 0
     log(f"[phase 19] {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    examples = phase25_examples()
+    for row in kernels:          # launches over the examples' runs
+        row["launches_examples"] = examples.get(row["name"], 0)
+    log(f"[phase 25] {time.perf_counter() - t0:.1f}s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_compressive", "launches_engine",
             "launches_partitioned", "launches_mesh", "launches_v2_lite",
             "launches_moe_16b", *NEW_ARCHS.values(), "launches_train",
-            "launches_lm_mesh", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_lm_mesh", "launches_examples", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(card["smi"])

@@ -21,13 +21,19 @@ with no communication. ``chunk_size`` chunks within each shard: the local
 products and the k-means sweeps run over row chunks (``core.streaming``'s
 ``chunked_*`` loops), so the kernels' temporaries stay O(chunk).
 
+Every collective here is counted where it is issued, in
+``launch.mesh.COLLECTIVES`` (count and output bytes a rank).
+
 ``sc_rb_distributed`` is a wrapper over ``SCRBModel.fit`` with a
 ``placement="mesh"`` plan; the stages live in the executor and
-``core.rowmatrix.MeshRows``. The JAX package's ``lower_clustering_cell``
-(an AOT lowering for its roofline benchmark) is not ported.
+``core.rowmatrix.MeshRows``. ``lower_clustering_cell`` runs one eigensolver
+iteration of a production-scale mesh on fake tensors and returns its
+record (memory, operations, collectives), the JAX package's roofline
+cell.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,7 +43,9 @@ import torch.distributed as dist
 from repro_torch.core import graph, streaming
 from repro_torch.core.kmeans import KMeansResult, _plusplus_init
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import data_group, data_rank, data_shards
+from repro_torch.launch.mesh import (collective_counts, count_collective,
+                                     data_group, data_rank, data_shards,
+                                     reset_collectives)
 from repro_torch.utils import StageTimer, fold_seed, make_generator
 
 
@@ -49,8 +57,10 @@ def all_reduce_sum(t: torch.Tensor, group, *,
     if compress:
         tb = t.to(torch.bfloat16)
         dist.all_reduce(tb, group=group)
+        count_collective("all-reduce", tb)
         return tb.to(torch.float32)
     dist.all_reduce(t, group=group)
+    count_collective("all-reduce", t)
     return t
 
 
@@ -59,7 +69,9 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     order: the global tall array on every rank."""
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts)
+    out = torch.cat(parts)
+    count_collective("all-gather", out)
+    return out
 
 
 def make_gram_matvec(mesh, idx: torch.Tensor, rowscale: torch.Tensor,
@@ -101,6 +113,7 @@ def make_degree_pass(mesh, idx: torch.Tensor, d: int, d_g: int,
         for s, e in bounds:
             ops.bin_counts(idx[s:e], d=d, d_g=d_g, impl=impl, out=counts)
         dist.all_reduce(counts, group=group)
+        count_collective("all-reduce", counts)
         deg = torch.cat([graph.degrees_from_counts(idx[s:e], counts)
                          for s, e in bounds])
         return deg, counts
@@ -139,6 +152,7 @@ def make_sharded_reduce(mesh, fn: Callable, *,
         leaves = acc if isinstance(acc, (tuple, list)) else (acc,)
         for leaf in leaves:
             dist.all_reduce(leaf, group=group)
+            count_collective("all-reduce", leaf)
         return acc
 
     return run
@@ -260,3 +274,102 @@ def sc_rb_distributed(x, config, mesh, *, device="cuda"
     model = SCRBModel.fit(x, config, mesh=mesh, keep_embedding=False,
                           device=device)
     return model.fit_result.labels, model.fit_result.timer
+
+
+def lower_clustering_cell(mesh, *, n: int, dim: int, k: int, n_grids: int,
+                          d_g: int, compress: bool = False) -> dict:
+    """One distributed eigensolver iteration (``make_gram_matvec``: local
+    Ẑᵀu, the all-reduce of the (D, K) block, local Ẑq) at ``n`` rows, R =
+    ``n_grids``, K = ``k`` on ``mesh``, rows sharded over its data axes
+    (``launch.mesh.data_axes``), and the record of what it takes a rank:
+    the JAX package's roofline cell (``benchmarks/clustering_cell.py``).
+
+    The caller's process is a rank of a ``fake`` process group
+    (``torch.testing._internal.distributed.fake_pg``) holding ``mesh``, as
+    in ``launch.dryrun``. The iteration runs under ``FakeTensorMode`` on
+    fake CPU tensors of this rank's shard (shapes and dtypes, no data): the
+    kernels take their ``torch.library`` fakes (``ops._shape_only``) and
+    the all-reduce is the fake group's no-op. The reference lowers the
+    iteration ahead of time and its benchmark compiles the lowering and
+    reads XLA's analyses; PyTorch runs eagerly and has no lowering stage,
+    so this function runs the iteration and returns the record itself:
+
+      - ``memory.argument_bytes``: exact, this rank's shards of idx (n/S,
+        R) int32, the row scales (n/S,) float32 and u (n/S, K) float32,
+        S the data shards; ``temp_bytes``: the largest sum of live bytes of
+        the tensors the iteration created (``dryrun._live_bytes_mode``);
+        ``output_bytes``: y (n/S, K); ``peak_bytes_per_device``: argument
+        + temp bytes.
+      - ``cost.flops``: ``FlopCounterMode`` with the kernels' operations
+        (``ops.zt_matmul_cost`` and ``ops.z_matmul_cost``, registered by
+        ``dryrun._flop_formula``); ``bytes_accessed``: the same functions'
+        bytes, the model of the bounds that ``chip_smoke.py`` gives these
+        kernels.
+      - ``collectives``: count and output bytes of each kind, counted where
+        ``all_reduce_sum`` issues them; with ``compress`` the payload is
+        bfloat16, D·K·2 bytes.
+      - ``coll_analytic_bytes``: D·K·itemsize, the reference's figure (its
+        CPU HLO widens a bfloat16 all-reduce to float32, so its record
+        carries the payload beside the parsed bytes).
+
+    The reference lowers with ``impl="xla"`` (its plain XLA products, on
+    a host that lowers no Pallas kernel); the kernels dispatch by device
+    here and a card runs the CUDA kernels, so the fakes, and the counts,
+    are those of the kernels. ``dim`` is unused, as in the reference."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+
+    shards = data_shards(mesh)
+    if n % shards:
+        raise ValueError(f"n = {n} rows do not split over {shards} data "
+                         "shards")
+    rows, d = n // shards, n_grids * d_g
+    dryrun._flop_formula()
+    data_group(mesh)      # built (and kept on the mesh) from real rank tables
+    # the mesh's own rank tables are real tensors
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        idx = torch.empty((rows, n_grids), dtype=torch.int32)
+        scale = torch.empty((rows,), dtype=torch.float32)
+        u = torch.empty((rows, k), dtype=torch.float32)
+        arg_bytes = sum(t.numel() * t.element_size() for t in (idx, scale, u))
+        gram = make_gram_matvec(mesh, idx, scale, d, d_g, compress=compress)
+        reset_collectives()
+        live = dryrun._live_bytes_mode()
+        t0 = time.time()
+        with live, FlopCounterMode(display=False) as fc:
+            y = gram(u)
+        run_s = time.time() - t0
+        out_bytes = y.numel() * y.element_size()
+    zt_bytes, _ = ops.zt_matmul_cost(rows, n_grids, d, k)
+    z_bytes, _ = ops.z_matmul_cost(rows, n_grids, d, k)
+    shape = (tuple(mesh.mesh.shape), tuple(mesh.mesh_dim_names))
+    mesh_name = {M.production_mesh_shape(): "pod16x16",
+                 M.production_mesh_shape(multi_pod=True): "pod2x16x16"}.get(
+        shape, "x".join(f"{a}{s}" for a, s in zip(shape[1], shape[0])))
+    return {
+        "arch": "sc-rb-clustering",
+        "shape": "eigeniter_bf16" if compress else "eigeniter",
+        "mesh": mesh_name,
+        "n_devices": mesh.mesh.numel(),
+        "status": "ok",
+        "kind": "clustering",
+        "run_s": round(run_s, 3),
+        "data_axes": list(M.data_axes(mesh)),
+        "memory": {
+            "argument_bytes": int(arg_bytes),
+            "output_bytes": int(out_bytes),
+            "temp_bytes": int(live.peak),
+            "peak_bytes_per_device": int(arg_bytes + live.peak),
+        },
+        "cost": {"flops": float(fc.get_total_flops()),
+                 "bytes_accessed": float(zt_bytes + z_bytes)},
+        "collectives": collective_counts(),
+        "params": 0,
+        "active_params": 0,
+        "tokens": n,
+        "clustering": {"n": n, "r": n_grids, "d_g": d_g, "k": k},
+        "coll_analytic_bytes": d * k * (2 if compress else 4),
+    }

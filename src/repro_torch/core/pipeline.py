@@ -24,9 +24,12 @@ from repro_torch.core.executor import (  # noqa: F401
 from repro_torch.core.model import SCRBModel
 
 
-def sc_rb(x, config: SCRBConfig, *, device="cuda") -> FitResult:
-    """Run Algorithm 2 on ``device`` (the card unless asked for the CPU)."""
-    return SCRBModel.fit(x, config, device=device).fit_result
+def sc_rb(x, config: SCRBConfig, *, plan: "ExecutionPlan | None" = None,
+          device="cuda") -> FitResult:
+    """Run Algorithm 2 on ``device`` (the card unless asked for the CPU).
+    ``plan`` replaces the config's plan (``plan_from_config``), e.g. to
+    inject a fitted map or the eigensolver's start block."""
+    return SCRBModel.fit(x, config, plan=plan, device=device).fit_result
 
 
 #: Historical name for the stages-1–4 result.

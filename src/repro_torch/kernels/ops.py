@@ -963,6 +963,30 @@ def flash_flops(b: int, s: int, t: int, h: int, hd: int, causal: bool,
     return 4 * hd * pairs * b * h
 
 
+def z_matmul_cost(n: int, r: int, d: int, k: int) -> Tuple[int, int]:
+    """(bytes, operations) of :func:`z_matmul` over an (n, r) pattern and a
+    (d, k) ``v``: idx, ``v`` and the row scales read once, y written once;
+    an add a (row, grid, column) and the row scale a (row, column)."""
+    return n * r * 4 + d * k * 4 + n * 4 + n * k * 4, n * r * k + n * k
+
+
+def zt_matmul_cost(n: int, r: int, d: int, k: int) -> Tuple[int, int]:
+    """(bytes, operations) of :func:`zt_matmul` with (n, k) ``u``: the
+    pattern's row ids and its (d + 1) column pointer, u and the row scales
+    read once, q (d, k) written once; a multiply and an add a (row, grid,
+    column)."""
+    return (n * r * 4 + (d + 1) * 8 + n * k * 4 + n * 4 + d * k * 4,
+            2 * n * r * k)
+
+
+def gram_matmul_cost(n: int, r: int, d: int, k: int) -> Tuple[int, int]:
+    """(bytes, operations) of :func:`gram_matmul`: the pattern twice (the
+    CSC's row ids and idx), the column pointer, u, the row scales and y
+    (the (d, k) intermediate q is not counted); two products' operations."""
+    return (2 * n * r * 4 + (d + 1) * 8 + 2 * n * k * 4 + n * 4,
+            4 * n * r * k)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel's forward with a plain PyTorch backward: dq, and dk
     and dv summed over each kv head's group, from q, k, v and the output's

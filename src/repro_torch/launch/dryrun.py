@@ -32,7 +32,8 @@ keeps the reference's keys (``memory``, ``cost``, ``collectives``,
     and fragmentation are not counted.
   - ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``, the
     flash op counted by ``ops.flash_flops`` (its visible (query, key)
-    pairs); ``bytes_accessed`` is -1 (nothing measures it here).
+    pairs, the ELL products by their ``ops.*_cost`` operations);
+    ``bytes_accessed`` is -1 (nothing measures it here).
   - ``collectives``: count and output bytes of each kind, counted where the
     port issues them (``models.sharding.COLLECTIVES``).
 
@@ -50,21 +51,39 @@ import weakref
 
 
 def _flop_formula():
-    """The flash op's formula for ``FlopCounterMode`` (registered once)."""
+    """Formulas for ``FlopCounterMode`` (registered once a process): the
+    flash op's (``ops.flash_flops``) and the ELL products' operations
+    (``ops.zt_matmul_cost``, ``z_matmul_cost``, ``gram_matmul_cost``)."""
     import torch
+    from torch.utils import flop_counter
     from torch.utils.flop_counter import register_flop_formula
 
     from repro_torch.kernels import ops
-    from torch.utils import flop_counter
-    packet = torch.ops.repro_torch.flash_attention
-    if packet in flop_counter.flop_registry \
-            or packet.default in flop_counter.flop_registry:
-        return
+    lib = torch.ops.repro_torch
 
-    @register_flop_formula(torch.ops.repro_torch.flash_attention)
-    def _flash(q_shape, k_shape, v_shape, causal, window, *args, **kwargs):
+    def register(packet, formula):
+        if packet not in flop_counter.flop_registry \
+                and packet.default not in flop_counter.flop_registry:
+            register_flop_formula(packet)(formula)
+
+    def flash(q_shape, k_shape, v_shape, causal, window, *args, **kwargs):
         b, s, h, hd = q_shape
         return ops.flash_flops(b, s, k_shape[1], h, hd, causal, window)
+
+    def z(idx_shape, v_shape, s_shape, d_g, *args, **kwargs):
+        return ops.z_matmul_cost(*idx_shape, *v_shape)[1]
+
+    def zt(idx_shape, u_shape, s_shape, d, d_g, *args, **kwargs):
+        return ops.zt_matmul_cost(*idx_shape, d, u_shape[1])[1]
+
+    def gram(idx_shape, u_shape, s_shape, d, d_g, *args, **kwargs):
+        return ops.gram_matmul_cost(*idx_shape, d, u_shape[1])[1]
+
+    register(lib.flash_attention, flash)
+    register(lib.z_matmul, z)
+    register(lib.z_matmul_gather, z)
+    register(lib.zt_matmul, zt)
+    register(lib.gram_matmul, gram)
 
 
 def _live_bytes_mode():

@@ -20,7 +20,8 @@ the ranks that share its other coordinates (:func:`data_group`).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -129,3 +130,36 @@ def partition_devices(mesh: DeviceMesh) -> Tuple[int, ...]:
     carry N in the SPMD plans. Each rank runs its partitions on its own
     device."""
     return tuple(int(r) for r in _data_columns(mesh)[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# collectives, counted where the port issues them
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+#: {kind: {"count", "bytes"}}: collectives issued by this process since the
+#: last ``reset_collectives``, bytes being each call's output on this rank
+#: (the reference's dry run reads the same from the HLO's result types).
+#: ``models.sharding`` and ``core.distributed`` count in it.
+COLLECTIVES: Dict[str, Dict[str, int]] = {k: {"count": 0, "bytes": 0}
+                                          for k in KINDS}
+_LOCK = threading.Lock()
+
+
+def count_collective(kind: str, t: torch.Tensor) -> None:
+    """One collective of ``kind`` whose output on this rank is ``t``."""
+    with _LOCK:
+        COLLECTIVES[kind]["count"] += 1
+        COLLECTIVES[kind]["bytes"] += t.numel() * t.element_size()
+
+
+def reset_collectives() -> None:
+    with _LOCK:
+        for v in COLLECTIVES.values():
+            v["count"] = v["bytes"] = 0
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    with _LOCK:
+        return {k: dict(v) for k, v in COLLECTIVES.items()}

@@ -46,7 +46,7 @@ tokens). Every other weight is
 gathered whole. A gathered weight's gradient is reduce-scattered back to
 its shard over the axes whose ranks computed different parts of it. Every
 collective the port issues is counted in ``COLLECTIVES`` (count and
-output bytes a rank).
+output bytes a rank; ``launch.mesh``'s counter, named here too).
 
 A training step and a prefill also run Megatron's sequence and vocab
 parallelism, the layouts GSPMD gives the reference from its ``shard_hint``
@@ -64,12 +64,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import (  # noqa: F401 (the counter's names)
+    COLLECTIVES, KINDS, collective_counts, count_collective,
+    reset_collectives)
 
 FSDP: Tuple[str, ...] = ("pod", "data")
 TP: Tuple[str, ...] = ("model",)
@@ -350,33 +353,6 @@ def local_shape(shape: Sequence[int], mesh: Any,
 # collectives, counted where the port issues them
 # ---------------------------------------------------------------------------
 
-KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-         "collective-permute")
-#: {kind: {"count", "bytes"}}: collectives issued by this process since the
-#: last ``reset_collectives``, bytes being each call's output on this rank
-#: (the reference's dry run reads the same from the HLO's result types)
-COLLECTIVES: Dict[str, Dict[str, int]] = {k: {"count": 0, "bytes": 0}
-                                          for k in KINDS}
-_LOCK = threading.Lock()
-
-
-def _count(kind: str, t: torch.Tensor) -> None:
-    with _LOCK:
-        COLLECTIVES[kind]["count"] += 1
-        COLLECTIVES[kind]["bytes"] += t.numel() * t.element_size()
-
-
-def reset_collectives() -> None:
-    with _LOCK:
-        for v in COLLECTIVES.values():
-            v["count"] = v["bytes"] = 0
-
-
-def collective_counts() -> Dict[str, Dict[str, int]]:
-    with _LOCK:
-        return {k: dict(v) for k, v in COLLECTIVES.items()}
-
-
 def _via_host(t: torch.Tensor, group) -> bool:
     """A CUDA tensor in a gloo group (ranks sharing one card): gloo's
     all-gather and reduce-scatter move host tensors, so it goes through the
@@ -396,7 +372,7 @@ def all_gather(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
         out.copy_(host)
     else:
         dist.all_gather_into_tensor(out, t, group=group)
-    _count("all-gather", out)
+    count_collective("all-gather", out)
     if dim == 0:
         return out
     return out.view((n,) + tuple(t.shape)).movedim(0, dim).reshape(
@@ -417,7 +393,7 @@ def reduce_scatter(t: torch.Tensor, group, n: int, dim: int,
         out.copy_(host)
     else:
         dist.reduce_scatter_tensor(out, moved, group=group)
-    _count("reduce-scatter", out)
+    count_collective("reduce-scatter", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -426,7 +402,7 @@ def all_reduce(t: torch.Tensor, group, n: int,
     """Σ (or ``op``) over the ranks of ``t``, in place."""
     if n > 1:
         dist.all_reduce(t, op=op, group=group)
-        _count("all-reduce", t)
+        count_collective("all-reduce", t)
     return t
 
 

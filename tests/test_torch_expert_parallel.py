@@ -163,7 +163,7 @@ def _by_pass(run):
     autograd engine (remat's recompute of the forward, then the
     transposes and the gradient reduce-scatters), "update" after it."""
     from repro_torch.models import sharding as S
-    counts, right, seen = {}, S._count, []
+    counts, right, seen = {}, S.count_collective, []
 
     def count(kind, t):
         if torch._C._current_graph_task_id() != -1:
@@ -173,11 +173,11 @@ def _by_pass(run):
             what = "update" if seen else "forward"
         counts[f"{what} {kind}"] = counts.get(f"{what} {kind}", 0) + 1
         right(kind, t)
-    S._count = count
+    S.count_collective = count
     try:
         run()
     finally:
-        S._count = right
+        S.count_collective = right
     return counts
 
 

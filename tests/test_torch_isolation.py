@@ -13,7 +13,9 @@ import torch_threads  # noqa: F401  (one thread under xdist)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples_torch").glob("*.py")) \
+    + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[\s.,]|$)",
                        re.MULTILINE)
 
@@ -250,6 +252,19 @@ LM_MODULES = ("configs/__init__.py", "configs/mamba2_370m.py",
               "configs/hymba_1p5b.py", "configs/qwen2_vl_7b.py",
               "configs/musicgen_large.py", "models/config.py",
               "models/layers.py", "models/transformer.py", "serve/engine.py")
+
+
+#: the port's examples and its tools
+EXAMPLE_AND_TOOL_FILES = ("examples_torch/quickstart.py",
+                          "examples_torch/embed_cluster.py",
+                          "examples_torch/serve_predict.py",
+                          "examples_torch/serve_lm.py", "tools/fit_study.py",
+                          "tools/serve_ab.py")
+
+
+def test_source_check_covers_the_examples_and_tools():
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert set(EXAMPLE_AND_TOOL_FILES) <= checked
 
 
 def test_source_check_covers_the_lm_modules():

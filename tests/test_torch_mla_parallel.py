@@ -153,18 +153,18 @@ def _by_pass(run):
     """``run()`` with each collective it issues counted by (pass, kind):
     "forward" outside the autograd engine, "backward" inside it."""
     from repro_torch.models import sharding as S
-    counts, right = {}, S._count
+    counts, right = {}, S.count_collective
 
     def count(kind, t):
         what = "backward" if torch._C._current_graph_task_id() != -1 \
             else "forward"
         counts[f"{what} {kind}"] = counts.get(f"{what} {kind}", 0) + 1
         right(kind, t)
-    S._count = count
+    S.count_collective = count
     try:
         run()
     finally:
-        S._count = right
+        S.count_collective = right
     return counts
 
 
